@@ -1,0 +1,18 @@
+"""orv_tpu_torch — the PyTorch/CUDA port of orv_tpu for one NVIDIA H100.
+
+Mirrors `orv_tpu`'s layout and public names; imports `torch`, never `jax`
+or `orv_tpu`. Every Pallas kernel on the ported path is a hand-written CUDA
+kernel for Hopper (`ops/csrc/`), built at first use; each has a plain
+PyTorch version beside it that the CPU path and the tests use.
+
+  ops        — kernels + plain versions (flash attention, adaLN, gated residual)
+  utils      — device policy, embeddings
+  schedulers — DDIM / DPM-solver++ steps
+  models     — ControlDiT, causal VAE (decode side), weight bridge
+  pipelines  — the sampler
+
+Entry points (`ControlDiT`, `CausalVAE`, `make_sampler`, `decode_chunked`)
+run on `cuda` unless the caller passes `device="cpu"`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,4 @@
+from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
+from orv_tpu_torch.models.vae import CausalVAE, VAEConfig, decode_chunked
+
+__all__ = ["CausalVAE", "ControlDiT", "DiTConfig", "VAEConfig", "decode_chunked"]

@@ -1,0 +1,175 @@
+"""Sampling pipeline — the CFG denoise loop, in PyTorch.
+
+Counterpart of `orv_tpu/pipelines/sample.py`. The JAX package runs the
+denoise as one `lax.scan` over per-step tables; the port runs a Python loop
+over the same tables (`ts`, `back`, `prev`, `have_old`, `gs`):
+
+  * the visual-control embeds are computed once, before the loop
+  * CFG: uncond/cond batched; dynamic-CFG cosine schedule; guidance_scale
+    <= 1 skips the uncond half entirely
+  * scheduler: CogVideoX DPM (stochastic noise from the caller's
+    `torch.Generator`, old-pred threading) or DDIM
+
+PAB attention broadcast (`pab_skip`) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from orv_tpu_torch.schedulers import DiffusionSchedule, get_inference_timesteps
+from orv_tpu_torch.schedulers.scheduling import ddim_step, dpm_step_scan
+from orv_tpu_torch.utils.device import DeviceLike, check_module_device, resolve_device
+
+
+@dataclasses.dataclass
+class SamplerConfig:
+    num_inference_steps: int = 50
+    guidance_scale: float = 1.0  # reference eval configs run CFG off
+    use_dynamic_cfg: bool = False
+    scheduler: str = "dpm"  # "dpm" | "ddim"
+    stochastic_dpm: bool = True  # reference DPM step always injects noise
+
+
+def sample_from_moments(moments: torch.Tensor,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """DiagonalGaussianDistribution.sample(): moments [B, 2C, ...] ->
+    latents [B, C, ...] f32 (logvar clamped to [-30, 20])."""
+    mean, logvar = moments.float().chunk(2, dim=1)
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+    return mean + std * noise
+
+
+def prepare_image_latents(
+    image_moments_or_latents: torch.Tensor,  # [B, 2C or C, F_img, H, W]
+    num_latent_frames: int,
+    generator: Optional[torch.Generator] = None,
+    latent_channels: int = 16,
+    num_views: int = 1,
+    scaling_factor: float = 1.15258426,
+    invert_scale_latents: bool = False,
+) -> torch.Tensor:
+    """Sample moments if 2C, scale, zero-pad per view to num_latent_frames.
+    Returns [B, V*F_lat, C, H, W]."""
+    x = image_moments_or_latents
+    if x.shape[1] == 2 * latent_channels:
+        x = sample_from_moments(x, generator)
+    x = x / scaling_factor if invert_scale_latents else x * scaling_factor
+    x = x.permute(0, 2, 1, 3, 4)  # [B, F, C, H, W]
+    B, VF = x.shape[0], x.shape[1]
+    f_img = VF // num_views
+    x = x.reshape(B, num_views, f_img, *x.shape[2:])
+    pad = x.new_zeros((B, num_views, num_latent_frames - f_img, *x.shape[3:]))
+    x = torch.cat([x, pad], dim=2)
+    return x.reshape(B, num_views * num_latent_frames, *x.shape[3:])
+
+
+def prepare_control_latents(
+    moments: torch.Tensor, generator: Optional[torch.Generator] = None,
+    latent_channels: int = 16, scaling_factor: float = 1.15258426,
+    invert_scale_latents: bool = False,
+) -> torch.Tensor:
+    """Depth/label moments -> sampled + scaled + channel-duplicated 2C input."""
+    x = moments
+    if x.shape[1] == 2 * latent_channels:
+        x = sample_from_moments(x, generator)
+    x = x / scaling_factor if invert_scale_latents else x * scaling_factor
+    x = x.permute(0, 2, 1, 3, 4)
+    return torch.cat([x, x], dim=2)
+
+
+def make_sampler(
+    model: torch.nn.Module,
+    schedule: DiffusionSchedule,
+    config: SamplerConfig = SamplerConfig(),
+    device: DeviceLike = None,
+):
+    """Returns `sample(latents, image_latents, prompt_embeds, generator=None,
+    negative_prompt_embeds=None, actions=None, depths=None, labels=None)`
+    that runs the full denoise on `device` (CUDA unless `device="cpu"`) and
+    returns clean latents [B, F, C, H, W] f32. `generator` feeds the
+    stochastic DPM noise."""
+    if config.scheduler not in ("dpm", "ddim"):
+        raise ValueError(f"unknown scheduler {config.scheduler}")
+    device = resolve_device(device)
+    check_module_device(model, device, "make_sampler: the model")
+    ts = get_inference_timesteps(schedule, config.num_inference_steps)
+    n = len(ts)
+    prev = np.append(ts[1:], -1)
+    back = np.concatenate([[ts[0]], ts[:-1]])
+    have_old = np.arange(n) > 0
+    do_cfg = config.guidance_scale > 1.0
+    if config.use_dynamic_cfg:
+        gs = 1.0 + config.guidance_scale * (
+            (1.0 - np.cos(np.pi * ((n - ts.astype(np.float64)) / n) ** 5.0)) / 2.0
+        )
+    else:
+        gs = np.full((n,), config.guidance_scale)
+    gs = gs.astype(np.float32)
+
+    @torch.inference_mode()
+    def sample(
+        latents: torch.Tensor,  # [B, F, C, H, W] init noise
+        image_latents: torch.Tensor,  # [B, F, C, H, W]
+        prompt_embeds: torch.Tensor,  # [B, S, D]
+        generator: Optional[torch.Generator] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        actions: Optional[torch.Tensor] = None,
+        depths: Optional[torch.Tensor] = None,
+        labels: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        to = lambda x: None if x is None else x.to(device)
+        image_in, prompt_in = to(image_latents), to(prompt_embeds)
+        actions_in, depths_in, labels_in = to(actions), to(depths), to(labels)
+        if do_cfg:
+            neg = (torch.zeros_like(prompt_in) if negative_prompt_embeds is None
+                   else to(negative_prompt_embeds))
+            prompt_in = torch.cat([neg, prompt_in], dim=0)
+            dup = lambda x: None if x is None else torch.cat([x, x], dim=0)
+            image_in, actions_in = dup(image_in), dup(actions_in)
+            depths_in, labels_in = dup(depths_in), dup(labels_in)
+
+        lat = latents.to(device, torch.float32)
+        B = lat.shape[0] * (2 if do_cfg else 1)
+        control_cache = None
+        if depths_in is not None or labels_in is not None:
+            control_cache = model(None, prompt_in, None, depths=depths_in, labels=labels_in,
+                                  controls_only=True)
+
+        old = torch.zeros_like(lat)
+        for i in range(n):
+            model_in = torch.cat([lat, lat], dim=0) if do_cfg else lat
+            model_in = torch.cat([model_in.to(image_in.dtype), image_in], dim=2)
+            t_b = torch.full((B,), int(ts[i]), dtype=torch.int64, device=device)
+            v_pred = model(
+                model_in, prompt_in, t_b, actions=actions_in,
+                depths=None if control_cache is not None else depths_in,
+                labels=None if control_cache is not None else labels_in,
+                control_cache=control_cache,
+            ).float()
+            if do_cfg:
+                v_uncond, v_text = v_pred.chunk(2, dim=0)
+                v_pred = v_uncond + torch.tensor(gs[i]) * (v_text - v_uncond)
+            if config.scheduler == "dpm":
+                noise = None
+                if config.stochastic_dpm:
+                    noise = torch.randn(lat.shape, generator=generator, device=device)
+                lat, old = dpm_step_scan(schedule, v_pred, old, bool(have_old[i]), int(ts[i]),
+                                         int(back[i]), int(prev[i]), lat, noise=noise)
+            else:
+                lat = ddim_step(schedule, v_pred, int(ts[i]), int(prev[i]), lat)
+        return lat
+
+    return sample
+
+
+def decode_latents(decode_fn: Callable[[torch.Tensor], torch.Tensor], latents: torch.Tensor,
+                   scaling_factor: float = 1.15258426) -> torch.Tensor:
+    """[B, F, C, H, W] latents -> video [B, C, T, H, W] (unscale, then
+    `decode_fn`, e.g. `lambda z: decode_chunked(vae, z, 6)`)."""
+    return decode_fn(latents.permute(0, 2, 1, 3, 4) / scaling_factor)
