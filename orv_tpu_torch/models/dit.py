@@ -9,6 +9,15 @@ Counterpart of `orv_tpu/models/dit.py`:
   -> num_layers x DiTBlock (an nn.ModuleList; the JAX package scans them)
   -> final LayerNorm -> AdaLN out -> proj_out -> unpatchify
 
+`quant=True` builds the W8A8 serving model of the JAX package
+(`ControlDiT(quant=True)`): every block's projections and feed-forward
+matmuls are `Int8Dense`, its adaLN emits int8 and its joint attention runs
+the int8-QK^T kernel. Such a model runs only once it holds int8 weights
+(`models/quantize.py`). `attn_impl` mirrors the JAX constructor but has no
+choice left in it: it must be "flash" for the bf16 model and "flash_q8" for
+the W8A8 one, the pairing the JAX package serves with
+(orv_tpu/pipelines/evaluate.py:170); the port's kernels exist for no other.
+
 Not ported yet (the constructor raises on them): multiview, RoPE, learned
 positions, `patch_size_t` (CogVideoX 1.5), the joint final norm (5b),
 `recon_action`. Pipeline stages, sequence parallelism, remat and the PAB
@@ -79,6 +88,7 @@ class DiTConfig:
         return self.num_attention_heads * self.attention_head_dim
 
 
+_ATTN_IMPL = {False: "flash", True: "flash_q8"}  # the attention kernel each model runs
 _UNPORTED = ("multiview", "use_rotary_positional_embeddings",
              "use_learned_positional_embeddings", "joint_final_norm", "recon_action")
 
@@ -87,19 +97,27 @@ class ControlDiT(nn.Module):
     """The DiT. Parameters live on `device` (CUDA unless `device="cpu"`) in
     `param_dtype`; activations run in `dtype`. Weights start from PyTorch's
     default initialisers; load real or bridged ones with `load_state_dict`
-    (keys as `models/weights.py:dit_params_from_jax` emits them)."""
+    (keys as `models/weights.py:dit_params_from_jax` emits them). A
+    `quant=True` model loads a state dict from
+    `models/quantize.py:quantize_linear_params`; `quantize_model_` turns a
+    bf16 model into one in place. `attn_impl` must be the one `quant` picks:
+    "flash" (bf16 kernel) without it, "flash_q8" (int8-QK^T kernel) with it."""
 
     def __init__(self, config: DiTConfig, dtype=torch.bfloat16, param_dtype=torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, quant: bool = False, attn_impl: str = "flash"):
         super().__init__()
         for name in _UNPORTED:
             if getattr(config, name):
                 raise NotImplementedError(f"ControlDiT port: {name}=True is not ported yet")
         if config.patch_size_t is not None:
             raise NotImplementedError("ControlDiT port: patch_size_t is not ported yet")
+        if attn_impl != _ATTN_IMPL[quant]:
+            raise ValueError(f"attn_impl={attn_impl!r} with quant={quant}: the port builds "
+                             f"quant={quant} with attn_impl={_ATTN_IMPL[quant]!r} only")
         device = resolve_device(device)
         c = self.config = config
-        self.dtype = dtype
+        self.dtype, self.param_dtype = dtype, param_dtype
+        self.quant, self.attn_impl = quant, attn_impl
         inner = c.inner_dim
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.patch_embed = PatchEmbed(
@@ -111,14 +129,19 @@ class ControlDiT(nn.Module):
             self.initial_combine_linear = nn.Linear(inner * c.num_control_keys, inner,
                                                     device=device, dtype=param_dtype)
         self.transformer_blocks = nn.ModuleList([
-            DiTBlock(inner, c.num_attention_heads, c.attention_head_dim, c.time_embed_dim,
-                     c.modulate_encoder_hidden_states, c.attention_bias, c.norm_eps, **kw)
-            for _ in range(c.num_layers)
-        ])
+            self.make_block(quant, device) for _ in range(c.num_layers)])
         self.norm_final = LayerNorm(inner, c.norm_eps, device=device, param_dtype=param_dtype)
         self.norm_out = AdaLayerNormOut(c.time_embed_dim, inner, c.norm_eps, **kw)
         self.proj_out = nn.Linear(inner, c.out_channels * c.patch_size ** 2, device=device,
                                   dtype=param_dtype)
+
+    def make_block(self, quant: bool, device) -> DiTBlock:
+        """One transformer block of this model's config and dtypes."""
+        c = self.config
+        return DiTBlock(c.inner_dim, c.num_attention_heads, c.attention_head_dim,
+                        c.time_embed_dim, c.modulate_encoder_hidden_states, c.attention_bias,
+                        c.norm_eps, quant, dtype=self.dtype, device=device,
+                        param_dtype=self.param_dtype)
 
     def _embed_controls(self, depths: Optional[torch.Tensor],
                         labels: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

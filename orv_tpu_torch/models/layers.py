@@ -11,16 +11,26 @@ The video stream always takes the fused adaLN semantics (norm and modulate
 in f32 with one rounding; `ops.adaln.modulate_norm`), and every gated
 residual takes the fused `ops.adaln.gated_residual`. The text stream's
 modulation rounds the norm to the compute dtype first, as in the reference.
+
+W8A8 serving (`quant=True`, the JAX package's `quant` flag): the block
+projections and feed-forward matmuls are `Int8Dense`, the video stream's
+adaLN emits the int8 activation directly (`ops.adaln.modulate_norm_q8`), and
+the text stream is quantized by `quantize_tokens` and concatenated in int8
+before the video stream (`concat_q8`), and the joint attention runs the
+int8-QK^T kernel (`ops.attention.flash_attention_q8`).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from orv_tpu_torch.ops.adaln import gated_residual, modulate_norm
-from orv_tpu_torch.ops.attention import QK_NORM_LOGIT_BOUND, flash_attention
+from orv_tpu_torch.ops.adaln import gated_residual, modulate_norm, modulate_norm_q8
+from orv_tpu_torch.ops.attention import QK_NORM_LOGIT_BOUND, flash_attention, flash_attention_q8
+from orv_tpu_torch.ops.quant import quantize_tokens
 from orv_tpu_torch.utils.embeddings import get_3d_sincos_pos_embed
 
 
@@ -34,6 +44,84 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tens
     """`layer` applied in the compute dtype (parameters cast at use)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def concat_q8(text: torch.Tensor, video: Tuple[torch.Tensor, torch.Tensor]):
+    """[text | video] along the sequence as one (xq, xscale) pair: the float
+    text stream [B, S_txt, D] is quantized per token (`quantize_tokens`), the
+    video stream arrives as the int8-emitting adaLN's pair."""
+    tq, tscale = quantize_tokens(text)
+    vq, vscale = video
+    return torch.cat([tq, vq], dim=1), torch.cat([tscale, vscale], dim=1)
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 times w [N, K] int8, transposed -> [M, N] int32, exact
+    (`torch._int_mm`; the reference leaves this product to XLA). On CUDA it
+    takes M > 16 and K, N multiples of 8, and raises on anything else."""
+    M, K = a.shape
+    N = w.shape[0]
+    if a.device.type == "cuda" and (M <= 16 or K % 8 or N % 8):
+        raise ValueError(f"int8_matmul on CUDA takes M > 16 and K, N multiples of 8; "
+                         f"got M={M}, K={K}, N={N}")
+    return torch._int_mm(a, w.t())
+
+
+class Int8Dense(nn.Module):
+    """W8A8 dynamically quantized linear, inference only (orv_tpu
+    layers.py:347).
+
+    Buffers `weight_q8` int8 [out, in] and `weight_scale` f32 [out] (one
+    absmax/127 scale per output channel, from `models/quantize.py`), and the
+    parameter `bias` [out] in `param_dtype`. The input is quantized per token
+    (`quantize_tokens`) unless it arrives as an (xq int8, xscale f32) pair.
+    The output is `f32(xq @ weight_q8^T) * xscale * weight_scale + bias`,
+    computed in that order in f32 and rounded once to `dtype`. The layer
+    refuses to run until it holds int8 weights: load a state dict that
+    carries `weight_q8` (`models/quantize.py:quantize_linear_params`, or
+    `models/weights.py:dit_params_from_jax` of a quantized JAX tree)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.in_features, self.out_features, self.dtype = in_features, out_features, dtype
+        self.register_buffer("weight_q8", torch.zeros(out_features, in_features,
+                                                      dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.ones(out_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device, dtype=param_dtype))
+                     if bias else None)
+        self.has_int8_weights = False
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        if prefix + "weight_q8" in state_dict:
+            self.has_int8_weights = True
+
+    def forward(self, x):
+        if not self.has_int8_weights:
+            raise RuntimeError("Int8Dense holds no int8 weights: load a quantized state dict "
+                               "(models.quantize.quantize_linear_params) first")
+        xq, xscale = x if isinstance(x, tuple) else quantize_tokens(x)
+        lead = xq.shape[:-1]
+        y = int8_matmul(xq.reshape(-1, self.in_features), self.weight_q8).float()
+        y = y * xscale.reshape(-1, 1) * self.weight_scale
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.dtype).reshape(*lead, self.out_features)
+
+
+def _dense(in_features: int, out_features: int, bias: bool, quant: bool, dtype, device,
+           param_dtype) -> nn.Module:
+    """An `Int8Dense` for the W8A8 model, else an `nn.Linear` in param_dtype."""
+    if quant:
+        return Int8Dense(in_features, out_features, bias, dtype, device, param_dtype)
+    return nn.Linear(in_features, out_features, bias=bias, device=device, dtype=param_dtype)
+
+
+def _apply(layer: nn.Module, x, dtype: torch.dtype) -> torch.Tensor:
+    """`layer` on x in the compute dtype: an Int8Dense takes x (or its
+    pre-quantized pair) as it is, an nn.Linear through `_linear`."""
+    return layer(x) if isinstance(layer, Int8Dense) else _linear(x, layer, dtype)
 
 
 class LayerNorm(nn.Module):
@@ -56,15 +144,18 @@ class AdaLNZero(nn.Module):
     stream is left alone (the block never reads it). 6-chunk: text gets its
     own (shift, scale, gate) from silu(temb); with per-frame actions the
     video chunks come from silu(temb + action) [B, F, D_cond] and apply per
-    frame (rows R = B·F of the fused kernel)."""
+    frame (rows R = B·F of the fused kernel). `emit_q8` returns the video
+    stream as the (xq int8 [B, S, D], xscale f32 [B, S]) pair of
+    `modulate_norm_q8`, for the Int8Dense layers of the W8A8 block."""
 
     def __init__(self, conditioning_dim: int, embedding_dim: int, modulate_enc: bool = False,
-                 eps: float = 1e-5, dtype=torch.bfloat16, device=None,
+                 eps: float = 1e-5, emit_q8: bool = False, dtype=torch.bfloat16, device=None,
                  param_dtype=torch.float32):
         super().__init__()
         self.dim = embedding_dim
         self.modulate_enc = modulate_enc
         self.eps = eps
+        self.emit_q8 = emit_q8
         self.dtype = dtype
         n_chunks = 6 if modulate_enc else 3
         self.linear = nn.Linear(conditioning_dim, n_chunks * embedding_dim, device=device,
@@ -96,9 +187,13 @@ class AdaLNZero(nn.Module):
         shift, scale, gate = vid.chunk(3, dim=-1)
         B, S, _ = hidden.shape
         R = cond.shape[:-1].numel()
-        hidden = modulate_norm(hidden.reshape(R, B * S // R, D), scale.reshape(R, D),
-                               shift.reshape(R, D), self.norm.weight, self.norm.bias,
-                               self.eps).reshape(B, S, D)
+        args = (hidden.reshape(R, B * S // R, D), scale.reshape(R, D), shift.reshape(R, D),
+                self.norm.weight, self.norm.bias, self.eps)
+        if self.emit_q8:
+            xq, xscale = modulate_norm_q8(*args)
+            hidden = (xq.reshape(B, S, D), xscale.reshape(B, S))
+        else:
+            hidden = modulate_norm(*args).reshape(B, S, D)
         gate = gate[..., None, :]
         if not self.modulate_enc:
             return hidden, None, gate, None
@@ -143,37 +238,52 @@ class AdaLayerNormOut(nn.Module):
 
 class JointAttention(nn.Module):
     """Joint [text, video] self-attention with per-head qk LayerNorm
-    (eps 1e-6) and the static-max flash forward (logit bound 24.0)."""
+    (eps 1e-6) and a static-max flash forward (logit bound 24.0), by the
+    bf16 kernel. `quant=True` is the W8A8 attention: the four projections
+    are Int8Dense, the video stream arrives as an (xq, xscale) pair, the text
+    stream is quantized and concatenated before it, and the int8-QK^T kernel
+    runs the attention."""
 
     def __init__(self, heads: int, head_dim: int, bias: bool = True, out_bias: bool = True,
-                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
+                 quant: bool = False, dtype=torch.bfloat16, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         self.heads, self.head_dim, self.dtype = heads, head_dim, dtype
+        self.quant = quant
         inner = heads * head_dim
-        kw = dict(device=device, dtype=param_dtype)
-        self.to_q = nn.Linear(inner, inner, bias=bias, **kw)
-        self.to_k = nn.Linear(inner, inner, bias=bias, **kw)
-        self.to_v = nn.Linear(inner, inner, bias=bias, **kw)
+        kw = dict(quant=quant, dtype=dtype, device=device, param_dtype=param_dtype)
+        self.to_q = _dense(inner, inner, bias, **kw)
+        self.to_k = _dense(inner, inner, bias, **kw)
+        self.to_v = _dense(inner, inner, bias, **kw)
         self.norm_q = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
         self.norm_k = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner, bias=out_bias, **kw)])
+        self.to_out = nn.ModuleList([_dense(inner, inner, out_bias, **kw)])
 
     def forward(self, hidden, enc=None):
-        """Returns (video out, text out or None)."""
+        """hidden [B, S, D] (with `quant`, its (xq, xscale) pair). Returns
+        (video out, text out or None)."""
         text_len = 0 if enc is None else enc.shape[1]
-        x = hidden if enc is None else torch.cat([enc, hidden], dim=1)
-        B, S, _ = x.shape
+        if enc is None:
+            x = hidden
+        elif self.quant:
+            x = concat_q8(enc, hidden)
+        else:
+            x = torch.cat([enc, hidden], dim=1)
+        B, S, _ = (x[0] if self.quant else x).shape
 
         def heads(layer, norm=None):
-            t = _linear(x, layer, self.dtype).reshape(B, S, self.heads, self.head_dim)
+            t = _apply(layer, x, self.dtype).reshape(B, S, self.heads, self.head_dim)
             if norm is not None:
                 t = norm(t)
             return t.transpose(1, 2).contiguous()  # [B, H, S, Dh]
 
         q, k, v = heads(self.to_q, self.norm_q), heads(self.to_k, self.norm_k), heads(self.to_v)
-        out, _ = flash_attention(q, k, v, static_max=QK_NORM_LOGIT_BOUND)
+        if self.quant:
+            out = flash_attention_q8(q, k, v, static_max=QK_NORM_LOGIT_BOUND)
+        else:
+            out, _ = flash_attention(q, k, v, static_max=QK_NORM_LOGIT_BOUND)
         out = out.transpose(1, 2).reshape(B, S, self.heads * self.head_dim)
-        out = _linear(out, self.to_out[0], self.dtype)
+        out = _apply(self.to_out[0], out, self.dtype)
         if enc is None:
             return out, None
         return out[:, text_len:], out[:, :text_len]
@@ -182,49 +292,52 @@ class JointAttention(nn.Module):
 class _GELUProj(nn.Module):
     """diffusers `GELU(approximate="tanh")`: `proj` then tanh-GELU."""
 
-    def __init__(self, dim_in: int, dim_out: int, dtype, device, param_dtype):
+    def __init__(self, dim_in: int, dim_out: int, quant: bool, dtype, device, param_dtype):
         super().__init__()
         self.dtype = dtype
-        self.proj = nn.Linear(dim_in, dim_out, device=device, dtype=param_dtype)
+        self.proj = _dense(dim_in, dim_out, True, quant, dtype, device, param_dtype)
 
     def forward(self, x):
-        return F.gelu(_linear(x, self.proj, self.dtype), approximate="tanh")
+        return F.gelu(_apply(self.proj, x, self.dtype), approximate="tanh")
 
 
 class FeedForward(nn.Module):
     """tanh-GELU MLP, 4x expansion (keys ff.net.0.proj, ff.net.2; net.1 is
-    the checkpoint's dropout slot)."""
+    the checkpoint's dropout slot). `quant=True`: both matmuls Int8Dense, and
+    x may arrive as an (xq, xscale) pair."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=torch.bfloat16, device=None,
-                 param_dtype=torch.float32):
+    def __init__(self, dim: int, mult: int = 4, quant: bool = False, dtype=torch.bfloat16,
+                 device=None, param_dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.net = nn.ModuleList([
-            _GELUProj(dim, dim * mult, dtype, device, param_dtype),
+            _GELUProj(dim, dim * mult, quant, dtype, device, param_dtype),
             nn.Identity(),
-            nn.Linear(dim * mult, dim, device=device, dtype=param_dtype),
+            _dense(dim * mult, dim, True, quant, dtype, device, param_dtype),
         ])
 
     def forward(self, x):
-        return _linear(self.net[0](x), self.net[2], self.dtype)
+        return _apply(self.net[2], self.net[0](x), self.dtype)
 
 
 class DiTBlock(nn.Module):
     """Attention + FF block with action-aware adaLN gates (CogVideoXBlock).
     3-chunk: attention and FF see video tokens only. 6-chunk: text and video
-    attend jointly and pass the FF jointly."""
+    attend jointly and pass the FF jointly. `quant=True` is the W8A8 block
+    (Int8Dense projections and FF, int8-emitting adaLN, int8-QK^T
+    attention)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, time_embed_dim: int,
                  modulate_enc: bool = False, attention_bias: bool = True,
-                 norm_eps: float = 1e-5, dtype=torch.bfloat16, device=None,
-                 param_dtype=torch.float32):
+                 norm_eps: float = 1e-5, quant: bool = False, dtype=torch.bfloat16,
+                 device=None, param_dtype=torch.float32):
         super().__init__()
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
-        self.modulate_enc = modulate_enc
-        self.norm1 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, **kw)
-        self.attn1 = JointAttention(heads, head_dim, attention_bias, True, **kw)
-        self.norm2 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, **kw)
-        self.ff = FeedForward(dim, **kw)
+        self.modulate_enc, self.quant = modulate_enc, quant
+        self.norm1 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, quant, **kw)
+        self.attn1 = JointAttention(heads, head_dim, attention_bias, True, quant, **kw)
+        self.norm2 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, quant, **kw)
+        self.ff = FeedForward(dim, quant=quant, **kw)
 
     def forward(self, hidden, enc, temb, action_emb=None):
         n_hidden, n_enc, gate, enc_gate = self.norm1(hidden, enc, temb, action_emb)
@@ -237,7 +350,10 @@ class DiTBlock(nn.Module):
         if not self.modulate_enc:
             return gate_residual_add(hidden, self.ff(n_hidden), gate_ff), enc
         text_len = enc.shape[1]
-        ff_out = self.ff(torch.cat([n_enc, n_hidden], dim=1))
+        if self.quant:
+            ff_out = self.ff(concat_q8(n_enc, n_hidden))
+        else:
+            ff_out = self.ff(torch.cat([n_enc, n_hidden], dim=1))
         hidden = gate_residual_add(hidden, ff_out[:, text_len:], gate_ff)
         enc = gate_residual_add(enc, ff_out[:, :text_len], enc_gate_ff)
         return hidden, enc

@@ -8,6 +8,9 @@ port imports nothing of the JAX package.
 
 Conventions:
   flax Dense kernel [in, out]         -> torch Linear weight [out, in]
+  Int8Dense kernel_q8 [in, out] int8  -> `weight_q8` [out, in] int8, and
+    kernel_scale [out] f32            -> `weight_scale` [out] (a tree from
+                                         orv_tpu's quantize_linear_params)
   patch-embed kernel [(c p p), D]     -> conv weight [D, C, p, p]
   conv kernel [kt, kh, kw, I, O]      -> torch Conv3d weight [O, I, kt, kh, kw]
   (1, 3, 3) upsample conv kernel      -> torch Conv2d weight [O, I, 3, 3]
@@ -29,7 +32,11 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _lin(sd, key, p, bias: bool = True):
-    sd[f"{key}.weight"] = _tensor(np.asarray(p["kernel"]).T)
+    if "kernel_q8" in p:  # a block linear of a quantized tree (models/quantize.py)
+        sd[f"{key}.weight_q8"] = _tensor(np.asarray(p["kernel_q8"]).T)
+        sd[f"{key}.weight_scale"] = _tensor(p["kernel_scale"])
+    else:
+        sd[f"{key}.weight"] = _tensor(np.asarray(p["kernel"]).T)
     if bias:
         sd[f"{key}.bias"] = _tensor(p["bias"])
 
@@ -44,7 +51,9 @@ def _adaln(sd, key, p):
 def dit_params_from_jax(params: Dict[str, Any], config) -> Dict[str, torch.Tensor]:
     """ControlDiT param tree (`{'params': ...}` or its inner dict, with the
     scanned blocks stacked along a leading layer axis under
-    `blocks/block`) -> the port's ControlDiT state dict."""
+    `blocks/block`) -> the port's ControlDiT state dict. A quantized tree
+    (stacked `kernel_q8` [L, in, out] int8 and `kernel_scale` [L, out] f32)
+    gives the state dict of `ControlDiT(quant=True)`."""
     p = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 

@@ -2,8 +2,9 @@
 
 Each source has a plain C interface and is compiled by `nvcc` for Hopper
 (`sm_90a`); all sources compile at once, one `nvcc` process each, and link
-into one shared library under `_build/` (named by a hash of the sources and
-flags, so an edited source rebuilds). The build happens at the first kernel
+into one shared library under `_build/` (named by a hash of the sources, the
+headers they share (`csrc/*.cuh`) and the flags, so an edited source or
+header rebuilds). The build happens at the first kernel
 launch, never at import: the CPU tests import every module on machines
 without a CUDA toolkit.
 """
@@ -77,7 +78,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             sources = sorted(CSRC.glob("*.cu"))
             h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-            for s in sources:
+            for s in sources + sorted(CSRC.glob("*.cuh")):  # headers the sources include
                 h.update(s.name.encode())
                 h.update(s.read_bytes())
             so_path = BUILD_DIR / f"liborv_kernels_{h.hexdigest()[:16]}.so"
