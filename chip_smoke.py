@@ -5,30 +5,54 @@ Run from the repository root on the machine with the card:
     python3 chip_smoke.py
 
 Phases, in order; any failure raises, exits non-zero and prints no result:
-  1. build the CUDA kernels from orv_tpu_torch/ops/csrc (nvcc, sm_90a);
-  2. hold each of the five kernels against its plain PyTorch version on the
-     card, at the flagship shapes and at small ragged ones, and time kernel,
-     plain version and the nearest single PyTorch call; time the W8A8 path's
-     int8 prep outside the kernels (prepare_k_q8, quantize_tokens);
+  1. build the CUDA kernels from orv_tpu_torch/ops/csrc (nvcc, sm_90a, one
+     process per source, all at once) and print their registers and spills;
+  2. hold each of the nine kernels against its plain PyTorch version on the
+     card, at the flagship or training shapes and at small ragged ones, and
+     time kernel, plain version and the nearest single PyTorch call; the
+     flash backward check must also reject a planted fault (dlse ignored);
+     time the W8A8 path's int8 prep outside the kernels (prepare_k_q8,
+     quantize_tokens);
   3. a tiny ControlDiT, bf16 and W8A8 (quant=True, attn_impl="flash_q8"), and
      a small VAE decode on the card against the same weights on the CPU
-     (plain versions, f32); then one bf16 ControlDiT forward at the flagship
-     config (2B: 30 layers x 30 heads x 64, 6-chunk adaLN, visual guidance,
-     seeded random weights) with launch counts of exactly 30 / 60 / 120;
+     (plain versions, f32); one train step of a tiny recon_action ControlDiT
+     on the card (bf16 compute, backward kernels) and on the CPU (f32, plain
+     versions) from the same weights and draws: loss and grad norm must
+     agree, and every parameter that gets a gradient on the CPU must get a
+     nonzero one on the card; then one bf16 ControlDiT forward at the
+     flagship config (2B: 30 layers x 30 heads x 64, 6-chunk adaLN, visual
+     guidance, seeded random weights) with launch counts of exactly
+     30 / 60 / 120;
   4. generation through the entry points, bf16 then W8A8: make_sampler (4
      DPM steps) and decode_chunked (6 latent frames a chunk) to 49x320x480
      frames. Between the two, the same flagship DiT is quantized in place
      (quantize_model_, no second copy) and one W8A8 forward must launch
      flash_q8 / modulate_norm_q8 / gated_residual = 30 / 60 / 120 and none
      of the bf16 attention and modulate_norm;
-  5. the card's name and power limit, the kernels' JSON line (launches: the
-     sum over the two generation runs), and last the result line
-     {"ok": true, "device": {...}}.
+  5. training, the serving models freed first: the 2B fine-tune recipe
+     (orv_tpu/config/experiments/traj_image_2b_finetune.yaml on
+     base_train.yaml: 30 layers x 30 heads x 64, 6-chunk adaLN,
+     recon_action, f32 parameters and bf16 compute, AdamW with clip 1.0,
+     cosine_with_restarts and accumulation 2; B cut to 1 per micro-step)
+     at full width, seeded random weights: one warm-up optimizer step, then
+     3 timed ones, through make_train_step, then one more by hand to split
+     a micro-step into forward, backward and optimizer. One micro-step must
+     launch flash fwd / dq / dk-dv / modulate_norm / its backward /
+     gated_residual / its backward = 30 / 30 / 30 / 60 / 60 / 120 / 119
+     (the last block's text-stream output is unused, so autograd skips
+     the backward of its last gated residual);
+     loss and parameters must stay finite and the parameters must move;
+  6. the card's name and power limit, the kernels' JSON line (launches:
+     the sum over the two generation runs for the forward kernels, over the
+     3 timed optimizer steps for the backward ones), and last the result
+     line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -39,6 +63,15 @@ from orv_tpu_torch.models import CausalVAE, ControlDiT, DiTConfig, VAEConfig, de
 from orv_tpu_torch.models.layers import quantize_tokens
 from orv_tpu_torch.models.quantize import quantize_linear_params, quantize_model_
 from orv_tpu_torch.ops import _build, adaln, attention
+from orv_tpu_torch.parallel import (
+    LossDraws,
+    TrainState,
+    diffusion_loss,
+    make_lr_schedule,
+    make_optimizer,
+    make_train_step,
+)
+from orv_tpu_torch.parallel.train_step import global_norm, trainable
 from orv_tpu_torch.pipelines import SamplerConfig, decode_latents, make_sampler
 from orv_tpu_torch.schedulers import make_schedule
 
@@ -53,9 +86,32 @@ FLAGSHIP = DiTConfig(num_attention_heads=30, attention_head_dim=64, num_layers=3
 LATENT = (13, 16, 40, 60)  # frames, channels, height, width (bench_phases.py:104-113)
 STEPS = 4
 KERNELS = (attention.flash_attention, adaln.modulate_norm, adaln.gated_residual,
-           attention.flash_attention_q8, adaln.modulate_norm_q8)
-BF16_FORWARD = (30, 60, 120, 0, 0)  # launches of one flagship forward, in KERNELS order
-Q8_FORWARD = (0, 0, 120, 30, 60)
+           attention.flash_attention_q8, adaln.modulate_norm_q8,
+           attention.flash_attention_bwd_dq, attention.flash_attention_bwd_dkv,
+           adaln.modulate_norm_bwd, adaln.gated_residual_bwd)
+BF16_FORWARD = (30, 60, 120, 0, 0, 0, 0, 0, 0)  # launches of one flagship forward, in KERNELS order
+Q8_FORWARD = (0, 0, 120, 30, 60, 0, 0, 0, 0)
+
+
+def train_micro_step_counts(num_layers: int):
+    """Launches of one training micro-step, in KERNELS order. The last
+    block's text-stream output feeds nothing (the head reads the video
+    stream only), so autograd never runs the backward of that block's
+    final text-stream gated residual: 4L - 1 of them for 4L forwards."""
+    L = num_layers
+    return (L, 2 * L, 4 * L, 0, 0, L, L, 2 * L, 4 * L - 1)
+
+
+TRAIN_MICRO_STEP = train_micro_step_counts(30)  # one micro-step of the 2B recipe
+# the 2B fine-tune recipe: traj_image_2b_finetune.yaml on base_train.yaml
+RECIPE_2B = DiTConfig(num_attention_heads=30, attention_head_dim=64, num_layers=30,
+                      in_channels=32, out_channels=16, text_embed_dim=4096, time_embed_dim=512,
+                      modulate_encoder_hidden_states=True, recon_action=True)
+TRAIN_LATENT = (16, 5, 40, 60)  # bridgev2 17x320x480 clips: channels, frames, height, width
+TRAIN_OPT = dict(optimizer="adamw", beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=1e-3,
+                 max_grad_norm=1.0, grad_accum_steps=2)
+TRAIN_LR = dict(name="cosine_with_restarts", learning_rate=1e-4, warmup_steps=1000,
+                total_steps=30000, num_cycles=1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -238,6 +294,128 @@ def check_modulate_norm_q8(g, R, S, D, timed: bool):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def rms_errors(got, want):
+    """(max abs error, RMS error over RMS(ref), RMS(ref)) of got against want."""
+    d, r = got.float() - want.float(), want.float()
+    rms = r.pow(2).mean().sqrt().item()
+    return d.abs().max().item(), d.pow(2).mean().sqrt().item() / rms, rms
+
+
+def rms_agree(got, want, max_rel: float = 0.1, rms_rel: float = 1e-2) -> bool:
+    """max error <= max_rel RMS(ref) and RMS error <= rms_rel RMS(ref). At
+    the defaults, the backward kernels' bound: one bf16 rounding of an output
+    gives an RMS error of about 1e-3; ignoring dlse gives errors of order
+    RMS(ref)."""
+    err, rel, rms = rms_errors(got, want)
+    return err <= max_rel * rms and rel <= rms_rel
+
+
+def check_attention_bwd(g, shape, with_dlse: bool, timed: bool):
+    """The flash backward kernels (dq, dk/dv) against their plain version,
+    each output against its own RMS (`rms_agree`). With dlse, the same run
+    with dlse ignored (a planted fault) must fail that check for dq and dk.
+    Timed: records for both kernels; the plain time is the whole plain
+    backward, the library time SDPA's flash backward (dq, dk, dv)."""
+    q, k, v, do = (torch.randn(*shape, 64, device="cuda", generator=g).bfloat16()
+                   for _ in range(4))
+    out, lse = attention.flash_attention(q, k, v)
+    dlse = torch.randn(*shape, device="cuda", generator=g) if with_dlse else None
+    got = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    want = attention.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse=dlse)
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err, rel, rms = rms_errors(a, b)
+        errs[name] = err
+        print(f"kernel flash_attn_bwd {name} {list(q.shape)}{' with dlse' if with_dlse else ''}: "
+              f"max_abs_err {err:.3g} (tol 0.1*RMS(ref) = {0.1 * rms:.3g}), rel RMS err "
+              f"{rel:.3g} (tol 1e-2)", flush=True)
+        check(rms_agree(a, b), f"flash backward {name} disagrees at {shape}")
+    if with_dlse:
+        bad = attention.flash_attention_bwd(q, k, v, out, lse, do)
+        rel = [rms_errors(a, b)[1] for a, b in zip(bad, want)]
+        rejected = [not rms_agree(a, b) for a, b in zip(bad, want)]
+        print(f"  planted fault (dlse ignored): rel RMS err dq/dk/dv {rel[0]:.3g} / {rel[1]:.3g} "
+              f"/ {rel[2]:.3g}, rejected {rejected}", flush=True)
+        check(rejected[0] and rejected[1], f"the flash backward check passes a planted fault "
+                                           f"at {shape}")
+    if not timed:
+        return []
+    BH, S = shape[0] * shape[1], shape[2]
+    scale, tensor, lse_bytes = 64 ** -0.5, BH * S * 64 * 2, BH * S * 4
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        o_lib = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True), 10)
+    plain_ms = cuda_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, out, lse, do), 3)
+    recs = []
+    for name, fn, n_tensors, n_products, replaces, err in (
+            ("flash_attn_bwd_dq", attention.flash_attention_bwd_dq, 6, 3, ":389", errs["dq"]),
+            ("flash_attn_bwd_dkv", attention.flash_attention_bwd_dkv, 7, 4, ":432",
+             max(errs["dk"], errs["dv"]))):
+        bms, by = bound_ms(n_tensors * tensor + lse_bytes, bf16=n_products * 2.0 * S * S * 64 * BH)
+        recs.append(dict(name=name, route="cuda", source="orv_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                         replaces="orv_tpu/ops/attention.py" + replaces, max_abs_err=err,
+                         ms=cuda_ms(lambda fn=fn: fn(q, k, v, out, lse, do, scale), 10),
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+    return recs
+
+
+def check_modulate_norm_bwd(g, R, S, D, timed: bool):
+    """dx against its RMS (`rms_agree`); the f32 row sums A and B, which
+    only the summation order separates: max error <= 1e-3 and RMS error
+    <= 1e-4 of RMS(ref). scale is a row-strided bf16 chunk and ns f32, as
+    in the f32-parameter training model."""
+    x = (2 * torch.randn(R, S, D, device="cuda", generator=g) + 0.3).bfloat16()
+    do = torch.randn(R, S, D, device="cuda", generator=g).bfloat16()
+    _, scale, _ = (0.3 * torch.randn(R, 3 * D, device="cuda", generator=g)).bfloat16(
+    ).chunk(3, dim=-1)
+    ns = 1 + 0.1 * torch.randn(D, device="cuda", generator=g)
+    got = adaln.modulate_norm_bwd(x, do, scale, ns)
+    want = adaln.modulate_norm_bwd_plain(x, do, scale, ns)
+    ok = [rms_agree(got[0], want[0])] + [rms_agree(a, b, 1e-3, 1e-4)
+                                          for a, b in zip(got[1:], want[1:])]
+    errs = [rms_errors(a, b) for a, b in zip(got, want)]
+    print(f"kernel modulate_norm_bwd [{R}, {S}, {D}]: dx max_abs_err {errs[0][0]:.3g} "
+          f"(tol 0.1*RMS(ref) = {0.1 * errs[0][2]:.3g}), rel RMS err {errs[0][1]:.3g} (tol 1e-2); "
+          f"A/B rel RMS err {errs[1][1]:.3g} / {errs[2][1]:.3g} (tol 1e-4)", flush=True)
+    check(all(ok), f"modulate_norm_bwd disagrees at {(R, S, D)}")
+    if not timed:
+        return None
+    bms, by = bound_ms(3 * R * S * D * 2 + R * D * 2 + D * 4 + 2 * R * D * 4,
+                       f32=16.0 * R * S * D)
+    return dict(name="modulate_norm_bwd", route="cuda",
+                source="orv_tpu_torch/ops/csrc/modulate_norm_bwd.cu",
+                replaces="orv_tpu/ops/adaln.py:105", max_abs_err=errs[0][0],
+                ms=cuda_ms(lambda: adaln.modulate_norm_bwd(x, do, scale, ns), 50),
+                plain_ms=cuda_ms(lambda: adaln.modulate_norm_bwd_plain(x, do, scale, ns), 10),
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def check_gated_residual_bwd(g, R, S, D, timed: bool):
+    """dy exactly (one rounding of one f32 product, as the plain version);
+    dgate's f32 sums: max error <= 1e-3 and RMS error <= 1e-4 of RMS(ref)."""
+    do, y = (torch.randn(R, S, D, device="cuda", generator=g).bfloat16() for _ in range(2))
+    gate = torch.randn(R, 3 * D, device="cuda", generator=g).bfloat16()[:, 2 * D:]
+    dy, dgate = adaln.gated_residual_bwd(do, y, gate)
+    ref_dy, ref_dgate = adaln.gated_residual_bwd_plain(do, y, gate)
+    dy_err, (dg_err, dg_rel, _) = max_err(dy, ref_dy), rms_errors(dgate, ref_dgate)
+    print(f"kernel gated_residual_bwd [{R}, {S}, {D}]: dy max_abs_err {dy_err:.3g} (tol 0), "
+          f"dgate max_abs_err {dg_err:.3g}, rel RMS err {dg_rel:.3g} (tol 1e-4)", flush=True)
+    check(dy_err == 0.0 and rms_agree(dgate, ref_dgate, 1e-3, 1e-4),
+          f"gated_residual_bwd disagrees at {(R, S, D)}")
+    if not timed:
+        return None
+    bms, by = bound_ms(3 * R * S * D * 2 + R * D * 2 + R * D * 4, f32=3.0 * R * S * D)
+    return dict(name="gated_residual_bwd", route="cuda",
+                source="orv_tpu_torch/ops/csrc/gated_residual_bwd.cu",
+                replaces="orv_tpu/ops/adaln.py:298", max_abs_err=max(dy_err, dg_err),
+                ms=cuda_ms(lambda: adaln.gated_residual_bwd(do, y, gate), 50),
+                plain_ms=cuda_ms(lambda: adaln.gated_residual_bwd_plain(do, y, gate), 10),
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
 def time_int8_prep(g, prep_k_ms: float) -> None:
     """The W8A8 path's plain-PyTorch int8 work outside the kernels, per
     flagship forward:
@@ -325,6 +503,157 @@ def tiny_reference_checks() -> None:
           "small VAE decode_chunked, card bf16 vs CPU f32")
 
 
+def _to(draws: LossDraws, device) -> LossDraws:
+    return LossDraws(**{k: v.to(device) for k, v in vars(draws).items()})
+
+
+def tiny_train_check() -> None:
+    """One train step of a 2-layer recon_action ControlDiT (2 heads of 64,
+    6-chunk adaLN, batch 2): bf16 compute on the card (the kernels and
+    their backward kernels) against f32 on the CPU (plain versions), from
+    the same f32 weights and draws, one row action-CFG masked. Loss and
+    grad norm agree to 2e-2 relative; every parameter with a nonzero
+    gradient on the CPU gets a nonzero one on the card (no gradient is
+    dropped at a kernel's output); then one make_train_step call on each,
+    whose loss and grad norm agree to the same bound."""
+    cfg = DiTConfig(num_attention_heads=2, attention_head_dim=64, num_layers=2, in_channels=32,
+                    out_channels=16, text_embed_dim=32, time_embed_dim=64,
+                    modulate_encoder_hidden_states=True, recon_action=True)
+    gc_ = torch.Generator().manual_seed(3)
+    batch = dict(latents=torch.randn(2, 32, 3, 8, 16, generator=gc_),
+                 image_latents=torch.randn(2, 32, 1, 8, 16, generator=gc_),
+                 prompt_embeds=torch.randn(2, 8, 32, generator=gc_),
+                 actions=0.1 * torch.randn(2, 8, 7, generator=gc_))
+    draws = LossDraws.draw(gc_, batch)
+    draws.mask_u, draws.drop_u = torch.tensor([0.05, 0.6]), torch.tensor(0.5)
+    torch.manual_seed(4)
+    ref = ControlDiT(cfg, dtype=torch.float32, device="cpu")
+    model = ControlDiT(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(ref.state_dict())
+    sched = make_schedule()
+    got = {}
+    for dev, m in (("cpu", ref), ("cuda", model)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        reset_counts()
+        loss, _ = diffusion_loss(m, b, sched, _to(draws, dev), recon_action=True)
+        loss.backward()
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        got[dev] = (loss.item(), global_norm([v for v in grads.values() if v is not None]).item(),
+                    grads, counts())
+    want_counts = train_micro_step_counts(cfg.num_layers)
+    check(got["cuda"][3] == want_counts, f"tiny train step launched {got['cuda'][3]}, "
+                                         f"not {want_counts}")
+    (l_ref, n_ref, g_ref, _), (l_got, n_got, g_got, _) = got["cpu"], got["cuda"]
+    dropped = [n for n, v in g_ref.items() if v is not None and v.abs().max() > 0
+               and (g_got[n] is None or g_got[n].abs().max() == 0)]
+    print(f"tiny train step, card bf16 vs CPU f32: loss {l_got:.6g} vs {l_ref:.6g}, grad norm "
+          f"{n_got:.6g} vs {n_ref:.6g} (tol 2e-2 relative); parameters with a gradient on the "
+          f"CPU but none on the card: {dropped}", flush=True)
+    check(abs(l_got - l_ref) <= 2e-2 * abs(l_ref) and abs(n_got - n_ref) <= 2e-2 * n_ref,
+          "tiny train step: loss or grad norm disagrees with the CPU")
+    check(not dropped, f"gradients dropped on the card: {dropped}")
+    metrics = {}
+    for dev, m in (("cpu", ref), ("cuda", model)):
+        tx = make_optimizer(make_lr_schedule("constant", 1e-4, warmup_steps=0))
+        step = make_train_step(tx, sched, recon_action=True)
+        _, metrics[dev] = step(TrainState.create(m, tx), {k: v.to(dev) for k, v in batch.items()},
+                               _to(draws, dev))
+    (a, b), (c, d) = ((metrics[k]["loss"].item(), metrics[k]["grad_norm"].item())
+                      for k in ("cpu", "cuda"))
+    print(f"tiny make_train_step: loss {c:.6g} vs {a:.6g}, grad norm {d:.6g} vs {b:.6g}", flush=True)
+    check(abs(c - a) <= 2e-2 * abs(a) and abs(d - b) <= 2e-2 * b,
+          "tiny make_train_step disagrees with the CPU")
+
+
+def recipe_batch(g):
+    """One micro-batch of the 2B recipe (B=1): bridgev2 moments, T5 prompt
+    embeds and 16 actions, seeded random values on the card."""
+    C, F, H, W = TRAIN_LATENT
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    return dict(latents=rand(1, 2 * C, F, H, W), image_latents=rand(1, 2 * C, 1, H, W),
+                prompt_embeds=rand(1, 226, 4096).bfloat16(), actions=0.1 * rand(1, 16, 7))
+
+
+def train_recipe_2b(g):
+    """The 2B fine-tune recipe at full width (B=1 per micro-step, seeded
+    random weights): one warm-up optimizer step, 3 timed ones through
+    make_train_step, then one more taken by hand to split a micro-step into
+    forward, backward and optimizer. Returns the launch counts of the 3
+    timed steps."""
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(0)
+    model = ControlDiT(RECIPE_2B, dtype=torch.bfloat16, param_dtype=torch.float32)
+    params = trainable(model)
+    print(f"ControlDiT 2B recipe: {sum(p.numel() for p in params) / 1e9:.3f} B parameters (f32), "
+          f"bf16 compute", flush=True)
+    batch = recipe_batch(g)
+    tx = make_optimizer(make_lr_schedule(**TRAIN_LR), **TRAIN_OPT)
+    sched = make_schedule()
+    state = TrainState.create(model, tx)
+    step = make_train_step(tx, sched, recon_action=True)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    watch = [model.transformer_blocks[0].attn1.to_q.weight, model.transformer_blocks[-1].ff.net[2].weight,
+             model.proj_out.weight, model.action_recon.mlp[2].weight, model.patch_embed.proj.weight]
+    before = [w.detach().clone() for w in watch]
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_OPT["grad_accum_steps"]):  # warm-up optimizer step
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    print(f"train warm-up optimizer step: {time.perf_counter() - t0:.3f} s, loss "
+          f"{m['loss'].item():.5g}", flush=True)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    step_s, losses, norms = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_OPT["grad_accum_steps"]):
+            state, m = step(state, batch, gen)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = counts()
+    losses, norms = [x.item() for x in losses], [x.item() for x in norms]
+    print(f"train 3 optimizer steps ({TRAIN_OPT['grad_accum_steps']} micro-steps each): s/step "
+          f"{', '.join(f'{x:.4f}' for x in step_s)}; loss per micro-step "
+          f"{', '.join(f'{x:.5g}' for x in losses)}; grad norm "
+          f"{', '.join(f'{x:.5g}' for x in norms)}; launches {launches}", flush=True)
+    n_micro = 3 * TRAIN_OPT["grad_accum_steps"]
+    check(launches == tuple(n_micro * n for n in TRAIN_MICRO_STEP),
+          f"training launch counts {launches} != {n_micro} x {TRAIN_MICRO_STEP}")
+    check(all(map(math.isfinite, losses + norms)), "training loss or grad norm is not finite")
+
+    # one more optimizer step by hand, timed in parts with CUDA events
+    parts = []
+    for _ in range(TRAIN_OPT["grad_accum_steps"]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        draws = LossDraws.draw(gen, batch)
+        ev[0].record()
+        loss, _ = diffusion_loss(model, batch, sched, draws, recon_action=True)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        for p in params:
+            p.grad = None
+        global_norm(grads)
+        tx.update(grads, state.opt_state, params)
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train micro-step split (ms): forward {parts[0][0]:.1f} / {parts[1][0]:.1f}, backward "
+          f"{parts[0][1]:.1f} / {parts[1][1]:.1f}, grad norm + optimizer: accumulate "
+          f"{parts[0][2]:.1f}, apply {parts[1][2]:.1f}; peak memory of the training phase "
+          f"{peak:.1f} GiB", flush=True)
+    finite = all(bool(torch.isfinite(n)) for n in torch._foreach_norm(params))
+    moved = [not torch.equal(b, w) for b, w in zip(before, watch)]
+    print(f"train parameters finite: {finite}, watched tensors moved: {moved}", flush=True)
+    check(finite and all(moved), "training left non-finite or unmoved parameters")
+    return launches
+
+
 def generate(dit, vae, inp, name: str, forward_counts):
     """4 DPM steps through make_sampler and the chunked decode; checks the
     outputs and the launch counts. Returns (s/step, launch counts)."""
@@ -388,6 +717,17 @@ def main() -> int:
                check_modulate_norm_q8(g, 13, 600, 1920, timed=True)]
     check_gated_residual(g, 1, 226, 1920, timed=False)  # the text-stream shape
     time_int8_prep(g, prep_k_ms)
+    # the backward kernels: small ragged shapes, then the training shapes
+    for shape in ((1, 2, 300), (1, 2, 1100)):
+        for with_dlse in (False, True):
+            check_attention_bwd(g, shape, with_dlse, timed=False)
+    check_modulate_norm_bwd(g, 3, 300, 1920, timed=False)
+    check_gated_residual_bwd(g, 3, 300, 1920, timed=False)
+    check_attention_bwd(g, (1, 30, 3226), True, timed=False)
+    records += check_attention_bwd(g, (1, 30, 3226), False, timed=True)
+    records.append(check_modulate_norm_bwd(g, 5, 600, 1920, timed=True))
+    records.append(check_gated_residual_bwd(g, 5, 600, 1920, timed=True))
+    check_gated_residual_bwd(g, 1, 226, 1920, timed=False)  # the text stream
     for r in records:
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']} ms",
@@ -396,6 +736,7 @@ def main() -> int:
 
     # 3. the small models against the CPU, then the flagship DiT forward
     tiny_reference_checks()
+    tiny_train_check()
     torch.cuda.reset_peak_memory_stats()  # from here on: the main path's memory
     torch.manual_seed(0)
     t0 = time.perf_counter()
@@ -446,7 +787,14 @@ def main() -> int:
     print(f"s/step side by side: bf16 {bf16_step:.4f}, W8A8 {q8_step:.4f}", flush=True)
     launches = tuple(a + b for a, b in zip(bf16_launches, q8_launches))
 
-    # 5. card, kernels line, result line
+    # 5. training at full width, the serving models freed first
+    del dit, vae, inp, x, t, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train_recipe_2b(g)
+    launches = launches[:5] + train_launches[5:]
+
+    # 6. card, kernels line, result line
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")

@@ -18,10 +18,16 @@ choice left in it: it must be "flash" for the bf16 model and "flash_q8" for
 the W8A8 one, the pairing the JAX package serves with
 (orv_tpu/pipelines/evaluate.py:170); the port's kernels exist for no other.
 
+Training: `forward(..., deterministic=False, action_mask_u=...)` returns
+(v_pred, is_action_mask, actions_recon) as the JAX model's training call
+does (orv_tpu/models/dit.py:326-349, :419); `recon_action=True` adds the
+`ActionRecon` head. The bf16 model's kernels all have backward kernels
+(`ops/`), so `loss.backward()` reaches every parameter.
+
 Not ported yet (the constructor raises on them): multiview, RoPE, learned
-positions, `patch_size_t` (CogVideoX 1.5), the joint final norm (5b),
-`recon_action`. Pipeline stages, sequence parallelism, remat and the PAB
-attention cache are left out.
+positions, `patch_size_t` (CogVideoX 1.5), the joint final norm (5b).
+Pipeline stages, sequence parallelism, remat and the PAB attention cache
+are left out.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch import nn
 
 from orv_tpu_torch.models.layers import (
     ActionEmbed,
+    ActionRecon,
     AdaLayerNormOut,
     DiTBlock,
     LayerNorm,
@@ -90,7 +97,7 @@ class DiTConfig:
 
 _ATTN_IMPL = {False: "flash", True: "flash_q8"}  # the attention kernel each model runs
 _UNPORTED = ("multiview", "use_rotary_positional_embeddings",
-             "use_learned_positional_embeddings", "joint_final_norm", "recon_action")
+             "use_learned_positional_embeddings", "joint_final_norm")
 
 
 class ControlDiT(nn.Module):
@@ -125,6 +132,9 @@ class ControlDiT(nn.Module):
             c.spatial_interpolation_scale, c.temporal_interpolation_scale, **kw)
         self.time_embedding = TimestepEmbedding(inner, c.time_embed_dim, **kw)
         self.action_embed = ActionEmbed(c.action_dim, c.time_embed_dim, compress_ratio=4, **kw)
+        if c.recon_action:
+            self.action_recon = ActionRecon(c.action_dim, c.time_embed_dim, compress_ratio=4,
+                                            **kw)
         if c.visual_guidance:
             self.initial_combine_linear = nn.Linear(inner * c.num_control_keys, inner,
                                                     device=device, dtype=param_dtype)
@@ -167,9 +177,17 @@ class ControlDiT(nn.Module):
         labels: Optional[torch.Tensor] = None,
         control_cache: Optional[torch.Tensor] = None,
         controls_only: bool = False,
+        deterministic: bool = True,
+        action_mask_u: Optional[torch.Tensor] = None,  # [B] uniforms, training only
     ):
         """Returns the prediction [B, F, out_channels, H, W] in `dtype`, or,
-        with `controls_only`, the control embeds (see `_embed_controls`)."""
+        with `controls_only`, the control embeds (see `_embed_controls`).
+
+        The training call (`deterministic=False`) returns (prediction,
+        is_action_mask [B] bool, actions_recon [B, F_raw, action_dim]), the
+        last two None without actions and actions_recon None without
+        `recon_action`. With actions it takes `action_mask_u`: the rows with
+        u < 0.1 get the learned mask embedding (action CFG)."""
         c = self.config
         if c.visual_guidance and controls_only:
             return self._embed_controls(depths, labels)
@@ -189,12 +207,18 @@ class ControlDiT(nn.Module):
         hidden = embeds[:, text_len:].contiguous()
 
         # 3. action conditioning: front-pad to 4n-1 frames (ActionEmbed adds one more)
-        action_emb = None
+        action_emb = is_action_mask = actions_recon = None
         if actions is not None:
+            if not deterministic and action_mask_u is None:
+                raise ValueError("the training call (deterministic=False) with actions needs "
+                                 "action_mask_u, the [B] uniforms of the action-CFG mask")
             pad_frames = (4 - (actions.shape[1] + 1) % 4) % 4
             if pad_frames > 0:
                 actions = torch.cat([torch.zeros_like(actions[:, :pad_frames]), actions], dim=1)
-            action_emb = self.action_embed(actions)
+            action_emb, is_action_mask = self.action_embed(
+                actions, None if deterministic else action_mask_u)
+            if c.recon_action and not deterministic:
+                actions_recon = self.action_recon(action_emb)[:, pad_frames:]
 
         # 4. visual-control injection (shared patch embed, combine linear)
         if c.visual_guidance:
@@ -215,6 +239,9 @@ class ControlDiT(nn.Module):
         hidden = _linear(hidden, self.proj_out, self.dtype)
         p = c.patch_size
         h, w = height // p, width // p
-        return (hidden.reshape(B, num_frames, h, w, c.out_channels, p, p)
-                .permute(0, 1, 4, 2, 5, 3, 6)
-                .reshape(B, num_frames, c.out_channels, height, width))
+        out = (hidden.reshape(B, num_frames, h, w, c.out_channels, p, p)
+               .permute(0, 1, 4, 2, 5, 3, 6)
+               .reshape(B, num_frames, c.out_channels, height, width))
+        if deterministic:
+            return out
+        return out, is_action_mask, actions_recon

@@ -11,6 +11,9 @@ The video stream always takes the fused adaLN semantics (norm and modulate
 in f32 with one rounding; `ops.adaln.modulate_norm`), and every gated
 residual takes the fused `ops.adaln.gated_residual`. The text stream's
 modulation rounds the norm to the compute dtype first, as in the reference.
+The bf16 model trains: `modulate_norm`, `gated_residual` and
+`flash_attention` are autograd Functions with backward kernels, so no
+gradient is lost at a kernel's output.
 
 W8A8 serving (`quant=True`, the JAX package's `quant` flag): the block
 projections and feed-forward matmuls are `Int8Dense`, the video stream's
@@ -30,7 +33,7 @@ from torch import nn
 
 from orv_tpu_torch.ops.adaln import gated_residual, modulate_norm, modulate_norm_q8
 from orv_tpu_torch.ops.attention import QK_NORM_LOGIT_BOUND, flash_attention, flash_attention_q8
-from orv_tpu_torch.ops.quant import quantize_tokens
+from orv_tpu_torch.ops.quant import quantize_tokens, refuse_grad
 from orv_tpu_torch.utils.embeddings import get_3d_sincos_pos_embed
 
 
@@ -79,7 +82,8 @@ class Int8Dense(nn.Module):
     computed in that order in f32 and rounded once to `dtype`. The layer
     refuses to run until it holds int8 weights: load a state dict that
     carries `weight_q8` (`models/quantize.py:quantize_linear_params`, or
-    `models/weights.py:dit_params_from_jax` of a quantized JAX tree)."""
+    `models/weights.py:dit_params_from_jax` of a quantized JAX tree).
+    Inference only: raises under grad mode when x requires grad."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
@@ -98,6 +102,7 @@ class Int8Dense(nn.Module):
             self.has_int8_weights = True
 
     def forward(self, x):
+        refuse_grad("Int8Dense", x)
         if not self.has_int8_weights:
             raise RuntimeError("Int8Dense holds no int8 weights: load a quantized state dict "
                                "(models.quantize.quantize_linear_params) first")
@@ -420,10 +425,14 @@ class TimestepEmbedding(nn.Module):
 
 
 class ActionEmbed(nn.Module):
-    """7-DoF action sequence -> per-latent-frame embedding (deterministic
-    path: the training-time action-CFG mask is not ported). Pads one leading
-    zero frame, groups `compress_ratio` frames, MLP (keys mlp.0, mlp.3,
-    mask_embed)."""
+    """7-DoF action sequence -> per-latent-frame embedding (orv_tpu
+    layers.py:724). Pads one leading zero frame, groups `compress_ratio`
+    frames, MLP (keys mlp.0, mlp.3, mask_embed). Training's action-CFG mask:
+    given `mask_u` [B] uniforms, the rows with `mask_u < MASK_PROB` are
+    replaced by `mask_embed` (the JAX module draws the uniforms itself from
+    its 'action_mask' stream). Returns (h [B, F', hidden], is_mask [B] bool)."""
+
+    MASK_PROB = 0.1  # share of a training batch trained without actions
 
     def __init__(self, state_dim: int, hidden_size: int, compress_ratio: int = 4,
                  dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
@@ -437,7 +446,7 @@ class ActionEmbed(nn.Module):
         ])
         self.mask_embed = nn.Embedding(1, hidden_size, **kw)
 
-    def forward(self, x):
+    def forward(self, x, mask_u=None):
         B, F_, sd = x.shape
         if sd != self.state_dim:
             raise ValueError(f"action dim {sd} != {self.state_dim}")
@@ -445,4 +454,34 @@ class ActionEmbed(nn.Module):
         if self.compress_ratio > 1:
             x = x.reshape(B, (F_ + 1) // self.compress_ratio, -1)
         h = F.gelu(_linear(x, self.mlp[0], self.dtype), approximate="tanh")
-        return _linear(h, self.mlp[3], self.dtype)
+        h = _linear(h, self.mlp[3], self.dtype)
+        if mask_u is None:
+            return h, torch.zeros(B, dtype=torch.bool, device=h.device)
+        is_mask = mask_u < self.MASK_PROB
+        h = torch.where(is_mask[:, None, None], self.mask_embed.weight[0].to(h.dtype), h)
+        return h, is_mask
+
+
+class ActionRecon(nn.Module):
+    """Inverse-dynamics head (orv_tpu layers.py:772): per-frame embedding
+    [B, F, hidden] -> [B, F*compress_ratio - 1, state_dim] actions, the
+    padded first frame dropped (keys mlp.0, mlp.2)."""
+
+    def __init__(self, state_dim: int, hidden_size: int, compress_ratio: int = 4,
+                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.state_dim, self.compress_ratio, self.dtype = state_dim, compress_ratio, dtype
+        kw = dict(device=device, dtype=param_dtype)
+        self.mlp = nn.ModuleList([
+            nn.Linear(hidden_size, hidden_size * 4, **kw),
+            nn.Identity(),  # the checkpoint's activation slot
+            nn.Linear(hidden_size * 4, state_dim * compress_ratio, **kw),
+        ])
+
+    def forward(self, x):
+        B, F_, _ = x.shape
+        h = F.gelu(_linear(x, self.mlp[0], self.dtype), approximate="tanh")
+        h = _linear(h, self.mlp[2], self.dtype)
+        if self.compress_ratio > 1:
+            h = h.reshape(B, F_ * self.compress_ratio, self.state_dim)
+        return h[:, 1:]

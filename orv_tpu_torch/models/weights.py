@@ -95,6 +95,9 @@ def dit_params_from_jax(params: Dict[str, Any], config) -> Dict[str, torch.Tenso
     _lin(sd, "action_embed.mlp.0", ae["fc1"])
     _lin(sd, "action_embed.mlp.3", ae["fc2"])
     sd["action_embed.mask_embed.weight"] = _tensor(np.asarray(ae["mask_embed"])[None])
+    if "action_recon" in p:
+        _lin(sd, "action_recon.mlp.0", p["action_recon"]["fc1"])
+        _lin(sd, "action_recon.mlp.2", p["action_recon"]["fc2"])
     if "initial_combine_linear" in p:
         _lin(sd, "initial_combine_linear", p["initial_combine_linear"])
     return sd

@@ -13,6 +13,16 @@ so that per-frame vectors apply to each frame's patch rows.
 * `modulate_norm_plain` / `modulate_norm_q8_plain` / `gated_residual_plain`
   — the same arithmetic in plain PyTorch (the kernels' oracles and the CPU
   path).
+
+`modulate_norm` and `gated_residual` are differentiable, as the JAX
+package's custom VJPs are: each is a `torch.autograd.Function` whose
+backward is a kernel of its own (`_mn_bwd_kernel`, adaln.py:105, in
+`csrc/modulate_norm_bwd.cu`; `_gr_bwd_kernel`, adaln.py:298, in
+`csrc/gated_residual_bwd.cu`), wrapped by `modulate_norm_bwd` and
+`gated_residual_bwd` with their plain versions beside them. The `[R, D]`
+algebra after the adaLN backward kernel runs in plain PyTorch, as the JAX
+package leaves it to XLA (adaln.py:176-184). `modulate_norm_q8` is
+inference only and raises under grad mode when an input requires grad.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import ctypes
 import torch
 
 from orv_tpu_torch.ops import _build
-from orv_tpu_torch.ops.quant import quantize_tokens
+from orv_tpu_torch.ops.quant import quantize_tokens, refuse_grad
 
 _PARAM_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -91,16 +101,11 @@ def _check_modulate(name, x, scale, shift, norm_scale, norm_bias):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def modulate_norm(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
-    """Fused `LayerNorm(x)*(1+scale[r]) + shift[r]` over x [R, S, D].
-
-    CPU tensors run `modulate_norm_plain`. On CUDA, x must be contiguous
-    bf16 with D % 128 == 0 and D <= 2048; anything else raises."""
+def _modulate_norm_forward(x, scale, shift, norm_scale, norm_bias, eps: float):
+    """`modulate_norm_plain` on the CPU, the kernel on CUDA (counted in
+    `modulate_norm.launches`)."""
     if x.device.type == "cpu":
         return modulate_norm_plain(x, scale, shift, norm_scale, norm_bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"modulate_norm: unsupported device {x.device}")
-    _check_modulate("modulate_norm", x, scale, shift, norm_scale, norm_bias)
     R, S, D = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -114,6 +119,43 @@ def modulate_norm(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
     return out
 
 
+class _ModulateNorm(torch.autograd.Function):
+    """`modulate_norm` with the fused backward (`_mn_fwd`/`_mn_bwd`,
+    adaln.py:138-184)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, norm_scale, norm_bias, eps):
+        ctx.save_for_backward(x, scale, norm_scale, norm_bias)
+        ctx.eps = eps
+        return _modulate_norm_forward(x, scale, shift, norm_scale, norm_bias, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, scale, norm_scale, norm_bias = ctx.saved_tensors
+        dx, a, b = modulate_norm_bwd(x, dout.contiguous(), scale, norm_scale, ctx.eps)
+        one_p = 1.0 + scale.float()
+        ns32, nb32 = norm_scale.float()[None], norm_bias.float()[None]
+        dscale = (ns32 * b + nb32 * a).to(scale.dtype)
+        dshift = a.to(scale.dtype)
+        dns = (one_p * b).sum(0).to(norm_scale.dtype)
+        dnb = (one_p * a).sum(0).to(norm_bias.dtype)
+        return dx, dscale, dshift, dns, dnb, None
+
+
+def modulate_norm(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
+    """Fused `LayerNorm(x)*(1+scale[r]) + shift[r]` over x [R, S, D],
+    differentiable in all five tensors through the fused backward.
+
+    CPU tensors run `modulate_norm_plain` (and `modulate_norm_bwd_plain`
+    backward). On CUDA, x must be contiguous bf16 with D % 128 == 0 and
+    D <= 2048; anything else raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"modulate_norm: unsupported device {x.device}")
+    if x.device.type == "cuda":
+        _check_modulate("modulate_norm", x, scale, shift, norm_scale, norm_bias)
+    return _ModulateNorm.apply(x, scale, shift, norm_scale, norm_bias, float(eps))
+
+
 modulate_norm.launches = 0
 
 _MNQ_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 4
@@ -125,7 +167,9 @@ def modulate_norm_q8(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
     (xq int8 [R, S, D], xscale f32 [R, S]) as `modulate_norm_q8_plain`.
 
     CPU tensors run `modulate_norm_q8_plain`. On CUDA, x must be contiguous
-    bf16 with D % 128 == 0 and D <= 2048; anything else raises."""
+    bf16 with D % 128 == 0 and D <= 2048; anything else raises. Inference
+    only: raises under grad mode when an input requires grad."""
+    refuse_grad("modulate_norm_q8", x, scale, shift, norm_scale, norm_bias)
     if x.device.type == "cpu":
         return modulate_norm_q8_plain(x, scale, shift, norm_scale, norm_bias, eps)
     if x.device.type != "cuda":
@@ -152,24 +196,12 @@ _GR_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
-def gated_residual(x, y, gate):
-    """Fused `x + gate[r] * y` over x, y [R, S, D], gate [R, D].
-
-    CPU tensors run `gated_residual_plain`. On CUDA, x and y must be
-    contiguous bf16 of one shape with D % 8 == 0; anything else raises."""
+def _gated_residual_forward(x, y, gate):
+    """`gated_residual_plain` on the CPU, the kernel on CUDA (counted in
+    `gated_residual.launches`)."""
     if x.device.type == "cpu":
         return gated_residual_plain(x, y, gate)
-    if x.device.type != "cuda":
-        raise ValueError(f"gated_residual: unsupported device {x.device}")
-    _check_rows("gated_residual", x, gate)
-    if (y.shape != x.shape or y.dtype != x.dtype or y.device != x.device
-            or not y.is_contiguous() or y.data_ptr() % 16):
-        raise ValueError(f"gated_residual kernel takes y like x {tuple(x.shape)}: bf16, "
-                         f"contiguous, 16-byte aligned; got {y.dtype} {tuple(y.shape)} "
-                         f"on {y.device}")
     R, S, D = x.shape
-    if D % 8 != 0:
-        raise ValueError(f"gated_residual kernel takes D % 8 == 0; got D={D}")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -181,4 +213,156 @@ def gated_residual(x, y, gate):
     return out
 
 
+class _GatedResidual(torch.autograd.Function):
+    """`gated_residual` with the fused backward (`_gr_fwd`/`_gr_bwd`,
+    adaln.py:314-349): dx = dout unchanged, dy and dgate from the kernel."""
+
+    @staticmethod
+    def forward(ctx, x, y, gate):
+        ctx.save_for_backward(y, gate)
+        return _gated_residual_forward(x, y, gate)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, gate = ctx.saved_tensors
+        dy, dgate = gated_residual_bwd(dout.contiguous(), y, gate)
+        return dout, dy, dgate.to(gate.dtype)
+
+
+def _check_gated(name, x, y, gate):
+    """Raise unless the gated-residual kernels take these operands."""
+    _check_rows(name, x, gate)
+    if (y.shape != x.shape or y.dtype != x.dtype or y.device != x.device
+            or not y.is_contiguous() or y.data_ptr() % 16):
+        raise ValueError(f"{name} kernel takes y like x {tuple(x.shape)}: bf16, "
+                         f"contiguous, 16-byte aligned; got {y.dtype} {tuple(y.shape)} "
+                         f"on {y.device}")
+    if x.shape[2] % 8 != 0:
+        raise ValueError(f"{name} kernel takes D % 8 == 0; got D={x.shape[2]}")
+
+
+def gated_residual(x, y, gate):
+    """Fused `x + gate[r] * y` over x, y [R, S, D], gate [R, D],
+    differentiable in all three through the fused backward.
+
+    CPU tensors run `gated_residual_plain` (and `gated_residual_bwd_plain`
+    backward). On CUDA, x and y must be contiguous bf16 of one shape with
+    D % 8 == 0; anything else raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gated_residual: unsupported device {x.device}")
+    if x.device.type == "cuda":
+        _check_gated("gated_residual", x, y, gate)
+    return _GatedResidual.apply(x, y, gate)
+
+
 gated_residual.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels
+# ---------------------------------------------------------------------------
+
+# rows of one row group r that one block of a backward kernel sums over
+BWD_CHUNK_ROWS = 16
+
+
+def modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps: float = 1e-5):
+    """The adaLN backward tile (`_mn_bwd_kernel`, adaln.py:105) in plain
+    PyTorch, f32 throughout: with w = ns * (1 + scale[r]) and xhat the
+    normalized row, g = dout * w and dx = inv * (g - mean(g) - xhat *
+    mean(g * xhat)) in x's dtype; A = sum_S dout and B = sum_S dout * xhat,
+    f32 [R, D]. Returns (dx, A, B)."""
+    xf, do = x.float(), dout.float()
+    mean = xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    xhat = (xf - mean) * inv
+    g = do * (norm_scale.float() * (1.0 + scale.float()))[:, None, :]
+    gm = g.mean(-1, keepdim=True)
+    gxm = (g * xhat).mean(-1, keepdim=True)
+    dx = (inv * (g - gm - xhat * gxm)).to(x.dtype)
+    return dx, do.sum(1), (do * xhat).sum(1)
+
+
+_MNB_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def modulate_norm_bwd(x, dout, scale, norm_scale, eps: float = 1e-5):
+    """(dx, A, B) of the adaLN backward, as `modulate_norm_bwd_plain`.
+
+    CPU tensors run `modulate_norm_bwd_plain`. On CUDA, x and dout must be
+    contiguous bf16 [R, S, D] with D % 128 == 0 and D <= 2048, scale [R, D]
+    with a contiguous last dim and norm_scale [D] contiguous; anything else
+    raises. One launch (counted in `modulate_norm_bwd.launches`) runs the row
+    pass and the fixed-order sum of its chunks, so A and B are the same from
+    run to run."""
+    if x.device.type == "cpu":
+        return modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"modulate_norm_bwd: unsupported device {x.device}")
+    _check_modulate("modulate_norm_bwd", x, scale, scale, norm_scale, norm_scale)
+    if dout.shape != x.shape or dout.dtype != x.dtype or not dout.is_contiguous():
+        raise ValueError(f"modulate_norm_bwd takes a contiguous dout like x {tuple(x.shape)}; "
+                         f"got {dout.dtype} {tuple(dout.shape)}")
+    R, S, D = x.shape
+    n_chunks = -(-S // BWD_CHUNK_ROWS)
+    dx = torch.empty_like(x)
+    part = torch.empty((R, n_chunks, 2, D), dtype=torch.float32, device=x.device)
+    ab = torch.empty((R, 2, D), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_modulate_norm_bwd", _MNB_ARGS)(
+            x.data_ptr(), dout.data_ptr(), scale.data_ptr(), scale.stride(0),
+            norm_scale.data_ptr(), dx.data_ptr(), part.data_ptr(), ab.data_ptr(), R, S, D,
+            BWD_CHUNK_ROWS, float(eps), int(scale.dtype == torch.bfloat16),
+            int(norm_scale.dtype == torch.bfloat16), stream)
+    _build.check(err, "modulate_norm_bwd")
+    modulate_norm_bwd.launches += 1
+    return dx, ab[:, 0], ab[:, 1]
+
+
+modulate_norm_bwd.launches = 0
+
+
+def gated_residual_bwd_plain(dout, y, gate):
+    """The gated-residual backward tile (`_gr_bwd_kernel`, adaln.py:298) in
+    plain PyTorch: dy = gate[r] * dout in f32, rounded to y's dtype, and
+    dgate = sum_S dout * y, f32 [R, D]. Returns (dy, dgate)."""
+    do = dout.float()
+    return (do * gate.float()[:, None, :]).to(y.dtype), (do * y.float()).sum(1)
+
+
+_GRB_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 3
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def gated_residual_bwd(dout, y, gate):
+    """(dy, dgate f32) of the gated residual, as `gated_residual_bwd_plain`.
+
+    CPU tensors run `gated_residual_bwd_plain`. On CUDA, dout and y must be
+    contiguous bf16 of one shape [R, S, D] with D % 8 == 0 and gate [R, D]
+    with a contiguous last dim; anything else raises. One launch (counted in
+    `gated_residual_bwd.launches`) runs the row pass and the fixed-order sum
+    of its chunks."""
+    if dout.device.type == "cpu":
+        return gated_residual_bwd_plain(dout, y, gate)
+    if dout.device.type != "cuda":
+        raise ValueError(f"gated_residual_bwd: unsupported device {dout.device}")
+    _check_gated("gated_residual_bwd", dout, y, gate)
+    R, S, D = y.shape
+    n_chunks = -(-S // BWD_CHUNK_ROWS)
+    dy = torch.empty_like(y)
+    part = torch.empty((R, n_chunks, D), dtype=torch.float32, device=y.device)
+    dgate = torch.empty((R, D), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_gated_residual_bwd", _GRB_ARGS)(
+            dout.data_ptr(), y.data_ptr(), gate.data_ptr(), gate.stride(0), dy.data_ptr(),
+            part.data_ptr(), dgate.data_ptr(), R, S, D, BWD_CHUNK_ROWS,
+            int(gate.dtype == torch.bfloat16), stream)
+    _build.check(err, "gated_residual_bwd")
+    gated_residual_bwd.launches += 1
+    return dy, dgate
+
+
+gated_residual_bwd.launches = 0

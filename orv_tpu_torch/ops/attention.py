@@ -7,14 +7,22 @@ functions is [B, H, S, D]. Two forwards:
 
 * bf16 (`_fwd_kernel_static_max`, attention.py:124): `flash_attention`
   launches `csrc/flash_attn_static_max.cu` on a CUDA tensor or raises, and
-  runs `flash_attention_plain` on a CPU tensor. Returns (out, lse).
+  runs `flash_attention_plain` on a CPU tensor. Returns (out, lse), both
+  differentiable (the counterpart of `_flash_lse`, attention.py:601): a
+  `torch.autograd.Function` saves (q, k, v, out, lse) and its backward is
+  `flash_attention_bwd`, whose dq and dk/dv kernels (`_bwd_dq_kernel`,
+  attention.py:389, `_bwd_dkv_kernel`, :432) live in
+  `csrc/flash_attn_bwd.cu`. The lse cotangent, where there is one, shifts
+  the backward's delta term; where lse is unused it is None and costs
+  nothing.
 * int8 QK^T, the W8A8 serving model's (`_fwd_kernel_q8`, attention.py:174,
   host prep in `_fwd_q8`, :237): `prepare_k_q8` mean-smooths k and
   quantizes it per (batch*head, 1024-key block) in plain PyTorch, as XLA
   does it outside the TPU kernel; `flash_attention_q8` then launches
   `csrc/flash_attn_q8.cu` on a CUDA tensor or raises, and runs
   `flash_attention_q8_plain` on a CPU tensor. Returns out only: the
-  inference-only kernel has no lse.
+  inference-only kernel has no lse and no backward: it raises under grad
+  mode when an input requires grad.
 
 Each wrapper counts its kernel launches in `<wrapper>.launches`; the
 `*_plain` functions are the kernels' oracles and the CPU path.
@@ -29,7 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from orv_tpu_torch.ops import _build
-from orv_tpu_torch.ops.quant import quantize_tokens
+from orv_tpu_torch.ops.quant import quantize_tokens, refuse_grad
 
 # qk-LayerNorm bounds attention logits (|s| <= |q||k|/sqrt(d) with unit-var
 # rows times learned gains); 24.0 leaves ample headroom (orv_tpu layers.py:28).
@@ -72,20 +80,11 @@ def _check_qkv(name, q, k, v):
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None,
-                    static_max: float = QK_NORM_LOGIT_BOUND
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Static-max flash attention over [B, H, S, D]: returns (out, lse).
-
-    CPU tensors run `flash_attention_plain`. CUDA tensors must be bf16,
-    contiguous, with D == 64; anything else raises."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+def _flash_forward(q, k, v, scale: float, static_max: float):
+    """(out, lse): `flash_attention_plain` on the CPU, the kernel on CUDA
+    (counted in `flash_attention.launches`)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, static_max)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_qkv("flash_attention", q, k, v)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -99,7 +98,147 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
     return out, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) with the flash backward; the JAX package's `_flash_lse`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, static_max):
+        out, lse = _flash_forward(q, k, v, scale, static_max)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.set_materialize_grads(False)  # an unused lse brings no cotangent
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale,
+                                         None if dlse is None else dlse.contiguous())
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None,
+                    static_max: float = QK_NORM_LOGIT_BOUND
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Static-max flash attention over [B, H, S, D]: returns (out, lse),
+    differentiable in q, k, v through the flash backward.
+
+    CPU tensors run `flash_attention_plain` (and `flash_attention_bwd_plain`
+    backward). CUDA tensors must be bf16, contiguous, with D == 64; anything
+    else raises."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.device.type == "cuda":
+        _check_qkv("flash_attention", q, k, v)
+    return _FlashAttention.apply(q, k, v, float(scale), float(static_max))
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale: Optional[float] = None,
+                              dlse: Optional[torch.Tensor] = None):
+    """The flash backward in plain PyTorch, with the TPU kernels' rounding
+    (attention.py:404-425, :453-480): returns (dq, dk, dv) in the dtypes of
+    q, k, v. p = exp(f32(q . k) * scale - lse); delta = rowsum(f32(o * dO)),
+    minus dlse where given; dp = f32(dO . v); ds = p * (dp - delta) * scale;
+    dq and dk take ds rounded to q's dtype, dv the f32 p."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, do = q.float(), k.float(), dout.float()
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale - lse.float()[..., None])
+    delta = (out.float() * do).sum(-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse.float()[..., None]
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, v.float()) - delta) * scale
+    ds_r = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_r, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_r, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, out, lse, dout, dlse):
+    """Raise unless the backward kernels take these operands."""
+    _check_qkv("flash_attention_bwd", q, k, v)
+    _check_qkv("flash_attention_bwd", q, out, dout)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} / dout "
+                         f"{tuple(dout.shape)} do not match q {tuple(q.shape)}")
+    for n, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and (t.device != q.device or t.dtype != torch.float32
+                              or t.shape != q.shape[:3] or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd takes a contiguous f32 {n} of shape "
+                             f"{tuple(q.shape[:3])}; got {t.dtype} {tuple(t.shape)}")
+
+
+_BWD_DQ_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_DKV_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, scale: float, dlse=None) -> torch.Tensor:
+    """dq of the flash backward: one launch of the dq kernel on checked CUDA
+    operands (counted in `flash_attention_bwd_dq.launches`)."""
+    B, H, S, _ = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_flash_attn_bwd_dq", _BWD_DQ_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), _ptr(dlse), dq.data_ptr(), B * H, S, k.shape[2], float(scale),
+            stream)
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale: float, dlse=None):
+    """(dk, dv) of the flash backward: one launch of the dk/dv kernel on
+    checked CUDA operands (counted in `flash_attention_bwd_dkv.launches`)."""
+    B, H, S, _ = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_flash_attn_bwd_dkv", _BWD_DKV_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), _ptr(dlse), dk.data_ptr(), dv.data_ptr(), B * H, S, k.shape[2],
+            float(scale), stream)
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None,
+                        dlse: Optional[torch.Tensor] = None):
+    """The flash backward (`_bwd_impl`, attention.py:492): (dq, dk, dv).
+
+    CPU tensors run `flash_attention_bwd_plain`. CUDA tensors launch the dq
+    and dk/dv kernels: q, k, v, out, dout contiguous bf16 [B, H, S, 64], lse
+    (and dlse, if given) contiguous f32 [B, H, S]; anything else raises."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, dlse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    _check_bwd(q, k, v, out, lse, dout, dlse)
+    dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, scale, dlse)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale, dlse)
+    return dq, dk, dv
 
 
 def _pick_block(n: int, preferred: int = 1024, align: int = 128) -> int:
@@ -161,7 +300,9 @@ def flash_attention_q8(q, k, v, scale: Optional[float] = None,
 
     CPU tensors run `flash_attention_q8_plain`. CUDA tensors must be bf16,
     contiguous, with D == 64; anything else raises. `prepare_k_q8` runs on
-    the host side in plain PyTorch before the launch."""
+    the host side in plain PyTorch before the launch. Inference only: raises
+    under grad mode when q, k or v requires grad."""
+    refuse_grad("flash_attention_q8", q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

@@ -36,12 +36,15 @@ class SamplerConfig:
 
 
 def sample_from_moments(moments: torch.Tensor,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DiagonalGaussianDistribution.sample(): moments [B, 2C, ...] ->
-    latents [B, C, ...] f32 (logvar clamped to [-30, 20])."""
+    latents [B, C, ...] f32 (logvar clamped to [-30, 20]). The standard
+    normal `noise` [B, C, ...] is drawn from `generator` unless given."""
     mean, logvar = moments.float().chunk(2, dim=1)
     std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device)
     return mean + std * noise
 
 

@@ -102,6 +102,42 @@ def get_inference_timesteps(
 
 
 # ---------------------------------------------------------------------------
+# Forward process + v-parameterization (the training loss's pieces)
+# ---------------------------------------------------------------------------
+
+def _gather_abar(schedule: DiffusionSchedule, timesteps: torch.Tensor, ndim: int):
+    """(sqrt(abar[t]), sqrt(1 - abar[t])) for int timesteps [B], shaped to
+    broadcast over a [B, ...] sample of `ndim` dims, on the timesteps'
+    device."""
+    abar = schedule.alphas_cumprod.to(timesteps.device)[timesteps]
+    shape = abar.shape + (1,) * (ndim - abar.dim())
+    return torch.sqrt(abar).reshape(shape), torch.sqrt(1.0 - abar).reshape(shape)
+
+
+def add_noise(schedule: DiffusionSchedule, sample, noise, timesteps):
+    """x_t = sqrt(abar)·x0 + sqrt(1-abar)·eps."""
+    sa, sm = _gather_abar(schedule, timesteps, sample.dim())
+    return sa * sample + sm * noise
+
+
+def get_velocity(schedule: DiffusionSchedule, sample, noise, timesteps):
+    """v = sqrt(abar)·eps - sqrt(1-abar)·x0."""
+    sa, sm = _gather_abar(schedule, timesteps, sample.dim())
+    return sa * noise - sm * sample
+
+
+def pred_x0_from_v(schedule: DiffusionSchedule, v, x_t, timesteps):
+    """x0 = sqrt(abar)·x_t − sqrt(1−abar)·v."""
+    sa, sm = _gather_abar(schedule, timesteps, x_t.dim())
+    return sa * x_t - sm * v
+
+
+def loss_weights(schedule: DiffusionSchedule, timesteps):
+    """The v-prediction training weights 1/(1-abar_t)."""
+    return 1.0 / (1.0 - schedule.alphas_cumprod.to(timesteps.device)[timesteps])
+
+
+# ---------------------------------------------------------------------------
 # DDIM step (CogVideoX formulation)
 # ---------------------------------------------------------------------------
 

@@ -188,6 +188,6 @@ def test_control_dit_matches_jax(regime, guidance, actions, prec, monkeypatch):
 
 
 def test_control_dit_unported_options_raise():
-    for field in ("multiview", "recon_action", "use_rotary_positional_embeddings"):
+    for field in ("multiview", "joint_final_norm", "use_rotary_positional_embeddings"):
         with pytest.raises(NotImplementedError):
             ControlDiT(dataclasses.replace(DiTConfig(**TINY), **{field: True}), device="cpu")
