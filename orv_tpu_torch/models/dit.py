@@ -24,10 +24,16 @@ does (orv_tpu/models/dit.py:326-349, :419); `recon_action=True` adds the
 `ActionRecon` head. The bf16 model's kernels all have backward kernels
 (`ops/`), so `loss.backward()` reaches every parameter.
 
+Sequence parallelism: `ControlDiT(sp=comm)` (the JAX package's `sp_mesh`,
+dit.py:166-170) threads a communicator (`parallel/sp.py`) into every block,
+whose joint attention then rings over the ranks (`ops/ring_attention.py`);
+every rank runs the rest of the model on the full sequence, so every rank
+returns the whole prediction. Run it on every rank, e.g. under
+`LocalRing(n).run`. Inference only: the ring raises under grad mode.
+
 Not ported yet (the constructor raises on them): multiview, RoPE, learned
 positions, `patch_size_t` (CogVideoX 1.5), the joint final norm (5b).
-Pipeline stages, sequence parallelism, remat and the PAB attention cache
-are left out.
+Pipeline stages, remat and the PAB attention cache are left out.
 """
 
 from __future__ import annotations
@@ -108,10 +114,13 @@ class ControlDiT(nn.Module):
     `quant=True` model loads a state dict from
     `models/quantize.py:quantize_linear_params`; `quantize_model_` turns a
     bf16 model into one in place. `attn_impl` must be the one `quant` picks:
-    "flash" (bf16 kernel) without it, "flash_q8" (int8-QK^T kernel) with it."""
+    "flash" (bf16 kernel) without it, "flash_q8" (int8-QK^T kernel) with it.
+    `sp`: a communicator whose ranks ring every block's joint attention
+    (None or size 1: the sequence stays resident)."""
 
     def __init__(self, config: DiTConfig, dtype=torch.bfloat16, param_dtype=torch.float32,
-                 device: DeviceLike = None, quant: bool = False, attn_impl: str = "flash"):
+                 device: DeviceLike = None, quant: bool = False, attn_impl: str = "flash",
+                 sp=None):
         super().__init__()
         for name in _UNPORTED:
             if getattr(config, name):
@@ -124,7 +133,7 @@ class ControlDiT(nn.Module):
         device = resolve_device(device)
         c = self.config = config
         self.dtype, self.param_dtype = dtype, param_dtype
-        self.quant, self.attn_impl = quant, attn_impl
+        self.quant, self.attn_impl, self.sp = quant, attn_impl, sp
         inner = c.inner_dim
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.patch_embed = PatchEmbed(
@@ -150,8 +159,16 @@ class ControlDiT(nn.Module):
         c = self.config
         return DiTBlock(c.inner_dim, c.num_attention_heads, c.attention_head_dim,
                         c.time_embed_dim, c.modulate_encoder_hidden_states, c.attention_bias,
-                        c.norm_eps, quant, dtype=self.dtype, device=device,
+                        c.norm_eps, quant, sp=self.sp, dtype=self.dtype, device=device,
                         param_dtype=self.param_dtype)
+
+    def set_sp(self, sp) -> "ControlDiT":
+        """Ring every block's joint attention over the communicator `sp` from
+        now on (None: resident); the weights stay as they are."""
+        self.sp = sp
+        for block in self.transformer_blocks:
+            block.attn1.sp = sp
+        return self
 
     def _embed_controls(self, depths: Optional[torch.Tensor],
                         labels: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

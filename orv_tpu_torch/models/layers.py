@@ -15,6 +15,10 @@ The bf16 model trains: `modulate_norm`, `gated_residual` and
 `flash_attention` are autograd Functions with backward kernels, so no
 gradient is lost at a kernel's output.
 
+Sequence parallelism (`sp`, the JAX package's `sp_mesh`): a communicator of
+size > 1 rings every joint attention over its ranks; every other layer runs
+on the full sequence on every rank.
+
 W8A8 serving (`quant=True`, the JAX package's `quant` flag): the block
 projections and feed-forward matmuls are `Int8Dense`, the video stream's
 adaLN emits the int8 activation directly (`ops.adaln.modulate_norm_q8`), and
@@ -34,6 +38,7 @@ from torch import nn
 from orv_tpu_torch.ops.adaln import gated_residual, modulate_norm, modulate_norm_q8
 from orv_tpu_torch.ops.attention import QK_NORM_LOGIT_BOUND, flash_attention, flash_attention_q8
 from orv_tpu_torch.ops.quant import quantize_tokens, refuse_grad
+from orv_tpu_torch.ops.ring_attention import joint_ring_attention, ring_attention
 from orv_tpu_torch.utils.embeddings import get_3d_sincos_pos_embed
 
 
@@ -242,26 +247,36 @@ class AdaLayerNormOut(nn.Module):
 
 
 class JointAttention(nn.Module):
-    """Joint [text, video] self-attention with per-head qk LayerNorm
-    (eps 1e-6) and a static-max flash forward (logit bound 24.0), by the
-    bf16 kernel. `quant=True` is the W8A8 attention: the four projections
-    are Int8Dense, the video stream arrives as an (xq, xscale) pair, the text
-    stream is quantized and concatenated before it, and the int8-QK^T kernel
-    runs the attention."""
+    """Joint [text, video] self-attention (orv_tpu layers.py:392). With
+    `qk_norm` (the DiT's default) every head is LayerNormed (eps 1e-6) and
+    the bf16 flash forward runs with a static max (logit bound 24.0);
+    without it there are no `norm_q`/`norm_k` and the online softmax runs
+    (`static_max=None`). `quant=True` is the W8A8 attention: the four
+    projections are Int8Dense, the video stream arrives as an (xq, xscale)
+    pair, the text stream is quantized and concatenated before it, and the
+    int8-QK^T kernel runs the attention.
+
+    `sp`, a communicator of size > 1 (`parallel/sp.py`), rings the attention
+    over its ranks (`ops/ring_attention.py`): video tokens split over the
+    ranks, text replicated. The ring merges (out, lse) pairs, so it runs the
+    bf16 flash kernel even with `quant` (`attention_with_lse` maps flash_q8
+    to it). Everything outside the attention runs on the full sequence on
+    every rank."""
 
     def __init__(self, heads: int, head_dim: int, bias: bool = True, out_bias: bool = True,
-                 quant: bool = False, dtype=torch.bfloat16, device=None,
-                 param_dtype=torch.float32):
+                 quant: bool = False, qk_norm: bool = True, sp=None, dtype=torch.bfloat16,
+                 device=None, param_dtype=torch.float32):
         super().__init__()
         self.heads, self.head_dim, self.dtype = heads, head_dim, dtype
-        self.quant = quant
+        self.quant, self.qk_norm, self.sp = quant, qk_norm, sp
         inner = heads * head_dim
         kw = dict(quant=quant, dtype=dtype, device=device, param_dtype=param_dtype)
         self.to_q = _dense(inner, inner, bias, **kw)
         self.to_k = _dense(inner, inner, bias, **kw)
         self.to_v = _dense(inner, inner, bias, **kw)
-        self.norm_q = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
-        self.norm_k = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
+        if qk_norm:
+            self.norm_q = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
+            self.norm_k = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
         self.to_out = nn.ModuleList([_dense(inner, inner, out_bias, **kw)])
 
     def forward(self, hidden, enc=None):
@@ -282,11 +297,25 @@ class JointAttention(nn.Module):
                 t = norm(t)
             return t.transpose(1, 2).contiguous()  # [B, H, S, Dh]
 
-        q, k, v = heads(self.to_q, self.norm_q), heads(self.to_k, self.norm_k), heads(self.to_v)
-        if self.quant:
+        norm_q, norm_k = (self.norm_q, self.norm_k) if self.qk_norm else (None, None)
+        q, k, v = heads(self.to_q, norm_q), heads(self.to_k, norm_k), heads(self.to_v)
+        static_max = QK_NORM_LOGIT_BOUND if self.qk_norm else None
+        sp_size = 1 if self.sp is None else self.sp.size
+        if sp_size > 1:
+            if (S - text_len) % sp_size:
+                raise ValueError(
+                    f"sequence-parallel sp={sp_size} needs the video token count "
+                    f"({S - text_len}) divisible by sp: pick frame/resolution so "
+                    f"(F*H*W/patch^2) % sp == 0")
+            if text_len > 0:
+                out = joint_ring_attention(q, k, v, text_len, self.sp, impl="flash",
+                                           static_max=static_max)
+            else:
+                out = ring_attention(q, k, v, self.sp, impl="flash", static_max=static_max)
+        elif self.quant:
             out = flash_attention_q8(q, k, v, static_max=QK_NORM_LOGIT_BOUND)
         else:
-            out, _ = flash_attention(q, k, v, static_max=QK_NORM_LOGIT_BOUND)
+            out, _ = flash_attention(q, k, v, static_max=static_max)
         out = out.transpose(1, 2).reshape(B, S, self.heads * self.head_dim)
         out = _apply(self.to_out[0], out, self.dtype)
         if enc is None:
@@ -330,17 +359,18 @@ class DiTBlock(nn.Module):
     3-chunk: attention and FF see video tokens only. 6-chunk: text and video
     attend jointly and pass the FF jointly. `quant=True` is the W8A8 block
     (Int8Dense projections and FF, int8-emitting adaLN, int8-QK^T
-    attention)."""
+    attention). `qk_norm` and `sp` go to the `JointAttention`."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, time_embed_dim: int,
                  modulate_enc: bool = False, attention_bias: bool = True,
-                 norm_eps: float = 1e-5, quant: bool = False, dtype=torch.bfloat16,
-                 device=None, param_dtype=torch.float32):
+                 norm_eps: float = 1e-5, quant: bool = False, qk_norm: bool = True, sp=None,
+                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
         super().__init__()
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.modulate_enc, self.quant = modulate_enc, quant
         self.norm1 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, quant, **kw)
-        self.attn1 = JointAttention(heads, head_dim, attention_bias, True, quant, **kw)
+        self.attn1 = JointAttention(heads, head_dim, attention_bias, True, quant, qk_norm, sp,
+                                    **kw)
         self.norm2 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, quant, **kw)
         self.ff = FeedForward(dim, quant=quant, **kw)
 

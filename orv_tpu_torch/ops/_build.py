@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 build_log = ""  # ptxas register/spill report of the last build
@@ -100,6 +101,13 @@ def kernel(name: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def count(wrapper) -> None:
+    """Add one to `wrapper.launches` under a lock: the in-process ring
+    (`parallel/sp.py:LocalRing`) launches kernels from one thread per rank."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -115,7 +115,7 @@ def _modulate_norm_forward(x, scale, shift, norm_scale, norm_bias, eps: float):
             norm_scale.data_ptr(), norm_bias.data_ptr(), out.data_ptr(), R, S, D, float(eps),
             int(scale.dtype == torch.bfloat16), int(norm_scale.dtype == torch.bfloat16), stream)
     _build.check(err, "modulate_norm")
-    modulate_norm.launches += 1
+    _build.count(modulate_norm)
     return out
 
 
@@ -186,7 +186,7 @@ def modulate_norm_q8(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
             R, S, D, float(eps), int(scale.dtype == torch.bfloat16),
             int(norm_scale.dtype == torch.bfloat16), stream)
     _build.check(err, "modulate_norm_q8")
-    modulate_norm_q8.launches += 1
+    _build.count(modulate_norm_q8)
     return xq, xscale
 
 
@@ -209,7 +209,7 @@ def _gated_residual_forward(x, y, gate):
             x.data_ptr(), y.data_ptr(), gate.data_ptr(), gate.stride(0), out.data_ptr(),
             R, S, D, int(gate.dtype == torch.bfloat16), stream)
     _build.check(err, "gated_residual")
-    gated_residual.launches += 1
+    _build.count(gated_residual)
     return out
 
 
@@ -317,7 +317,7 @@ def modulate_norm_bwd(x, dout, scale, norm_scale, eps: float = 1e-5):
             BWD_CHUNK_ROWS, float(eps), int(scale.dtype == torch.bfloat16),
             int(norm_scale.dtype == torch.bfloat16), stream)
     _build.check(err, "modulate_norm_bwd")
-    modulate_norm_bwd.launches += 1
+    _build.count(modulate_norm_bwd)
     return dx, ab[:, 0], ab[:, 1]
 
 
@@ -361,7 +361,7 @@ def gated_residual_bwd(dout, y, gate):
             part.data_ptr(), dgate.data_ptr(), R, S, D, BWD_CHUNK_ROWS,
             int(gate.dtype == torch.bfloat16), stream)
     _build.check(err, "gated_residual_bwd")
-    gated_residual_bwd.launches += 1
+    _build.count(gated_residual_bwd)
     return dy, dgate
 
 

@@ -1,20 +1,26 @@
-"""Joint text+video attention: the static-max flash forwards.
+"""Joint text+video attention: the flash forwards, their backward, and the
+dispatchers.
 
-Counterpart of `orv_tpu/ops/attention.py`. The DiT qk-LayerNorms every
-head, so its logits are bounded and the forward uses a fixed softmax max
-(`static_max=24.0`) instead of a running one. Layout at the public
-functions is [B, H, S, D]. Two forwards:
+Counterpart of `orv_tpu/ops/attention.py`. Layout at the public functions is
+[B, H, S, D]. Three forwards:
 
-* bf16 (`_fwd_kernel_static_max`, attention.py:124): `flash_attention`
-  launches `csrc/flash_attn_static_max.cu` on a CUDA tensor or raises, and
-  runs `flash_attention_plain` on a CPU tensor. Returns (out, lse), both
-  differentiable (the counterpart of `_flash_lse`, attention.py:601): a
-  `torch.autograd.Function` saves (q, k, v, out, lse) and its backward is
-  `flash_attention_bwd`, whose dq and dk/dv kernels (`_bwd_dq_kernel`,
-  attention.py:389, `_bwd_dkv_kernel`, :432) live in
-  `csrc/flash_attn_bwd.cu`. The lse cotangent, where there is one, shifts
-  the backward's delta term; where lse is unused it is None and costs
-  nothing.
+* bf16 online softmax (`_fwd_kernel`, attention.py:62), the default of every
+  public op, as in the JAX package (`static_max=None`): a running row max
+  and an accumulator rescale, so any logits are safe.
+  `flash_attention_online_kernel` launches `csrc/flash_attn_online.cu`.
+* bf16 static max (`_fwd_kernel_static_max`, attention.py:124), for callers
+  that pass a logit bound: the DiT qk-LayerNorms every head, so its logits
+  are bounded and `static_max=24.0` (`QK_NORM_LOGIT_BOUND`) replaces the
+  running max. Launches `csrc/flash_attn_static_max.cu`.
+  `flash_attention` picks one of the two by `static_max` on a CUDA tensor
+  (or raises), and runs `flash_attention_plain` on a CPU tensor. Returns
+  (out, lse), both differentiable (the counterpart of `_flash_lse`,
+  attention.py:601): a `torch.autograd.Function` saves (q, k, v, out, lse)
+  and its backward is `flash_attention_bwd`, whose dq and dk/dv kernels
+  (`_bwd_dq_kernel`, attention.py:389, `_bwd_dkv_kernel`, :432) live in
+  `csrc/flash_attn_bwd.cu`. Both forwards emit an exact lse, so one
+  backward serves both. The lse cotangent, where there is one, shifts the
+  backward's delta term; where lse is unused it is None and costs nothing.
 * int8 QK^T, the W8A8 serving model's (`_fwd_kernel_q8`, attention.py:174,
   host prep in `_fwd_q8`, :237): `prepare_k_q8` mean-smooths k and
   quantizes it per (batch*head, 1024-key block) in plain PyTorch, as XLA
@@ -24,8 +30,14 @@ functions is [B, H, S, D]. Two forwards:
   inference-only kernel has no lse and no backward: it raises under grad
   mode when an input requires grad.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`; the
-`*_plain` functions are the kernels' oracles and the CPU path.
+`mha_reference`, `attention` and `attention_with_lse` are the JAX package's
+dispatchers (attention.py:49, :663, :678); `impl="auto"` is "flash" on a
+CUDA tensor and "xla" (the plain reference) on a CPU one.
+
+Each kernel counts its launches in `<wrapper>.launches` (the static-max
+forward in `flash_attention.launches`, the online one in
+`flash_attention_online_kernel.launches`); the `*_plain` functions are the
+kernels' oracles and the CPU path.
 """
 
 from __future__ import annotations
@@ -45,20 +57,39 @@ QK_NORM_LOGIT_BOUND = 24.0
 
 
 def flash_attention_plain(q, k, v, scale: Optional[float] = None,
-                          static_max: float = QK_NORM_LOGIT_BOUND
+                          static_max: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The static-max forward in plain PyTorch: returns (out [B,H,S,D] in
-    q's dtype, lse [B,H,S] f32). q is pre-scaled in its own dtype; the
-    denominator sums the f32 p, the PV product takes p rounded to v's dtype."""
+    """The flash forward in plain PyTorch: returns (out [B,H,Sq,D] in q's
+    dtype, lse [B,H,Sq] f32). q is pre-scaled in its own dtype; p = exp(s -
+    m) with m the row max (`static_max=None`, the online kernel's) or the
+    given bound; the denominator sums the f32 p, the PV product takes p
+    rounded to v's dtype. The global row max agrees with the kernel's running
+    max to within one rounding of p to v's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qs = q * torch.tensor(scale, dtype=q.dtype)
     s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
-    p = torch.exp(s - static_max)
+    if static_max is None:
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        m = m.squeeze(-1)
+    else:
+        m = float(static_max)
+        p = torch.exp(s - m)
     l = p.sum(-1)
     acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l_safe[..., None]).to(q.dtype), static_max + torch.log(l_safe)
+    return (acc / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
+
+
+def mha_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """[B,H,S,D] reference attention (attention.py:49): f32 logits of the
+    inputs' values, f32 softmax, probabilities rounded to q's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    probs = torch.softmax(logits * scale, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float()).to(q.dtype)
 
 
 def _check_qkv(name, q, k, v):
@@ -78,13 +109,37 @@ def _check_qkv(name, q, k, v):
 
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_ONLINE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
 
-def _flash_forward(q, k, v, scale: float, static_max: float):
-    """(out, lse): `flash_attention_plain` on the CPU, the kernel on CUDA
-    (counted in `flash_attention.launches`)."""
+def flash_attention_online_kernel(q, k, v, scale: float):
+    """One launch of the online-softmax forward on checked CUDA q [B,H,Sq,64]
+    and k, v [B,H,Skv,64]: returns (out, lse). Counted in
+    `flash_attention_online_kernel.launches`."""
+    B, H, S, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_flash_attn_online", _ONLINE_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B * H, S, k.shape[2], float(scale), stream)
+    _build.check(err, "flash_attention_online_kernel")
+    _build.count(flash_attention_online_kernel)
+    return out, lse
+
+
+flash_attention_online_kernel.launches = 0
+
+
+def _flash_forward(q, k, v, scale: float, static_max: Optional[float]):
+    """(out, lse): `flash_attention_plain` on the CPU; on CUDA the online
+    kernel for `static_max=None`, else the static-max kernel (counted in
+    `flash_attention.launches`)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, static_max)
+    if static_max is None:
+        return flash_attention_online_kernel(q, k, v, scale)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -94,12 +149,13 @@ def _flash_forward(q, k, v, scale: float, static_max: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B * H, S, k.shape[2], float(scale), float(static_max), stream)
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     return out, lse
 
 
 class _FlashAttention(torch.autograd.Function):
-    """(out, lse) with the flash backward; the JAX package's `_flash_lse`."""
+    """(out, lse) with the flash backward; the JAX package's `_flash_lse`.
+    Both forwards emit an exact lse, so the backward is the same for both."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, static_max):
@@ -120,10 +176,13 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
-                    static_max: float = QK_NORM_LOGIT_BOUND
+                    static_max: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Static-max flash attention over [B, H, S, D]: returns (out, lse),
-    differentiable in q, k, v through the flash backward.
+    """Flash attention over q [B, H, Sq, D] and k, v [B, H, Skv, D]: returns
+    (out, lse), differentiable in q, k, v through the flash backward.
+    `static_max=None` (the default, as in the JAX package) runs the online
+    softmax; a logit bound runs the cheaper static-max forward, which is
+    only right where the logits stay below it.
 
     CPU tensors run `flash_attention_plain` (and `flash_attention_bwd_plain`
     backward). CUDA tensors must be bf16, contiguous, with D == 64; anything
@@ -134,10 +193,57 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.device.type == "cuda":
         _check_qkv("flash_attention", q, k, v)
-    return _FlashAttention.apply(q, k, v, float(scale), float(static_max))
+    return _FlashAttention.apply(q, k, v, float(scale),
+                                 None if static_max is None else float(static_max))
 
 
 flash_attention.launches = 0
+
+
+def _resolve_impl(impl: str, q: torch.Tensor) -> str:
+    """"auto" -> "flash" on a CUDA tensor, "xla" (the plain reference) on a
+    CPU one; the JAX package picks by backend (attention.py:668-669)."""
+    if impl == "auto":
+        return "flash" if q.device.type == "cuda" else "xla"
+    if impl not in ("flash", "flash_q8", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return impl
+
+
+def attention(q, k, v, scale: Optional[float] = None, impl: str = "auto",
+              static_max: Optional[float] = None) -> torch.Tensor:
+    """Attention out [B, H, Sq, D] (attention.py:663): "flash" is
+    `flash_attention` (online softmax unless `static_max` is given),
+    "flash_q8" the int8-QK^T kernel with `static_max` defaulting to 24.0,
+    "xla" `mha_reference`."""
+    impl = _resolve_impl(impl, q)
+    if impl == "flash":
+        return flash_attention(q, k, v, scale, static_max=static_max)[0]
+    if impl == "flash_q8":
+        return flash_attention_q8(q, k, v, scale,
+                                  static_max=static_max if static_max else QK_NORM_LOGIT_BOUND)
+    return mha_reference(q, k, v, scale)
+
+
+def attention_with_lse(q, k, v, scale: Optional[float] = None, impl: str = "auto",
+                       static_max: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention that also returns the per-row logsumexp [B, H, Sq], the
+    statistic ring attention merges partial results by (attention.py:678).
+
+    "flash" and "flash_q8" both run the bf16 `flash_attention`, differentiable
+    in out and lse: the int8-QK^T kernel has no lse, and the O(S^2) reference
+    would defeat the ring. `static_max` picks the static-max forward (lse
+    stays exact). "xla" computes the exact lse in plain PyTorch."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    impl = _resolve_impl(impl, q)
+    if impl in ("flash", "flash_q8"):
+        return flash_attention(q, k, v, scale, static_max=static_max)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None]).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float()).to(q.dtype), lse
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale: Optional[float] = None,
@@ -196,7 +302,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, scale: float, dlse=None) -> 
             lse.data_ptr(), _ptr(dlse), dq.data_ptr(), B * H, S, k.shape[2], float(scale),
             stream)
     _build.check(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _build.count(flash_attention_bwd_dq)
     return dq
 
 
@@ -215,7 +321,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale: float, dlse=None):
             lse.data_ptr(), _ptr(dlse), dk.data_ptr(), dv.data_ptr(), B * H, S, k.shape[2],
             float(scale), stream)
     _build.check(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _build.count(flash_attention_bwd_dkv)
     return dk, dv
 
 
@@ -332,5 +438,5 @@ def flash_attention_q8_kernel(q, k_prep, v, skv: int, scale: float,
             B * H, S, skv, k8.shape[2], block_k, sk_r.shape[1], float(scale),
             float(static_max), stream)
     _build.check(err, "flash_attention_q8")
-    flash_attention_q8.launches += 1
+    _build.count(flash_attention_q8)
     return out

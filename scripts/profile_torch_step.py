@@ -1,13 +1,16 @@
 """Device-time breakdown of one flagship ControlDiT forward of the PyTorch
-port (orv_tpu_torch), bf16 and W8A8, and of one optimizer step of the 2B
-fine-tune recipe, on one NVIDIA GPU.
+port (orv_tpu_torch), bf16, sequence-parallel and W8A8, and of one
+optimizer step of the 2B fine-tune recipe, on one NVIDIA GPU.
 
 Run from the repository root on the machine with the card:
 
     python3 scripts/profile_torch_step.py
 
 It builds chip_smoke.py's flagship DiT (seeded random weights) and inputs,
-times one bf16 forward, quantizes the DiT in place (`quantize_model_`) and
+times one bf16 forward, then the same DiT at sp=4 (`LocalRing(4)`: four
+ranks as threads time-sharing the one card, each repeating the work outside
+attention) and one joint ring attention at [1,30,226+7800,64] with the
+online kernel, quantizes the DiT in place (`quantize_model_`) and
 times one W8A8 forward (`quant=True, attn_impl="flash_q8"`). Then, that
 model freed, it builds chip_smoke.py's 2B-recipe training model (f32
 parameters, bf16 compute) and times one optimizer step of two micro-steps
@@ -44,12 +47,14 @@ from chip_smoke import (  # noqa: E402
 )
 from orv_tpu_torch.models import ControlDiT  # noqa: E402
 from orv_tpu_torch.models.quantize import quantize_model_  # noqa: E402
+from orv_tpu_torch.ops.ring_attention import joint_ring_attention  # noqa: E402
 from orv_tpu_torch.parallel import (  # noqa: E402
     TrainState,
     make_lr_schedule,
     make_optimizer,
     make_train_step,
 )
+from orv_tpu_torch.parallel.sp import LocalRing  # noqa: E402
 from orv_tpu_torch.schedulers import make_schedule  # noqa: E402
 
 # kernel name -> kind, first match wins
@@ -61,6 +66,7 @@ KINDS = [
     ("backward row sums (CUDA, this repo)", re.compile(r"sum_chunks")),
     ("flash_attn_q8 (CUDA, this repo)", re.compile(r"flash_fwd_q8")),
     ("flash_attn_static_max (CUDA, this repo)", re.compile(r"flash_fwd_static_max")),
+    ("flash_attn_online (CUDA, this repo)", re.compile(r"flash_fwd_online")),
     ("modulate_norm_q8 (CUDA, this repo)", re.compile(r"modulate_norm_q8")),
     ("modulate_norm (CUDA, this repo)", re.compile(r"modulate_norm")),
     ("gated_residual (CUDA, this repo)", re.compile(r"gated_residual")),
@@ -129,6 +135,15 @@ def main() -> int:
     inp = flagship_inputs(g)
     run = forward_fn(dit, inp)
     breakdown("bf16 forward", run)
+    comm = LocalRing(4)
+    dit.set_sp(comm)
+    breakdown("bf16 forward at sp=4 (LocalRing: 4 ranks on one card)", lambda: comm.run(run))
+    dit.set_sp(None)
+    q, k, v = (torch.randn(1, 30, 226 + 7800, 64, device="cuda", generator=g).bfloat16()
+               for _ in range(3))
+    breakdown("joint_ring_attention [1,30,226+7800,64], static_max=None, sp=4 on one card",
+              lambda: comm.run(lambda: joint_ring_attention(q, k, v, 226, comm)))
+    del q, k, v
     quantize_model_(dit)
     breakdown("W8A8 forward", run)
     del dit, run

@@ -6,7 +6,10 @@ jax nor orv_tpu, so they run where the port runs; from the repository root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 (`--noconftest`: tests/conftest.py configures JAX). Tolerances: attention
-out atol 1e-2 (bf16 outputs below 1), lse atol 1e-4; the int8-QK^T attention,
+out atol 1e-2 (bf16 outputs below 1), lse atol 1e-4 (static max; 1e-3 for
+the online kernel, whose running max and the plain version's row max
+round p differently), the joint ring against resident attention atol 2e-2
+(two more bf16 roundings of the merged partials); the int8-QK^T attention,
 whose outputs shrink as keys grow, against its output's own scale: max error
 <= 0.1 RMS(ref) and RMS error <= 1e-2 RMS(ref) (the bf16 rounding of the
 output alone gives about 1.7e-3; a wrong k scale about 0.1); adaLN kernels one bf16
@@ -44,13 +47,75 @@ def test_cuda_flash_attention_matches_plain(cuda, shape):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(*shape, 64, device=cuda, generator=g).bfloat16() for _ in range(3))
     before = attention.flash_attention.launches
-    out, lse = attention.flash_attention(q, k, v)
+    out, lse = attention.flash_attention(q, k, v, static_max=24.0)
     assert attention.flash_attention.launches == before + 1
-    ref, ref_lse = attention.flash_attention_plain(q, k, v)
+    ref, ref_lse = attention.flash_attention_plain(q, k, v, static_max=24.0)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
     with pytest.raises(ValueError):
-        attention.flash_attention(q.float(), k.float(), v.float())
+        attention.flash_attention(q.float(), k.float(), v.float(), static_max=24.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,logit_scale", [(64, 64, 1.0), (300, 300, 1.0), (1, 1, 1.0),
+                                                (226, 1950, 1.0), (1950, 226, 1.0),
+                                                (300, 1100, 6.0)])
+def test_cuda_flash_attention_online_matches_plain(cuda, sq, skv, logit_scale):
+    """The online-softmax kernel (the default, static_max=None): ragged S,
+    the ring's Sq != Skv shapes, and q, k scaled until logits pass 150, where
+    the static-max kernel overflows. Through autograd, the online forward's
+    out and lse feed the dq and dk/dv kernels, held against the plain
+    backward on those same out and lse."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rand = lambda s: torch.randn(1, 2, s, 64, device=cuda, generator=g)
+    q, k = ((logit_scale * rand(n)).bfloat16() for n in (sq, skv))
+    v = rand(skv).bfloat16()
+    before = (attention.flash_attention_online_kernel.launches, attention.flash_attention.launches)
+    out, lse = attention.flash_attention(q, k, v)
+    assert (attention.flash_attention_online_kernel.launches,
+            attention.flash_attention.launches) == (before[0] + 1, before[1])
+    ref, ref_lse = attention.flash_attention_plain(q, k, v)
+    assert out.shape == q.shape and lse.shape == (1, 2, sq)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-6)
+    static, static_lse = attention.flash_attention(q, k, v, static_max=24.0)
+    if logit_scale > 1.0:
+        assert ref_lse.max() > 150
+        assert not (torch.isfinite(static.float()).all()
+                    and torch.allclose(static.float(), ref.float(), atol=1e-2))
+    else:  # bounded logits: the two kernels agree
+        torch.testing.assert_close(static_lse, lse, atol=1e-3, rtol=0)
+        torch.testing.assert_close(static.float(), out.float(), atol=1e-2, rtol=0)
+    do = torch.randn(q.shape, device=cuda, generator=g).bfloat16()
+    dlse = torch.randn(lse.shape, device=cuda, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o2, l2 = attention.flash_attention(*leaves)
+    ((o2.float() * do.float()).sum() + (l2 * dlse).sum()).backward()
+    want = attention.flash_attention_bwd_plain(q, k, v, o2.detach(), l2.detach(), do, dlse=dlse)
+    for leaf, w in zip(leaves, want):
+        assert _agree(leaf.grad, w)
+
+
+@pytest.mark.cuda
+def test_cuda_joint_ring_attention_local_ring(cuda):
+    """The joint ring over `LocalRing(2)` on the card (both ranks on one
+    device): 5 online launches a rank, none of the static-max kernel, the
+    same bits on both ranks, and the resident online attention's result."""
+    from orv_tpu_torch.ops.ring_attention import joint_ring_attention
+    from orv_tpu_torch.parallel.sp import LocalRing
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(1, 3, 12 + 256, 64, device=cuda, generator=g).bfloat16()
+               for _ in range(3))
+    comm = LocalRing(2, timeout=120.0)
+    before = (attention.flash_attention_online_kernel.launches, attention.flash_attention.launches)
+    outs = comm.run(lambda: joint_ring_attention(q, k, v, 12, comm))
+    torch.cuda.synchronize()
+    assert (attention.flash_attention_online_kernel.launches - before[0],
+            attention.flash_attention.launches - before[1]) == (2 * 5, 0)
+    assert torch.equal(outs[0], outs[1])
+    ref, _ = attention.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.cuda
@@ -151,7 +216,7 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, shape, with_dlse):
     g = torch.Generator(device=cuda).manual_seed(5)
     q, k, v, do = (torch.randn(*shape, 64, device=cuda, generator=g).bfloat16()
                    for _ in range(4))
-    out, lse = attention.flash_attention(q, k, v)
+    out, lse = attention.flash_attention(q, k, v, static_max=24.0)
     dlse = torch.randn(*shape, device=cuda, generator=g) if with_dlse else None
     got = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
     want = attention.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse=dlse)
@@ -165,7 +230,7 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, shape, with_dlse):
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (attention.flash_attention.launches, attention.flash_attention_bwd_dq.launches,
               attention.flash_attention_bwd_dkv.launches)
-    o2, l2 = attention.flash_attention(*leaves)
+    o2, l2 = attention.flash_attention(*leaves, static_max=24.0)
     loss = (o2.float() * do.float()).sum() + ((l2 * dlse).sum() if with_dlse else 0.0)
     loss.backward()
     after = (attention.flash_attention.launches, attention.flash_attention_bwd_dq.launches,

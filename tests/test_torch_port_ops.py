@@ -18,7 +18,10 @@ import torch
 
 from orv_tpu.models.layers import gate_residual_add as jax_gate_residual_add
 from orv_tpu.ops.adaln import modulate_norm as jax_modulate_norm
+from orv_tpu.ops.attention import attention as jax_attention
 from orv_tpu.ops.attention import attention_with_lse
+from orv_tpu.ops.attention import flash_attention as jax_flash_attention
+from orv_tpu.ops.attention import mha_reference as jax_mha_reference
 from orv_tpu_torch.models.layers import gate_residual_add
 from orv_tpu_torch.ops import adaln, attention
 
@@ -50,6 +53,84 @@ def test_flash_attention_plain_matches_pallas_static_max(seq, dtype):
     assert out.dtype == qt.dtype and lse.shape == (1, 2, seq)
     _close(out, ref_out, DTYPES[dtype][2])
     _close(lse, ref_lse, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_default_matches_pallas_at_large_logits(dtype):
+    """The default forward (no static_max) is JAX's: the online softmax.
+    q and k scaled by 6 put the largest logit past 150, where exp(s - 24)
+    overflows f32, so a static-max default would return non-finite values."""
+    rng = np.random.default_rng(6)
+    shape = (1, 2, 200, 64)
+    q, k = (6.0 * rng.standard_normal(shape) for _ in range(2))
+    assert (np.einsum("bhqd,bhkd->bhqk", q, k) / 8.0).max() >= 150
+    (qj, qt), (kj, kt) = _pair(q, dtype), _pair(k, dtype)
+    vj, vt = _pair(rng.standard_normal(shape), dtype)
+    ref = jax_flash_attention(qj, kj, vj, block_q=128, block_k=128)
+    out, lse = attention.flash_attention(qt, kt, vt)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    _close(out, ref, DTYPES[dtype][2])
+    static, _ = attention.flash_attention(qt, kt, vt, static_max=24.0)
+    assert not torch.isfinite(static.float()).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sq,skv", [(128, 128), (200, 200), (300, 300), (77, 300), (300, 77)])
+def test_flash_attention_online_plain_matches_pallas(sq, skv, dtype):
+    """The online forward's plain version (the CPU path and the kernel's
+    oracle) against `attention_with_lse(impl="flash")` with its online
+    Pallas kernel: ragged S (200, 300 against 128-key blocks) and Sq != Skv,
+    as the ring calls it. Logits reach ~40, past the static bound."""
+    rng = np.random.default_rng(sq + 7 * skv)
+    qj, qt = _pair(3.0 * rng.standard_normal((1, 2, sq, 64)), dtype)
+    kj, kt = _pair(3.0 * rng.standard_normal((1, 2, skv, 64)), dtype)
+    vj, vt = _pair(rng.standard_normal((1, 2, skv, 64)), dtype)
+    ref_out, ref_lse = attention_with_lse(qj, kj, vj, impl="flash")
+    before = (attention.flash_attention.launches,
+              attention.flash_attention_online_kernel.launches)
+    out, lse = attention.flash_attention(qt, kt, vt)
+    assert before == (attention.flash_attention.launches,
+                      attention.flash_attention_online_kernel.launches)
+    assert out.shape == (1, 2, sq, 64) and out.dtype == qt.dtype and lse.shape == (1, 2, sq)
+    _close(out, ref_out, DTYPES[dtype][2])
+    _close(lse, ref_lse, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_attention_dispatch_matches_jax(dtype):
+    """`attention` and `attention_with_lse` with JAX's semantics: "auto" is
+    the reference on the CPU; "flash" the online flash forward unless a
+    static_max is given; "flash_q8" the int8 kernel with static_max 24 in
+    `attention` and the bf16 flash forward in `attention_with_lse` (no int8
+    lse exists); "xla" the reference with the exact lse."""
+    rng = np.random.default_rng(4)
+    shape = (1, 2, 200, 64)
+    qj, qt = _pair(rng.standard_normal(shape), dtype)
+    kj, kt = _pair(rng.standard_normal(shape), dtype)
+    vj, vt = _pair(rng.standard_normal(shape), dtype)
+    tol = DTYPES[dtype][2]
+    ref = jax_mha_reference(qj, kj, vj)
+    _close(attention.mha_reference(qt, kt, vt), ref, tol)
+    torch.testing.assert_close(attention.attention(qt, kt, vt),
+                               attention.mha_reference(qt, kt, vt), atol=0, rtol=0)
+    for impl in ("xla", "flash"):
+        _close(attention.attention(qt, kt, vt, impl=impl), jax_attention(qj, kj, vj, impl=impl),
+               tol)
+        out, lse = attention.attention_with_lse(qt, kt, vt, impl=impl)
+        ref_out, ref_lse = attention_with_lse(qj, kj, vj, impl=impl)
+        _close(out, ref_out, tol)
+        _close(lse, ref_lse, 1e-4)
+    flash = attention.flash_attention(qt, kt, vt, static_max=24.0)
+    torch.testing.assert_close(attention.attention(qt, kt, vt, impl="flash", static_max=24.0),
+                               flash[0], atol=0, rtol=0)
+    for got, want in zip(attention.attention_with_lse(qt, kt, vt, impl="flash_q8",
+                                                      static_max=24.0), flash):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(attention.attention(qt, kt, vt, impl="flash_q8"),
+                               attention.flash_attention_q8(qt, kt, vt, static_max=24.0),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="impl"):
+        attention.attention(qt, kt, vt, impl="pallas")
 
 
 def test_flash_attention_plain_matches_softmax_in_f32():

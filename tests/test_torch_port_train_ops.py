@@ -74,11 +74,41 @@ def test_flash_attention_grads_match_jax(S, prec, with_lse):
         return jnp.sum(out.astype(jnp.float32) * do)
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
-    out, lse = attention.flash_attention(tq, tk, tv)
+    out, lse = attention.flash_attention(tq, tk, tv, static_max=24.0)
     loss = (out.float() * torch.tensor(do)).sum()
     if with_lse:
         loss = loss + (lse * torch.tensor(dl)).sum()
     loss.backward()
+    for leaf, ref in zip((tq, tk, tv), want):
+        assert leaf.grad.dtype == leaf.dtype
+        _close(leaf.grad, ref, prec)
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("S", [200, 300])
+def test_flash_attention_online_grads_match_jax(S, prec):
+    """The online-softmax forward (`static_max=None`, the default) under the
+    same backward: loss on out and lse against `attention_with_lse(impl=
+    "flash")`, JAX's `_flash_lse` with its online Pallas kernel. In f32, q
+    and k are scaled so that logits pass the static bound of 24. In bf16
+    they stay at unit scale: sharper softmaxes give gradient elements many
+    times the RMS, whose one-ulp flips exceed the bf16 bound."""
+    rng = np.random.default_rng(S + 3)
+    qk_scale = 3.0 if prec == "f32" else 1.0
+    q, k = (qk_scale * rng.standard_normal((1, 2, S, 64)).astype(np.float32) for _ in range(2))
+    v, do = (rng.standard_normal((1, 2, S, 64)).astype(np.float32) for _ in range(2))
+    dl = rng.standard_normal((1, 2, S)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, prec) for a in (q, k, v))
+
+    def jloss(q, k, v):
+        out, lse = attention_with_lse(q, k, v, impl="flash")
+        return jnp.sum(out.astype(jnp.float32) * do) + jnp.sum(lse * dl)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    out, lse = attention.flash_attention(tq, tk, tv)
+    if prec == "f32":
+        assert lse.max() > 24.0
+    ((out.float() * torch.tensor(do)).sum() + (lse * torch.tensor(dl)).sum()).backward()
     for leaf, ref in zip((tq, tk, tv), want):
         assert leaf.grad.dtype == leaf.dtype
         _close(leaf.grad, ref, prec)
