@@ -6,7 +6,9 @@ Run from the repository root on the machine with the card:
 
 Phases, in order; any failure raises, exits non-zero and prints no result:
   1. build the CUDA kernels from orv_tpu_torch/ops/csrc (nvcc, sm_90a, one
-     process per source, all at once) and print their registers and spills;
+     process per source, all at once) and print their registers and spills,
+     the two bf16 forwards' (flash_fwd_sm90.cuh) again with any ptxas notice
+     about their wgmma pipeline;
   2. hold each of the ten kernels against its plain PyTorch version on the
      card, at the flagship or training shapes and at small ragged ones, and
      time kernel, plain version and the nearest single PyTorch call; the
@@ -16,7 +18,10 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      static-max kernel, and at the flagship shape with q and k scaled until
      logits pass 150, where the static-max kernel must come out non-finite
      or wrong; one backward runs through its lse; time the W8A8 path's int8
-     prep outside the kernels (prepare_k_q8, quantize_tokens);
+     prep outside the kernels (prepare_k_q8, quantize_tokens); print each bf16
+     forward's achieved TFLOP/s and its time over SDPA's at the flagship, the
+     training shape [1,30,3226,64] (static max) and the ring's 226 x 1950
+     and 1950 x 226 calls (online);
   3. a tiny ControlDiT, bf16 and W8A8 (quant=True, attn_impl="flash_q8"), and
      a small VAE decode on the card against the same weights on the CPU
      (plain versions, f32); one train step of a tiny recon_action ControlDiT
@@ -66,6 +71,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -249,6 +255,47 @@ def check_attention_online(g, heads: int, sq: int, skv: int, logit_scale: float,
                 bound_ms=bms, bound_by=by,
                 library_ms=cuda_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10))
+
+
+def forward_rate(name: str, heads: int, sq: int, skv: int, ms: float, library_ms: float) -> None:
+    """Print a bf16 forward's achieved TFLOP/s (4*Sq*Skv*64*H FLOP) and its
+    time over SDPA's on the same inputs."""
+    tflops = 4.0 * sq * skv * 64 * heads / (ms * 1e-3) / 1e12
+    print(f"rate {name} [1,{heads},{sq},64] x {skv} keys: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
+          f"({tflops * 1e12 / PEAK_BF16_FLOPS:.1%} of the bf16 peak); SDPA {library_ms:.4f} ms, "
+          f"kernel / SDPA {ms / library_ms:.2f}", flush=True)
+
+
+def time_forward(g, heads: int, sq: int, skv: int, static_max):
+    """(kernel ms, SDPA ms) of one bf16 forward over [1, heads, sq, 64]
+    queries and skv keys: the static-max kernel, or the online one for
+    static_max=None."""
+    q = torch.randn(1, heads, sq, 64, device="cuda", generator=g).bfloat16()
+    k, v = (torch.randn(1, heads, skv, 64, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    if static_max is None:
+        fn = lambda: attention.flash_attention_online_kernel(q, k, v, 64 ** -0.5)
+    else:
+        fn = lambda: attention.flash_attention(q, k, v, static_max=static_max)
+    return cuda_ms(fn, 10), cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10)
+
+
+def forward_build_report() -> None:
+    """The two bf16 forwards' ptxas report: both entry files build
+    flash_fwd_sm90.cuh's kernel. Registers and spills, and any notice that
+    ptxas serialized or fenced their wgmma pipeline (C75xx)."""
+    if not _build.build_log:
+        print("flash_fwd_sm90.cuh: no build log (the library was built before)", flush=True)
+        return
+    source = None
+    for line in _build.build_log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif (source in ("flash_attn_static_max.cu", "flash_attn_online.cu")
+              and re.search(r"registers|spill|C75\d\d", line)):
+            print(f"flash_fwd_sm90.cuh in {source}: {line.split(' in the function')[0].strip()}",
+                  flush=True)
 
 
 def check_attention_online_bwd(g, shape) -> None:
@@ -869,6 +916,7 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
+    forward_build_report()
 
     # 2. every kernel against its plain version
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -908,6 +956,17 @@ def main() -> int:
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']} ms",
               flush=True)
+    by_name = {r["name"]: r for r in records}
+    for name, heads, sq, skv, static_max in (("flash_attn_static_max", 30, 8026, 8026, 24.0),
+                                             ("flash_attn_online", 30, 8026, 8026, None),
+                                             ("flash_attn_static_max", 30, 3226, 3226, 24.0),
+                                             ("flash_attn_online", 30, 226, 1950, None),
+                                             ("flash_attn_online", 30, 1950, 226, None)):
+        if sq == 8026:  # the flagship: the records' times (the online one at logits to 182)
+            ms, library_ms = by_name[name]["ms"], by_name[name]["library_ms"]
+        else:
+            ms, library_ms = time_forward(g, heads, sq, skv, static_max)
+        forward_rate(name, heads, sq, skv, ms, library_ms)
     torch.cuda.empty_cache()
 
     # 3. the small models against the CPU, then the flagship DiT forward

@@ -22,7 +22,8 @@
 // Bound on the H100: operations. At the training shape ([1,30,3226,64])
 // the dq kernel does 3 products of 2*S^2*64 per head (s, dp, dq) and the
 // dk/dv kernel 4 (s, dp, dv, dk), 120 and 160 GFLOP against ~60 MB of
-// inputs. Design, as the forward (flash_attn_static_max.cu): nvcuda::wmma
+// inputs. Design: the wmma design the bf16 forwards had before they moved
+// to TMA + wgmma (flash_fwd_sm90.cuh): nvcuda::wmma
 // bf16 16x16x16 fragments with f32 accumulators, four warps a block, 16-byte
 // synchronous tile loads, score tiles staged through shared memory for the
 // elementwise pass. No cross-block reduction is needed: a dq block owns 64

@@ -18,8 +18,9 @@
 //
 // Bound on the H100: operations. At the flagship shape ([1,30,8026,64]) QK^T
 // is 2*S^2*D*H = 2.47e11 int8 ops and PV as many bf16 FLOP, against ~108 MB
-// of q/k8/v/o. Design: flash_attn_static_max.cu with the score product
-// moved to int8. One block of four warps per (b*h, 64-query tile). The block
+// of q/k8/v/o. Design: the wmma design the bf16 forwards had before they
+// moved to TMA + wgmma (flash_fwd_sm90.cuh), with the score product in
+// int8. One block of four warps per (b*h, 64-query tile). The block
 // quantizes its q tile once into shared memory (two threads a row, a
 // shuffle for the row max) and keeps each warp's 16 rows as int8 wmma
 // fragments in registers. It then walks 64-key tiles: int8 K and bf16 V

@@ -8,7 +8,8 @@ jax nor orv_tpu, so they run where the port runs; from the repository root:
 (`--noconftest`: tests/conftest.py configures JAX). Tolerances: attention
 out atol 1e-2 (bf16 outputs below 1), lse atol 1e-4 (static max; 1e-3 for
 the online kernel, whose running max and the plain version's row max
-round p differently), the joint ring against resident attention atol 2e-2
+round p differently; with heads whose k and v are 10^h apart, out in units
+of each head's v scale), the joint ring against resident attention atol 2e-2
 (two more bf16 roundings of the merged partials); the int8-QK^T attention,
 whose outputs shrink as keys grow, against its output's own scale: max error
 <= 0.1 RMS(ref) and RMS error <= 1e-2 RMS(ref) (the bf16 rounding of the
@@ -94,6 +95,57 @@ def test_cuda_flash_attention_online_matches_plain(cuda, sq, skv, logit_scale):
     want = attention.flash_attention_bwd_plain(q, k, v, o2.detach(), l2.detach(), do, dlse=dlse)
     for leaf, w in zip(leaves, want):
         assert _agree(leaf.grad, w)
+
+
+_TILE_EDGES = (1, 63, 64, 65, 127, 128, 129, 255, 257)  # around the 64-row and 128-row tiles
+
+
+def _check_forwards(q, k, v, v_scale=1.0):
+    """Both bf16 forwards (static max 24, online) against their plain
+    versions, one launch each: out / v_scale to atol 1e-2 (the output's
+    errors scale with v), lse to 1e-4 (static max) and 1e-3 + 1e-6|lse|
+    (online)."""
+    for static_max, counter, lse_tol in ((24.0, attention.flash_attention, (1e-4, 0.0)),
+                                         (None, attention.flash_attention_online_kernel,
+                                          (1e-3, 1e-6))):
+        before = counter.launches
+        out, lse = attention.flash_attention(q, k, v, static_max=static_max)
+        assert counter.launches == before + 1
+        ref, ref_lse = attention.flash_attention_plain(q, k, v, static_max=static_max)
+        assert out.shape == q.shape and lse.shape == q.shape[:3]
+        torch.testing.assert_close(out.float() / v_scale, ref.float() / v_scale, atol=1e-2,
+                                   rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=lse_tol[0], rtol=lse_tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", _TILE_EDGES)
+@pytest.mark.parametrize("sq", _TILE_EDGES)
+def test_cuda_flash_forwards_at_tile_edges(cuda, sq, skv):
+    """Both bf16 forwards at every pair of lengths one short of, at and one
+    past the kernels' tiles (64 query rows a warpgroup, 128 a block, 128
+    keys a tile), Sq == Skv and Sq != Skv."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn(1, 2, sq, 64, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(1, 2, skv, 64, device=cuda, generator=g).bfloat16() for _ in range(2))
+    _check_forwards(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,sq,skv", [(1, 3, 129, 65), (3, 1, 65, 200), (1, 4, 257, 255)])
+def test_cuda_flash_forwards_keep_heads_apart(cuda, B, H, sq, skv):
+    """Head h's k and v are scaled by 10^h and its q by 10^-h, so every
+    head's logits keep one distribution while its keys and values differ
+    from the next head's tenfold. A ragged tile that read the next head's
+    rows as keys, a missing key mask, or a store past Sq into the next
+    head's rows puts one head's values into another's output. Each head's
+    output is compared in units of its v's scale."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    tens = 10.0 ** torch.arange(B * H, device=cuda, dtype=torch.float32).reshape(B, H, 1, 1)
+    rand = lambda s: torch.randn(B, H, s, 64, device=cuda, generator=g)
+    q = (rand(sq) / tens).bfloat16()
+    k, v = ((rand(skv) * tens).bfloat16() for _ in range(2))
+    _check_forwards(q, k, v, v_scale=tens)
 
 
 @pytest.mark.cuda
