@@ -7,8 +7,9 @@ Run from the repository root on the machine with the card:
 Phases, in order; any failure raises, exits non-zero and prints no result:
   1. build the CUDA kernels from orv_tpu_torch/ops/csrc (nvcc, sm_90a, one
      process per source, all at once) and print their registers and spills,
-     the two bf16 forwards' (flash_fwd_sm90.cuh) again with any ptxas notice
-     about their wgmma pipeline;
+     the three forwards' (the bf16 static-max and online and the int8 modes
+     of flash_fwd_sm90.cuh) again with any ptxas notice about their wgmma
+     pipeline; a spill or such a notice there fails the run;
   2. hold each of the ten kernels against its plain PyTorch version on the
      card, at the flagship or training shapes and at small ragged ones, and
      time kernel, plain version and the nearest single PyTorch call; the
@@ -21,7 +22,8 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      prep outside the kernels (prepare_k_q8, quantize_tokens); print each bf16
      forward's achieved TFLOP/s and its time over SDPA's at the flagship, the
      training shape [1,30,3226,64] (static max) and the ring's 226 x 1950
-     and 1950 x 226 calls (online);
+     and 1950 x 226 calls (online), and the int8 forward's TOP/s, share of
+     its bound and time over SDPA's at the flagship;
   3. a tiny ControlDiT, bf16 and W8A8 (quant=True, attn_impl="flash_q8"), and
      a small VAE decode on the card against the same weights on the CPU
      (plain versions, f32); one train step of a tiny recon_action ControlDiT
@@ -266,6 +268,17 @@ def forward_rate(name: str, heads: int, sq: int, skv: int, ms: float, library_ms
           f"kernel / SDPA {ms / library_ms:.2f}", flush=True)
 
 
+def q8_rate(rec, heads: int, s: int) -> None:
+    """Print the int8 forward's achieved rate: 2*S^2*64*H int8 operations
+    (Q.K^T) plus as many bf16 FLOP (P.V) over its time, its share of the
+    bound, and its time over SDPA's on bf16 q, k and v."""
+    tops = 4.0 * s * s * 64 * heads / (rec["ms"] * 1e-3) / 1e12
+    print(f"rate flash_attn_q8 [1,{heads},{s},64]: {rec['ms']:.4f} ms, {tops:.1f} TOP/s (int8 "
+          f"Q.K^T + bf16 P.V), {rec['bound_ms'] / rec['ms']:.1%} of the bound "
+          f"({rec['bound_ms']:.4f} ms, {rec['bound_by']}); SDPA {rec['library_ms']:.4f} ms, "
+          f"kernel / SDPA {rec['ms'] / rec['library_ms']:.2f}", flush=True)
+
+
 def time_forward(g, heads: int, sq: int, skv: int, static_max):
     """(kernel ms, SDPA ms) of one bf16 forward over [1, heads, sq, 64]
     queries and skv keys: the static-max kernel, or the online one for
@@ -281,21 +294,28 @@ def time_forward(g, heads: int, sq: int, skv: int, static_max):
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10)
 
 
+FORWARD_SOURCES = ("flash_attn_static_max.cu", "flash_attn_online.cu", "flash_attn_q8.cu")
+
+
 def forward_build_report() -> None:
-    """The two bf16 forwards' ptxas report: both entry files build
+    """The three forwards' ptxas report: each entry file builds one mode of
     flash_fwd_sm90.cuh's kernel. Registers and spills, and any notice that
-    ptxas serialized or fenced their wgmma pipeline (C75xx)."""
+    ptxas serialized or fenced their wgmma pipeline (C75xx); either of the
+    last two fails the run."""
     if not _build.build_log:
         print("flash_fwd_sm90.cuh: no build log (the library was built before)", flush=True)
         return
-    source = None
+    source, faults = None, []
     for line in _build.build_log.splitlines():
         if line.startswith("== "):
             source = line[3:].strip()
-        elif (source in ("flash_attn_static_max.cu", "flash_attn_online.cu")
-              and re.search(r"registers|spill|C75\d\d", line)):
+        elif source in FORWARD_SOURCES and re.search(r"registers|spill|C75\d\d", line):
             print(f"flash_fwd_sm90.cuh in {source}: {line.split(' in the function')[0].strip()}",
                   flush=True)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if re.search(r"C75\d\d", line) or (spills and any(map(int, spills.groups()))):
+                faults.append(f"{source}: {line.strip()}")
+    check(not faults, f"a forward's wgmma pipeline was serialized or spilled: {faults}")
 
 
 def check_attention_online_bwd(g, shape) -> None:
@@ -967,6 +987,7 @@ def main() -> int:
         else:
             ms, library_ms = time_forward(g, heads, sq, skv, static_max)
         forward_rate(name, heads, sq, skv, ms, library_ms)
+    q8_rate(q8_record, 30, 8026)
     torch.cuda.empty_cache()
 
     # 3. the small models against the CPU, then the flagship DiT forward

@@ -25,7 +25,8 @@ Counterpart of `orv_tpu/ops/attention.py`. Layout at the public functions is
   host prep in `_fwd_q8`, :237): `prepare_k_q8` mean-smooths k and
   quantizes it per (batch*head, 1024-key block) in plain PyTorch, as XLA
   does it outside the TPU kernel; `flash_attention_q8` then launches
-  `csrc/flash_attn_q8.cu` on a CUDA tensor or raises, and runs
+  `csrc/flash_attn_q8.cu` (the third mode of the bf16 forwards' TMA +
+  wgmma kernel, with an s8 wgmma Q.K^T) on a CUDA tensor or raises, and runs
   `flash_attention_q8_plain` on a CPU tensor. Returns out only: the
   inference-only kernel has no lse and no backward: it raises under grad
   mode when an input requires grad.
@@ -422,12 +423,36 @@ def flash_attention_q8(q, k, v, scale: Optional[float] = None,
 flash_attention_q8.launches = 0
 
 
+def _check_k_prep(q, k_prep, skv: int) -> None:
+    """Raise unless `k_prep` is what `prepare_k_q8` gives for q's heads and a
+    k of `skv` keys. The kernel takes one k scale per 128-key tile, so
+    block_k must be a multiple of 128."""
+    k8, sk_r, block_k = k_prep
+    if block_k <= 0 or block_k % 128:
+        raise ValueError(f"flash_attention_q8_kernel: block_k must be a positive multiple of "
+                         f"128 (a 128-key tile takes one k scale); got {block_k}")
+    B, H = q.shape[:2]
+    nk = -(-skv // block_k)
+    if (k8.dtype != torch.int8 or tuple(k8.shape) != (B, H, nk * block_k, 64)
+            or sk_r.dtype != torch.float32 or tuple(sk_r.shape) != (B * H, nk)
+            or not (k8.is_contiguous() and sk_r.is_contiguous())
+            or k8.device != q.device or sk_r.device != q.device):
+        raise ValueError(f"flash_attention_q8_kernel: k_prep must be prepare_k_q8 of a k of "
+                         f"{skv} keys: k8 int8 {(B, H, nk * block_k, 64)} and sk_r f32 "
+                         f"{(B * H, nk)}, contiguous on {q.device}; got k8 {k8.dtype} "
+                         f"{tuple(k8.shape)}, sk_r {sk_r.dtype} {tuple(sk_r.shape)}")
+
+
 def flash_attention_q8_kernel(q, k_prep, v, skv: int, scale: float,
                               static_max: float = QK_NORM_LOGIT_BOUND) -> torch.Tensor:
     """The launch of `flash_attention_q8` on checked CUDA q, v and
     `k_prep = prepare_k_q8(k)` for a k of `skv` keys (counted in
     `flash_attention_q8.launches`). Separate so the kernel can be timed
-    without the host prep."""
+    without the host prep. Raises before any launch on a `k_prep` the
+    kernel does not take (`_check_k_prep`) or on a tensor not on CUDA."""
+    _check_k_prep(q, k_prep, skv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_q8_kernel launches a CUDA kernel; q is on {q.device}")
     k8, sk_r, block_k = k_prep
     B, H, S, _ = q.shape
     out = torch.empty_like(q)

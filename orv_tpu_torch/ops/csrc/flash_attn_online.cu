@@ -17,7 +17,7 @@
 //
 // Bound on the H100: operations (4*Sq*Skv*D*H FLOP; 4.95e11 at
 // [1,30,8026,64]). The kernel is flash_fwd_sm90.cuh's TMA + wgmma design
-// with kStaticMax = false: the running max is a per-thread max over the
+// in Mode::kOnline: the running max is a per-thread max over the
 // accumulator's columns and two shuffles, and O is rescaled by alpha in
 // the registers that hold it.
 
@@ -28,9 +28,8 @@ namespace {
 __global__ void __launch_bounds__(flash_sm90::kThreads, 1)
 flash_fwd_online_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* o, float* lse,
-                        int sq, int skv, float scale, float unused_static_max) {
-  flash_sm90::flash_fwd<false>(&tq, &tk, &tv, o, lse, sq, skv, scale, unused_static_max);
+                        const __grid_constant__ CUtensorMap tv, const flash_sm90::Params prm) {
+  flash_sm90::flash_fwd<flash_sm90::Mode::kOnline>(&tq, &tk, &tv, prm);
 }
 
 }  // namespace
@@ -41,6 +40,8 @@ flash_fwd_online_kernel(const __grid_constant__ CUtensorMap tq,
 extern "C" int orv_flash_attn_online(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int bh, int sq, int skv, float scale,
                                      void* stream) {
-  return flash_sm90::launch(flash_fwd_online_kernel, q, k, v, o, lse, bh, sq, skv, scale, 0.0f,
-                            stream);
+  const flash_sm90::Params prm{(__nv_bfloat16*)o, (float*)lse, (const __nv_bfloat16*)q,
+                               nullptr, sq, skv, 0, 0, scale, 0.0f};
+  return flash_sm90::launch<flash_sm90::Mode::kOnline>(flash_fwd_online_kernel, k, skv, v, bh,
+                                                       prm, stream);
 }

@@ -13,7 +13,7 @@
 //
 // Bound on the H100: operations (4*S^2*D*H = 4.95e11 FLOP at the flagship
 // [1,30,8026,64]). The kernel is flash_fwd_sm90.cuh's TMA + wgmma design
-// with kStaticMax = true: no row max, no rescale.
+// in Mode::kStaticMax: no row max, no rescale.
 
 #include "flash_fwd_sm90.cuh"
 
@@ -22,9 +22,8 @@ namespace {
 __global__ void __launch_bounds__(flash_sm90::kThreads, 1)
 flash_fwd_static_max_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* o, float* lse,
-                            int sq, int skv, float scale, float static_max) {
-  flash_sm90::flash_fwd<true>(&tq, &tk, &tv, o, lse, sq, skv, scale, static_max);
+                            const __grid_constant__ CUtensorMap tv, const flash_sm90::Params prm) {
+  flash_sm90::flash_fwd<flash_sm90::Mode::kStaticMax>(&tq, &tk, &tv, prm);
 }
 
 }  // namespace
@@ -43,6 +42,8 @@ extern "C" const char* orv_cuda_error_string(int err) {
 extern "C" int orv_flash_attn_static_max(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int bh, int sq, int skv, float scale,
                                          float static_max, void* stream) {
-  return flash_sm90::launch(flash_fwd_static_max_kernel, q, k, v, o, lse, bh, sq, skv, scale,
-                            static_max, stream);
+  const flash_sm90::Params prm{(__nv_bfloat16*)o, (float*)lse, (const __nv_bfloat16*)q,
+                               nullptr, sq, skv, 0, 0, scale, static_max};
+  return flash_sm90::launch<flash_sm90::Mode::kStaticMax>(flash_fwd_static_max_kernel, k, skv, v,
+                                                          bh, prm, stream);
 }

@@ -13,7 +13,8 @@ of each head's v scale), the joint ring against resident attention atol 2e-2
 (two more bf16 roundings of the merged partials); the int8-QK^T attention,
 whose outputs shrink as keys grow, against its output's own scale: max error
 <= 0.1 RMS(ref) and RMS error <= 1e-2 RMS(ref) (the bf16 rounding of the
-output alone gives about 1.7e-3; a wrong k scale about 0.1); adaLN kernels one bf16
+output alone gives about 1.7e-3; a wrong k scale about 0.1; heads 10^h
+apart in units of each head's v scale); adaLN kernels one bf16
 rounding (atol 1e-2, rtol 1e-2; 2e-2 for the normalized outputs). The
 int8-emitting adaLN: |xq - plain| <= 1 and != 0 in at most 1e-3 of the
 entries (the f32 value is summed in another order and may round the other
@@ -218,6 +219,70 @@ def test_cuda_flash_attention_q8_matches_plain(cuda, shape):
         assert not _q8_attention_agrees(bad, ref)
     with pytest.raises(ValueError):
         attention.flash_attention_q8(q.float(), k.float(), v.float())
+
+
+def _check_q8(q, k, v, v_scale=1.0):
+    """The int8-QK^T kernel against its plain version, one launch, out and
+    ref in units of v_scale (`_q8_attention_agrees`). Returns ref."""
+    before = attention.flash_attention_q8.launches
+    out = attention.flash_attention_q8(q, k, v)
+    assert attention.flash_attention_q8.launches == before + 1
+    ref = attention.flash_attention_q8_plain(q, k, v)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert _q8_attention_agrees(out.float() / v_scale, ref.float() / v_scale)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", _TILE_EDGES)
+@pytest.mark.parametrize("sq", _TILE_EDGES)
+def test_cuda_flash_attention_q8_at_tile_edges(cuda, sq, skv):
+    """The int8 kernel at every pair of lengths one short of, at and one past
+    its tiles (64 query rows a warpgroup, 128 a block, 128 keys a tile)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(1, 2, sq, 64, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(1, 2, skv, 64, device=cuda, generator=g) for _ in range(2))
+    _check_q8(q, (k + 0.5).bfloat16(), v.bfloat16())  # a token mean for the smoothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", [1023, 1024, 1025, 2049])
+def test_cuda_flash_attention_q8_across_scale_blocks(cuda, skv):
+    """Keys at and across the 1024-key scale-block edges. The keys past the
+    first block are 4x larger, so their blocks' k scales differ from block
+    0's and some queries attend mostly to them: the check must reject the
+    kernel run with block 0's k scale for every block. With one block (1023
+    and 1024 keys) that run is no fault, and the planted one is a halved k
+    scale."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn(1, 2, 300, 64, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(1, 2, skv, 64, device=cuda, generator=g) for _ in range(2))
+    k = k + 0.5
+    k[:, :, 1024:] *= 4
+    k, v = k.bfloat16(), v.bfloat16()
+    ref = _check_q8(q, k, v)
+    k8, sk_r, block_k = attention.prepare_k_q8(k)
+    assert sk_r.shape[1] == -(-skv // 1024)
+    bad_sk = sk_r[:, :1].expand_as(sk_r).contiguous() if sk_r.shape[1] > 1 else sk_r / 2
+    bad = attention.flash_attention_q8_kernel(q, (k8, bad_sk, block_k), v, skv, 0.125)
+    assert not _q8_attention_agrees(bad, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,sq,skv", [(1, 3, 129, 65), (3, 1, 65, 200), (1, 4, 257, 255)])
+def test_cuda_flash_attention_q8_keeps_heads_apart(cuda, B, H, sq, skv):
+    """As `test_cuda_flash_forwards_keep_heads_apart`, for the int8 kernel:
+    head h's k and v are scaled by 10^h and its q by 10^-h (the per-token and
+    per-block quantization scales cancel them), so a ragged tile or a store
+    that crosses into the next head's rows shows tenfold in that head's
+    output, compared in units of its v scale."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    tens = 10.0 ** torch.arange(B * H, device=cuda, dtype=torch.float32).reshape(B, H, 1, 1)
+    rand = lambda s: torch.randn(B, H, s, 64, device=cuda, generator=g)
+    q = (rand(sq) / tens).bfloat16()
+    k = ((rand(skv) + 0.5) * tens).bfloat16()
+    v = (rand(skv) * tens).bfloat16()
+    _check_q8(q, k, v, v_scale=tens)
 
 
 @pytest.mark.cuda
