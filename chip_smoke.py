@@ -7,13 +7,16 @@ Run from the repository root on the machine with the card:
 Phases, in order; any failure raises, exits non-zero and prints no result:
   1. build the CUDA kernels from orv_tpu_torch/ops/csrc (nvcc, sm_90a, one
      process per source, all at once) and print their registers and spills,
-     the three forwards' (the bf16 static-max and online and the int8 modes
-     of flash_fwd_sm90.cuh) again with any ptxas notice about their wgmma
-     pipeline; a spill or such a notice there fails the run;
+     those of the five TMA + wgmma kernels (the bf16 static-max and online
+     and the int8 modes of flash_fwd_sm90.cuh, the backward's dq and dk/dv)
+     again, by kernel, with any ptxas notice about their wgmma pipeline; a
+     spill or such a notice there fails the run;
   2. hold each of the ten kernels against its plain PyTorch version on the
      card, at the flagship or training shapes and at small ragged ones, and
      time kernel, plain version and the nearest single PyTorch call; the
-     flash backward check must also reject a planted fault (dlse ignored);
+     flash backward check must also reject a planted fault (dlse ignored),
+     give the same bits on a second run, and agree at the ring's Sq != Skv
+     shapes (226 x 1950, 1950 x 226, with dlse);
      the online-softmax forward runs at (1,2,300), at the ring's Sq != Skv
      shapes (226 x 1950, 1950 x 226), where it must agree with the
      static-max kernel, and at the flagship shape with q and k scaled until
@@ -22,8 +25,10 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      prep outside the kernels (prepare_k_q8, quantize_tokens); print each bf16
      forward's achieved TFLOP/s and its time over SDPA's at the flagship, the
      training shape [1,30,3226,64] (static max) and the ring's 226 x 1950
-     and 1950 x 226 calls (online), and the int8 forward's TOP/s, share of
-     its bound and time over SDPA's at the flagship;
+     and 1950 x 226 calls (online), the int8 forward's TOP/s, share of
+     its bound and time over SDPA's at the flagship, and the backward
+     kernels' TFLOP/s and shares of their bounds at the training shape
+     with their sum over SDPA's flash backward;
   3. a tiny ControlDiT, bf16 and W8A8 (quant=True, attn_impl="flash_q8"), and
      a small VAE decode on the card against the same weights on the CPU
      (plain versions, f32); one train step of a tiny recon_action ControlDiT
@@ -294,28 +299,38 @@ def time_forward(g, heads: int, sq: int, skv: int, static_max):
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10)
 
 
-FORWARD_SOURCES = ("flash_attn_static_max.cu", "flash_attn_online.cu", "flash_attn_q8.cu")
+WGMMA_SOURCES = ("flash_attn_static_max.cu", "flash_attn_online.cu", "flash_attn_q8.cu",
+                 "flash_attn_bwd.cu")
+KERNEL_NAME = re.compile(r"(flash_(?:fwd|bwd)_\w*?_kernel)E")
 
 
-def forward_build_report() -> None:
-    """The three forwards' ptxas report: each entry file builds one mode of
-    flash_fwd_sm90.cuh's kernel. Registers and spills, and any notice that
-    ptxas serialized or fenced their wgmma pipeline (C75xx); either of the
-    last two fails the run."""
+def wgmma_build_report() -> None:
+    """The ptxas report of the TMA + wgmma kernels: the three forwards (each
+    entry file builds one mode of flash_fwd_sm90.cuh's kernel) and the
+    backward's dq and dk/dv kernels. Registers and spills of each kernel,
+    and any notice that ptxas serialized or fenced a wgmma pipeline
+    (C75xx); either of the last two fails the run."""
     if not _build.build_log:
-        print("flash_fwd_sm90.cuh: no build log (the library was built before)", flush=True)
+        print("wgmma kernels: no build log (the library was built before)", flush=True)
         return
-    source, faults = None, []
+    source, kernel, faults = None, "", []
     for line in _build.build_log.splitlines():
         if line.startswith("== "):
-            source = line[3:].strip()
-        elif source in FORWARD_SOURCES and re.search(r"registers|spill|C75\d\d", line):
-            print(f"flash_fwd_sm90.cuh in {source}: {line.split(' in the function')[0].strip()}",
-                  flush=True)
+            source, kernel = line[3:].strip(), ""
+        elif source not in WGMMA_SOURCES:
+            continue
+        elif "entry function" in line:
+            name = KERNEL_NAME.search(line)
+            kernel = name.group(1) if name else "?"
+        elif re.search(r"registers|spill|C75\d\d", line):
+            name = KERNEL_NAME.search(line)  # a notice names its function
+            what = f"{source} {name.group(1) if name else kernel}"
+            head = re.split(r" (?:in|for) the function", line)[0].strip()
+            print(f"ptxas {what}: {head}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if re.search(r"C75\d\d", line) or (spills and any(map(int, spills.groups()))):
-                faults.append(f"{source}: {line.strip()}")
-    check(not faults, f"a forward's wgmma pipeline was serialized or spilled: {faults}")
+                faults.append(f"{what}: {line.strip()}")
+    check(not faults, f"a wgmma pipeline was serialized or spilled: {faults}")
 
 
 def check_attention_online_bwd(g, shape) -> None:
@@ -478,26 +493,34 @@ def rms_agree(got, want, max_rel: float = 0.1, rms_rel: float = 1e-2) -> bool:
     return err <= max_rel * rms and rel <= rms_rel
 
 
-def check_attention_bwd(g, shape, with_dlse: bool, timed: bool):
+def check_attention_bwd(g, shape, with_dlse: bool, timed: bool, skv=None):
     """The flash backward kernels (dq, dk/dv) against their plain version,
-    each output against its own RMS (`rms_agree`). With dlse, the same run
-    with dlse ignored (a planted fault) must fail that check for dq and dk.
-    Timed: records for both kernels; the plain time is the whole plain
-    backward, the library time SDPA's flash backward (dq, dk, dv)."""
-    q, k, v, do = (torch.randn(*shape, 64, device="cuda", generator=g).bfloat16()
-                   for _ in range(4))
+    each output against its own RMS (`rms_agree`), over q [B, H, Sq, 64]
+    (shape = (B, H, Sq)) and skv keys (Sq if not given); a second run must
+    give the same bits (no atomics). With dlse, the same run with dlse
+    ignored (a planted fault) must fail that check for dq and dk. Timed:
+    records for both kernels; the plain time is the whole plain backward,
+    the library time SDPA's flash backward (dq, dk, dv)."""
+    B, H, sq = shape
+    skv = sq if skv is None else skv
+    q, do = (torch.randn(B, H, sq, 64, device="cuda", generator=g).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, H, skv, 64, device="cuda", generator=g).bfloat16() for _ in range(2))
     out, lse = attention.flash_attention(q, k, v, static_max=24.0)
     dlse = torch.randn(*shape, device="cuda", generator=g) if with_dlse else None
     got = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
     want = attention.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse=dlse)
+    again = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    what = f"{list(q.shape)} x kv {skv}{' with dlse' if with_dlse else ''}"
     errs = {}
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         err, rel, rms = rms_errors(a, b)
         errs[name] = err
-        print(f"kernel flash_attn_bwd {name} {list(q.shape)}{' with dlse' if with_dlse else ''}: "
-              f"max_abs_err {err:.3g} (tol 0.1*RMS(ref) = {0.1 * rms:.3g}), rel RMS err "
-              f"{rel:.3g} (tol 1e-2)", flush=True)
-        check(rms_agree(a, b), f"flash backward {name} disagrees at {shape}")
+        print(f"kernel flash_attn_bwd {name} {what}: max_abs_err {err:.3g} (tol 0.1*RMS(ref) = "
+              f"{0.1 * rms:.3g}), rel RMS err {rel:.3g} (tol 1e-2)", flush=True)
+        check(rms_agree(a, b), f"flash backward {name} disagrees at {what}")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"  second run bitwise equal: {same}", flush=True)
+    check(same, f"two runs of the flash backward differ at {what}")
     if with_dlse:
         bad = attention.flash_attention_bwd(q, k, v, out, lse, do)
         rel = [rms_errors(a, b)[1] for a, b in zip(bad, want)]
@@ -505,11 +528,11 @@ def check_attention_bwd(g, shape, with_dlse: bool, timed: bool):
         print(f"  planted fault (dlse ignored): rel RMS err dq/dk/dv {rel[0]:.3g} / {rel[1]:.3g} "
               f"/ {rel[2]:.3g}, rejected {rejected}", flush=True)
         check(rejected[0] and rejected[1], f"the flash backward check passes a planted fault "
-                                           f"at {shape}")
+                                           f"at {what}")
     if not timed:
         return []
-    BH, S = shape[0] * shape[1], shape[2]
-    scale, tensor, lse_bytes = 64 ** -0.5, BH * S * 64 * 2, BH * S * 4
+    BH, S = B * H, sq
+    scale, tensor, row_bytes = 64 ** -0.5, BH * S * 64 * 2, BH * S * 4
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -517,17 +540,38 @@ def check_attention_bwd(g, shape, with_dlse: bool, timed: bool):
         o_lib = torch.nn.functional.scaled_dot_product_attention(*leaves)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True), 10)
     plain_ms = cuda_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, out, lse, do), 3)
+    _, delta = attention.flash_attention_bwd_dq(q, k, v, out, lse, do, scale)
     recs = []
-    for name, fn, n_tensors, n_products, replaces, err in (
-            ("flash_attn_bwd_dq", attention.flash_attention_bwd_dq, 6, 3, ":389", errs["dq"]),
-            ("flash_attn_bwd_dkv", attention.flash_attention_bwd_dkv, 7, 4, ":432",
+    # dq: reads q, k, v, o, dO and lse, writes dq and delta; dk/dv: reads q,
+    # k, v, dO, lse and delta, writes dk and dv
+    for name, fn, n_products, replaces, err in (
+            ("flash_attn_bwd_dq",
+             lambda: attention.flash_attention_bwd_dq(q, k, v, out, lse, do, scale), 3, ":389",
+             errs["dq"]),
+            ("flash_attn_bwd_dkv",
+             lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), 4, ":432",
              max(errs["dk"], errs["dv"]))):
-        bms, by = bound_ms(n_tensors * tensor + lse_bytes, bf16=n_products * 2.0 * S * S * 64 * BH)
+        bms, by = bound_ms(6 * tensor + 2 * row_bytes, bf16=n_products * 2.0 * S * S * 64 * BH)
         recs.append(dict(name=name, route="cuda", source="orv_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                          replaces="orv_tpu/ops/attention.py" + replaces, max_abs_err=err,
-                         ms=cuda_ms(lambda fn=fn: fn(q, k, v, out, lse, do, scale), 10),
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                         ms=cuda_ms(fn, 10), plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms))
     return recs
+
+
+def bwd_rate(recs, heads: int, s: int) -> None:
+    """Print each flash backward kernel's achieved TFLOP/s (3 and 4 products
+    of 2*S^2*64*H FLOP) and share of its bound, and the two kernels' time
+    over SDPA's flash backward."""
+    parts = []
+    for r, n_products in zip(recs, (3, 4)):
+        tflops = n_products * 2.0 * s * s * 64 * heads / (r["ms"] * 1e-3) / 1e12
+        parts.append(f"{r['name']} {r['ms']:.4f} ms, {tflops:.1f} TFLOP/s, "
+                     f"{r['bound_ms'] / r['ms']:.1%} of its bound ({r['bound_ms']:.4f} ms)")
+    total, lib = recs[0]["ms"] + recs[1]["ms"], recs[0]["library_ms"]
+    print(f"rate flash_attn_bwd [1,{heads},{s},64]: " + "; ".join(parts) + f"; dq + dk/dv "
+          f"{total:.4f} ms, SDPA backward {lib:.4f} ms, (dq + dk/dv) / SDPA {total / lib:.2f}",
+          flush=True)
 
 
 def check_modulate_norm_bwd(g, R, S, D, timed: bool):
@@ -936,7 +980,7 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
-    forward_build_report()
+    wgmma_build_report()
 
     # 2. every kernel against its plain version
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -962,10 +1006,13 @@ def main() -> int:
     for shape in ((1, 2, 300), (1, 2, 1100)):
         for with_dlse in (False, True):
             check_attention_bwd(g, shape, with_dlse, timed=False)
+    check_attention_bwd(g, (1, 2, 226), True, timed=False, skv=1950)  # the ring's Sq != Skv
+    check_attention_bwd(g, (1, 2, 1950), True, timed=False, skv=226)
     check_modulate_norm_bwd(g, 3, 300, 1920, timed=False)
     check_gated_residual_bwd(g, 3, 300, 1920, timed=False)
     check_attention_bwd(g, (1, 30, 3226), True, timed=False)
-    records += check_attention_bwd(g, (1, 30, 3226), False, timed=True)
+    bwd_records = check_attention_bwd(g, (1, 30, 3226), False, timed=True)
+    records += bwd_records
     records.append(check_modulate_norm_bwd(g, 5, 600, 1920, timed=True))
     records.append(check_gated_residual_bwd(g, 5, 600, 1920, timed=True))
     check_gated_residual_bwd(g, 1, 226, 1920, timed=False)  # the text stream
@@ -988,6 +1035,7 @@ def main() -> int:
             ms, library_ms = time_forward(g, heads, sq, skv, static_max)
         forward_rate(name, heads, sq, skv, ms, library_ms)
     q8_rate(q8_record, 30, 8026)
+    bwd_rate(bwd_records, 30, 3226)
     torch.cuda.empty_cache()
 
     # 3. the small models against the CPU, then the flagship DiT forward

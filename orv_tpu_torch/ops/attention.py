@@ -18,7 +18,8 @@ Counterpart of `orv_tpu/ops/attention.py`. Layout at the public functions is
   attention.py:601): a `torch.autograd.Function` saves (q, k, v, out, lse)
   and its backward is `flash_attention_bwd`, whose dq and dk/dv kernels
   (`_bwd_dq_kernel`, attention.py:389, `_bwd_dkv_kernel`, :432) live in
-  `csrc/flash_attn_bwd.cu`. Both forwards emit an exact lse, so one
+  `csrc/flash_attn_bwd.cu`; the dq kernel also writes each query row's
+  delta, which the dk/dv kernel reads. Both forwards emit an exact lse, so one
   backward serves both. The lse cotangent, where there is one, shifts the
   backward's delta term; where lse is unused it is None and costs nothing.
 * int8 QK^T, the W8A8 serving model's (`_fwd_kernel_q8`, attention.py:174,
@@ -283,44 +284,58 @@ def _check_bwd(q, k, v, out, lse, dout, dlse):
                              f"{tuple(q.shape[:3])}; got {t.dtype} {tuple(t.shape)}")
 
 
-_BWD_DQ_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-_BWD_DKV_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_DKV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, dout, scale: float, dlse=None) -> torch.Tensor:
-    """dq of the flash backward: one launch of the dq kernel on checked CUDA
-    operands (counted in `flash_attention_bwd_dq.launches`)."""
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, scale: float, dlse=None):
+    """dq of the flash backward, and delta = rowsum(f32(out * dout)) - dlse
+    (f32 [B, H, Sq]) for the dk/dv kernel: one launch of the dq kernel on
+    checked CUDA operands (counted in `flash_attention_bwd_dq.launches`)."""
     B, H, S, _ = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.kernel("orv_flash_attn_bwd_dq", _BWD_DQ_ARGS)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), _ptr(dlse), dq.data_ptr(), B * H, S, k.shape[2], float(scale),
-            stream)
+            lse.data_ptr(), _ptr(dlse), dq.data_ptr(), delta.data_ptr(), B * H, S, k.shape[2],
+            float(scale), stream)
     _build.check(err, "flash_attention_bwd_dq")
     _build.count(flash_attention_bwd_dq)
-    return dq
+    return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale: float, dlse=None):
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
     """(dk, dv) of the flash backward: one launch of the dk/dv kernel on
-    checked CUDA operands (counted in `flash_attention_bwd_dkv.launches`)."""
+    checked CUDA operands and the dq kernel's delta (counted in
+    `flash_attention_bwd_dkv.launches`). Raises before any build or launch
+    unless delta is a contiguous f32 [B, H, Sq] on q's device, and unless
+    that device is CUDA."""
+    if (not isinstance(delta, torch.Tensor) or delta.device != q.device
+            or delta.dtype != torch.float32 or delta.shape != q.shape[:3]
+            or not delta.is_contiguous()):
+        got = (f"{delta.dtype} {tuple(delta.shape)} on {delta.device}"
+               if isinstance(delta, torch.Tensor) else type(delta).__name__)
+        raise ValueError(f"flash_attention_bwd_dkv takes the dq kernel's delta: a contiguous "
+                         f"f32 tensor of shape {tuple(q.shape[:3])} on {q.device}; got {got}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dkv launches a CUDA kernel; q is on {q.device}")
     B, H, S, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.kernel("orv_flash_attn_bwd_dkv", _BWD_DKV_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), _ptr(dlse), dk.data_ptr(), dv.data_ptr(), B * H, S, k.shape[2],
-            float(scale), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, S, k.shape[2], float(scale),
+            stream)
     _build.check(err, "flash_attention_bwd_dkv")
     _build.count(flash_attention_bwd_dkv)
     return dk, dv
@@ -343,8 +358,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     _check_bwd(q, k, v, out, lse, dout, dlse)
-    dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, scale, dlse)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale, dlse)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, scale, dlse)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale)
     return dq, dk, dv
 
 

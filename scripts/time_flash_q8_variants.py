@@ -73,7 +73,8 @@ def build(name: str, edits) -> subprocess.Popen:
             raise RuntimeError(f"variant {name}: the header no longer holds {old!r}")
         header = header.replace(old, new)
     (d / "flash_fwd_sm90.cuh").write_text(header)
-    shutil.copy(CSRC / "flash_attn_q8.cu", d / "flash_attn_q8.cu")
+    for source in ("sm90_common.cuh", "flash_attn_q8.cu"):
+        shutil.copy(CSRC / source, d / source)
     return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
                              str(d / "flash_attn_q8.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

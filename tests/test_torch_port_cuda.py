@@ -22,11 +22,12 @@ way at a midpoint), xscale to rtol 1e-6. The int8 product: exact.
 
 Backward kernels, each output against its own scale: max error <= 0.1
 RMS(ref) and RMS error <= 1e-2 RMS(ref) (bf16 rounding of an output alone
-gives about 1e-3; the flash dk/dv kernel also rounds p to bf16 for dv).
-The f32 row sums of the adaLN backward (A, B, dgate), which only the
-summation order separates from the plain version: RMS error <= 1e-4
-RMS(ref). The flash check must reject the dq/dk/dv of a run that ignores
-dlse.
+gives about 1e-3; the flash dk/dv kernel also rounds p to bf16 for dv;
+with heads whose k, v and dO are 10^h apart, head by head). The f32 row
+sums of the adaLN backward (A, B, dgate), which only the summation order
+separates from the plain version: RMS error <= 1e-4 RMS(ref). The flash
+check must reject the dq/dk/dv of a run that ignores dlse, and two
+runs of the flash backward must give the same bits.
 """
 
 import pytest
@@ -357,6 +358,71 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, shape, with_dlse):
         assert _agree(leaf.grad, ref)
     with pytest.raises(ValueError):
         attention.flash_attention_bwd(q, k, v, out, lse.bfloat16(), do)
+
+
+def _check_bwd(q, k, v, do, dlse, per_head=False):
+    """The backward kernels (one dq and one dk/dv launch) against the plain
+    backward on the static-max forward's out and lse, with dlse: each output
+    agrees (`_agree`), as a whole or head by head, each head in its own
+    units."""
+    out, lse = attention.flash_attention(q, k, v, static_max=24.0)
+    before = (attention.flash_attention_bwd_dq.launches, attention.flash_attention_bwd_dkv.launches)
+    got = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    assert (attention.flash_attention_bwd_dq.launches,
+            attention.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = attention.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse=dlse)
+    B, H = q.shape[:2]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        for h in [(i, j) for i in range(B) for j in range(H)] if per_head else [()]:
+            assert _agree(a[h], b[h]), (name, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", _TILE_EDGES)
+@pytest.mark.parametrize("sq", _TILE_EDGES)
+def test_cuda_flash_attention_bwd_at_tile_edges(cuda, sq, skv):
+    """dq, dk and dv, with dlse, at every pair of lengths one short of, at
+    and one past the kernels' tiles (64 rows a consumer warpgroup, 128 a
+    block, 64-row streamed tiles), Sq == Skv and Sq != Skv: the dq kernel
+    masks keys past Skv, the dk/dv kernel queries past Sq."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, do = (torch.randn(1, 2, sq, 64, device=cuda, generator=g).bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, 2, skv, 64, device=cuda, generator=g).bfloat16() for _ in range(2))
+    _check_bwd(q, k, v, do, torch.randn(1, 2, sq, device=cuda, generator=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,sq,skv", [(1, 3, 129, 65), (3, 1, 65, 200), (1, 4, 257, 255)])
+def test_cuda_flash_attention_bwd_keeps_heads_apart(cuda, B, H, sq, skv):
+    """As `test_cuda_flash_forwards_keep_heads_apart`, for the backward: head
+    h's k and v are scaled by 10^h, its q by 10^-h, its dO and dlse by 10^h,
+    so its p is unchanged while dq grows 100^h and dk, dv stay of order 1. A
+    ragged tile that read the next head's rows, a store past S into them, or
+    delta, lse or dlse taken from another head's rows shows in that head's
+    gradients, each compared in its own units."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    tens = 10.0 ** torch.arange(B * H, device=cuda, dtype=torch.float32).reshape(B, H, 1, 1)
+    rand = lambda s: torch.randn(B, H, s, 64, device=cuda, generator=g)
+    q = (rand(sq) / tens).bfloat16()
+    k, v = ((rand(skv) * tens).bfloat16() for _ in range(2))
+    do = (rand(sq) * tens).bfloat16()
+    dlse = torch.randn(B, H, sq, device=cuda, generator=g) * tens[..., 0]
+    _check_bwd(q, k, v, do, dlse, per_head=True)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_is_deterministic(cuda):
+    """No atomics: two calls on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v, do = (torch.randn(2, 3, 1100, 64, device=cuda, generator=g).bfloat16()
+                   for _ in range(4))
+    dlse = torch.randn(2, 3, 1100, device=cuda, generator=g)
+    out, lse = attention.flash_attention(q, k, v, static_max=24.0)
+    first = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    second = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

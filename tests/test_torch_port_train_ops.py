@@ -8,7 +8,8 @@ on the CPU, as tests/test_attention.py runs them. Inputs are made from a
 seed with numpy and handed to both.
 
 Shapes: ragged S (200, 300: not a multiple of the 128-row Pallas blocks or
-the 64-row CUDA tiles), H = 2, D = 64 for attention; adaLN x [2, S, 128].
+the 64-row CUDA tiles), and Sq != Skv (200 x 330, 330 x 200), H = 2, D = 64
+for attention; adaLN x [2, S, 128].
 Tolerances, each against the reference output's own RMS:
   f32: max error <= 1e-4 RMS (only the summation order differs; measured
   at most 1.2e-5);
@@ -111,6 +112,43 @@ def test_flash_attention_online_grads_match_jax(S, prec):
     ((out.float() * torch.tensor(do)).sum() + (lse * torch.tensor(dl)).sum()).backward()
     for leaf, ref in zip((tq, tk, tv), want):
         assert leaf.grad.dtype == leaf.dtype
+        _close(leaf.grad, ref, prec)
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("static_max", [24.0, None])
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("sq,skv", [(200, 330), (330, 200)])
+def test_flash_attention_grads_match_jax_sq_ne_skv(sq, skv, with_lse, static_max, prec):
+    """Queries and keys of different lengths, as the ring's chunks call
+    attention: the backward pads and masks Sq and Skv each on its own
+    (neither is a multiple of the 128-row Pallas blocks or the 64-row CUDA
+    tiles). Static-max and online forwards; without lse the loss is on out
+    (`flash_attention`), with it on both outputs (`attention_with_lse`), so
+    the lse cotangent shifts delta. Unit-scale q and k, as in the bf16
+    online test."""
+    rng = np.random.default_rng(sq * 1000 + skv)
+    q, do = (rng.standard_normal((1, 2, sq, 64)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, skv, 64)).astype(np.float32) for _ in range(2))
+    dl = rng.standard_normal((1, 2, sq)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, prec) for a in (q, k, v))
+
+    def jloss(q, k, v):
+        if with_lse:
+            out, lse = attention_with_lse(q, k, v, impl="flash", static_max=static_max)
+            return jnp.sum(out.astype(jnp.float32) * do) + jnp.sum(lse * dl)
+        out = jax_flash_attention(q, k, v, block_q=128, block_k=128, static_max=static_max)
+        return jnp.sum(out.astype(jnp.float32) * do)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    out, lse = attention.flash_attention(tq, tk, tv, static_max=static_max)
+    assert out.shape == (1, 2, sq, 64) and lse.shape == (1, 2, sq)
+    loss = (out.float() * torch.tensor(do)).sum()
+    if with_lse:
+        loss = loss + (lse * torch.tensor(dl)).sum()
+    loss.backward()
+    for leaf, ref in zip((tq, tk, tv), want):
+        assert leaf.grad.dtype == leaf.dtype and leaf.grad.shape == leaf.shape
         _close(leaf.grad, ref, prec)
 
 
