@@ -7,13 +7,20 @@ Run from the repository root on the machine with the card:
 Phases, in order; any failure raises, exits non-zero and prints no result:
   1. build the CUDA kernels from orv_tpu_torch/ops/csrc (nvcc, sm_90a, one
      process per source, all at once) and print their registers and spills,
-     those of the five TMA + wgmma kernels (the bf16 static-max and online
-     and the int8 modes of flash_fwd_sm90.cuh, the backward's dq and dk/dv)
-     again, by kernel, with any ptxas notice about their wgmma pipeline; a
-     spill or such a notice there fails the run;
+     those of the seven Hopper kernels (the bf16 static-max and online and
+     the int8 modes of flash_fwd_sm90.cuh, the backward's dq and dk/dv, the
+     two adaLN forwards of adaln_fwd_sm90.cuh) again, by kernel, with any
+     ptxas notice about a wgmma pipeline; a spill or such a notice there
+     fails the run;
   2. hold each of the ten kernels against its plain PyTorch version on the
-     card, at the flagship or training shapes and at small ragged ones, and
-     time kernel, plain version and the nearest single PyTorch call; the
+     card, at the flagship or training shapes and at small ragged ones (the
+     adaLN forwards also at the text stream's [1,226,1920], the training
+     [5,600,1920] with f32 norm params, and rows 3072 and 4096 wide), and
+     time kernel, plain version and the nearest single PyTorch call by
+     device time alone (`device_ms`: many calls captured in one CUDA graph,
+     their inputs rotating over copies that keep the L2 cold), with the
+     host's time per call of the adaLN and gated-residual wrappers and of
+     addcmul on lines of their own; the
      flash backward check must also reject a planted fault (dlse ignored),
      give the same bits on a second run, and agree at the ring's Sq != Skv
      shapes (226 x 1950, 1950 x 226, with dlse);
@@ -153,21 +160,121 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of `fn` over `iters` calls, each after a write of
-    64 MB that evicts the 50 MB L2 cache, timed with CUDA events."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    fn()
+L2_SPAN = 100 << 20  # bytes touched between two uses of one input copy (the L2 holds 50 MB)
+_capture_stream = None
+
+
+def capture_stream() -> torch.cuda.Stream:
+    """The side stream on which `device_ms` captures its graphs."""
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    return _capture_stream
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in _tensors(o)]
+    return []
+
+
+def nbytes(obj) -> int:
+    """Bytes of the distinct storages of the tensors in obj (nested tuples)."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in _tensors(obj)}.values())
+
+
+def _copy(obj):
+    """obj with every tensor copied into new memory of the same strides."""
+    if isinstance(obj, torch.Tensor):
+        return torch.empty_strided(obj.shape, obj.stride(), dtype=obj.dtype,
+                                   device=obj.device).copy_(obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_copy(o) for o in obj)
+    return obj
+
+
+def n_copies(per_call_bytes: int) -> int:
+    """Copies of a call's inputs that a rotation needs so that the calls
+    between two uses of one copy touch more than L2_SPAN bytes (at most 128:
+    calls under 0.8 MB find part of their inputs in the L2)."""
+    return min(2 + L2_SPAN // max(per_call_bytes, 1), 128)
+
+
+def device_ms(fn, calls, n: int, what: str) -> float:
+    """Mean device time of one call fn(*c), c rotating over `calls` (argument
+    tuples; see n_copies): n calls, rounded up to whole rotations, captured
+    in one CUDA graph (their outputs kept, as a caller's would be), replayed
+    three times between two CUDA events. No host work falls between the
+    events. A call that cannot be captured is timed instead by the sum of its
+    device durations in torch.profiler over n calls; a line says so."""
+    n = len(calls) * -(-n // len(calls))
+    fn(*calls[0])  # warm-up: builds, lazy initialization
+    torch.cuda.synchronize()
+    graph, outs = torch.cuda.CUDAGraph(), []
+    try:
+        with torch.cuda.graph(graph, stream=capture_stream()):
+            for i in range(n):
+                outs.append(fn(*calls[i % len(calls)]))
+    except RuntimeError as e:
+        del graph, outs
+        torch.cuda.synchronize()
+        ms = profiled_ms(fn, calls, n)
+        print(f"timer {what}: not captured in a CUDA graph ({str(e).splitlines()[0][:100]}); "
+              f"{ms:.4f} ms a call from torch.profiler's device durations", flush=True)
+        return ms
+    graph.replay()
     total = 0.0
-    for _ in range(iters):
-        flush.zero_()
+    for _ in range(3):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        graph.replay()
         b.record()
         b.synchronize()
         total += a.elapsed_time(b)
-    return total / iters
+    del graph, outs
+    return total / (3 * n)
+
+
+def profiled_ms(fn, calls, n: int) -> float:
+    """Sum of the device durations torch.profiler records over n calls
+    rotating over `calls`, over n."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(*calls[i % len(calls)])
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3 / n
+
+
+def call_ms(what: str, fn, args=(), n: int = 20) -> float:
+    """`device_ms` of fn(*args), the inputs copied as often as n_copies asks
+    for one call's inputs and outputs."""
+    out = fn(*args)
+    torch.cuda.synchronize()
+    calls = [args] + [_copy(args) for _ in range(n_copies(nbytes(args) + nbytes(out)) - 1)]
+    return device_ms(fn, calls, n, what)
+
+
+def host_us(what: str, fn, args, n: int = 200) -> None:
+    """Print the host's time per call of fn(*args): perf_counter around n
+    back-to-back calls, before the synchronize. It is the part a host-timed
+    launch would add to a kernel's device time."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    print(f"host {what}: {us:.1f} us a call ({n} calls back to back, before the synchronize)",
+          flush=True)
 
 
 def bound_ms(nbytes: float, bf16: float = 0.0, int8: float = 0.0, f32: float = 0.0):
@@ -201,12 +308,13 @@ def check_attention(g, shape, timed: bool):
     rec = dict(name="flash_attn_static_max", route="cuda",
                source="orv_tpu_torch/ops/csrc/flash_attn_static_max.cu",
                replaces="orv_tpu/ops/attention.py:124", max_abs_err=err,
-               ms=cuda_ms(lambda: attention.flash_attention(q, k, v, static_max=24.0), 10),
-               plain_ms=cuda_ms(lambda: attention.flash_attention_plain(q, k, v, static_max=24.0),
-                                3),
+               ms=call_ms("flash_attn_static_max", lambda *a: attention.flash_attention(
+                   *a, static_max=24.0), (q, k, v), 10),
+               plain_ms=call_ms("flash_attention_plain (static max)", lambda *a: (
+                   attention.flash_attention_plain(*a, static_max=24.0)), (q, k, v), 3),
                bound_ms=bms, bound_by=by,
-               library_ms=cuda_ms(
-                   lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10))
+               library_ms=call_ms("SDPA", torch.nn.functional.scaled_dot_product_attention,
+                                  (q, k, v), 10))
     return rec
 
 
@@ -257,11 +365,13 @@ def check_attention_online(g, heads: int, sq: int, skv: int, logit_scale: float,
     return dict(name="flash_attn_online", route="cuda",
                 source="orv_tpu_torch/ops/csrc/flash_attn_online.cu",
                 replaces="orv_tpu/ops/attention.py:62", max_abs_err=err,
-                ms=cuda_ms(lambda: attention.flash_attention_online_kernel(q, k, v, scale), 10),
-                plain_ms=cuda_ms(lambda: attention.flash_attention_plain(q, k, v), 3),
+                ms=call_ms("flash_attn_online", attention.flash_attention_online_kernel,
+                           (q, k, v, scale), 10),
+                plain_ms=call_ms("flash_attention_plain (online)", attention.flash_attention_plain,
+                                 (q, k, v), 3),
                 bound_ms=bms, bound_by=by,
-                library_ms=cuda_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10))
+                library_ms=call_ms("SDPA", torch.nn.functional.scaled_dot_product_attention,
+                                   (q, k, v), 10))
 
 
 def forward_rate(name: str, heads: int, sq: int, skv: int, ms: float, library_ms: float) -> None:
@@ -292,45 +402,52 @@ def time_forward(g, heads: int, sq: int, skv: int, static_max):
     k, v = (torch.randn(1, heads, skv, 64, device="cuda", generator=g).bfloat16()
             for _ in range(2))
     if static_max is None:
-        fn = lambda: attention.flash_attention_online_kernel(q, k, v, 64 ** -0.5)
+        fn = lambda *a: attention.flash_attention_online_kernel(*a, 64 ** -0.5)
     else:
-        fn = lambda: attention.flash_attention(q, k, v, static_max=static_max)
-    return cuda_ms(fn, 10), cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10)
+        fn = lambda *a: attention.flash_attention(*a, static_max=static_max)
+    return (call_ms(f"forward {heads}x{sq}x{skv}", fn, (q, k, v), 10),
+            call_ms("SDPA", torch.nn.functional.scaled_dot_product_attention, (q, k, v), 10))
 
 
-WGMMA_SOURCES = ("flash_attn_static_max.cu", "flash_attn_online.cu", "flash_attn_q8.cu",
-                 "flash_attn_bwd.cu")
-KERNEL_NAME = re.compile(r"(flash_(?:fwd|bwd)_\w*?_kernel)E")
+HOPPER_SOURCES = ("flash_attn_static_max.cu", "flash_attn_online.cu", "flash_attn_q8.cu",
+                  "flash_attn_bwd.cu", "modulate_norm.cu", "modulate_norm_q8.cu")
+# a kernel's name, and an adaLN forward instance's chunks of 128 columns held
+# in registers
+KERNEL_NAME = re.compile(
+    r"((?:flash_(?:fwd|bwd)_\w*?|modulate_norm(?:_q8)?)_kernel)(?:E|ILi(\d+)E)")
+SHOWN_HELD = ("15", "16")  # D = 1920, and D = 2048-4096, of the 16 instances checked
 
 
-def wgmma_build_report() -> None:
-    """The ptxas report of the TMA + wgmma kernels: the three forwards (each
-    entry file builds one mode of flash_fwd_sm90.cuh's kernel) and the
-    backward's dq and dk/dv kernels. Registers and spills of each kernel,
-    and any notice that ptxas serialized or fenced a wgmma pipeline
-    (C75xx); either of the last two fails the run."""
+def hopper_build_report() -> None:
+    """The ptxas report of the Hopper kernels: the TMA + wgmma ones (the
+    three forwards, each entry file one mode of flash_fwd_sm90.cuh's kernel,
+    and the backward's dq and dk/dv kernels) and the two bulk-copy adaLN
+    forwards (adaln_fwd_sm90.cuh, one instance per held-chunk count,
+    SHOWN_HELD printed). Registers and spills of each kernel, and any notice that ptxas
+    serialized or fenced a wgmma pipeline (C75xx); either of the last two, in
+    any instance, fails the run."""
     if not _build.build_log:
-        print("wgmma kernels: no build log (the library was built before)", flush=True)
+        print("Hopper kernels: no build log (the library was built before)", flush=True)
         return
-    source, kernel, faults = None, "", []
+    source, kernel, held, faults = None, "", None, []
     for line in _build.build_log.splitlines():
         if line.startswith("== "):
-            source, kernel = line[3:].strip(), ""
-        elif source not in WGMMA_SOURCES:
+            source, kernel, held = line[3:].strip(), "", None
+        elif source not in HOPPER_SOURCES:
             continue
         elif "entry function" in line:
             name = KERNEL_NAME.search(line)
-            kernel = name.group(1) if name else "?"
+            kernel, held = (name.group(1), name.group(2)) if name else ("?", None)
         elif re.search(r"registers|spill|C75\d\d", line):
             name = KERNEL_NAME.search(line)  # a notice names its function
-            what = f"{source} {name.group(1) if name else kernel}"
+            what = f"{source} {name.group(1) if name else kernel}" + (f"<{held}>" if held else "")
             head = re.split(r" (?:in|for) the function", line)[0].strip()
-            print(f"ptxas {what}: {head}", flush=True)
+            if held is None or held in SHOWN_HELD:
+                print(f"ptxas {what}: {head}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if re.search(r"C75\d\d", line) or (spills and any(map(int, spills.groups()))):
                 faults.append(f"{what}: {line.strip()}")
-    check(not faults, f"a wgmma pipeline was serialized or spilled: {faults}")
+    check(not faults, f"a Hopper kernel spilled or its wgmma pipeline was serialized: {faults}")
 
 
 def check_attention_online_bwd(g, shape) -> None:
@@ -358,27 +475,40 @@ def check_attention_online_bwd(g, shape) -> None:
           f"the backward through the online forward disagrees at {shape}")
 
 
-def check_modulate_norm(g, R, S, D, timed: bool):
-    x = torch.randn(R, S, D, device="cuda", generator=g).bfloat16()
-    # shift/scale as the modulation linear leaves them: row-strided chunks
+def adaln_inputs(g, R, S, D, x_scale: float, norm_f32: bool):
+    """(x, scale, shift, ns, nb) of an adaLN forward: x [R, S, D] bf16; shift
+    and scale as the modulation linear leaves them, row-strided bf16 chunks
+    of [R, 3D]; the norm params [D] bf16, or f32 as under f32 parameters."""
+    x = (x_scale * torch.randn(R, S, D, device="cuda", generator=g)).bfloat16()
     shift, scale, _ = (0.3 * torch.randn(R, 3 * D, device="cuda", generator=g)).bfloat16(
     ).chunk(3, dim=-1)
-    ns = (1 + 0.1 * torch.randn(D, device="cuda", generator=g)).bfloat16()
-    nb = (0.1 * torch.randn(D, device="cuda", generator=g)).bfloat16()
-    out = adaln.modulate_norm(x, scale, shift, ns, nb)
-    ref = adaln.modulate_norm_plain(x, scale, shift, ns, nb)
+    ns = 1 + 0.1 * torch.randn(D, device="cuda", generator=g)
+    nb = 0.1 * torch.randn(D, device="cuda", generator=g)
+    return (x, scale, shift) + ((ns, nb) if norm_f32 else (ns.bfloat16(), nb.bfloat16()))
+
+
+def check_modulate_norm(g, R, S, D, timed: bool, norm_f32: bool = False):
+    args = adaln_inputs(g, R, S, D, 1.0, norm_f32)
+    out = adaln.modulate_norm(*args)
+    ref = adaln.modulate_norm_plain(*args)
     err = max_err(out, ref)
-    print(f"kernel modulate_norm [{R}, {S}, {D}]: max_abs_err {err:.3g} "
-          f"(tol 2e-2 + 1e-2|ref|)", flush=True)
+    print(f"kernel modulate_norm [{R}, {S}, {D}]{' f32 norm params' if norm_f32 else ''}: "
+          f"max_abs_err {err:.3g} (tol 2e-2 + 1e-2|ref|)", flush=True)
     check(within(out, ref, 2e-2, 1e-2), f"modulate_norm disagrees at {(R, S, D)}")
     if not timed:
         return None
+    host_us(f"modulate_norm [{R}, {S}, {D}]", adaln.modulate_norm, args)
     bms, by = bound_ms(2 * R * S * D * 2 + 2 * R * D * 2 + 2 * D * 2, f32=10.0 * R * S * D)
     return dict(name="modulate_norm", route="cuda", source="orv_tpu_torch/ops/csrc/modulate_norm.cu",
                 replaces="orv_tpu/ops/adaln.py:52", max_abs_err=err,
-                ms=cuda_ms(lambda: adaln.modulate_norm(x, scale, shift, ns, nb), 50),
-                plain_ms=cuda_ms(lambda: adaln.modulate_norm_plain(x, scale, shift, ns, nb), 10),
+                ms=call_ms("modulate_norm", adaln.modulate_norm, args, 50),
+                plain_ms=call_ms("modulate_norm_plain", adaln.modulate_norm_plain, args, 10),
                 bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def addcmul(x, y, gate):
+    """x + y * gate[r] in one PyTorch call: the gated residual's yardstick."""
+    return torch.addcmul(x, y, gate[:, None])
 
 
 def check_gated_residual(g, R, S, D, timed: bool):
@@ -392,13 +522,16 @@ def check_gated_residual(g, R, S, D, timed: bool):
     check(within(out, ref, 1e-2, 1e-2), f"gated_residual disagrees at {(R, S, D)}")
     if not timed:
         return None
+    host_us(f"gated_residual [{R}, {S}, {D}]", adaln.gated_residual, (x, y, gate))
+    host_us(f"addcmul [{R}, {S}, {D}]", addcmul, (x, y, gate))
     bms, by = bound_ms(3 * R * S * D * 2 + R * D * 2, f32=2.0 * R * S * D)
     return dict(name="gated_residual", route="cuda", source="orv_tpu_torch/ops/csrc/gated_residual.cu",
                 replaces="orv_tpu/ops/adaln.py:248", max_abs_err=err,
-                ms=cuda_ms(lambda: adaln.gated_residual(x, y, gate), 50),
-                plain_ms=cuda_ms(lambda: adaln.gated_residual_plain(x, y, gate), 10),
+                ms=call_ms("gated_residual", adaln.gated_residual, (x, y, gate), 50),
+                plain_ms=call_ms("gated_residual_plain", adaln.gated_residual_plain,
+                                 (x, y, gate), 10),
                 bound_ms=bms, bound_by=by,
-                library_ms=cuda_ms(lambda: torch.addcmul(x, y, gate[:, None]), 50))
+                library_ms=call_ms("addcmul", addcmul, (x, y, gate), 50))
 
 
 def q8_attention_errors(out, ref):
@@ -441,39 +574,37 @@ def check_attention_q8(g, shape, timed: bool):
                        bf16=2.0 * S * S * 64 * BH)
     rec = dict(name="flash_attn_q8", route="cuda", source="orv_tpu_torch/ops/csrc/flash_attn_q8.cu",
                replaces="orv_tpu/ops/attention.py:174", max_abs_err=err,
-               ms=cuda_ms(lambda: attention.flash_attention_q8_kernel(q, prep, v, S, scale), 10),
-               plain_ms=cuda_ms(lambda: attention.flash_attention_q8_plain(q, k, v), 3),
+               ms=call_ms("flash_attn_q8", attention.flash_attention_q8_kernel,
+                          (q, prep, v, S, scale), 10),
+               plain_ms=call_ms("flash_attention_q8_plain", attention.flash_attention_q8_plain,
+                                (q, k, v), 3),
                bound_ms=bms, bound_by=by,
-               library_ms=cuda_ms(
-                   lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10))
-    return rec, cuda_ms(lambda: attention.prepare_k_q8(k), 10)
+               library_ms=call_ms("SDPA", torch.nn.functional.scaled_dot_product_attention,
+                                  (q, k, v), 10))
+    return rec, call_ms("prepare_k_q8", attention.prepare_k_q8, (k,), 10)
 
 
-def check_modulate_norm_q8(g, R, S, D, timed: bool):
-    x = (2 * torch.randn(R, S, D, device="cuda", generator=g)).bfloat16()
-    shift, scale, _ = (0.3 * torch.randn(R, 3 * D, device="cuda", generator=g)).bfloat16(
-    ).chunk(3, dim=-1)
-    ns = (1 + 0.1 * torch.randn(D, device="cuda", generator=g)).bfloat16()
-    nb = (0.1 * torch.randn(D, device="cuda", generator=g)).bfloat16()
-    xq, xs = adaln.modulate_norm_q8(x, scale, shift, ns, nb)
-    ref_q, ref_s = adaln.modulate_norm_q8_plain(x, scale, shift, ns, nb)
+def check_modulate_norm_q8(g, R, S, D, timed: bool, norm_f32: bool = False):
+    args = adaln_inputs(g, R, S, D, 2.0, norm_f32)
+    xq, xs = adaln.modulate_norm_q8(*args)
+    ref_q, ref_s = adaln.modulate_norm_q8_plain(*args)
     diff = (xq.int() - ref_q.int()).abs()
     flips, s_err = (diff != 0).float().mean().item(), ((xs - ref_s).abs() / ref_s).max().item()
-    print(f"kernel modulate_norm_q8 [{R}, {S}, {D}]: xq max diff {diff.max().item()} (tol 1), "
-          f"{flips:.3g} of entries differ (tol 1e-3), xscale rel err {s_err:.3g} (tol 1e-6)",
-          flush=True)
+    print(f"kernel modulate_norm_q8 [{R}, {S}, {D}]{' f32 norm params' if norm_f32 else ''}: "
+          f"xq max diff {diff.max().item()} (tol 1), {flips:.3g} of entries differ (tol 1e-3), "
+          f"xscale rel err {s_err:.3g} (tol 1e-6)", flush=True)
     check(diff.max().item() <= 1 and flips <= 1e-3 and s_err <= 1e-6,
           f"modulate_norm_q8 disagrees at {(R, S, D)}")
     if not timed:
         return None
+    host_us(f"modulate_norm_q8 [{R}, {S}, {D}]", adaln.modulate_norm_q8, args)
     bms, by = bound_ms(R * S * D * (2 + 1) + R * S * 4 + 2 * R * D * 2 + 2 * D * 2,
                        f32=14.0 * R * S * D)
     return dict(name="modulate_norm_q8", route="cuda",
                 source="orv_tpu_torch/ops/csrc/modulate_norm_q8.cu",
                 replaces="orv_tpu/ops/adaln.py:190", max_abs_err=float(diff.max().item()),
-                ms=cuda_ms(lambda: adaln.modulate_norm_q8(x, scale, shift, ns, nb), 50),
-                plain_ms=cuda_ms(lambda: adaln.modulate_norm_q8_plain(x, scale, shift, ns, nb),
-                                 10),
+                ms=call_ms("modulate_norm_q8", adaln.modulate_norm_q8, args, 50),
+                plain_ms=call_ms("modulate_norm_q8_plain", adaln.modulate_norm_q8_plain, args, 10),
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
@@ -535,27 +666,34 @@ def check_attention_bwd(g, shape, with_dlse: bool, timed: bool, skv=None):
     scale, tensor, row_bytes = 64 ** -0.5, BH * S * 64 * 2, BH * S * 4
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        o_lib = torch.nn.functional.scaled_dot_product_attention(*leaves)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True), 10)
-    plain_ms = cuda_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, out, lse, do), 3)
+    def sdpa_call():  # a forward on the capture stream, whose backward the graph takes
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        capture_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(capture_stream()), sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            o_lib = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        return o_lib, leaves, do.clone()
+
+    calls = [sdpa_call() for _ in range(n_copies(8 * tensor + row_bytes))]
+    torch.cuda.synchronize()
+    lib_ms = device_ms(lambda o, leaves, d: torch.autograd.grad(o, leaves, d, retain_graph=True),
+                       calls, 10, "SDPA flash backward")
+    del calls
+    plain_ms = call_ms("flash_attention_bwd_plain", attention.flash_attention_bwd_plain,
+                       (q, k, v, out, lse, do), 3)
     _, delta = attention.flash_attention_bwd_dq(q, k, v, out, lse, do, scale)
     recs = []
     # dq: reads q, k, v, o, dO and lse, writes dq and delta; dk/dv: reads q,
     # k, v, dO, lse and delta, writes dk and dv
-    for name, fn, n_products, replaces, err in (
-            ("flash_attn_bwd_dq",
-             lambda: attention.flash_attention_bwd_dq(q, k, v, out, lse, do, scale), 3, ":389",
-             errs["dq"]),
-            ("flash_attn_bwd_dkv",
-             lambda: attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), 4, ":432",
-             max(errs["dk"], errs["dv"]))):
+    for name, fn, args, n_products, replaces, err in (
+            ("flash_attn_bwd_dq", attention.flash_attention_bwd_dq,
+             (q, k, v, out, lse, do, scale), 3, ":389", errs["dq"]),
+            ("flash_attn_bwd_dkv", attention.flash_attention_bwd_dkv,
+             (q, k, v, do, lse, delta, scale), 4, ":432", max(errs["dk"], errs["dv"]))):
         bms, by = bound_ms(6 * tensor + 2 * row_bytes, bf16=n_products * 2.0 * S * S * 64 * BH)
         recs.append(dict(name=name, route="cuda", source="orv_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                          replaces="orv_tpu/ops/attention.py" + replaces, max_abs_err=err,
-                         ms=cuda_ms(fn, 10), plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=lib_ms))
+                         ms=call_ms(name, fn, args, 10), plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=lib_ms))
     return recs
 
 
@@ -595,13 +733,15 @@ def check_modulate_norm_bwd(g, R, S, D, timed: bool):
     check(all(ok), f"modulate_norm_bwd disagrees at {(R, S, D)}")
     if not timed:
         return None
+    host_us(f"modulate_norm_bwd [{R}, {S}, {D}]", adaln.modulate_norm_bwd, (x, do, scale, ns))
     bms, by = bound_ms(3 * R * S * D * 2 + R * D * 2 + D * 4 + 2 * R * D * 4,
                        f32=16.0 * R * S * D)
     return dict(name="modulate_norm_bwd", route="cuda",
                 source="orv_tpu_torch/ops/csrc/modulate_norm_bwd.cu",
                 replaces="orv_tpu/ops/adaln.py:105", max_abs_err=errs[0][0],
-                ms=cuda_ms(lambda: adaln.modulate_norm_bwd(x, do, scale, ns), 50),
-                plain_ms=cuda_ms(lambda: adaln.modulate_norm_bwd_plain(x, do, scale, ns), 10),
+                ms=call_ms("modulate_norm_bwd", adaln.modulate_norm_bwd, (x, do, scale, ns), 50),
+                plain_ms=call_ms("modulate_norm_bwd_plain", adaln.modulate_norm_bwd_plain,
+                                 (x, do, scale, ns), 10),
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
@@ -619,12 +759,14 @@ def check_gated_residual_bwd(g, R, S, D, timed: bool):
           f"gated_residual_bwd disagrees at {(R, S, D)}")
     if not timed:
         return None
+    host_us(f"gated_residual_bwd [{R}, {S}, {D}]", adaln.gated_residual_bwd, (do, y, gate))
     bms, by = bound_ms(3 * R * S * D * 2 + R * D * 2 + R * D * 4, f32=3.0 * R * S * D)
     return dict(name="gated_residual_bwd", route="cuda",
                 source="orv_tpu_torch/ops/csrc/gated_residual_bwd.cu",
                 replaces="orv_tpu/ops/adaln.py:298", max_abs_err=max(dy_err, dg_err),
-                ms=cuda_ms(lambda: adaln.gated_residual_bwd(do, y, gate), 50),
-                plain_ms=cuda_ms(lambda: adaln.gated_residual_bwd_plain(do, y, gate), 10),
+                ms=call_ms("gated_residual_bwd", adaln.gated_residual_bwd, (do, y, gate), 50),
+                plain_ms=call_ms("gated_residual_bwd_plain", adaln.gated_residual_bwd_plain,
+                                 (do, y, gate), 10),
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
@@ -640,7 +782,8 @@ def time_int8_prep(g, prep_k_ms: float) -> None:
                            ("attention out [1,8026,1920]", (1, 8026, 1920), 30),
                            ("FF hidden [1,8026,7680]", (1, 8026, 7680), 30)):
         x = rand(*shape)
-        parts.append((f"quantize_tokens {what}", cuda_ms(lambda: quantize_tokens(x), 10), n))
+        parts.append((f"quantize_tokens {what}",
+                      call_ms("quantize_tokens", quantize_tokens, (x,), 10), n))
     total = sum(ms * n for _, ms, n in parts)
     print("int8 prep outside the kernels, per W8A8 forward: " + ", ".join(
         f"{w} {ms:.4f} ms x{n}" for w, ms, n in parts) + f"; total {total:.2f} ms", flush=True)
@@ -778,16 +921,18 @@ def tiny_train_check() -> None:
           "tiny make_train_step disagrees with the CPU")
 
 
-def recipe_batch(g):
+def recipe_batch():
     """One micro-batch of the 2B recipe (B=1): bridgev2 moments, T5 prompt
-    embeds and 16 actions, seeded random values on the card."""
+    embeds and 16 actions, random values on the card from a generator of
+    their own (seed 12), so that no check added before them changes them."""
     C, F, H, W = TRAIN_LATENT
+    g = torch.Generator(device="cuda").manual_seed(12)
     rand = lambda *s: torch.randn(*s, device="cuda", generator=g)
     return dict(latents=rand(1, 2 * C, F, H, W), image_latents=rand(1, 2 * C, 1, H, W),
                 prompt_embeds=rand(1, 226, 4096).bfloat16(), actions=0.1 * rand(1, 16, 7))
 
 
-def train_recipe_2b(g):
+def train_recipe_2b():
     """The 2B fine-tune recipe at full width (B=1 per micro-step, seeded
     random weights): one warm-up optimizer step, 3 timed ones through
     make_train_step, then one more taken by hand to split a micro-step into
@@ -799,7 +944,7 @@ def train_recipe_2b(g):
     params = trainable(model)
     print(f"ControlDiT 2B recipe: {sum(p.numel() for p in params) / 1e9:.3f} B parameters (f32), "
           f"bf16 compute", flush=True)
-    batch = recipe_batch(g)
+    batch = recipe_batch()
     tx = make_optimizer(make_lr_schedule(**TRAIN_LR), **TRAIN_OPT)
     sched = make_schedule()
     state = TrainState.create(model, tx)
@@ -977,10 +1122,12 @@ def main() -> int:
     _build.library()
     print(f"build: {_build.build_seconds:.1f} s for {len(list(_build.CSRC.glob('*.cu')))} "
           f"sources", flush=True)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+    source = None
+    for line in _build.build_log.splitlines():  # the Hopper kernels' lines come below
+        source = line[3:].strip() if line.startswith("== ") else source
+        if source not in HOPPER_SOURCES and re.search(r"registers|spill|^==", line):
             print("  " + line.strip(), flush=True)
-    wgmma_build_report()
+    hopper_build_report()
 
     # 2. every kernel against its plain version
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1001,6 +1148,12 @@ def main() -> int:
                q8_record,
                check_modulate_norm_q8(g, 13, 600, 1920, timed=True)]
     check_gated_residual(g, 1, 226, 1920, timed=False)  # the text-stream shape
+    # the adaLN forwards at the text stream, the training shape (f32 norm
+    # params, as under f32 parameters), the 5b family's width and the widest
+    for R, S, D, norm_f32 in ((1, 226, 1920, False), (5, 600, 1920, True),
+                              (4, 600, 3072, False), (2, 77, 4096, True)):
+        check_modulate_norm(g, R, S, D, timed=False, norm_f32=norm_f32)
+        check_modulate_norm_q8(g, R, S, D, timed=False, norm_f32=norm_f32)
     time_int8_prep(g, prep_k_ms)
     # the backward kernels: small ragged shapes, then the training shapes
     for shape in ((1, 2, 300), (1, 2, 1100)):
@@ -1098,7 +1251,7 @@ def main() -> int:
     del dit, vae, inp, x, t, v
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = train_recipe_2b(g)
+    train_launches = train_recipe_2b()
     launches = launches[:5] + train_launches[5:9] + (ring_online,)
 
     # 6. card, kernels line, result line

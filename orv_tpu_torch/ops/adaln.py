@@ -86,12 +86,20 @@ _MN_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 3
             + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def _check_modulate(name, x, scale, shift, norm_scale, norm_bias):
-    """Raise unless the adaLN kernels take these operands."""
+# widest rows each adaLN kernel takes: the forwards hold at most 2048 columns
+# of a row in registers and re-read the rest from shared memory
+# (csrc/adaln_fwd_sm90.cuh); the backward holds the whole row in registers
+MAX_D_FORWARD = 4096
+MAX_D_BACKWARD = 2048
+
+
+def _check_modulate(name, x, scale, shift, norm_scale, norm_bias, max_d=MAX_D_FORWARD):
+    """Raise unless the adaLN kernels take these operands (rows of D % 128 ==
+    0 and D <= max_d)."""
     _check_rows(name, x, scale, shift)
     D = x.shape[2]
-    if D % 128 != 0 or D > 2048:
-        raise ValueError(f"{name} kernel takes D % 128 == 0 and D <= 2048; got D={D}")
+    if D % 128 != 0 or D > max_d:
+        raise ValueError(f"{name} kernel takes D % 128 == 0 and D <= {max_d}; got D={D}")
     if scale.stride(0) != shift.stride(0) or scale.dtype != shift.dtype:
         raise ValueError(f"{name} kernel takes scale and shift of one dtype and stride")
     for t in (norm_scale, norm_bias):
@@ -148,7 +156,7 @@ def modulate_norm(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
 
     CPU tensors run `modulate_norm_plain` (and `modulate_norm_bwd_plain`
     backward). On CUDA, x must be contiguous bf16 with D % 128 == 0 and
-    D <= 2048; anything else raises."""
+    D <= 4096 (the backward: D <= 2048); anything else raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"modulate_norm: unsupported device {x.device}")
     if x.device.type == "cuda":
@@ -167,7 +175,7 @@ def modulate_norm_q8(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
     (xq int8 [R, S, D], xscale f32 [R, S]) as `modulate_norm_q8_plain`.
 
     CPU tensors run `modulate_norm_q8_plain`. On CUDA, x must be contiguous
-    bf16 with D % 128 == 0 and D <= 2048; anything else raises. Inference
+    bf16 with D % 128 == 0 and D <= 4096; anything else raises. Inference
     only: raises under grad mode when an input requires grad."""
     refuse_grad("modulate_norm_q8", x, scale, shift, norm_scale, norm_bias)
     if x.device.type == "cpu":
@@ -283,6 +291,17 @@ def modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps: float = 1e-5):
     return dx, do.sum(1), (do * xhat).sum(1)
 
 
+def _check_modulate_bwd(x, dout, scale, norm_scale):
+    """Raise unless the adaLN backward kernel takes these operands: as the
+    forwards', with D <= 2048 (its warp holds a row in registers) and dout
+    like x."""
+    _check_modulate("modulate_norm_bwd", x, scale, scale, norm_scale, norm_scale,
+                    max_d=MAX_D_BACKWARD)
+    if dout.shape != x.shape or dout.dtype != x.dtype or not dout.is_contiguous():
+        raise ValueError(f"modulate_norm_bwd takes a contiguous dout like x {tuple(x.shape)}; "
+                         f"got {dout.dtype} {tuple(dout.shape)}")
+
+
 _MNB_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 4
              + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
@@ -300,10 +319,7 @@ def modulate_norm_bwd(x, dout, scale, norm_scale, eps: float = 1e-5):
         return modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"modulate_norm_bwd: unsupported device {x.device}")
-    _check_modulate("modulate_norm_bwd", x, scale, scale, norm_scale, norm_scale)
-    if dout.shape != x.shape or dout.dtype != x.dtype or not dout.is_contiguous():
-        raise ValueError(f"modulate_norm_bwd takes a contiguous dout like x {tuple(x.shape)}; "
-                         f"got {dout.dtype} {tuple(dout.shape)}")
+    _check_modulate_bwd(x, dout, scale, norm_scale)
     R, S, D = x.shape
     n_chunks = -(-S // BWD_CHUNK_ROWS)
     dx = torch.empty_like(x)

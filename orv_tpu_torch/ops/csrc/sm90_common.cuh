@@ -1,9 +1,10 @@
-// What the Hopper (sm_90a) attention kernels share: mbarriers and TMA
-// loads, shared-memory matrix descriptors and the wgmma products, register
+// What the Hopper (sm_90a) kernels share: mbarriers, TMA loads and 1-D bulk
+// copies, shared-memory matrix descriptors and the wgmma products, register
 // fences and small arithmetic (ex2, bf16 and int8 packing, sums and maxima
 // over the 4 threads of an accumulator row), and the host-side encoding of
-// TMA tensor maps. Included by flash_fwd_sm90.cuh (the three forwards) and
-// flash_attn_bwd.cu (the backward).
+// TMA tensor maps. Included by flash_fwd_sm90.cuh (the three forwards),
+// flash_attn_bwd.cu (the backward) and adaln_fwd_sm90.cuh (the two adaLN
+// forwards).
 
 #pragma once
 
@@ -67,6 +68,42 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(bh)
       : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory, one bulk
+// copy (no tensor map); completion adds them to `bar`'s transaction count.
+// Both addresses and `bytes` are multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes from shared memory out to global memory, one bulk
+// copy in this thread's current bulk group. The writes to `src` must be made
+// visible to the async proxy first (fence_proxy_async).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed bulk groups may still read
+// their shared-memory sources.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // ---- wgmma ----

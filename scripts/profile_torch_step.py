@@ -154,7 +154,7 @@ def main() -> int:
     tx = make_optimizer(make_lr_schedule(**TRAIN_LR), **TRAIN_OPT)
     state = TrainState.create(model, tx)
     step = make_train_step(tx, make_schedule(), recon_action=True)
-    batch, gen = recipe_batch(g), torch.Generator(device="cuda").manual_seed(20)
+    batch, gen = recipe_batch(), torch.Generator(device="cuda").manual_seed(20)
 
     def optimizer_step():
         for _ in range(TRAIN_OPT["grad_accum_steps"]):

@@ -20,7 +20,9 @@ Each is built with nvcc into its own library under
 orv_tpu_torch/ops/_build/variants/, checked against
 `flash_attention_q8_plain` at [1,30,8026,64] (the smoke's bound), then
 timed in turns (in order, reversed, in order, reversed), 20 launches a turn
-after an L2 flush, with CUDA events (`chip_smoke.cuda_ms`). It prints each
+captured in one CUDA graph and replayed between two CUDA events
+(`chip_smoke.device_ms`; one call reads and writes 92 MB, more than the 50 MB
+L2, so the inputs are not rotated). It prints each
 variant's registers and spills, its errors, its times and their median,
 SDPA's time on the same bf16 q, k and v, and the card.
 """
@@ -39,7 +41,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cuda_ms, q8_attention_errors  # noqa: E402
+from chip_smoke import device_ms, q8_attention_errors  # noqa: E402
 from orv_tpu_torch.ops import attention  # noqa: E402
 from orv_tpu_torch.ops._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
 
@@ -125,12 +127,12 @@ def main() -> int:
     times = {name: [] for name in names}
     for order in (names, names[::-1], names, names[::-1]):
         for name in order:
-            times[name].append(cuda_ms(lambda: launch(name), 20))
+            times[name].append(device_ms(lambda: launch(name), [()], 20, name))
     for name in names:
         ts = sorted(times[name])
         print(f"time {name} [1,30,8026,64]: {' '.join(f'{t:.4f}' for t in times[name])} ms, "
               f"median {(ts[1] + ts[2]) / 2:.4f}", flush=True)
-    sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 20)
+    sdpa = device_ms(torch.nn.functional.scaled_dot_product_attention, [(q, k, v)], 20, "SDPA")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"SDPA on bf16 q, k, v: {sdpa:.4f} ms; card: {smi.stdout.strip()}", flush=True)

@@ -18,7 +18,8 @@ apart in units of each head's v scale); adaLN kernels one bf16
 rounding (atol 1e-2, rtol 1e-2; 2e-2 for the normalized outputs). The
 int8-emitting adaLN: |xq - plain| <= 1 and != 0 in at most 1e-3 of the
 entries (the f32 value is summed in another order and may round the other
-way at a midpoint), xscale to rtol 1e-6. The int8 product: exact.
+way at a midpoint), xscale to rtol 1e-6; both adaLN forwards give the
+same bits on a second run. The int8 product: exact.
 
 Backward kernels, each output against its own scale: max error <= 0.1
 RMS(ref) and RMS error <= 1e-2 RMS(ref) (bf16 rounding of an output alone
@@ -191,6 +192,89 @@ def test_cuda_adaln_kernels_match_plain(cuda):
     with pytest.raises(ValueError):
         adaln.modulate_norm(x[:, :, :100].contiguous(), scale[:, :100], shift[:, :100],
                             ns[:100], nb[:100])
+
+
+# S around the adaLN forwards' 4-row tiles (csrc/adaln_fwd_sm90.cuh), past two
+# tiles, and the text stream's and the video stream's S
+_ADALN_S = (1, 3, 4, 5, 9, 226, 600)
+
+
+def _adaln_args(cuda, g, R, S, D, norm_f32):
+    """x [R, S, D] bf16 with a mean to take out; scale and shift as the
+    modulation linear leaves them, row-strided bf16 chunks of [R, 3D]; ns
+    and nb bf16, or f32 as under f32 parameters."""
+    x = (2 * torch.randn(R, S, D, device=cuda, generator=g) + 0.3).bfloat16()
+    shift, scale, _ = (0.3 * torch.randn(R, 3 * D, device=cuda, generator=g)).bfloat16(
+    ).chunk(3, dim=-1)
+    ns = 1 + 0.1 * torch.randn(D, device=cuda, generator=g)
+    nb = 0.1 * torch.randn(D, device=cuda, generator=g)
+    return (x, scale, shift) + ((ns, nb) if norm_f32 else (ns.bfloat16(), nb.bfloat16()))
+
+
+def _check_adaln_forwards(args):
+    """Both adaLN forwards against their plain versions, one launch each;
+    a second run of each gives the same bits."""
+    R, S, D = args[0].shape
+    before = (adaln.modulate_norm.launches, adaln.modulate_norm_q8.launches)
+    out = adaln.modulate_norm(*args)
+    xq, xs = adaln.modulate_norm_q8(*args)
+    assert (adaln.modulate_norm.launches, adaln.modulate_norm_q8.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = adaln.modulate_norm_plain(*args)
+    assert out.shape == (R, S, D) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=1e-2)
+    ref_q, ref_s = adaln.modulate_norm_q8_plain(*args)
+    assert xq.shape == (R, S, D) and xq.dtype == torch.int8 and xs.shape == (R, S)
+    diff = (xq.int() - ref_q.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() <= 1e-3
+    torch.testing.assert_close(xs, ref_s, atol=0, rtol=1e-6)
+    assert torch.equal(adaln.modulate_norm(*args), out)
+    again_q, again_s = adaln.modulate_norm_q8(*args)
+    assert torch.equal(again_q, xq) and torch.equal(again_s, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", _ADALN_S)
+@pytest.mark.parametrize("D", [128, 1920, 2048, 2176, 3072, 4096])
+def test_cuda_adaln_forwards_at_tile_edges(cuda, D, S):
+    """Both forwards at every S one short of, at and one past the 4-row
+    tile, at the model's two S, and at the widths from one 128-column chunk
+    to 4096, over 5 row groups: below 2048 each width is its own kernel
+    instance; from 2048 on one instance holds 16 chunks and re-reads the
+    rest (none at 2048, one at 2176). bf16 norm params at D <= 1920, f32
+    above."""
+    g = torch.Generator(device=cuda).manual_seed(20 + S)
+    _check_adaln_forwards(_adaln_args(cuda, g, 5, S, D, norm_f32=D > 1920))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm_f32", [False, True])
+@pytest.mark.parametrize("R", [1, 5, 13])
+def test_cuda_adaln_forwards_across_row_groups(cuda, R, norm_f32):
+    """At S = 600 a row group is 150 tiles and a block walks a contiguous
+    range of them, so at R = 13 (1950 tiles, 7 or 8 a block with 2 blocks on
+    each of 132 SMs) most blocks cross from one row group into the next and
+    reload its scale and shift mid-range. The groups' scale and
+    shift differ by 0.3 standard deviations, far past the tolerance, so a
+    row modulated by a neighbouring group's coefficients fails."""
+    g = torch.Generator(device=cuda).manual_seed(30 + R)
+    _check_adaln_forwards(_adaln_args(cuda, g, R, 600, 1920, norm_f32))
+
+
+@pytest.mark.cuda
+def test_cuda_adaln_width_limits(cuda):
+    """The forwards take D up to 4096 in multiples of 128; the backward, whose
+    warp holds a row in registers, D up to 2048."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    for D in (4224, 200):
+        args = _adaln_args(cuda, g, 2, 9, D, norm_f32=False)
+        with pytest.raises(ValueError, match="D % 128 == 0 and D <= 4096"):
+            adaln.modulate_norm(*args)
+        with pytest.raises(ValueError, match="D % 128 == 0 and D <= 4096"):
+            adaln.modulate_norm_q8(*args)
+    x, scale, _, ns, _ = _adaln_args(cuda, g, 2, 9, 3072, norm_f32=True)
+    with pytest.raises(ValueError, match="modulate_norm_bwd kernel takes .* D <= 2048"):
+        adaln.modulate_norm_bwd(x, x, scale, ns)
 
 
 def _q8_attention_agrees(out, ref):

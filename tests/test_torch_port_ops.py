@@ -163,6 +163,27 @@ def test_modulate_norm_plain_matches_pallas(dtype, norm_dtype):
     _close(out, ref, DTYPES[dtype][2], rtol=2.0**-7 if dtype == "bf16" else 0.0)
 
 
+@pytest.mark.parametrize("norm_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_modulate_norm_plain_matches_pallas_wide_rows(dtype, norm_dtype):
+    """Rows 3072 wide (the CogVideoX1.5-5b family's 48 heads x 64), which the
+    CUDA forwards take since they re-read rows from shared memory; S=13 is
+    ragged against the Pallas kernel's 8-row blocks."""
+    rng = np.random.default_rng(5)
+    R, S, D = 2, 13, 3072
+    xj, xt = _pair(rng.standard_normal((R, S, D)) * 2 + 0.5, dtype)
+    scj, sct = _pair(rng.standard_normal((R, D)) * 0.3, dtype)
+    shj, sht = _pair(rng.standard_normal((R, D)) * 0.3, dtype)
+    nsj, nst = _pair(1 + 0.1 * rng.standard_normal(D), norm_dtype)
+    nbj, nbt = _pair(0.1 * rng.standard_normal(D), norm_dtype)
+    ref = jax_modulate_norm(xj, scj, shj, nsj, nbj, eps=1e-5)
+    before = adaln.modulate_norm.launches
+    out = adaln.modulate_norm(xt, sct, sht, nst, nbt, eps=1e-5)
+    assert adaln.modulate_norm.launches == before
+    assert out.dtype == xt.dtype and out.shape == (R, S, D)
+    _close(out, ref, DTYPES[dtype][2], rtol=2.0**-7 if dtype == "bf16" else 0.0)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("gate_shape", ["per_frame", "global"])
 def test_gated_residual_matches_pallas(gate_shape, dtype):

@@ -98,6 +98,27 @@ def test_modulate_norm_q8_plain_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_modulate_norm_q8_plain_matches_pallas_wide_rows(dtype):
+    """Rows 3072 wide, which the CUDA forward takes since it re-reads rows
+    from shared memory; S=13 is ragged against the Pallas kernel's 8-row
+    blocks."""
+    rng = np.random.default_rng(6)
+    R, S, D = 2, 13, 3072
+    xj, xt = _pair(2.0 * rng.standard_normal((R, S, D)), dtype)
+    sj, st = _pair(0.5 * rng.standard_normal((R, D)), dtype)
+    hj, ht = _pair(0.5 * rng.standard_normal((R, D)), dtype)
+    nsj, nst = _pair(1.0 + 0.1 * rng.standard_normal(D), dtype)
+    nbj, nbt = _pair(0.1 * rng.standard_normal(D), dtype)
+    ref_q, ref_s = jax_modulate_norm_q8(xj, sj, hj, nsj, nbj)
+    before = adaln.modulate_norm_q8.launches
+    xq, xscale = adaln.modulate_norm_q8(xt, st, ht, nst, nbt)
+    assert adaln.modulate_norm_q8.launches == before  # CPU: plain version, no launch
+    assert xq.shape == (R, S, D) and xscale.shape == (R, S)
+    _int8_close(xq.numpy(), np.asarray(ref_q))
+    np.testing.assert_allclose(xscale.numpy(), np.asarray(ref_s), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("seq", [128, 300, 1100])  # 1100: two 1024-key scale blocks
 def test_flash_attention_q8_plain_matches_pallas(seq, dtype):
     rng = np.random.default_rng(seq)
