@@ -7,20 +7,27 @@ Run from the repository root on the machine with the card:
 Phases, in order; any failure raises, exits non-zero and prints no result:
   1. build the CUDA kernels from orv_tpu_torch/ops/csrc (nvcc, sm_90a, one
      process per source, all at once) and print their registers and spills,
-     those of the seven Hopper kernels (the bf16 static-max and online and
+     those of the nine Hopper kernels (the bf16 static-max and online and
      the int8 modes of flash_fwd_sm90.cuh, the backward's dq and dk/dv, the
-     two adaLN forwards of adaln_fwd_sm90.cuh) again, by kernel, with any
-     ptxas notice about a wgmma pipeline; a spill or such a notice there
-     fails the run;
+     two adaLN forwards of adaln_fwd_sm90.cuh, the two adaLN backwards of
+     adaln_bwd_sm90.cuh) again, by kernel, with any ptxas notice about a
+     wgmma pipeline; a spill in any instance or such a notice fails the run;
   2. hold each of the ten kernels against its plain PyTorch version on the
      card, at the flagship or training shapes and at small ragged ones (the
      adaLN forwards also at the text stream's [1,226,1920], the training
-     [5,600,1920] with f32 norm params, and rows 3072 and 4096 wide), and
+     [5,600,1920] with f32 norm params, and rows 3072 and 4096 wide; the
+     adaLN backward at [3,300,1920], S 599 and 601 (a row group's last
+     12-row tile ragged), [4,600,3072] and [2,77,4096], the gated-residual
+     backward at [3,300,1920], S 599 and 601 and the text stream's
+     [1,226,1920], both backwards with a second run bitwise equal), and
      time kernel, plain version and the nearest single PyTorch call by
      device time alone (`device_ms`: many calls captured in one CUDA graph,
      their inputs rotating over copies that keep the L2 cold), with the
      host's time per call of the adaLN and gated-residual wrappers and of
-     addcmul on lines of their own; the
+     addcmul on lines of their own; the adaLN backward's library time is
+     ATen's LayerNorm backward at its R = 1 form [1,3000,1920], timed
+     beside the kernel there, the gated-residual backward's text-stream
+     time ([1,226,1920]) goes on a line of its own and into its record; the
      flash backward check must also reject a planted fault (dlse ignored),
      give the same bits on a second run, and agree at the ring's Sq != Skv
      shapes (226 x 1950, 1950 x 226, with dlse);
@@ -410,22 +417,29 @@ def time_forward(g, heads: int, sq: int, skv: int, static_max):
 
 
 HOPPER_SOURCES = ("flash_attn_static_max.cu", "flash_attn_online.cu", "flash_attn_q8.cu",
-                  "flash_attn_bwd.cu", "modulate_norm.cu", "modulate_norm_q8.cu")
-# a kernel's name, and an adaLN forward instance's chunks of 128 columns held
-# in registers
+                  "flash_attn_bwd.cu", "modulate_norm.cu", "modulate_norm_q8.cu",
+                  "modulate_norm_bwd.cu", "gated_residual_bwd.cu")
+# a kernel's name, and an adaLN instance's count (chunks of 128 columns held
+# in registers, or gated_residual_bwd's vectors a thread)
 KERNEL_NAME = re.compile(
-    r"((?:flash_(?:fwd|bwd)_\w*?|modulate_norm(?:_q8)?)_kernel)(?:E|ILi(\d+)E)")
-SHOWN_HELD = ("15", "16")  # D = 1920, and D = 2048-4096, of the 16 instances checked
+    r"((?:flash_(?:fwd|bwd)_\w*?|modulate_norm(?:_q8|_bwd)?|gated_residual_bwd)_kernel)"
+    r"(?:E|ILi(\d+)E)")
+# the instances printed, of those checked: D = 1920 and the widest
+SHOWN_HELD = {"gated_residual_bwd_kernel": ("1", "8")}
+SHOWN_HELD_ADALN = ("15", "16")  # the adaLN forwards and backward: D = 1920, D = 2048-4096
 
 
 def hopper_build_report() -> None:
     """The ptxas report of the Hopper kernels: the TMA + wgmma ones (the
     three forwards, each entry file one mode of flash_fwd_sm90.cuh's kernel,
-    and the backward's dq and dk/dv kernels) and the two bulk-copy adaLN
-    forwards (adaln_fwd_sm90.cuh, one instance per held-chunk count,
-    SHOWN_HELD printed). Registers and spills of each kernel, and any notice that ptxas
-    serialized or fenced a wgmma pipeline (C75xx); either of the last two, in
-    any instance, fails the run."""
+    and the backward's dq and dk/dv kernels), the two bulk-copy adaLN
+    forwards (adaln_fwd_sm90.cuh, one instance per held-chunk count) and the
+    two bulk-copy backwards (adaln_bwd_sm90.cuh: modulate_norm_bwd one
+    instance per held-chunk count, gated_residual_bwd one per count of
+    vectors a thread), the instances of SHOWN_HELD printed. Registers and
+    spills of each kernel, and any notice that ptxas serialized or fenced a
+    wgmma pipeline (C75xx); either of the last two, in any instance, fails
+    the run."""
     if not _build.build_log:
         print("Hopper kernels: no build log (the library was built before)", flush=True)
         return
@@ -442,7 +456,8 @@ def hopper_build_report() -> None:
             name = KERNEL_NAME.search(line)  # a notice names its function
             what = f"{source} {name.group(1) if name else kernel}" + (f"<{held}>" if held else "")
             head = re.split(r" (?:in|for) the function", line)[0].strip()
-            if held is None or held in SHOWN_HELD:
+            shown = SHOWN_HELD.get(name.group(1) if name else kernel, SHOWN_HELD_ADALN)
+            if held is None or held in shown:
                 print(f"ptxas {what}: {head}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if re.search(r"C75\d\d", line) or (spills and any(map(int, spills.groups()))):
@@ -712,51 +727,100 @@ def bwd_rate(recs, heads: int, s: int) -> None:
           flush=True)
 
 
-def check_modulate_norm_bwd(g, R, S, D, timed: bool):
-    """dx against its RMS (`rms_agree`); the f32 row sums A and B, which
-    only the summation order separates: max error <= 1e-3 and RMS error
-    <= 1e-4 of RMS(ref). scale is a row-strided bf16 chunk and ns f32, as
-    in the f32-parameter training model."""
+def mn_bwd_inputs(g, R, S, D):
+    """(x, dout, scale, ns) of the adaLN backward: scale a row-strided bf16
+    chunk and ns f32, as in the f32-parameter training model."""
     x = (2 * torch.randn(R, S, D, device="cuda", generator=g) + 0.3).bfloat16()
     do = torch.randn(R, S, D, device="cuda", generator=g).bfloat16()
     _, scale, _ = (0.3 * torch.randn(R, 3 * D, device="cuda", generator=g)).bfloat16(
     ).chunk(3, dim=-1)
-    ns = 1 + 0.1 * torch.randn(D, device="cuda", generator=g)
+    return x, do, scale, 1 + 0.1 * torch.randn(D, device="cuda", generator=g)
+
+
+def layer_norm_bwd(x, do, w, b, mean, rstd):
+    """ATen's LayerNorm backward with weight w, bias b and the saved mean and
+    rstd: (dx, dw, db). At R = 1 it is the adaLN backward's function: dx, B
+    and A."""
+    return torch.ops.aten.native_layer_norm_backward(do, x, [x.shape[-1]], mean, rstd, w, b,
+                                                     [True, True, True])
+
+
+def mn_bwd_library_ms(g, S, D, eps: float = 1e-5):
+    """The adaLN backward's yardstick at its R = 1 form [1, S, D]: with w =
+    ns * (1 + scale[0]) one [D] vector, ATen's LayerNorm backward returns
+    (dx, B, A) from the same bytes (w in x's dtype, bf16: ATen's backward
+    takes no f32 weight with bf16 x). Prints its time beside the kernel's at
+    the same inputs (device_ms) and how far its outputs lie from the
+    kernel's; returns (library ms, kernel ms)."""
+    x, do, scale, ns = mn_bwd_inputs(g, 1, S, D)
+    w = (ns * (1.0 + scale.float()[0])).to(x.dtype)
+    _, mean, rstd = torch.native_layer_norm(x.float(), [D], None, None, eps)
+    got = adaln.modulate_norm_bwd(x, do, scale, ns)
+    args = (x, do, w, torch.zeros_like(w), mean, rstd)
+    lib = layer_norm_bwd(*args)
+    errs = [rms_errors(a, b)[1] for a, b in zip((got[0], got[2][0], got[1][0]), lib)]
+    lib_ms = call_ms("aten native_layer_norm_backward", layer_norm_bwd, args, 50)
+    ms = call_ms("modulate_norm_bwd R = 1", adaln.modulate_norm_bwd, (x, do, scale, ns), 50)
+    print(f"library modulate_norm_bwd [1, {S}, {D}] (R = 1: w one vector): aten "
+          f"native_layer_norm_backward {lib_ms:.4f} ms, kernel {ms:.4f} ms; rel RMS of the "
+          f"kernel's dx / B / A from aten's {errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g}",
+          flush=True)
+    return lib_ms, ms
+
+
+def check_modulate_norm_bwd(g, R, S, D, timed: bool):
+    """dx against its RMS (`rms_agree`); the f32 row sums A and B, which
+    only the summation order separates: max error <= 1e-3 and RMS error
+    <= 1e-4 of RMS(ref); a second run gives the same bits (no atomics).
+    Timed at the training shape, with the library yardstick at its R = 1
+    form (`mn_bwd_library_ms`)."""
+    x, do, scale, ns = mn_bwd_inputs(g, R, S, D)
     got = adaln.modulate_norm_bwd(x, do, scale, ns)
     want = adaln.modulate_norm_bwd_plain(x, do, scale, ns)
+    again = adaln.modulate_norm_bwd(x, do, scale, ns)
     ok = [rms_agree(got[0], want[0])] + [rms_agree(a, b, 1e-3, 1e-4)
                                           for a, b in zip(got[1:], want[1:])]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = [rms_errors(a, b) for a, b in zip(got, want)]
     print(f"kernel modulate_norm_bwd [{R}, {S}, {D}]: dx max_abs_err {errs[0][0]:.3g} "
           f"(tol 0.1*RMS(ref) = {0.1 * errs[0][2]:.3g}), rel RMS err {errs[0][1]:.3g} (tol 1e-2); "
-          f"A/B rel RMS err {errs[1][1]:.3g} / {errs[2][1]:.3g} (tol 1e-4)", flush=True)
-    check(all(ok), f"modulate_norm_bwd disagrees at {(R, S, D)}")
+          f"A/B rel RMS err {errs[1][1]:.3g} / {errs[2][1]:.3g} (tol 1e-4); second run bitwise "
+          f"equal: {same}", flush=True)
+    check(all(ok) and same, f"modulate_norm_bwd disagrees at {(R, S, D)} or differs on a repeat")
     if not timed:
         return None
     host_us(f"modulate_norm_bwd [{R}, {S}, {D}]", adaln.modulate_norm_bwd, (x, do, scale, ns))
     bms, by = bound_ms(3 * R * S * D * 2 + R * D * 2 + D * 4 + 2 * R * D * 4,
                        f32=16.0 * R * S * D)
+    lib_ms, r1_ms = mn_bwd_library_ms(g, R * S, D)
     return dict(name="modulate_norm_bwd", route="cuda",
                 source="orv_tpu_torch/ops/csrc/modulate_norm_bwd.cu",
                 replaces="orv_tpu/ops/adaln.py:105", max_abs_err=errs[0][0],
                 ms=call_ms("modulate_norm_bwd", adaln.modulate_norm_bwd, (x, do, scale, ns), 50),
                 plain_ms=call_ms("modulate_norm_bwd_plain", adaln.modulate_norm_bwd_plain,
                                  (x, do, scale, ns), 10),
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                library_note=f"aten native_layer_norm_backward at the R = 1 form [1,{R * S},{D}] "
+                             f"(w one vector); the kernel there: {r1_ms:.4f} ms")
 
 
 def check_gated_residual_bwd(g, R, S, D, timed: bool):
     """dy exactly (one rounding of one f32 product, as the plain version);
-    dgate's f32 sums: max error <= 1e-3 and RMS error <= 1e-4 of RMS(ref)."""
+    dgate's f32 sums: max error <= 1e-3 and RMS error <= 1e-4 of RMS(ref); a
+    second run gives the same bits. Timed: a record (the video stream's
+    shape), or with `text` its time and bound on a line of their own."""
     do, y = (torch.randn(R, S, D, device="cuda", generator=g).bfloat16() for _ in range(2))
     gate = torch.randn(R, 3 * D, device="cuda", generator=g).bfloat16()[:, 2 * D:]
     dy, dgate = adaln.gated_residual_bwd(do, y, gate)
     ref_dy, ref_dgate = adaln.gated_residual_bwd_plain(do, y, gate)
+    again = adaln.gated_residual_bwd(do, y, gate)
+    same = torch.equal(again[0], dy) and torch.equal(again[1], dgate)
     dy_err, (dg_err, dg_rel, _) = max_err(dy, ref_dy), rms_errors(dgate, ref_dgate)
     print(f"kernel gated_residual_bwd [{R}, {S}, {D}]: dy max_abs_err {dy_err:.3g} (tol 0), "
-          f"dgate max_abs_err {dg_err:.3g}, rel RMS err {dg_rel:.3g} (tol 1e-4)", flush=True)
-    check(dy_err == 0.0 and rms_agree(dgate, ref_dgate, 1e-3, 1e-4),
-          f"gated_residual_bwd disagrees at {(R, S, D)}")
+          f"dgate max_abs_err {dg_err:.3g}, rel RMS err {dg_rel:.3g} (tol 1e-4); second run "
+          f"bitwise equal: {same}", flush=True)
+    check(dy_err == 0.0 and rms_agree(dgate, ref_dgate, 1e-3, 1e-4) and same,
+          f"gated_residual_bwd disagrees at {(R, S, D)} or differs on a repeat")
     if not timed:
         return None
     host_us(f"gated_residual_bwd [{R}, {S}, {D}]", adaln.gated_residual_bwd, (do, y, gate))
@@ -768,6 +832,20 @@ def check_gated_residual_bwd(g, R, S, D, timed: bool):
                 plain_ms=call_ms("gated_residual_bwd_plain", adaln.gated_residual_bwd_plain,
                                  (do, y, gate), 10),
                 bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def time_gated_residual_bwd_text(g) -> float:
+    """The gated-residual backward at the text stream's [1, 226, 1920] (59
+    of its 119 launches a training micro-step): its time and bound on a line
+    of their own. Returns the time."""
+    R, S, D = 1, 226, 1920
+    do, y = (torch.randn(R, S, D, device="cuda", generator=g).bfloat16() for _ in range(2))
+    gate = torch.randn(R, 3 * D, device="cuda", generator=g).bfloat16()[:, 2 * D:]
+    ms = call_ms("gated_residual_bwd text", adaln.gated_residual_bwd, (do, y, gate), 50)
+    bms, by = bound_ms(3 * R * S * D * 2 + R * D * 2 + R * D * 4, f32=3.0 * R * S * D)
+    print(f"time gated_residual_bwd text stream [{R}, {S}, {D}]: kernel {ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}), {bms / ms:.1%} of it", flush=True)
+    return ms
 
 
 def time_int8_prep(g, prep_k_ms: float) -> None:
@@ -1161,14 +1239,20 @@ def main() -> int:
             check_attention_bwd(g, shape, with_dlse, timed=False)
     check_attention_bwd(g, (1, 2, 226), True, timed=False, skv=1950)  # the ring's Sq != Skv
     check_attention_bwd(g, (1, 2, 1950), True, timed=False, skv=226)
-    check_modulate_norm_bwd(g, 3, 300, 1920, timed=False)
-    check_gated_residual_bwd(g, 3, 300, 1920, timed=False)
+    # the adaLN backwards: a row group's last tile ragged (12- and 8-row
+    # tiles at S 599 and 601), the 5b family's width and the widest, then
+    # the training shapes
+    for R, S, D in ((3, 300, 1920), (5, 599, 1920), (5, 601, 1920), (4, 600, 3072),
+                    (2, 77, 4096)):
+        check_modulate_norm_bwd(g, R, S, D, timed=False)
+    for R, S, D in ((3, 300, 1920), (5, 599, 1920), (5, 601, 1920), (1, 226, 1920)):
+        check_gated_residual_bwd(g, R, S, D, timed=False)
     check_attention_bwd(g, (1, 30, 3226), True, timed=False)
     bwd_records = check_attention_bwd(g, (1, 30, 3226), False, timed=True)
     records += bwd_records
     records.append(check_modulate_norm_bwd(g, 5, 600, 1920, timed=True))
     records.append(check_gated_residual_bwd(g, 5, 600, 1920, timed=True))
-    check_gated_residual_bwd(g, 1, 226, 1920, timed=False)  # the text stream
+    records[-1]["text_ms"] = time_gated_residual_bwd_text(g)
     # logits past 150 at the flagship shape: q and k scaled by 5 give logits of
     # standard deviation 25, and 2e9 of them
     records.append(check_attention_online(g, 30, 8026, 8026, 5.0, timed=True))

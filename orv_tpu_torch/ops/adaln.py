@@ -86,20 +86,19 @@ _MN_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 3
             + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-# widest rows each adaLN kernel takes: the forwards hold at most 2048 columns
-# of a row in registers and re-read the rest from shared memory
-# (csrc/adaln_fwd_sm90.cuh); the backward holds the whole row in registers
-MAX_D_FORWARD = 4096
-MAX_D_BACKWARD = 2048
+# widest rows the adaLN kernels take, forward and backward: they hold at most
+# 2048 columns of a row in registers and re-read the rest from shared memory
+# (csrc/adaln_fwd_sm90.cuh, csrc/adaln_bwd_sm90.cuh)
+MAX_D = 4096
 
 
-def _check_modulate(name, x, scale, shift, norm_scale, norm_bias, max_d=MAX_D_FORWARD):
+def _check_modulate(name, x, scale, shift, norm_scale, norm_bias):
     """Raise unless the adaLN kernels take these operands (rows of D % 128 ==
-    0 and D <= max_d)."""
+    0 and D <= MAX_D)."""
     _check_rows(name, x, scale, shift)
     D = x.shape[2]
-    if D % 128 != 0 or D > max_d:
-        raise ValueError(f"{name} kernel takes D % 128 == 0 and D <= {max_d}; got D={D}")
+    if D % 128 != 0 or D > MAX_D:
+        raise ValueError(f"{name} kernel takes D % 128 == 0 and D <= {MAX_D}; got D={D}")
     if scale.stride(0) != shift.stride(0) or scale.dtype != shift.dtype:
         raise ValueError(f"{name} kernel takes scale and shift of one dtype and stride")
     for t in (norm_scale, norm_bias):
@@ -156,7 +155,7 @@ def modulate_norm(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
 
     CPU tensors run `modulate_norm_plain` (and `modulate_norm_bwd_plain`
     backward). On CUDA, x must be contiguous bf16 with D % 128 == 0 and
-    D <= 4096 (the backward: D <= 2048); anything else raises."""
+    D <= 4096; anything else raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"modulate_norm: unsupported device {x.device}")
     if x.device.type == "cuda":
@@ -270,8 +269,45 @@ gated_residual.launches = 0
 # Backward kernels
 # ---------------------------------------------------------------------------
 
-# rows of one row group r that one block of a backward kernel sums over
-BWD_CHUNK_ROWS = 16
+# widest rows gated_residual_bwd takes: a consumer thread of
+# csrc/adaln_bwd_sm90.cuh owns at most 8 vectors of 8 columns in each 2048
+GR_BWD_MAX_D = 16384
+
+
+def bwd_plan(R: int, S: int, max_rows: int, resident: int):
+    """The tiling of a backward kernel's launch (csrc/adaln_bwd_sm90.cuh) over
+    R row groups of S rows: (rows a tile, grid, partial slots). max_rows and
+    resident are the kernel's limits for the width on the device (the widest
+    tile its shared memory holds, the blocks that fit at once). A tile is
+    `rows` rows of one row group: max_rows, or fewer where whole tiles would
+    leave resident blocks idle (the text stream's 226 rows: 2 a tile on 113
+    blocks timed 10% faster than 8 on 29 on an NVIDIA H100 80GB HBM3 at
+    700 W). Block b of the grid walks tiles
+    [b T / grid, (b + 1) T / grid) of the T = R * ceil(S / rows) in
+    row-group order and writes one partial of sums for each row group it
+    touches, into slot b + r; so group r's partials fill consecutive slots
+    and there are grid + R - 1."""
+    rows = max(1, min(max_rows, -(-R * S // resident)))
+    grid = min(R * -(-S // rows), resident)
+    return rows, grid, grid + R - 1
+
+
+_LIMITS_ARGS = [ctypes.c_int, ctypes.c_void_p]
+_limits = {}  # (kernel, device index, D) -> (max_rows, resident)
+
+
+def _bwd_limits(name: str, device, D: int, query):
+    """A backward kernel's (max rows a tile, resident blocks) at width D on
+    device, from the C side (`query(D, out)` fills out), once per device and
+    width: the query also lifts the kernel's shared-memory limit there."""
+    key = (name, device.index, D)
+    if key not in _limits:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            err = query(D, ctypes.addressof(out))
+        _build.check(err, f"{name} limits")
+        _limits[key] = (out[0], out[1])
+    return _limits[key]
 
 
 def modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps: float = 1e-5):
@@ -293,44 +329,49 @@ def modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps: float = 1e-5):
 
 def _check_modulate_bwd(x, dout, scale, norm_scale):
     """Raise unless the adaLN backward kernel takes these operands: as the
-    forwards', with D <= 2048 (its warp holds a row in registers) and dout
-    like x."""
-    _check_modulate("modulate_norm_bwd", x, scale, scale, norm_scale, norm_scale,
-                    max_d=MAX_D_BACKWARD)
-    if dout.shape != x.shape or dout.dtype != x.dtype or not dout.is_contiguous():
-        raise ValueError(f"modulate_norm_bwd takes a contiguous dout like x {tuple(x.shape)}; "
-                         f"got {dout.dtype} {tuple(dout.shape)}")
+    forwards', R and S >= 1, and dout like x (contiguous and 16-byte
+    aligned: it is copied in by 1-D bulk copies)."""
+    _check_modulate("modulate_norm_bwd", x, scale, scale, norm_scale, norm_scale)
+    if (dout.shape != x.shape or dout.dtype != x.dtype or dout.device != x.device
+            or not dout.is_contiguous() or dout.data_ptr() % 16):
+        raise ValueError(f"modulate_norm_bwd takes a contiguous, 16-byte aligned dout like x "
+                         f"{tuple(x.shape)} {x.dtype}; got {dout.dtype} {tuple(dout.shape)} "
+                         f"on {dout.device}")
+    if min(x.shape[:2]) < 1:
+        raise ValueError(f"modulate_norm_bwd kernel takes R, S >= 1; got {tuple(x.shape)}")
 
 
 _MNB_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def modulate_norm_bwd(x, dout, scale, norm_scale, eps: float = 1e-5):
     """(dx, A, B) of the adaLN backward, as `modulate_norm_bwd_plain`.
 
     CPU tensors run `modulate_norm_bwd_plain`. On CUDA, x and dout must be
-    contiguous bf16 [R, S, D] with D % 128 == 0 and D <= 2048, scale [R, D]
-    with a contiguous last dim and norm_scale [D] contiguous; anything else
-    raises. One launch (counted in `modulate_norm_bwd.launches`) runs the row
-    pass and the fixed-order sum of its chunks, so A and B are the same from
-    run to run."""
+    contiguous bf16 [R, S, D] with R, S >= 1, D % 128 == 0 and D <= 4096, scale
+    [R, D] with a contiguous last dim and norm_scale [D] contiguous; anything
+    else raises. One launch (counted in `modulate_norm_bwd.launches`) runs
+    the row pass and the fixed-order sum over S, so A and B are the same
+    from run to run."""
     if x.device.type == "cpu":
         return modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"modulate_norm_bwd: unsupported device {x.device}")
     _check_modulate_bwd(x, dout, scale, norm_scale)
     R, S, D = x.shape
-    n_chunks = -(-S // BWD_CHUNK_ROWS)
+    rows, grid, n_part = bwd_plan(R, S, *_bwd_limits(
+        "modulate_norm_bwd", x.device, D,
+        lambda d, out: _build.kernel("orv_modulate_norm_bwd_limits", _LIMITS_ARGS)(d, out)))
     dx = torch.empty_like(x)
-    part = torch.empty((R, n_chunks, 2, D), dtype=torch.float32, device=x.device)
+    part = torch.empty((n_part, 2, D), dtype=torch.float32, device=x.device)
     ab = torch.empty((R, 2, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.kernel("orv_modulate_norm_bwd", _MNB_ARGS)(
             x.data_ptr(), dout.data_ptr(), scale.data_ptr(), scale.stride(0),
             norm_scale.data_ptr(), dx.data_ptr(), part.data_ptr(), ab.data_ptr(), R, S, D,
-            BWD_CHUNK_ROWS, float(eps), int(scale.dtype == torch.bfloat16),
+            rows, grid, float(eps), int(scale.dtype == torch.bfloat16),
             int(norm_scale.dtype == torch.bfloat16), stream)
     _build.check(err, "modulate_norm_bwd")
     _build.count(modulate_norm_bwd)
@@ -348,33 +389,45 @@ def gated_residual_bwd_plain(dout, y, gate):
     return (do * gate.float()[:, None, :]).to(y.dtype), (do * y.float()).sum(1)
 
 
+def _check_gated_bwd(dout, y, gate):
+    """Raise unless the gated-residual backward kernel takes these operands:
+    as the forward's, with R, S >= 1 and D <= GR_BWD_MAX_D."""
+    _check_gated("gated_residual_bwd", dout, y, gate)
+    R, S, D = dout.shape
+    if min(R, S) < 1 or D > GR_BWD_MAX_D:
+        raise ValueError(f"gated_residual_bwd kernel takes R, S >= 1 and D <= {GR_BWD_MAX_D}; "
+                         f"got {tuple(dout.shape)}")
+
+
 _GRB_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def gated_residual_bwd(dout, y, gate):
     """(dy, dgate f32) of the gated residual, as `gated_residual_bwd_plain`.
 
     CPU tensors run `gated_residual_bwd_plain`. On CUDA, dout and y must be
-    contiguous bf16 of one shape [R, S, D] with D % 8 == 0 and gate [R, D]
-    with a contiguous last dim; anything else raises. One launch (counted in
-    `gated_residual_bwd.launches`) runs the row pass and the fixed-order sum
-    of its chunks."""
+    contiguous bf16 of one shape [R, S, D] with R, S >= 1, D % 8 == 0 and
+    D <= 16384, and gate [R, D] with a contiguous last dim; anything else
+    raises. One launch (counted in `gated_residual_bwd.launches`) runs the
+    row pass and the fixed-order sum over S."""
     if dout.device.type == "cpu":
         return gated_residual_bwd_plain(dout, y, gate)
     if dout.device.type != "cuda":
         raise ValueError(f"gated_residual_bwd: unsupported device {dout.device}")
-    _check_gated("gated_residual_bwd", dout, y, gate)
+    _check_gated_bwd(dout, y, gate)
     R, S, D = y.shape
-    n_chunks = -(-S // BWD_CHUNK_ROWS)
+    rows, grid, n_part = bwd_plan(R, S, *_bwd_limits(
+        "gated_residual_bwd", y.device, D,
+        lambda d, out: _build.kernel("orv_gated_residual_bwd_limits", _LIMITS_ARGS)(d, out)))
     dy = torch.empty_like(y)
-    part = torch.empty((R, n_chunks, D), dtype=torch.float32, device=y.device)
+    part = torch.empty((n_part, D), dtype=torch.float32, device=y.device)
     dgate = torch.empty((R, D), dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.kernel("orv_gated_residual_bwd", _GRB_ARGS)(
             dout.data_ptr(), y.data_ptr(), gate.data_ptr(), gate.stride(0), dy.data_ptr(),
-            part.data_ptr(), dgate.data_ptr(), R, S, D, BWD_CHUNK_ROWS,
+            part.data_ptr(), dgate.data_ptr(), R, S, D, rows, grid,
             int(gate.dtype == torch.bfloat16), stream)
     _build.check(err, "gated_residual_bwd")
     _build.count(gated_residual_bwd)

@@ -113,13 +113,6 @@ __device__ __forceinline__ int row_chunks(const Params& p) {
   return kHeld < kCache ? kHeld : p.nv;
 }
 
-__device__ __forceinline__ float4 ld_bf16x4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
-}
-
 __device__ __forceinline__ float modulate(float x, float mean, float inv, float ns, float nb,
                                           float sc1, float sh) {
   return __fmaf_rn(__fmaf_rn(__fmul_rn(__fsub_rn(x, mean), inv), ns, nb), sc1, sh);

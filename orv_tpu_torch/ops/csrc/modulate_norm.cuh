@@ -1,7 +1,6 @@
-// Helpers of the adaLN kernels: a load of a bf16 or f32 parameter and a
-// warp sum, shared by adaln_fwd_sm90.cuh (the two forwards) and
-// modulate_norm_bwd.cu, whose warp holds a whole row of up to
-// kMaxVec * 128 = 2048 columns in registers.
+// Helpers of the adaLN kernels: four bf16 values as f32 and a warp sum,
+// shared by adaln_fwd_sm90.cuh (the two forwards) and adaln_bwd_sm90.cuh
+// (the two backwards).
 
 #pragma once
 
@@ -12,11 +11,11 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kMaxVec = 16;  // up to D = 16 * 128 = 2048 (the backward)
-
-__device__ __forceinline__ float ld(const void* p, long i, int is_bf16) {
-  return is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(p)[i])
-                 : reinterpret_cast<const float*>(p)[i];
+__device__ __forceinline__ float4 ld_bf16x4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -57,13 +57,14 @@ from orv_tpu_torch.parallel import (  # noqa: E402
 from orv_tpu_torch.parallel.sp import LocalRing  # noqa: E402
 from orv_tpu_torch.schedulers import make_schedule  # noqa: E402
 
-# kernel name -> kind, first match wins
+# kernel name -> kind, first match wins. The adaLN backwards add their sums
+# over S inside their one launch (csrc/adaln_bwd_sm90.cuh), so their time
+# includes what the first design's second launch, `sum_chunks_kernel`, took.
 KINDS = [
     ("flash_attn_bwd dq (CUDA, this repo)", re.compile(r"flash_bwd_dq")),
     ("flash_attn_bwd dk/dv (CUDA, this repo)", re.compile(r"flash_bwd_dkv")),
-    ("modulate_norm_bwd (CUDA, this repo)", re.compile(r"modulate_norm_bwd")),
-    ("gated_residual_bwd (CUDA, this repo)", re.compile(r"gated_residual_bwd")),
-    ("backward row sums (CUDA, this repo)", re.compile(r"sum_chunks")),
+    ("modulate_norm_bwd (CUDA, this repo)", re.compile(r"modulate_norm_bwd_kernel")),
+    ("gated_residual_bwd (CUDA, this repo)", re.compile(r"gated_residual_bwd_kernel")),
     ("flash_attn_q8 (CUDA, this repo)", re.compile(r"flash_fwd_q8")),
     ("flash_attn_static_max (CUDA, this repo)", re.compile(r"flash_fwd_static_max")),
     ("flash_attn_online (CUDA, this repo)", re.compile(r"flash_fwd_online")),

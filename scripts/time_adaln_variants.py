@@ -30,7 +30,7 @@ Each --against NAME=DIR (a checkout of another commit, e.g. one unpacked
 with `git archive`) adds that checkout's modulate_norm.cu and
 modulate_norm_q8.cu as the variant NAME; its outputs are compared with the
 final kernel's bit for bit. Its width limit is read from its
-orv_tpu_torch/ops/adaln.py (MAX_D_FORWARD; D <= 2048 where that is absent,
+orv_tpu_torch/ops/adaln.py (MAX_D or MAX_D_FORWARD; D <= 2048 where both are absent,
 as before the forwards took wider rows): its C entry may launch on rows its
 wrapper refuses.
 Each is built with nvcc into its own library under
@@ -253,7 +253,7 @@ AGAINST_MAX_D: dict[str, int] = {}
 
 def max_d(checkout: Path) -> int:
     """The widest rows a checkout's adaLN forwards take, by its wrapper."""
-    m = re.search(r"^MAX_D_FORWARD = (\d+)$",
+    m = re.search(r"^MAX_D(?:_FORWARD)? = (\d+)$",
                   (checkout / "orv_tpu_torch" / "ops" / "adaln.py").read_text(), re.M)
     return int(m.group(1)) if m else 2048
 

@@ -23,7 +23,8 @@ OPS = Path(__file__).resolve().parents[1] / "orv_tpu_torch" / "ops"
 ENTRY_POINTS = ("orv_flash_attn_static_max", "orv_flash_attn_online", "orv_flash_attn_q8",
                 "orv_flash_attn_bwd_dq", "orv_flash_attn_bwd_dkv", "orv_modulate_norm",
                 "orv_modulate_norm_q8", "orv_modulate_norm_bwd", "orv_gated_residual",
-                "orv_gated_residual_bwd")
+                "orv_gated_residual_bwd", "orv_modulate_norm_bwd_limits",
+                "orv_gated_residual_bwd_limits")
 _DECL = re.compile(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(orv_\w+)\s*\(([^)]*)\)', re.S)
 
 

@@ -28,7 +28,8 @@ with heads whose k, v and dO are 10^h apart, head by head). The f32 row
 sums of the adaLN backward (A, B, dgate), which only the summation order
 separates from the plain version: RMS error <= 1e-4 RMS(ref). The flash
 check must reject the dq/dk/dv of a run that ignores dlse, and two
-runs of the flash backward must give the same bits.
+runs of the flash backward, and of each adaLN backward, must give the same
+bits.
 """
 
 import pytest
@@ -263,8 +264,8 @@ def test_cuda_adaln_forwards_across_row_groups(cuda, R, norm_f32):
 
 @pytest.mark.cuda
 def test_cuda_adaln_width_limits(cuda):
-    """The forwards take D up to 4096 in multiples of 128; the backward, whose
-    warp holds a row in registers, D up to 2048."""
+    """The forwards and the backward take D up to 4096 in multiples of 128;
+    the gated-residual backward D up to 16384 in multiples of 8."""
     g = torch.Generator(device=cuda).manual_seed(40)
     for D in (4224, 200):
         args = _adaln_args(cuda, g, 2, 9, D, norm_f32=False)
@@ -272,9 +273,11 @@ def test_cuda_adaln_width_limits(cuda):
             adaln.modulate_norm(*args)
         with pytest.raises(ValueError, match="D % 128 == 0 and D <= 4096"):
             adaln.modulate_norm_q8(*args)
-    x, scale, _, ns, _ = _adaln_args(cuda, g, 2, 9, 3072, norm_f32=True)
-    with pytest.raises(ValueError, match="modulate_norm_bwd kernel takes .* D <= 2048"):
-        adaln.modulate_norm_bwd(x, x, scale, ns)
+        with pytest.raises(ValueError, match="modulate_norm_bwd kernel takes .* D <= 4096"):
+            adaln.modulate_norm_bwd(args[0], args[0].clone(), args[1], args[3])
+    _check_gated_residual_bwd(*_gated_bwd_args(cuda, g, 2, 5, 16384))
+    with pytest.raises(ValueError, match="gated_residual_bwd kernel takes .* D <= 16384"):
+        adaln.gated_residual_bwd(*_gated_bwd_args(cuda, g, 2, 5, 16392))
 
 
 def _q8_attention_agrees(out, ref):
@@ -561,3 +564,89 @@ def test_cuda_gated_residual_bwd_matches_plain(cuda, R, S, D):
     assert torch.equal(leaves[0].grad, do)
     torch.testing.assert_close(leaves[1].grad, ref_dy, atol=0, rtol=0)
     assert _agree(leaves[2].grad, ref_dgate.bfloat16(), rms_rel=1e-2)
+
+
+# S for the backward kernels at R = 5 (csrc/adaln_bwd_sm90.cuh): 1 and 3 (a
+# row a tile: 5 S rows do not fill the card), the text stream's 226 (9-row
+# tiles for modulate_norm_bwd, 8 for gated_residual_bwd, the last of a group
+# ragged), and around the video stream's 600 (12- and 8-row tiles, the last
+# 11 or 7, 12 or 8, 1 and 5 rows long)
+_BWD_S = (1, 3, 226, 599, 600, 601, 605)
+
+
+def _mn_bwd_args(cuda, g, R, S, D):
+    """x with a mean to take out, dout, scale as the modulation linear leaves
+    it (a row-strided bf16 chunk of [R, 3D]) and f32 ns, as under f32
+    parameters."""
+    x = (2 * torch.randn(R, S, D, device=cuda, generator=g) + 0.3).bfloat16()
+    do = torch.randn(R, S, D, device=cuda, generator=g).bfloat16()
+    _, scale, _ = (0.3 * torch.randn(R, 3 * D, device=cuda, generator=g)).bfloat16().chunk(3, -1)
+    return x, do, scale, 1 + 0.1 * torch.randn(D, device=cuda, generator=g)
+
+
+def _check_modulate_norm_bwd(x, do, scale, ns):
+    """One launch against the plain version (dx by `_agree`, A and B to 1e-4
+    RMS); a second run gives the same bits."""
+    R, S, D = x.shape
+    before = adaln.modulate_norm_bwd.launches
+    got = adaln.modulate_norm_bwd(x, do, scale, ns)
+    assert adaln.modulate_norm_bwd.launches == before + 1
+    want = adaln.modulate_norm_bwd_plain(x, do, scale, ns)
+    assert got[0].dtype == torch.bfloat16 and got[1].shape == got[2].shape == (R, D)
+    assert _agree(got[0], want[0])
+    assert _agree(got[1], want[1], rms_rel=1e-4) and _agree(got[2], want[2], rms_rel=1e-4)
+    again = adaln.modulate_norm_bwd(x, do, scale, ns)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _gated_bwd_args(cuda, g, R, S, D):
+    do, y = (torch.randn(R, S, D, device=cuda, generator=g).bfloat16() for _ in range(2))
+    return do, y, torch.randn(R, 3 * D, device=cuda, generator=g).bfloat16()[:, 2 * D:]
+
+
+def _check_gated_residual_bwd(do, y, gate):
+    """One launch against the plain version (dy exactly, dgate to 1e-4 RMS);
+    a second run gives the same bits."""
+    before = adaln.gated_residual_bwd.launches
+    dy, dgate = adaln.gated_residual_bwd(do, y, gate)
+    assert adaln.gated_residual_bwd.launches == before + 1
+    ref_dy, ref_dgate = adaln.gated_residual_bwd_plain(do, y, gate)
+    torch.testing.assert_close(dy, ref_dy, atol=0, rtol=0)
+    assert dgate.dtype == torch.float32 and _agree(dgate, ref_dgate, rms_rel=1e-4)
+    again = adaln.gated_residual_bwd(do, y, gate)
+    assert torch.equal(again[0], dy) and torch.equal(again[1], dgate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", _BWD_S)
+@pytest.mark.parametrize("D", [128, 1920, 2048, 2176, 3072, 4096])
+def test_cuda_modulate_norm_bwd_at_tile_edges(cuda, D, S):
+    """`_BWD_S` over 5 row groups; D from one 128-column chunk to 4096: below
+    2048 each width is its own kernel instance, from 2048 on one instance
+    holds 12 chunks and re-reads the rest (4 at 2048, 5 at 2176); at 3072
+    and 4096 shared memory holds tiles of 7 and 5 rows."""
+    g = torch.Generator(device=cuda).manual_seed(50 + S)
+    _check_modulate_norm_bwd(*_mn_bwd_args(cuda, g, 5, S, D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", _BWD_S)
+@pytest.mark.parametrize("D", [64, 128, 1920, 2048, 2176, 3072, 4096])
+def test_cuda_gated_residual_bwd_at_tile_edges(cuda, D, S):
+    """As the adaLN backward's, and at D = 64: a thread owns one 8-column
+    vector of each 2048 (D <= 2048), or two (2176 to 4096)."""
+    g = torch.Generator(device=cuda).manual_seed(60 + S)
+    _check_gated_residual_bwd(*_gated_bwd_args(cuda, g, 5, S, D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 5, 13])
+def test_cuda_adaln_backwards_across_row_groups(cuda, R):
+    """At S = 600 and 226 most blocks of the persistent grid cross from one
+    row group into the next, write a partial for each, and the grid's finish
+    adds each group's partials: a partial summed into the wrong group moves
+    its sums by their own size, far past 1e-4 RMS."""
+    g = torch.Generator(device=cuda).manual_seed(70 + R)
+    for S in (600, 226):
+        _check_modulate_norm_bwd(*_mn_bwd_args(cuda, g, R, S, 1920))
+        _check_gated_residual_bwd(*_gated_bwd_args(cuda, g, R, S, 1920))

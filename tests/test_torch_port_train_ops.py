@@ -9,7 +9,7 @@ seed with numpy and handed to both.
 
 Shapes: ragged S (200, 300: not a multiple of the 128-row Pallas blocks or
 the 64-row CUDA tiles), and Sq != Skv (200 x 330, 330 x 200), H = 2, D = 64
-for attention; adaLN x [2, S, 128].
+for attention; adaLN x [2, S, 128], and [2, 40, 3072] for the backward.
 Tolerances, each against the reference output's own RMS:
   f32: max error <= 1e-4 RMS (only the summation order differs; measured
   at most 1.2e-5);
@@ -153,12 +153,14 @@ def test_flash_attention_grads_match_jax_sq_ne_skv(sq, skv, with_lse, static_max
 
 
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
-@pytest.mark.parametrize("S", [200, 300])
-def test_modulate_norm_grads_match_jax(S, prec):
+@pytest.mark.parametrize("S,D", [(200, 128), (300, 128), (40, 3072)], ids=["200", "300", "40-3072"])
+def test_modulate_norm_grads_match_jax(S, D, prec):
     """All five inputs; x, scale and shift in the working dtype, the norm's
-    scale and bias in f32 as the f32 parameters give them."""
+    scale and bias in f32 as the f32 parameters give them. D = 3072 is the
+    5b family's width, which the CUDA backward takes since it re-reads the
+    columns past 2048 from shared memory."""
     rng = np.random.default_rng(S + 1)
-    R, D = 2, 128
+    R = 2
     x = (1.5 * rng.standard_normal((R, S, D)) + 0.3).astype(np.float32)
     scale, shift = (0.3 * rng.standard_normal((R, D)).astype(np.float32) for _ in range(2))
     ns = (1 + 0.2 * rng.standard_normal(D)).astype(np.float32)
