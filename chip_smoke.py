@@ -67,6 +67,31 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      (quantize_model_, no second copy) and one W8A8 forward must launch
      flash_q8 / modulate_norm_q8 / gated_residual = 30 / 60 / 120 and none
      of the bf16 attention and modulate_norm;
+  4b. the serving entry points at full width, phase 4's models freed
+     first, over a bridgev2 episode written from a numpy seed into a temp
+     dir (annotation JSON, [32,13,40,60] moments of a 49-frame clip, the
+     empty prompt's [226,4096] embeds, the raw 320x480 frames as mp4 and a
+     render.npz of depths and labels), each step with its launch counts
+     from zero and a line of its wall, denoise (s/step), encode and decode
+     seconds and peak memory: evaluate (pipelines/evaluate.py) on the
+     port's base_eval.yaml + eval/eval_traj_image_cond_2b_finetune.yaml at
+     49 frames, traj-image-depth-label, 4 DPM steps, a random 2B model
+     (build_dit_config, visual guidance) and a random full VAE, in bf16
+     (4 x 30 / 60 / 120 launches) and with evaluation.quant=true (4 x
+     flash_q8 / modulate_norm_q8 / gated_residual = 30 / 60 / 120, none of
+     the bf16 attention or modulate_norm); the clip's latents finite
+     [13,16,40,60], its mp4 read back as 49x320x480x3 uint8, manifest.json
+     naming it (and a gif beside the first mp4; the later steps write the
+     mp4 only); encode_auto of the 49x320x480 clip; evaluate over the raw
+     frames (dataset.load_tensors=false: video, first frame, depth and
+     labels encoded); the cascaded eval config (17-frame chunks from raw
+     pixels, every chunk after the first conditioned on a re-encoded
+     generated frame, the stitched mp4 back to 49 frames);
+     inference.generate_video at the flagship width from a 320x480 frame
+     and 48 actions, twice on the same models (the second call's step
+     without the first forward's costs); inference.main in its tiny smoke
+     mode over a demo
+     folder of 17 png frames;
   5. training, the serving models freed first: the 2B fine-tune recipe
      (orv_tpu/config/experiments/traj_image_2b_finetune.yaml on
      base_train.yaml: 30 layers x 30 heads x 64, 6-chunk adaLN,
@@ -93,13 +118,19 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
-from orv_tpu_torch.models import CausalVAE, ControlDiT, DiTConfig, VAEConfig, decode_chunked
+from orv_tpu_torch.configs import default_config_dir, load_config
+from orv_tpu_torch.models import (CausalVAE, ControlDiT, DiTConfig, VAEConfig, decode_chunked,
+                                  encode_auto)
 from orv_tpu_torch.models.layers import quantize_tokens
 from orv_tpu_torch.models.quantize import quantize_linear_params, quantize_model_
 from orv_tpu_torch.ops import _build, adaln, attention
@@ -115,7 +146,13 @@ from orv_tpu_torch.parallel import (
 from orv_tpu_torch.parallel.sp import LocalRing
 from orv_tpu_torch.parallel.train_step import global_norm, trainable
 from orv_tpu_torch.pipelines import SamplerConfig, decode_latents, make_sampler
+from orv_tpu_torch.pipelines import evaluate as evaluate_mod
+from orv_tpu_torch.pipelines import inference as inference_mod
+from orv_tpu_torch.pipelines.evaluate import evaluate
+from orv_tpu_torch.pipelines.inference import generate_video
+from orv_tpu_torch.pipelines.train import build_dit_config
 from orv_tpu_torch.schedulers import make_schedule
+from orv_tpu_torch.utils.video import read_video, write_video
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -1120,6 +1157,257 @@ def generate(dit, vae, inp, name: str, forward_counts):
     return sample_s / STEPS, launches
 
 
+SERVING_STEPS = 4  # DPM steps of every denoise of phase 4b
+# the inference entry point's tiny smoke model: 2 layers, 3-chunk adaLN
+# (per block 1 attention, 2 modulate_norm on the video stream, 2 gated residuals)
+SMOKE_FORWARD = (2, 4, 4, 0, 0, 0, 0, 0, 0, 0)
+
+
+class StageTimes:
+    """Wall seconds (card synchronized) and calls of the entry points' stages:
+    the sampler's denoise, the VAE encode and the decode. `patch` wraps the
+    names the serving modules call, `restore` puts them back."""
+
+    def __init__(self):
+        self.modules = (evaluate_mod, inference_mod)
+        self.saved = {(m, n): getattr(m, n) for m in self.modules
+                      for n in ("make_sampler", "encode_auto", "decode_chunked")}
+        self.reset()
+
+    def reset(self):
+        self.s = {"sample": 0.0, "encode": 0.0, "decode": 0.0}
+        self.calls = {"sample": 0, "encode": 0, "decode": 0}
+        self.encode_frames = []
+
+    def _timed(self, what, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[what] += time.perf_counter() - t0
+            self.calls[what] += 1
+            if what == "encode":
+                self.encode_frames.append(int(args[1].shape[2]))
+            return out
+        return run
+
+    def patch(self):
+        for (m, n), fn in self.saved.items():
+            if n == "make_sampler":
+                setattr(m, n, lambda *a, _fn=fn, **k: self._timed("sample", _fn(*a, **k)))
+            else:
+                setattr(m, n, self._timed(n.split("_")[0], fn))
+
+    def restore(self):
+        for (m, n), fn in self.saved.items():
+            setattr(m, n, fn)
+
+
+def write_serving_data(root: Path, frames: int = 49) -> None:
+    """The eval configs' on-disk layout for one bridgev2 episode, from a numpy
+    seed: annotation JSON; moments of the 49-frame clip (latents, image
+    latents, depth and label: [32, 13, 40, 60] f32); the empty prompt's
+    embeds [226, 4096]; the raw 320x480 frames as an mp4 and a render.npz of
+    depths and semantic labels (the raw-pixel path's inputs)."""
+    rng = np.random.default_rng(0)
+    emb = root / "embeddings_full" / "test"
+    for d in ("latents", "image_latents", "depth_latents", "label_latents", "prompt_embeds"):
+        (emb / d).mkdir(parents=True)
+    (root / "annotations" / "test").mkdir(parents=True)
+    (root / "videos").mkdir()
+    ann = dict(episode_id="00000", texts=["put the spoon in the pot"],
+               videos=[{"video_path": "videos/00000.mp4"}],
+               state=rng.uniform(-0.5, 0.5, (frames, 7)).tolist(),
+               continuous_gripper_state=rng.uniform(0, 1, frames).tolist())
+    (root / "annotations" / "test" / "00000.json").write_text(json.dumps(ann))
+    F, C, H, W = LATENT
+    for kind, f in (("latents", F), ("image_latents", 1), ("depth_latents", F),
+                    ("label_latents", F)):
+        np.savez(emb / kind / f"00000_00_{frames:02d}.npz",
+                 rng.normal(size=(2 * C, f, H, W)).astype(np.float32))
+    np.savez(emb / "prompt_embeds" / "empty.npz",
+             (0.1 * rng.standard_normal((226, 4096))).astype(np.float32))
+    t = np.arange(frames)[:, None, None, None]
+    yy, xx = np.meshgrid(np.arange(8 * H), np.arange(8 * W), indexing="ij")
+    pix = (128 + 60 * np.sin(0.05 * xx[None, :, :, None] + 0.1 * t + np.arange(3))
+           + 40 * np.cos(0.07 * yy)[None, :, :, None]
+           + rng.normal(0, 4, (frames, 8 * H, 8 * W, 3)))
+    written = write_video(str(root / "videos" / "00000.mp4"), np.clip(pix, 0, 255).astype(np.uint8))
+    check(written.endswith(".mp4"), f"the raw episode could not be written as mp4 ({written})")
+    (root / "00000").mkdir()
+    np.savez(root / "00000" / "render.npz",
+             depths=rng.uniform(0.0, 0.5, (frames, 1, 8 * H, 8 * W)).astype(np.float32),
+             semantics=rng.integers(0, 60, (frames, 1, 8 * H, 8 * W)).astype(np.int32),
+             is_labeled=np.ones(1, bool))
+
+
+def serving_step(name: str, times: StageTimes, run):
+    """Run one step of phase 4b with counts and stage times from zero; print
+    its line and return (result, launch counts)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times.reset()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    steps = max(1, times.calls["sample"]) * SERVING_STEPS
+    print(f"serving {name}: {wall:.2f} s; denoise {times.s['sample']:.3f} s "
+          f"({times.calls['sample']} x {SERVING_STEPS} DPM steps, "
+          f"{times.s['sample'] / steps:.4f} s/step), encode {times.s['encode']:.3f} s "
+          f"({times.calls['encode']} calls, frames {times.encode_frames}), decode "
+          f"{times.s['decode']:.3f} s ({times.calls['decode']} calls); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches}", flush=True)
+    return out, launches
+
+
+def check_clip(out: Path, name: str, frames: int) -> None:
+    """The latents file of a clip is finite [13, 16, 40, 60], its mp4 reads
+    back as frames x 320 x 480 x 3 uint8, and manifest.json names it."""
+    lat = np.load(out / f"{name}_latents.npz")["arr_0"]
+    check(lat.shape == (LATENT[0], LATENT[1], LATENT[2], LATENT[3]) and np.isfinite(lat).all(),
+          f"{name} latents {lat.shape} are not finite [13, 16, 40, 60]")
+    clip = read_video(str(out / f"{name}.mp4"))
+    check(clip.shape == (frames, 320, 480, 3) and clip.dtype == np.uint8,
+          f"{name}.mp4 reads back as {clip.shape} {clip.dtype}")
+    check(json.loads((out / "manifest.json").read_text()) == [name],
+          f"manifest.json does not name {name}")
+
+
+def serving_phase(root: Path) -> None:
+    """Phase 4b: the serving entry points at the flagship width (module
+    docstring)."""
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    write_serving_data(root / "data")
+    times = StageTimes()
+    times.patch()
+    try:
+        torch.manual_seed(0)
+        vae = CausalVAE(VAEConfig(), dtype=torch.bfloat16)  # f32 parameters, as evaluate loads
+        base = [f"dataset.data_root={root / 'data'}", "dataset.sequence_length=48",
+                "transformer.pretrained_name_or_path=null",
+                # the eval yamls' `transformer: <<: *runtime` keeps the base's
+                # visual_guidance: false there, and that section's value wins
+                "transformer.visual_guidance=true",
+                f"evaluation.num_inference_steps={SERVING_STEPS}", "evaluation.batch_size=1",
+                "evaluation.mode=traj-image-depth-label"]
+
+        def cond_cfg(out, *extra):
+            return load_config(str(default_config_dir() / "base_eval.yaml"),
+                               str(default_config_dir() / "eval" /
+                                   "eval_traj_image_cond_2b_finetune.yaml"), "bridgev2",
+                               overrides=base + [f"evaluation.output_dir={root / out}", *extra])
+
+        cfg = cond_cfg("bf16")
+        check(build_dit_config(cfg) == FLAGSHIP, f"the eval config builds {build_dit_config(cfg)}")
+        _, got = serving_step("evaluate bf16 (traj-image-depth-label, 49 frames, mp4 + gif)",
+                              times, lambda: evaluate(cfg, vae=vae))
+        check(got == tuple(SERVING_STEPS * n for n in BF16_FORWARD),
+              f"evaluate bf16 launch counts {got}")
+        check_clip(root / "bf16", "00000_000", 49)
+        check((root / "bf16" / "00000_000.gif").exists(), "evaluate wrote no gif beside the mp4")
+
+        # the gif beside each mp4 takes about 9 s of Pillow's quantizing a
+        # clip of noise-like frames: the steps below write the mp4 only
+        base.append("evaluation.save_gif=false")
+        cfg = cond_cfg("q8", "evaluation.quant=true")
+        _, got = serving_step("evaluate W8A8 (evaluation.quant=true)", times,
+                              lambda: evaluate(cfg, vae=vae))
+        check(got == tuple(SERVING_STEPS * n for n in Q8_FORWARD),
+              f"evaluate W8A8 launch counts {got}")
+        check_clip(root / "q8", "00000_000", 49)
+
+        clip = torch.from_numpy(read_video(str(root / "data" / "videos" / "00000.mp4")))
+        clip = clip.permute(3, 0, 1, 2)[None].float().div(127.5).sub(1.0)  # [1, 3, 49, 320, 480]
+        moments, _ = serving_step("encode_auto 49x320x480 (chunks of 8 frames)", times,
+                                  lambda: encode_auto(vae, clip))
+        check(tuple(moments.shape) == (1, 32, 13, 40, 60) and bool(torch.isfinite(moments).all()),
+              f"encode_auto gave {tuple(moments.shape)} or non-finite moments")
+
+        cfg = cond_cfg("raw", "dataset.load_tensors=false")
+        _, got = serving_step("evaluate raw pixels (load_tensors=false, depth and label)",
+                              times, lambda: evaluate(cfg, vae=vae))
+        check(times.encode_frames == [49, 1, 49, 49],
+              f"the raw path encoded {times.encode_frames} frames, not video, image, depth, label")
+        check(got == tuple(SERVING_STEPS * n for n in BF16_FORWARD),
+              f"evaluate raw launch counts {got}")
+        check_clip(root / "raw", "00000_000", 49)
+
+        cfg = load_config(str(default_config_dir() / "base_eval.yaml"),
+                          str(default_config_dir() / "eval" /
+                              "eval_traj_image_2b_finetune_cascaded.yaml"), "bridgev2",
+                          overrides=[f"dataset.data_root={root / 'data'}",
+                                     "transformer.pretrained_name_or_path=null",
+                                     f"evaluation.num_inference_steps={SERVING_STEPS}",
+                                     "evaluation.save_gif=false",
+                                     f"evaluation.output_dir={root / 'cascaded'}"])
+        _, got = serving_step("evaluate cascaded (17-frame chunks, raw pixels)", times,
+                              lambda: evaluate(cfg, vae=vae))
+        with np.load(root / "cascaded" / "00000_cascaded_latents.npz") as f:
+            lat, starts = f["arr_0"], f["chunk_starts"].tolist()
+        n = len(starts)
+        print(f"serving cascaded: {n} chunks starting at frames {starts}, stitched latents "
+              f"{list(lat.shape)}", flush=True)
+        check(n >= 2 and lat.shape == (5 * n, 16, 40, 60) and np.isfinite(lat).all(),
+              f"cascaded latents {lat.shape} over {n} chunks")
+        # per chunk: the video and its first frame; per chunk but the last:
+        # the generated chaining frame, re-encoded for the next chunk
+        check(times.encode_frames == [17, 1, 1] * (n - 1) + [17, 1],
+              f"cascaded encodes {times.encode_frames}")
+        check(got == tuple(n * SERVING_STEPS * c for c in BF16_FORWARD),
+              f"cascaded launch counts {got}")
+        video = read_video(str(root / "cascaded" / "00000_cascaded.mp4"))
+        check(video.shape == (49, 320, 480, 3), f"the stitched cascade reads back as {video.shape}")
+        del vae
+
+        torch.manual_seed(0)
+        model = ControlDiT(FLAGSHIP, dtype=torch.bfloat16)
+        vae = CausalVAE(VAEConfig(), dtype=torch.bfloat16)
+        rng = np.random.default_rng(1)
+        ref = rng.uniform(-1, 1, (320, 480, 3)).astype(np.float32)
+        actions = (0.3 * rng.standard_normal((48, 7))).astype(np.float32)
+        # twice on the same models: the first call pays the new models' first
+        # forward, the second shows the steady step with f32 parameters
+        for call in ("first", "second"):
+            video, got = serving_step(
+                f"inference.generate_video (49 frames from a 320x480 frame), {call} call",
+                times, lambda: generate_video(model, vae, ref, actions,
+                                              np.zeros((226, 4096), np.float32), num_frames=49,
+                                              num_inference_steps=SERVING_STEPS))
+            check(video.shape == (3, 49, 320, 480) and np.isfinite(video).all(),
+                  f"generate_video gave {video.shape}")
+            check(got == tuple(SERVING_STEPS * n for n in BF16_FORWARD),
+                  f"generate_video launch counts {got}")
+        del model, vae
+
+        demo = root / "demo" / "ep0"
+        (demo / "rgb").mkdir(parents=True)
+        for i in range(17):
+            Image.fromarray(rng.integers(0, 256, (320, 480, 3), dtype=np.uint8)).save(
+                demo / "rgb" / f"{i:03d}.png")
+        (demo / "annotations.json").write_text(json.dumps(dict(
+            state=rng.uniform(-0.5, 0.5, (17, 7)).tolist(),
+            continuous_gripper_state=rng.uniform(0, 1, 17).tolist())))
+        out, got = serving_step("inference.main (tiny smoke model, 17 frames)", times,
+                                lambda: inference_mod.main([
+                                    "--demo_root", str(root / "demo"), "--output_dir",
+                                    str(root / "demo_out"), "--num_inference_steps",
+                                    str(SERVING_STEPS)]))
+        check(read_video(out).shape == (17, 320, 480, 3), "inference.main's clip")
+        check(got == tuple(SERVING_STEPS * n for n in SMOKE_FORWARD),
+              f"inference.main launch counts {got}")
+    finally:
+        times.restore()
+    print(f"serving phase total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def ring_phase(g, dit, inp, x, t, v_resident) -> int:
     """Phase 3b: the ring through LocalRing(SP), every rank a thread on the
     one card. Returns the online kernel's launches in the ring attention run."""
@@ -1331,8 +1619,15 @@ def main() -> int:
     print(f"s/step side by side: bf16 {bf16_step:.4f}, W8A8 {q8_step:.4f}", flush=True)
     launches = tuple(a + b for a, b in zip(bf16_launches, q8_launches))
 
-    # 5. training at full width, the serving models freed first
+    # 4b. the serving entry points at full width, phase 4's models freed first
     del dit, vae, inp, x, t, v
+    serving_root = Path(tempfile.mkdtemp(prefix="orv_serving_"))
+    try:
+        serving_phase(serving_root)
+    finally:
+        shutil.rmtree(serving_root, ignore_errors=True)
+
+    # 5. training at full width, the serving models freed first
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = train_recipe_2b()

@@ -1,4 +1,6 @@
 from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
-from orv_tpu_torch.models.vae import CausalVAE, VAEConfig, decode_chunked
+from orv_tpu_torch.models.vae import (CausalVAE, VAEConfig, decode_chunked, encode_auto,
+                                     encode_chunked)
 
-__all__ = ["CausalVAE", "ControlDiT", "DiTConfig", "VAEConfig", "decode_chunked"]
+__all__ = ["CausalVAE", "ControlDiT", "DiTConfig", "VAEConfig", "decode_chunked", "encode_auto",
+           "encode_chunked"]

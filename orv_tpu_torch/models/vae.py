@@ -1,10 +1,14 @@
-"""Causal 3D VAE (CogVideoX family), decode side, in PyTorch.
+"""Causal 3D VAE (CogVideoX family), in PyTorch.
 
 Counterpart of `orv_tpu/models/vae.py`. Semantics reproduced:
 
   * causal conv3d: temporal front-pad replicates the FIRST frame (k_t - 1
     copies); in streaming (chunked) decode the pad is the previous chunk's
     last k_t - 1 frames of the *padded* input (the conv cache)
+  * temporal x4 compression via two "keep the first frame of a first chunk
+    with odd T, average pairs of the rest" downsamples; spatial x8 via
+    three stride-2 convs with an asymmetric (0, 1) pad
+  * encode returns MOMENTS [B, 2C, T', H', W'] f32 (mean and logvar)
   * decoder resnets normalize with SpatialNorm3D conditioned on the latent
     zq, nearest-resized with the odd-first-frame split
   * temporal x4 upsampling via two "first frame spatial-only, the rest
@@ -13,9 +17,13 @@ Counterpart of `orv_tpu/models/vae.py`. Semantics reproduced:
 Layout is PyTorch's channels-first [B, C, T, H, W] throughout. Convolutions
 are `torch.nn.functional.conv3d` (cuDNN on the card), as the JAX package
 leaves them to XLA: this path has no Pallas kernel. Module names follow the
-diffusers keys (`decoder.up_blocks.{i}.resnets.{j}.norm1.conv_y.conv`...).
+diffusers keys (`encoder.down_blocks.{i}.downsamplers.0.conv`,
+`decoder.up_blocks.{i}.resnets.{j}.norm1.conv_y.conv`...).
 
-The encoder, `encode_chunked` and `tiled_decode` are not ported yet.
+`encode_chunked` and `encode_auto` chunk exactly as the JAX package does
+(GroupNorm statistics are per chunk), so their numbers follow it whatever
+the card could hold at once. `tiled_decode` is not ported: no entry point
+calls it.
 """
 
 from __future__ import annotations
@@ -127,23 +135,59 @@ class SpatialNorm3D(nn.Module):
 
 
 class ResnetBlock3D(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, zq_channels: int = 16,
+    """Two norm-SiLU-conv stages and a residual. The decoder's norms are
+    SpatialNorm3D on the latent zq, the encoder's (`zq_channels=None`)
+    plain GroupNorm."""
+
+    def __init__(self, in_channels: int, out_channels: int, zq_channels: Optional[int] = 16,
                  groups: int = 32, eps: float = 1e-6, device=None, param_dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, param_dtype=param_dtype)
-        self.norm1 = SpatialNorm3D(in_channels, zq_channels, groups, eps, **kw)
+        if zq_channels is None:
+            norm = lambda ch: GroupNorm(ch, groups, eps, **kw)
+        else:
+            norm = lambda ch: SpatialNorm3D(ch, zq_channels, groups, eps, **kw)
+        self.norm1 = norm(in_channels)
         self.conv1 = CausalConv3d(in_channels, out_channels, (3, 3, 3), **kw)
-        self.norm2 = SpatialNorm3D(out_channels, zq_channels, groups, eps, **kw)
+        self.norm2 = norm(out_channels)
         self.conv2 = CausalConv3d(out_channels, out_channels, (3, 3, 3), **kw)
         self.conv_shortcut = (CausalConv3d(in_channels, out_channels, (1, 1, 1), **kw)
                               if in_channels != out_channels else None)
 
-    def forward(self, x, zq, first_chunk: bool = True):
-        h = self.conv1(F.silu(self.norm1(x, zq, first_chunk)), first_chunk)
-        h = self.conv2(F.silu(self.norm2(h, zq, first_chunk)), first_chunk)
+    def _norm(self, norm, h, zq, first_chunk):
+        return norm(h) if isinstance(norm, GroupNorm) else norm(h, zq, first_chunk)
+
+    def forward(self, x, zq=None, first_chunk: bool = True):
+        h = self.conv1(F.silu(self._norm(self.norm1, x, zq, first_chunk)), first_chunk)
+        h = self.conv2(F.silu(self._norm(self.norm2, h, zq, first_chunk)), first_chunk)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+
+class Downsample3D(nn.Module):
+    """Optional temporal compression (the first frame of a first chunk with
+    odd T > 1 kept, pairs of the rest averaged), then a stride-2 3x3 conv
+    over every frame after a (0, 1) pad of H and W."""
+
+    def __init__(self, channels: int, compress_time: bool = False, device=None,
+                 param_dtype=torch.float32):
+        super().__init__()
+        self.compress_time = compress_time
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, device=device,
+                              dtype=param_dtype)
+
+    def forward(self, x, first_chunk: bool = True):
+        T = x.shape[2]
+        if self.compress_time:
+            if first_chunk and T % 2 == 1 and T > 1:
+                rest = x[:, :, 1:]
+                x = torch.cat([x[:, :, :1], 0.5 * (rest[:, :, 0::2] + rest[:, :, 1::2])], dim=2)
+            elif T > 1:
+                x = 0.5 * (x[:, :, 0::2] + x[:, :, 1::2])
+        x = F.pad(x, (0, 1, 0, 1))
+        return F.conv3d(x, self.conv.weight.to(x.dtype)[:, :, None],
+                        self.conv.bias.to(x.dtype), stride=(1, 2, 2))
 
 
 class Upsample3D(nn.Module):
@@ -181,13 +225,49 @@ class Upsample3D(nn.Module):
 
 
 class _Stage(nn.Module):
-    """Container matching the checkpoint's `mid_block` / `up_blocks.{i}`."""
+    """Container matching the checkpoint's `mid_block`, `down_blocks.{i}`
+    and `up_blocks.{i}`."""
 
-    def __init__(self, resnets, upsampler=None):
+    def __init__(self, resnets, upsampler=None, downsampler=None):
         super().__init__()
         self.resnets = nn.ModuleList(resnets)
         if upsampler is not None:
             self.upsamplers = nn.ModuleList([upsampler])
+        if downsampler is not None:
+            self.downsamplers = nn.ModuleList([downsampler])
+
+
+class Encoder3D(nn.Module):
+    def __init__(self, config: VAEConfig, device=None, param_dtype=torch.float32):
+        super().__init__()
+        c = config
+        kw = dict(device=device, param_dtype=param_dtype)
+        res = lambda i, o: ResnetBlock3D(i, o, None, c.norm_num_groups, c.norm_eps, **kw)
+        ch = c.block_out_channels[0]
+        self.conv_in = CausalConv3d(c.in_channels, ch, (3, 3, 3), **kw)
+        stages = []
+        nb = len(c.block_out_channels)
+        for i, out_ch in enumerate(c.block_out_channels):
+            resnets = [res(ch if j == 0 else out_ch, out_ch) for j in range(c.layers_per_block)]
+            ch = out_ch
+            down = (Downsample3D(out_ch, compress_time=i < c.temporal_compress_level, **kw)
+                    if i < nb - 1 else None)
+            stages.append(_Stage(resnets, downsampler=down))
+        self.down_blocks = nn.ModuleList(stages)
+        self.mid_block = _Stage([res(ch, ch) for _ in range(2)])
+        self.norm_out = GroupNorm(ch, c.norm_num_groups, c.norm_eps, **kw)
+        self.conv_out = CausalConv3d(ch, 2 * c.latent_channels, (3, 3, 3), **kw)
+
+    def forward(self, x, first_chunk: bool = True):
+        h = self.conv_in(x, first_chunk)
+        for stage in self.down_blocks:
+            for r in stage.resnets:
+                h = r(h, first_chunk=first_chunk)
+            if hasattr(stage, "downsamplers"):
+                h = stage.downsamplers[0](h, first_chunk)
+        for r in self.mid_block.resnets:
+            h = r(h, first_chunk=first_chunk)
+        return self.conv_out(F.silu(self.norm_out(h)), first_chunk)
 
 
 class Decoder3D(nn.Module):
@@ -208,7 +288,7 @@ class Decoder3D(nn.Module):
             ch = out_ch
             up = (Upsample3D(out_ch, compress_time=i < c.temporal_compress_level, **kw)
                   if i < len(reversed_ch) - 1 else None)
-            stages.append(_Stage(resnets, up))
+            stages.append(_Stage(resnets, upsampler=up))
         self.up_blocks = nn.ModuleList(stages)
         self.norm_out = SpatialNorm3D(ch, c.latent_channels, c.norm_num_groups, c.norm_eps, **kw)
         self.conv_out = CausalConv3d(ch, c.out_channels, (3, 3, 3), **kw)
@@ -227,16 +307,22 @@ class Decoder3D(nn.Module):
 
 
 class CausalVAE(nn.Module):
-    """decode(latents [B, C_lat, T', H', W']) -> video [B, 3, T, H, W] f32.
-    Parameters live on `device` (CUDA unless `device="cpu"`) in
-    `param_dtype`; activations run in `dtype`."""
+    """encode(video [B, 3, T, H, W] in [-1, 1]) -> moments [B, 2C_lat, T',
+    H', W'] f32; decode(latents [B, C_lat, T', H', W']) -> video [B, 3, T,
+    H, W] f32. T is 8n+1. Parameters live on `device` (CUDA unless
+    `device="cpu"`) in `param_dtype`; activations run in `dtype`."""
 
     def __init__(self, config: VAEConfig = VAEConfig(), dtype=torch.bfloat16,
                  param_dtype=torch.float32, device: DeviceLike = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        self.decoder = Decoder3D(config, resolve_device(device), param_dtype)
+        device = resolve_device(device)
+        self.encoder = Encoder3D(config, device, param_dtype)
+        self.decoder = Decoder3D(config, device, param_dtype)
+
+    def encode(self, video, first_chunk: bool = True):
+        return self.encoder(video.to(self.dtype), first_chunk).float()
 
     def decode(self, latents, first_chunk: bool = True):
         return self.decoder(latents.to(self.dtype), first_chunk).float()
@@ -255,16 +341,50 @@ def decode_chunked(vae: CausalVAE, latents: torch.Tensor, chunk_latent_frames: i
     [1, k, k, ...] latent frames with conv caches; the first chunk carries
     the single leading frame so temporal upsampling matches the full-clip
     layout. GroupNorm statistics are per chunk, as in the JAX package."""
+    return _chunked(vae, vae.decode, latents, chunk_latent_frames, "decode_chunked", device)
+
+
+def _chunked(vae: CausalVAE, method, x: torch.Tensor, chunk: int, what: str,
+             device: DeviceLike) -> torch.Tensor:
+    """`method` over frame chunks [0, 1), [1, 1 + chunk), ... of x [B, C, T,
+    H, W] with the conv caches carried across chunks (cleared before and
+    after)."""
     device = resolve_device(device)
-    check_module_device(vae, device, "decode_chunked: the VAE")
-    latents = latents.to(device)
-    T = latents.shape[2]
-    bounds = [(0, 1)] + [(i, min(i + chunk_latent_frames, T))
-                         for i in range(1, T, chunk_latent_frames)]
+    check_module_device(vae, device, f"{what}: the VAE")
+    x = x.to(device)
+    T = x.shape[2]
+    bounds = [(0, 1)] + [(i, min(i + chunk, T)) for i in range(1, T, chunk)]
     vae.clear_cache()
     try:
-        outs = [vae.decode(latents[:, :, s:e], first_chunk=(ci == 0))
-                for ci, (s, e) in enumerate(bounds)]
+        outs = [method(x[:, :, s:e], first_chunk=(ci == 0)) for ci, (s, e) in enumerate(bounds)]
     finally:
         vae.clear_cache()
     return torch.cat(outs, dim=2)
+
+
+@torch.inference_mode()
+def encode_chunked(vae: CausalVAE, video: torch.Tensor, chunk_frames: int = 8,
+                   device: DeviceLike = None) -> torch.Tensor:
+    """Frame-chunked streaming encode of video [B, C, T, H, W] (T = 8n+1)
+    in raw-frame chunks [1, k, k, ...]: memory scales with the chunk. The
+    conv caches keep the causal convs exact across chunk bounds; GroupNorm
+    statistics are per chunk, as in the JAX package."""
+    return _chunked(vae, vae.encode, video, chunk_frames, "encode_chunked", device)
+
+
+@torch.inference_mode()
+def encode_auto(vae: CausalVAE, video: torch.Tensor, chunk_frames: int = 8,
+                device: DeviceLike = None) -> torch.Tensor:
+    """Encode [B, C, T, H, W] to moments: streamed through `encode_chunked`
+    when T > chunk_frames + 1, one-shot otherwise, as the JAX package
+    decides (the numbers differ between the two, so the rule is kept
+    whatever the card could hold)."""
+    if video.shape[2] > chunk_frames + 1:
+        return encode_chunked(vae, video, chunk_frames, device)
+    device = resolve_device(device)
+    check_module_device(vae, device, "encode_auto: the VAE")
+    vae.clear_cache()
+    try:
+        return vae.encode(video.to(device))
+    finally:
+        vae.clear_cache()

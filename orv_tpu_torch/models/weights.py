@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's parameter trees -> the port's state dicts.
+"""Weight bridge: the JAX package's parameter trees -> the port's state dicts,
+and the reader of diffusers model folders (safetensors).
 
 The port's module names follow the diffusers CogVideoX keys, so these
 functions emit exactly the keys a real checkpoint carries (for the DiT, the
@@ -13,12 +14,21 @@ Conventions:
                                          orv_tpu's quantize_linear_params)
   patch-embed kernel [(c p p), D]     -> conv weight [D, C, p, p]
   conv kernel [kt, kh, kw, I, O]      -> torch Conv3d weight [O, I, kt, kh, kw]
-  (1, 3, 3) upsample conv kernel      -> torch Conv2d weight [O, I, 3, 3]
+  (1, 3, 3) up/downsample conv kernel -> torch Conv2d weight [O, I, 3, 3]
+
+A diffusers folder (`config.json` plus `diffusion_pytorch_model.safetensors`,
+or shards listed in `diffusion_pytorch_model.safetensors.index.json`) reads
+through `load_diffusers_folder`, with the port's own safetensors reader:
+the port's modules carry the diffusers key names, so the state dict loads
+with `load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import json
+import struct
+from pathlib import Path
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -123,32 +133,115 @@ def _spatial_norm(sd, key, p):
     _conv3d(sd, f"{key}.conv_b", p["conv_b"])
 
 
+def _conv2d(sd, key, p):
+    """A (1, 3, 3) conv {'conv': {kernel [1,3,3,I,O], bias}} -> torch Conv2d."""
+    sd[f"{key}.conv.weight"] = _tensor(np.transpose(np.asarray(p["conv"]["kernel"])[0],
+                                                    (3, 2, 0, 1)))
+    sd[f"{key}.conv.bias"] = _tensor(p["conv"]["bias"])
+
+
+def _group_norm(sd, key, p):
+    sd[f"{key}.weight"] = _tensor(p["scale"])
+    sd[f"{key}.bias"] = _tensor(p["bias"])
+
+
 def _resnet(sd, key, p):
-    _spatial_norm(sd, f"{key}.norm1", p["norm1"])
+    norm = _spatial_norm if "norm_layer" in p["norm1"] else _group_norm
+    norm(sd, f"{key}.norm1", p["norm1"])
     _conv3d(sd, f"{key}.conv1", p["conv1"])
-    _spatial_norm(sd, f"{key}.norm2", p["norm2"])
+    norm(sd, f"{key}.norm2", p["norm2"])
     _conv3d(sd, f"{key}.conv2", p["conv2"])
     if "conv_shortcut" in p:
         _conv3d(sd, f"{key}.conv_shortcut", p["conv_shortcut"])
 
 
 def vae_params_from_jax(params: Dict[str, Any], config) -> Dict[str, torch.Tensor]:
-    """CausalVAE param tree (`{'params': {'decoder': ...}}` or its inner
-    dict) -> the port's CausalVAE state dict (decoder side)."""
-    p = params.get("params", params)["decoder"]
+    """CausalVAE param tree (`{'params': {'encoder': ..., 'decoder': ...}}`
+    or its inner dict) -> the port's CausalVAE state dict."""
+    p = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
-    _conv3d(sd, "decoder.conv_in", p["conv_in"])
-    for j in range(2):
-        _resnet(sd, f"decoder.mid_block.resnets.{j}", p[f"mid_res_{j}"])
     nb = len(config.block_out_channels)
+    e = p["encoder"]
+    _conv3d(sd, "encoder.conv_in", e["conv_in"])
+    for i in range(nb):
+        for j in range(config.layers_per_block):
+            _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}", e[f"down_{i}_res_{j}"])
+        if i < nb - 1:
+            _conv2d(sd, f"encoder.down_blocks.{i}.downsamplers.0", e[f"down_{i}_downsample"])
+    for j in range(2):
+        _resnet(sd, f"encoder.mid_block.resnets.{j}", e[f"mid_res_{j}"])
+    _group_norm(sd, "encoder.norm_out", e["norm_out"])
+    _conv3d(sd, "encoder.conv_out", e["conv_out"])
+
+    d = p["decoder"]
+    _conv3d(sd, "decoder.conv_in", d["conv_in"])
+    for j in range(2):
+        _resnet(sd, f"decoder.mid_block.resnets.{j}", d[f"mid_res_{j}"])
     for i in range(nb):
         for j in range(config.layers_per_block + 1):
-            _resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}", p[f"up_{i}_res_{j}"])
+            _resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}", d[f"up_{i}_res_{j}"])
         if i < nb - 1:
-            up = p[f"up_{i}_upsample"]["conv"]
-            sd[f"decoder.up_blocks.{i}.upsamplers.0.conv.weight"] = _tensor(
-                np.transpose(np.asarray(up["kernel"])[0], (3, 2, 0, 1)))
-            sd[f"decoder.up_blocks.{i}.upsamplers.0.conv.bias"] = _tensor(up["bias"])
-    _spatial_norm(sd, "decoder.norm_out", p["norm_out"])
-    _conv3d(sd, "decoder.conv_out", p["conv_out"])
+            _conv2d(sd, f"decoder.up_blocks.{i}.upsamplers.0", d[f"up_{i}_upsample"])
+    _spatial_norm(sd, "decoder.norm_out", d["norm_out"])
+    _conv3d(sd, "decoder.conv_out", d["conv_out"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# diffusers folders
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": np.uint16,
+              "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+              "U8": np.uint8, "BOOL": np.bool_}
+
+
+def read_safetensors(path) -> Dict[str, torch.Tensor]:
+    """One .safetensors file -> {name: CPU tensor}. The format: a
+    little-endian u64 header length, a JSON header {name: {dtype, shape,
+    data_offsets [begin, end)}} (offsets from the end of the header), then
+    the raw little-endian buffers."""
+    out: Dict[str, torch.Tensor] = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        base = 8 + n
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            if info["dtype"] not in _ST_DTYPES:
+                raise ValueError(f"{path}: tensor {name} has unsupported dtype {info['dtype']}")
+            begin, end = info["data_offsets"]
+            f.seek(base + begin)
+            buf = bytearray(f.read(end - begin))
+            if len(buf) != end - begin:
+                raise ValueError(f"{path}: tensor {name} runs past the end of the file")
+            arr = np.frombuffer(buf, dtype=np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<"))
+            t = torch.from_numpy(arr.astype(arr.dtype.newbyteorder("="), copy=False))
+            if info["dtype"] == "BF16":
+                t = t.view(torch.bfloat16)
+            out[name] = t.reshape(info["shape"])
+    return out
+
+
+def load_diffusers_folder(folder) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """A diffusers model folder -> (its config.json as a dict, its state
+    dict as CPU tensors). Reads the shards an
+    `diffusion_pytorch_model.safetensors.index.json` lists, else
+    `diffusion_pytorch_model.safetensors`, else every `*.safetensors`."""
+    folder = Path(folder)
+    cfg_path = folder / "config.json"
+    config = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
+    index = folder / "diffusion_pytorch_model.safetensors.index.json"
+    if index.exists():
+        files = sorted({folder / v for v in json.loads(index.read_text())["weight_map"].values()})
+    elif (folder / "diffusion_pytorch_model.safetensors").exists():
+        files = [folder / "diffusion_pytorch_model.safetensors"]
+    else:
+        files = sorted(folder.glob("*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no safetensors weights in {folder}")
+    sd: Dict[str, torch.Tensor] = {}
+    for f in files:
+        sd.update(read_safetensors(f))
+    return config, sd

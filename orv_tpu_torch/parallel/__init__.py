@@ -1,4 +1,5 @@
 from orv_tpu_torch.parallel.train_step import (
+    EvalDraws,
     LossDraws,
     TrainState,
     diffusion_loss,
@@ -7,5 +8,5 @@ from orv_tpu_torch.parallel.train_step import (
     make_train_step,
 )
 
-__all__ = ["LossDraws", "TrainState", "diffusion_loss", "make_lr_schedule", "make_optimizer",
+__all__ = ["EvalDraws", "LossDraws", "TrainState", "diffusion_loss", "make_lr_schedule", "make_optimizer",
            "make_train_step"]

@@ -238,6 +238,33 @@ class LossDraws:
                    drop_u=torch.rand((), **kw), mask_u=torch.rand(B, **kw))
 
 
+@dataclasses.dataclass
+class EvalDraws:
+    """Every random number of one denoise through the serving entry points:
+    a batch of `pipelines/evaluate.py:evaluate`, a chunk of its cascaded
+    rollout, or `pipelines/inference.py:generate_video`. A noise the call
+    does not need is None."""
+
+    noise: torch.Tensor  # [B, F, C, H, W] initial latents
+    image_noise: Optional[torch.Tensor] = None  # [B, C, F_img, H, W] samples the image moments
+    depth_noise: Optional[torch.Tensor] = None  # [B, C, F, H, W] samples the depth moments
+    label_noise: Optional[torch.Tensor] = None  # [B, C, F, H, W] samples the label moments
+    generator: Optional[torch.Generator] = None  # feeds the stochastic DPM steps
+
+    @classmethod
+    def draw(cls, generator: torch.Generator, noise_shape, image_shape=None, depth_shape=None,
+             label_shape=None) -> "EvalDraws":
+        """Fresh standard normals of the given shapes from `generator`, on its
+        device, which then also feeds the sampler."""
+        def randn(shape):
+            return None if shape is None else torch.randn(tuple(shape), generator=generator,
+                                                          device=generator.device)
+
+        return cls(noise=randn(noise_shape), image_noise=randn(image_shape),
+                   depth_noise=randn(depth_shape), label_noise=randn(label_shape),
+                   generator=generator)
+
+
 def _smooth_l1(x, y):
     d = (x - y).abs()
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)

@@ -10,7 +10,9 @@ over the same tables (`ts`, `back`, `prev`, `have_old`, `gs`):
   * scheduler: CogVideoX DPM (stochastic noise from the caller's
     `torch.Generator`, old-pred threading) or DDIM
 
-PAB attention broadcast (`pab_skip`) is not ported yet.
+Raw reference pixels go through `preprocess_video` (resize, normalize) and
+the VAE encode (`encode_reference_pixels`). PAB attention broadcast
+(`pab_skip`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +50,59 @@ def sample_from_moments(moments: torch.Tensor,
     return mean + std * noise
 
 
+def preprocess_video(
+    image,  # [B, C, F, H, W] / [B, C, H, W] tensors, or [F, H, W, 3] frames
+    height: Optional[int] = None,
+    width: Optional[int] = None,
+    vae_latent_channels: int = 16,
+) -> torch.Tensor:
+    """The reference VideoProcessor.preprocess semantics:
+
+      * channel == vae_latent_channels (or 2x: unsampled moments): the input
+        IS latents and passes through untouched;
+      * otherwise raw pixels: resized to (height, width) bilinearly, with
+        antialiasing when it shrinks (as `jax.image.resize` does), and
+        [0, 1] normalized to [-1, 1] (input already in [-1, 1] left alone).
+
+    Accepts 4D [B, C, H, W], 5D [B, C, F, H, W], or channels-last uint8 or
+    float frames [F, H, W, C] (numpy arrays or tensors)."""
+    x = torch.as_tensor(image)
+    if x.dim() == 4 and x.shape[-1] in (1, 3):  # [F, H, W, C] frames
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        x = x.permute(3, 0, 1, 2)[None]  # -> [1, C, F, H, W]
+    if x.dim() == 4:
+        x = x[:, :, None]  # [B, C, H, W] -> single frame
+    C = x.shape[1]
+    if C in (vae_latent_channels, 2 * vae_latent_channels):
+        return x  # latents / moments: no pixel preprocess
+    if height is not None and width is not None and tuple(x.shape[-2:]) != (height, width):
+        B, C, F_, H, W = x.shape
+        # F.interpolate's antialiasing takes 4-D input: frames join the channels
+        x = torch.nn.functional.interpolate(
+            x.reshape(B, C * F_, H, W), size=(height, width), mode="bilinear",
+            align_corners=False, antialias=True).reshape(B, C, F_, height, width)
+    if float(x.min()) >= 0.0:
+        x = x * 2.0 - 1.0  # normalize [0,1] -> [-1,1]
+    return x
+
+
+def encode_reference_pixels(encode_fn: Callable[[torch.Tensor], torch.Tensor], image,
+                            height: Optional[int] = None, width: Optional[int] = None,
+                            latent_channels: int = 16) -> torch.Tensor:
+    """Raw reference frames -> VAE moments [B, 2C, F', h, w], through
+    `encode_fn` (e.g. `lambda x: encode_auto(vae, x)`); latents or moments
+    pass through."""
+    pixels = preprocess_video(image, height, width, latent_channels)
+    if pixels.shape[1] in (latent_channels, 2 * latent_channels):
+        return pixels
+    return encode_fn(pixels)
+
+
+def _on(noise: Optional[torch.Tensor], like: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if noise is None else noise.to(like.device, torch.float32)
+
+
 def prepare_image_latents(
     image_moments_or_latents: torch.Tensor,  # [B, 2C or C, F_img, H, W]
     num_latent_frames: int,
@@ -56,12 +111,13 @@ def prepare_image_latents(
     num_views: int = 1,
     scaling_factor: float = 1.15258426,
     invert_scale_latents: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sample moments if 2C, scale, zero-pad per view to num_latent_frames.
-    Returns [B, V*F_lat, C, H, W]."""
+    """Sample moments if 2C (with `noise`, else from `generator`), scale,
+    zero-pad per view to num_latent_frames. Returns [B, V*F_lat, C, H, W]."""
     x = image_moments_or_latents
     if x.shape[1] == 2 * latent_channels:
-        x = sample_from_moments(x, generator)
+        x = sample_from_moments(x, generator, _on(noise, x))
     x = x / scaling_factor if invert_scale_latents else x * scaling_factor
     x = x.permute(0, 2, 1, 3, 4)  # [B, F, C, H, W]
     B, VF = x.shape[0], x.shape[1]
@@ -75,12 +131,13 @@ def prepare_image_latents(
 def prepare_control_latents(
     moments: torch.Tensor, generator: Optional[torch.Generator] = None,
     latent_channels: int = 16, scaling_factor: float = 1.15258426,
-    invert_scale_latents: bool = False,
+    invert_scale_latents: bool = False, noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Depth/label moments -> sampled + scaled + channel-duplicated 2C input."""
+    """Depth/label moments -> sampled (with `noise`, else from `generator`) +
+    scaled + channel-duplicated 2C input."""
     x = moments
     if x.shape[1] == 2 * latent_channels:
-        x = sample_from_moments(x, generator)
+        x = sample_from_moments(x, generator, _on(noise, x))
     x = x / scaling_factor if invert_scale_latents else x * scaling_factor
     x = x.permute(0, 2, 1, 3, 4)
     return torch.cat([x, x], dim=2)
