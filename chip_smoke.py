@@ -47,9 +47,13 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      a small VAE decode on the card against the same weights on the CPU
      (plain versions, f32); one train step of a tiny recon_action ControlDiT
      on the card (bf16 compute, backward kernels) and on the CPU (f32, plain
-     versions) from the same weights and draws: loss and grad norm must
-     agree, and every parameter that gets a gradient on the CPU must get a
-     nonzero one on the card; then one bf16 ControlDiT forward at the
+     versions) from the same weights and draws, with visual guidance and
+     depth and label moments in the batch: loss and grad norm must agree,
+     and every parameter that gets a gradient on the CPU must get a nonzero
+     one on the card; the resume round trip of pipelines/train.py:train at
+     a tiny config on the card (runs cut before micro-step 2 and 3, each
+     resumed from its latest checkpoint to 4, bitwise equal to an unbroken
+     run of 4); then one bf16 ControlDiT forward at the
      flagship config (2B: 30 layers x 30 heads x 64, 6-chunk adaLN, visual
      guidance, seeded random weights) with launch counts of exactly
      30 / 60 / 120;
@@ -92,22 +96,36 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      without the first forward's costs); inference.main in its tiny smoke
      mode over a demo
      folder of 17 png frames;
-  5. training, the serving models freed first: the 2B fine-tune recipe
-     (orv_tpu/config/experiments/traj_image_2b_finetune.yaml on
-     base_train.yaml: 30 layers x 30 heads x 64, 6-chunk adaLN,
-     recon_action, f32 parameters and bf16 compute, AdamW with clip 1.0,
-     cosine_with_restarts and accumulation 2; B cut to 1 per micro-step)
-     at full width, seeded random weights: one warm-up optimizer step, then
-     3 timed ones, through make_train_step, then one more by hand to split
-     a micro-step into forward, backward and optimizer. One micro-step must
-     launch flash fwd / dq / dk-dv / modulate_norm / its backward /
-     gated_residual / its backward = 30 / 30 / 30 / 60 / 60 / 120 / 119
-     (the last block's text-stream output is unused, so autograd skips
-     the backward of its last gated residual);
-     loss and parameters must stay finite and the parameters must move;
+  5. training through the entry point, the serving models freed first:
+     pipelines/train.py:train on the port's base_train.yaml +
+     experiments/traj_image_2b_finetune.yaml (30 layers x 30 heads x 64,
+     6-chunk adaLN, f32 parameters and bf16 compute, AdamW with clip 1.0,
+     cosine_with_restarts with its 1000-step warmup; transformer.recon_action
+     =true passed, as the yaml alone builds no action-recon head), random
+     init from the seed (the recipe's THUDM/CogVideoX-2b folder is absent),
+     over 9 bridgev2 slices of 17 frames written from a numpy seed into a
+     temp dir (moments [32,5,40,60], image moments [32,1,40,60], prompt
+     embeds [226,4096], 16 actions), at the recipe's B=4 x accumulation 2:
+     8 micro-steps (4 optimizer steps), a checkpoint every 4 kept to 1, an
+     inline validation at the start and the end (4 DPM steps and a random
+     full VAE's decode to an mp4). The temp dir's free space is printed
+     first and a shortfall fails the run. Launches must be 8 x
+     (30 / 30 / 30 / 60 / 60 / 120 / 119) of flash fwd / dq / dk-dv /
+     modulate_norm / its backward / gated_residual / its backward (the last
+     block's text-stream output is unused, so autograd skips the backward of
+     its last gated residual) plus 2 validations x 4 x (30 / 60 / 120);
+     every logged loss and grad norm finite, the parameters moved, one
+     checkpoint left, the validation mp4s 17x320x480, and the export
+     `checkpoint/` must load strictly through load_pretrained into a
+     ControlDiT whose forward equals the trained model's bitwise. It prints
+     s per optimizer step (the tracker's s_per_it in metrics.jsonl), the
+     validations', checkpoint writes' and export's seconds and bytes
+     (TrainTimes wraps the three) and peak memory, then times one more
+     optimizer step by hand on the loader's first batch, split into
+     forward, backward and optimizer;
   6. the card's name and power limit, the kernels' JSON line (launches:
      the sum over the two generation runs for the forward kernels, over the
-     3 timed optimizer steps for the backward ones, the ring attention run
+     8 micro-steps of phase 5 for the backward ones, the ring attention run
      of phase 3b for the online forward), and last the result line
      {"ok": true, "device": {...}}.
 """
@@ -117,6 +135,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -129,6 +148,7 @@ import numpy as np
 import torch
 
 from orv_tpu_torch.configs import default_config_dir, load_config
+from orv_tpu_torch.data import BucketSampler
 from orv_tpu_torch.models import (CausalVAE, ControlDiT, DiTConfig, VAEConfig, decode_chunked,
                                   encode_auto)
 from orv_tpu_torch.models.layers import quantize_tokens
@@ -145,6 +165,7 @@ from orv_tpu_torch.parallel import (
 )
 from orv_tpu_torch.parallel.sp import LocalRing
 from orv_tpu_torch.parallel.train_step import global_norm, trainable
+from orv_tpu_torch.pipelines import train as train_mod
 from orv_tpu_torch.pipelines import SamplerConfig, decode_latents, make_sampler
 from orv_tpu_torch.pipelines import evaluate as evaluate_mod
 from orv_tpu_torch.pipelines import inference as inference_mod
@@ -152,6 +173,7 @@ from orv_tpu_torch.pipelines.evaluate import evaluate
 from orv_tpu_torch.pipelines.inference import generate_video
 from orv_tpu_torch.pipelines.train import build_dit_config
 from orv_tpu_torch.schedulers import make_schedule
+from orv_tpu_torch.utils.checkpoint import TrainCheckpointer, load_pretrained
 from orv_tpu_torch.utils.video import read_video, write_video
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
@@ -188,15 +210,20 @@ def train_micro_step_counts(num_layers: int):
 
 
 TRAIN_MICRO_STEP = train_micro_step_counts(30)  # one micro-step of the 2B recipe
-# the 2B fine-tune recipe: traj_image_2b_finetune.yaml on base_train.yaml
+# the 2B fine-tune recipe: traj_image_2b_finetune.yaml on base_train.yaml, with
+# transformer.recon_action=true named (the yaml's runtime block alone builds no
+# action-recon head, ROADMAP.md C, "config resolution")
 RECIPE_2B = DiTConfig(num_attention_heads=30, attention_head_dim=64, num_layers=30,
                       in_channels=32, out_channels=16, text_embed_dim=4096, time_embed_dim=512,
                       modulate_encoder_hidden_states=True, recon_action=True)
-TRAIN_LATENT = (16, 5, 40, 60)  # bridgev2 17x320x480 clips: channels, frames, height, width
-TRAIN_OPT = dict(optimizer="adamw", beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=1e-3,
-                 max_grad_norm=1.0, grad_accum_steps=2)
-TRAIN_LR = dict(name="cosine_with_restarts", learning_rate=1e-4, warmup_steps=1000,
-                total_steps=30000, num_cycles=1)
+TRAIN_RECIPE = "experiments/traj_image_2b_finetune.yaml"
+TRAIN_STEPS = 8  # micro-steps (max_train_steps counts them, as in JAX): 4 optimizer steps
+TRAIN_VAL_STEPS = 4  # DPM steps of each inline validation
+# the tiny model of the resume round trip: 2 layers x 2 heads x 64, text 8 x 32
+TINY_TRAIN = ["transformer.num_attention_heads=2", "transformer.attention_head_dim=64",
+              "transformer.num_layers=2", "transformer.text_embed_dim=32",
+              "transformer.time_embed_dim=64", "transformer.max_text_seq_length=8",
+              "dataset.sample_size=[8, 16]", "dataset.video_size=[64, 128]"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -975,26 +1002,29 @@ def tiny_reference_checks() -> None:
 
 
 def _to(draws: LossDraws, device) -> LossDraws:
-    return LossDraws(**{k: v.to(device) for k, v in vars(draws).items()})
+    return LossDraws(**{k: None if v is None else v.to(device) for k, v in vars(draws).items()})
 
 
 def tiny_train_check() -> None:
-    """One train step of a 2-layer recon_action ControlDiT (2 heads of 64,
-    6-chunk adaLN, batch 2): bf16 compute on the card (the kernels and
-    their backward kernels) against f32 on the CPU (plain versions), from
-    the same f32 weights and draws, one row action-CFG masked. Loss and
-    grad norm agree to 2e-2 relative; every parameter with a nonzero
-    gradient on the CPU gets a nonzero one on the card (no gradient is
-    dropped at a kernel's output); then one make_train_step call on each,
-    whose loss and grad norm agree to the same bound."""
+    """One train step of a 2-layer recon_action, visual-guidance ControlDiT
+    (2 heads of 64, 6-chunk adaLN, batch 2, depth and label moments in the
+    batch): bf16 compute on the card (the kernels and their backward
+    kernels) against f32 on the CPU (plain versions), from the same f32
+    weights and draws, one row action-CFG masked. Loss and grad norm agree
+    to 2e-2 relative; every parameter with a nonzero gradient on the CPU
+    gets a nonzero one on the card (no gradient is dropped at a kernel's
+    output); then one make_train_step call on each, whose loss and grad
+    norm agree to the same bound."""
     cfg = DiTConfig(num_attention_heads=2, attention_head_dim=64, num_layers=2, in_channels=32,
                     out_channels=16, text_embed_dim=32, time_embed_dim=64,
-                    modulate_encoder_hidden_states=True, recon_action=True)
+                    modulate_encoder_hidden_states=True, recon_action=True, visual_guidance=True)
     gc_ = torch.Generator().manual_seed(3)
     batch = dict(latents=torch.randn(2, 32, 3, 8, 16, generator=gc_),
                  image_latents=torch.randn(2, 32, 1, 8, 16, generator=gc_),
                  prompt_embeds=torch.randn(2, 8, 32, generator=gc_),
-                 actions=0.1 * torch.randn(2, 8, 7, generator=gc_))
+                 actions=0.1 * torch.randn(2, 8, 7, generator=gc_),
+                 latents_depth=torch.randn(2, 32, 3, 8, 16, generator=gc_),
+                 latents_label=torch.randn(2, 32, 3, 8, 16, generator=gc_))
     draws = LossDraws.draw(gc_, batch)
     draws.mask_u, draws.drop_u = torch.tensor([0.05, 0.6]), torch.tensor(0.5)
     torch.manual_seed(4)
@@ -1017,7 +1047,9 @@ def tiny_train_check() -> None:
     (l_ref, n_ref, g_ref, _), (l_got, n_got, g_got, _) = got["cpu"], got["cuda"]
     dropped = [n for n, v in g_ref.items() if v is not None and v.abs().max() > 0
                and (g_got[n] is None or g_got[n].abs().max() == 0)]
-    print(f"tiny train step, card bf16 vs CPU f32: loss {l_got:.6g} vs {l_ref:.6g}, grad norm "
+    check(model.initial_combine_linear.weight.grad.abs().max() > 0,
+          "the depth and label controls gave the combine linear no gradient on the card")
+    print(f"tiny train step (depth and label latents), card bf16 vs CPU f32: loss {l_got:.6g} vs {l_ref:.6g}, grad norm "
           f"{n_got:.6g} vs {n_ref:.6g} (tol 2e-2 relative); parameters with a gradient on the "
           f"CPU but none on the card: {dropped}", flush=True)
     check(abs(l_got - l_ref) <= 2e-2 * abs(l_ref) and abs(n_got - n_ref) <= 2e-2 * n_ref,
@@ -1036,70 +1068,263 @@ def tiny_train_check() -> None:
           "tiny make_train_step disagrees with the CPU")
 
 
-def recipe_batch():
-    """One micro-batch of the 2B recipe (B=1): bridgev2 moments, T5 prompt
-    embeds and 16 actions, random values on the card from a generator of
-    their own (seed 12), so that no check added before them changes them."""
-    C, F, H, W = TRAIN_LATENT
-    g = torch.Generator(device="cuda").manual_seed(12)
-    rand = lambda *s: torch.randn(*s, device="cuda", generator=g)
-    return dict(latents=rand(1, 2 * C, F, H, W), image_latents=rand(1, 2 * C, 1, H, W),
-                prompt_embeds=rand(1, 226, 4096).bfloat16(), actions=0.1 * rand(1, 16, 7))
+def write_train_data(root: Path, frames: int = 49, slice_frames: int = 17,
+                     latent_hw=(40, 60), text=(226, 4096)) -> int:
+    """The training configs' on-disk layout for one bridgev2 episode of
+    `frames` frames, from a numpy seed: annotation JSON (states for the
+    actions), and for each slice of the train split (one every 4 frames)
+    moments of its `slice_frames`-frame clip, [32, F, h, w] video and
+    [32, 1, h, w] image latents; the empty prompt's embeds `text`. Returns
+    the number of slices."""
+    rng = np.random.default_rng(0)
+    emb = root / "embeddings_full" / "train"
+    for d in ("latents", "image_latents", "prompt_embeds"):
+        (emb / d).mkdir(parents=True)
+    (root / "annotations" / "train").mkdir(parents=True)
+    ann = dict(episode_id="00000", texts=["put the spoon in the pot"],
+               videos=[{"video_path": "videos/00000.mp4"}],
+               state=rng.uniform(-0.5, 0.5, (frames, 7)).tolist(),
+               continuous_gripper_state=rng.uniform(0, 1, frames).tolist())
+    (root / "annotations" / "train" / "00000.json").write_text(json.dumps(ann))
+    F = (slice_frames - 1) // 4 + 1
+    starts = range(0, frames - slice_frames + 1, 4)
+    for start in starts:
+        name = f"00000_{start:02d}_{slice_frames:02d}.npz"
+        np.savez(emb / "latents" / name, rng.normal(size=(32, F, *latent_hw)).astype(np.float32))
+        np.savez(emb / "image_latents" / name,
+                 rng.normal(size=(32, 1, *latent_hw)).astype(np.float32))
+    np.savez(emb / "prompt_embeds" / "empty.npz",
+             (0.1 * rng.standard_normal(text)).astype(np.float32))
+    return len(starts)
 
 
-def train_recipe_2b():
-    """The 2B fine-tune recipe at full width (B=1 per micro-step, seeded
-    random weights): one warm-up optimizer step, 3 timed ones through
-    make_train_step, then one more taken by hand to split a micro-step into
-    forward, backward and optimizer. Returns the launch counts of the 3
-    timed steps."""
-    torch.cuda.reset_peak_memory_stats()
+def train_config(root: Path, out: Path, extra=()):
+    """The port's base_train.yaml + experiments/traj_image_2b_finetune.yaml
+    on bridgev2 at `root`, writing under `out`."""
+    return load_config(str(default_config_dir() / "base_train.yaml"),
+                       str(default_config_dir() / TRAIN_RECIPE), "bridgev2",
+                       overrides=[f"dataset.data_root={root}", "transformer.recon_action=true",
+                                  f"train.output_path={out}", "train.output_dir=run", *extra])
+
+
+class _Cut(Exception):
+    pass
+
+
+def tiny_resume_check(root: Path, device="cuda") -> None:
+    """The resume round trip at a tiny config (2 layers x 2 heads x 64, one
+    17-frame slice, B=1, accumulation 2, a checkpoint every micro-step):
+    runs cut before micro-step 2 (an update boundary) and 3 (mid-
+    accumulation), each resumed from its latest checkpoint to 4, end with
+    the parameters, moments and counts of an unbroken run of 4, bitwise."""
+    write_train_data(root / "data", frames=17, latent_hw=(8, 16), text=(8, 32))
+    extra = [*TINY_TRAIN, "transformer.pretrained_name_or_path=null", "train.train_batch_size=1",
+             "train.max_train_steps=4", "train.checkpointing_steps=1",
+             "train.checkpoints_total_limit=2", "train.lr_warmup_steps=0",
+             "train.learning_rate=1e-3", "train.log_every=1"]
+    os.environ["NO_INIT_VAL"] = "1"
+    try:
+        whole = train_mod.train(train_config(root / "data", root / "whole", extra), device=device)
+        default = train_mod.seeded_draws(42, device)
+        for stop in (2, 3):
+            def draws(step, batch, stop=stop):
+                if step == stop:
+                    raise _Cut
+                return default(step, batch)
+
+            cfg = train_config(root / "data", root / f"cut{stop}", extra)
+            try:
+                train_mod.train(cfg, device=device, draws=draws)
+            except _Cut:
+                pass
+            resumed = train_mod.train(cfg, device=device)
+            a, b = whole.model.state_dict(), resumed.model.state_dict()
+            same = (all(torch.equal(a[k], b[k]) for k in a)
+                    and all(torch.equal(x, y) for g in ("mu", "nu")
+                            for x, y in zip(getattr(whole.opt_state, g),
+                                            getattr(resumed.opt_state, g)))
+                    and (whole.step, whole.opt_state.count) == (resumed.step,
+                                                                resumed.opt_state.count) == (4, 2))
+            print(f"tiny resume on {device}: cut before micro-step {stop}, resumed to 4: "
+                  f"parameters and moments bitwise equal to an unbroken run: {same}", flush=True)
+            check(same, f"a run resumed at micro-step {stop} differs from an unbroken one")
+    finally:
+        os.environ.pop("NO_INIT_VAL", None)
+
+
+class TrainTimes:
+    """Wall seconds (card synchronized) and bytes of what the training entry
+    point's tracker does not log: each validation, each checkpoint save and
+    the exports. `patch` wraps `run_validation` and `export_pretrained` of
+    pipelines/train.py and TrainCheckpointer.save, `restore` puts them back
+    and fails if one of them was never called."""
+
+    def __init__(self):
+        self.saved = {n: getattr(train_mod, n) for n in ("run_validation", "export_pretrained")}
+        self.saved_save = TrainCheckpointer.save
+        self.s = {k: [] for k in ("validation", "checkpoint", "export")}
+        self.bytes = {"checkpoint": [], "export": []}
+
+    def _timed(self, what, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[what].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def patch(self):
+        orig, times = self.saved, self
+
+        def export_pretrained(*args):
+            times.bytes["export"].append(times._timed("export", orig["export_pretrained"])(*args))
+            return times.bytes["export"][-1]
+
+        def save(ckpt, step, state):
+            saved = times._timed("checkpoint", times.saved_save)(ckpt, step, state)
+            times.bytes["checkpoint"].append(ckpt.last_save_bytes if saved else 0)
+            return saved
+
+        train_mod.export_pretrained = export_pretrained
+        train_mod.run_validation = self._timed("validation", orig["run_validation"])
+        TrainCheckpointer.save = save
+
+    def restore(self):
+        for n, fn in self.saved.items():
+            setattr(train_mod, n, fn)
+        TrainCheckpointer.save = self.saved_save
+
+    def check_called(self):
+        never = [k for k, v in self.s.items() if not v]
+        check(not never, f"the training entry point never called the wrapped {never}")
+
+
+def watched(model):
+    return [model.transformer_blocks[0].attn1.to_q.weight,
+            model.transformer_blocks[-1].ff.net[2].weight, model.proj_out.weight,
+            model.action_recon.mlp[2].weight, model.patch_embed.proj.weight]
+
+
+def train_phase(root: Path):
+    """Phase 5: the 2B fine-tune recipe through pipelines/train.py:train at
+    full width (module docstring). Returns the launch counts of its
+    micro-steps alone, in KERNELS order."""
+    t_phase = time.perf_counter()
+    n_params = sum(p.numel() for p in ControlDiT(RECIPE_2B, device="meta").parameters())
+    ckpt = 3 * 4 * n_params  # f32 parameters and Adam's two moments
+    need = max(2 * ckpt, ckpt + 4 * n_params) + (1 << 30)  # a rotation, then the export
+    free = shutil.disk_usage(root).free
+    print(f"train phase: {free / 2**30:.1f} GiB free in {root}, the phase writes up to "
+          f"{need / 2**30:.1f} GiB at once", flush=True)
+    check(free >= need, f"{root} has {free / 2**30:.1f} GiB free but the training phase writes "
+                        f"up to {need / 2**30:.1f} GiB at once (two checkpoints of the 2B "
+                        "recipe's parameters and moments while one rotates out): set TMPDIR "
+                        "to a larger disk")
+    n_slices = write_train_data(root / "data")
+    check(n_slices >= 8, f"{n_slices} training slices written")
+    cfg = train_config(root / "data", root / "out", [
+        f"train.max_train_steps={TRAIN_STEPS}", "train.checkpointing_steps=4",
+        "train.checkpoints_total_limit=1", "train.log_every=1",
+        f"train.validation_steps={TRAIN_STEPS}", f"inference.num_inference_steps={TRAIN_VAL_STEPS}"])
+    check(build_dit_config(cfg) == RECIPE_2B, f"the recipe builds {build_dit_config(cfg)}")
+    bs, accum = int(cfg.train.train_batch_size), int(cfg.train.gradient_accumulation_steps)
+    print(f"train: {TRAIN_RECIPE} on base_train.yaml, {n_slices} bridgev2 slices of 17 frames, "
+          f"B={bs} x accumulation {accum}, {TRAIN_STEPS} micro-steps, mixed precision "
+          f"{cfg.train.mixed_precision}, transformer.recon_action=true passed explicitly (the "
+          f"yaml alone builds no action-recon head), pretrained "
+          f"{cfg.transformer.pretrained_name_or_path} (absent: random init from seed "
+          f"{cfg.seed})", flush=True)
+    # the init train makes from the seed, to see the parameters move
+    before = [w.detach().clone() for w in watched(train_mod.init_params(cfg, RECIPE_2B))]
     torch.manual_seed(0)
-    model = ControlDiT(RECIPE_2B, dtype=torch.bfloat16, param_dtype=torch.float32)
-    params = trainable(model)
-    print(f"ControlDiT 2B recipe: {sum(p.numel() for p in params) / 1e9:.3f} B parameters (f32), "
-          f"bf16 compute", flush=True)
-    batch = recipe_batch()
-    tx = make_optimizer(make_lr_schedule(**TRAIN_LR), **TRAIN_OPT)
-    sched = make_schedule()
-    state = TrainState.create(model, tx)
-    step = make_train_step(tx, sched, recon_action=True)
-    gen = torch.Generator(device="cuda").manual_seed(20)
-    watch = [model.transformer_blocks[0].attn1.to_q.weight, model.transformer_blocks[-1].ff.net[2].weight,
-             model.proj_out.weight, model.action_recon.mlp[2].weight, model.patch_embed.proj.weight]
-    before = [w.detach().clone() for w in watch]
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_OPT["grad_accum_steps"]):  # warm-up optimizer step
-        state, m = step(state, batch, gen)
-    torch.cuda.synchronize()
-    print(f"train warm-up optimizer step: {time.perf_counter() - t0:.3f} s, loss "
-          f"{m['loss'].item():.5g}", flush=True)
-
+    vae = CausalVAE(VAEConfig(), dtype=torch.bfloat16)  # f32 parameters, as train loads one
+    times = TrainTimes()
+    times.patch()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    torch.cuda.synchronize()
-    step_s, losses, norms = [], [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_OPT["grad_accum_steps"]):
-            state, m = step(state, batch, gen)
-            losses.append(m["loss"])
-            norms.append(m["grad_norm"])
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    launches = counts()
-    losses, norms = [x.item() for x in losses], [x.item() for x in norms]
-    print(f"train 3 optimizer steps ({TRAIN_OPT['grad_accum_steps']} micro-steps each): s/step "
-          f"{', '.join(f'{x:.4f}' for x in step_s)}; loss per micro-step "
-          f"{', '.join(f'{x:.5g}' for x in losses)}; grad norm "
-          f"{', '.join(f'{x:.5g}' for x in norms)}; launches {launches}", flush=True)
-    n_micro = 3 * TRAIN_OPT["grad_accum_steps"]
-    check(launches == tuple(n_micro * n for n in TRAIN_MICRO_STEP),
-          f"training launch counts {launches} != {n_micro} x {TRAIN_MICRO_STEP}")
-    check(all(map(math.isfinite, losses + norms)), "training loss or grad norm is not finite")
+    t0 = time.perf_counter()
+    try:
+        state = train_mod.train(cfg, vae=vae)
+    finally:
+        times.restore()
+    wall = time.perf_counter() - t0
+    times.check_called()
+    launches, peak = counts(), torch.cuda.max_memory_allocated() / 2**30
+    run = root / "out" / "run"
+    n_val = len(times.s["validation"])
+    want = tuple(TRAIN_STEPS * m + n_val * TRAIN_VAL_STEPS * f
+                 for m, f in zip(TRAIN_MICRO_STEP, BF16_FORWARD))
+    model = state.model
+    metrics = [m for m in map(json.loads, (run / "logs" / "metrics.jsonl").read_text().splitlines())
+               if "loss" in m]  # the validations' video lines carry no loss
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    micro = [m["s_per_it"] for m in metrics]  # log_every=1: each micro-step's loop iteration
+    per_step = [sum(micro[i:i + accum]) for i in range(0, len(micro), accum)]
+    print(f"train through the entry point: {wall:.1f} s; s/optimizer step from the tracker's "
+          f"s_per_it {', '.join(f'{x:.4f}' for x in per_step)} (micro-steps "
+          f"{', '.join(f'{x:.4f}' for x in micro)}; each holds the loader's wait, to_device "
+          f"and the draws, and the first after a checkpoint its write); "
+          f"validations {', '.join(f'{x:.2f}' for x in times.s['validation'])} s "
+          f"({TRAIN_VAL_STEPS} DPM steps, decode and mp4); checkpoint writes "
+          f"{', '.join(f'{b / 1e9:.2f} GB in {x:.1f} s' for b, x in zip(times.bytes['checkpoint'], times.s['checkpoint']))}; "
+          f"export {times.bytes['export'][0] / 1e9:.2f} GB in {times.s['export'][0]:.1f} s; "
+          f"peak memory {peak:.1f} GiB", flush=True)
+    print(f"train loss per micro-step {', '.join(f'{x:.5g}' for x in losses)}; grad norm "
+          f"{', '.join(f'{x:.5g}' for x in norms)}; launches {launches} = {TRAIN_STEPS} x "
+          f"{TRAIN_MICRO_STEP} + {n_val} validations x {TRAIN_VAL_STEPS} x {BF16_FORWARD}",
+          flush=True)
+    check(launches == want, f"training launch counts {launches} != {want}")
+    check(n_val == 2, f"{n_val} validations ran, not the initial one and the last step's")
+    check([m["step"] for m in metrics] == list(range(1, TRAIN_STEPS + 1))
+          and all(map(math.isfinite, losses + norms)),
+          "a logged training step is missing or its loss or grad norm is not finite")
+    finite = all(bool(torch.isfinite(n)) for n in torch._foreach_norm(list(model.parameters())))
+    moved = [not torch.equal(b, w) for b, w in zip(before, watched(model))]
+    print(f"train parameters finite: {finite}, watched tensors moved: {moved}", flush=True)
+    check(finite and all(moved), "training left non-finite or unmoved parameters")
+    for name in ("step_000000.mp4", f"step_{TRAIN_STEPS:06d}.mp4"):
+        clip = read_video(str(run / "validation" / name))
+        check(clip.shape == (17, 320, 480, 3), f"validation {name} reads back as {clip.shape}")
+    kept = sorted(p.name for p in (run / "checkpoints").iterdir())
+    print(f"train checkpoints left after rotation: {kept}", flush=True)
+    check(kept == [str(TRAIN_STEPS)], f"checkpoints left: {kept}")
 
-    # one more optimizer step by hand, timed in parts with CUDA events
+    # the export, strictly through load_pretrained, forwards bitwise as the trained model
+    cfg_back, sd = load_pretrained(run / "checkpoint", DiTConfig)
+    check(cfg_back == RECIPE_2B, f"the export's config.json gives {cfg_back}")
+    back = ControlDiT(cfg_back, dtype=torch.bfloat16, param_dtype=torch.float32)
+    back.load_state_dict(sd, strict=True)
+    del sd
+    dataset = train_mod.build_dataset(cfg)
+    loader = train_mod.prefetch_batches(dataset, BucketSampler(dataset, bs, seed=cfg.seed))
+    try:
+        batch = train_mod.to_device(next(loader), torch.device("cuda"))
+    finally:
+        loader.close()
+    b = {k: v[:1] for k, v in batch.items()}
+    x = torch.cat([b["latents"][:, :16], b["image_latents"][:, :16].expand(-1, -1, 5, -1, -1)],
+                  dim=1).permute(0, 2, 1, 3, 4)
+    t = torch.full((1,), 500, device=x.device)
+    with torch.inference_mode():
+        outs = [m(x, b["prompt_embeds"], t, actions=b["actions"]) for m in (model, back)]
+    same = torch.equal(outs[0], outs[1])
+    print(f"train export reloaded strictly through load_pretrained: forward bitwise equal to the "
+          f"trained model's: {same}", flush=True)
+    check(same, "the exported model's forward differs from the trained model's")
+    del back, outs
+
+    # one more optimizer step by hand on that batch, timed in parts with CUDA events
+    tx = train_mod.build_optimizer(
+        cfg.train, train_mod.total_train_steps(cfg.train, len(dataset), bs), bs)
+    params, sched = trainable(model), make_schedule()
+    gen = torch.Generator(device=params[0].device).manual_seed(20)
     parts = []
-    for _ in range(TRAIN_OPT["grad_accum_steps"]):
+    for _ in range(accum):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         draws = LossDraws.draw(gen, batch)
         ev[0].record()
@@ -1115,16 +1340,12 @@ def train_recipe_2b():
         ev[3].record()
         torch.cuda.synchronize()
         parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train micro-step split (ms): forward {parts[0][0]:.1f} / {parts[1][0]:.1f}, backward "
-          f"{parts[0][1]:.1f} / {parts[1][1]:.1f}, grad norm + optimizer: accumulate "
+    print(f"train phase total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"train micro-step split at B={bs} (ms): forward {parts[0][0]:.1f} / {parts[1][0]:.1f}, "
+          f"backward {parts[0][1]:.1f} / {parts[1][1]:.1f}, grad norm + optimizer: accumulate "
           f"{parts[0][2]:.1f}, apply {parts[1][2]:.1f}; peak memory of the training phase "
-          f"{peak:.1f} GiB", flush=True)
-    finite = all(bool(torch.isfinite(n)) for n in torch._foreach_norm(params))
-    moved = [not torch.equal(b, w) for b, w in zip(before, watch)]
-    print(f"train parameters finite: {finite}, watched tensors moved: {moved}", flush=True)
-    check(finite and all(moved), "training left non-finite or unmoved parameters")
-    return launches
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    return tuple(a - n_val * TRAIN_VAL_STEPS * f for a, f in zip(launches, BF16_FORWARD))
 
 
 def generate(dit, vae, inp, name: str, forward_counts):
@@ -1566,6 +1787,11 @@ def main() -> int:
     # 3. the small models against the CPU, then the flagship DiT forward
     tiny_reference_checks()
     tiny_train_check()
+    resume_root = Path(tempfile.mkdtemp(prefix="orv_resume_"))
+    try:
+        tiny_resume_check(resume_root)
+    finally:
+        shutil.rmtree(resume_root, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()  # from here on: the main path's memory
     torch.manual_seed(0)
     t0 = time.perf_counter()
@@ -1627,10 +1853,14 @@ def main() -> int:
     finally:
         shutil.rmtree(serving_root, ignore_errors=True)
 
-    # 5. training at full width, the serving models freed first
+    # 5. training through the entry point at full width, the serving models freed first
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = train_recipe_2b()
+    train_root = Path(tempfile.mkdtemp(prefix="orv_train_"))
+    try:
+        train_launches = train_phase(train_root)
+    finally:
+        shutil.rmtree(train_root, ignore_errors=True)
     launches = launches[:5] + train_launches[5:9] + (ring_online,)
 
     # 6. card, kernels line, result line

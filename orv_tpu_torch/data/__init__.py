@@ -1,4 +1,5 @@
 from orv_tpu_torch.data.dataset import (
+    BucketSampler,
     CascadedRobotDataset,
     DatasetConfig,
     DemoRobotDataset,
@@ -7,6 +8,7 @@ from orv_tpu_torch.data.dataset import (
 )
 
 __all__ = [
+    "BucketSampler",
     "CascadedRobotDataset",
     "DatasetConfig",
     "DemoRobotDataset",

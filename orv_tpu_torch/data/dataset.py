@@ -22,8 +22,8 @@ On-disk layout:
       depth_latents,label_latents,prompt_embeds}/<name>.npz
 
 Raw frames are resized with OpenCV, as in the JAX package, so items agree
-with it bit for bit. The multiview dataset and the bucketing batch sampler
-are not ported yet.
+with it bit for bit. `BucketSampler` batches the training loader. The
+multiview dataset is not ported yet (ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -606,6 +606,49 @@ class DemoRobotDataset(RobotDataset):
         if cfg.load_actions and not cfg.no_traj:
             out["actions"] = self._get_actions(ann, sample["frame_ids"])
         return out
+
+
+class BucketSampler:
+    """Groups samples into homogeneous (ref_num, n_view) batches: a fresh
+    ref_num draw and the sample's view count key the bucket, and each
+    yielded batch entry is an (index, ref_num, n_view) tuple the dataset
+    honors in __getitem__, so every batch stacks to one shape. Flushes a
+    bucket when it reaches batch_size; iterates forever when `infinite`.
+    The draws come from `random.Random(seed)` in the JAX package's order,
+    so both yield the same index lists."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, infinite: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.infinite = infinite
+
+    def _key(self, i, rng) -> Tuple[int, int]:
+        s = self.dataset.samples[i]
+        ref_num = rng.choice(self.dataset.config.ref_num_choices())
+        return (ref_num, s.get("n_view_use", s.get("n_view", 1)))
+
+    def __iter__(self):
+        rng = random.Random(self.seed)
+        while True:
+            order = list(range(len(self.dataset)))
+            if self.shuffle:
+                rng.shuffle(order)
+            buckets: Dict[Tuple, List[Tuple]] = {}
+            for i in order:
+                key = self._key(i, rng)
+                b = buckets.setdefault(key, [])
+                b.append((i, key[0], key[1]))
+                if len(b) == self.batch_size:
+                    yield list(b)
+                    b.clear()
+            if not self.infinite:
+                for b in buckets.values():  # flush remainders
+                    if b:
+                        yield list(b)
+                return
 
 
 def collate_control(items: List[Dict[str, Any]]) -> Dict[str, Any]:

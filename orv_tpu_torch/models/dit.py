@@ -126,7 +126,8 @@ class ControlDiT(nn.Module):
             if getattr(config, name):
                 raise NotImplementedError(f"ControlDiT port: {name}=True is not ported yet")
         if config.patch_size_t is not None:
-            raise NotImplementedError("ControlDiT port: patch_size_t is not ported yet")
+            raise NotImplementedError("ControlDiT port: patch_size_t is not ported yet "
+                                      "(ROADMAP.md A6)")
         if attn_impl != _ATTN_IMPL[quant]:
             raise ValueError(f"attn_impl={attn_impl!r} with quant={quant}: the port builds "
                              f"quant={quant} with attn_impl={_ATTN_IMPL[quant]!r} only")

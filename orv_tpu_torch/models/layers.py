@@ -429,7 +429,11 @@ class PatchEmbed(nn.Module):
             table = get_3d_sincos_pos_embed(self.embed_dim, (w, h), F_,
                                             self.spatial_interpolation_scale,
                                             self.temporal_interpolation_scale)
-            pos = torch.from_numpy(table).to(out.device, out.dtype).reshape(1, -1, self.embed_dim)
+            # a normal tensor even under a sampler's inference mode, so that a
+            # training step after an inline validation can use the cached table
+            with torch.inference_mode(False):
+                pos = torch.from_numpy(table).to(out.device, out.dtype).reshape(
+                    1, -1, self.embed_dim)
             self._pos_tables[key] = pos
         return out + pos
 

@@ -1,5 +1,5 @@
 """Weight bridge: the JAX package's parameter trees -> the port's state dicts,
-and the reader of diffusers model folders (safetensors).
+and the reader and writer of diffusers model folders (safetensors).
 
 The port's module names follow the diffusers CogVideoX keys, so these
 functions emit exactly the keys a real checkpoint carries (for the DiT, the
@@ -20,15 +20,21 @@ A diffusers folder (`config.json` plus `diffusion_pytorch_model.safetensors`,
 or shards listed in `diffusion_pytorch_model.safetensors.index.json`) reads
 through `load_diffusers_folder`, with the port's own safetensors reader:
 the port's modules carry the diffusers key names, so the state dict loads
-with `load_state_dict(strict=True)`.
+with `load_state_dict(strict=True)`. `write_safetensors` and
+`export_diffusers_folder` write such folders, tensor by tensor;
+`dit_state_dict_from_diffusers` applies the JAX package's init surgery
+(`orv_tpu/models/weights.py:convert_dit_state_dict`) to a diffusers state
+dict: the T2V -> I2V zero-padding of the patch embed's input channels, and
+the optional keys checked against the config's model.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import struct
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -196,19 +202,28 @@ _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": n
               "U8": np.uint8, "BOOL": np.bool_}
 
 
+_TORCH_ST = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
+             torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
 def read_safetensors(path) -> Dict[str, torch.Tensor]:
     """One .safetensors file -> {name: CPU tensor}. The format: a
     little-endian u64 header length, a JSON header {name: {dtype, shape,
     data_offsets [begin, end)}} (offsets from the end of the header), then
     the raw little-endian buffers."""
-    out: Dict[str, torch.Tensor] = {}
+    return dict(iter_safetensors(path))
+
+
+def iter_safetensors(path) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, CPU tensor) pairs of one .safetensors file in file order, one
+    tensor read at a time."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
         base = 8 + n
-        for name, info in header.items():
-            if name == "__metadata__":
-                continue
+        header.pop("__metadata__", None)
+        for name, info in sorted(header.items(), key=lambda kv: kv[1]["data_offsets"][0]):
             if info["dtype"] not in _ST_DTYPES:
                 raise ValueError(f"{path}: tensor {name} has unsupported dtype {info['dtype']}")
             begin, end = info["data_offsets"]
@@ -220,8 +235,89 @@ def read_safetensors(path) -> Dict[str, torch.Tensor]:
             t = torch.from_numpy(arr.astype(arr.dtype.newbyteorder("="), copy=False))
             if info["dtype"] == "BF16":
                 t = t.view(torch.bfloat16)
-            out[name] = t.reshape(info["shape"])
-    return out
+            yield name, t.reshape(info["shape"])
+
+
+def write_safetensors(path, tensors: Mapping[str, torch.Tensor]) -> int:
+    """Write `tensors` (on any device) as one .safetensors file, in sorted
+    name order, one tensor on the host at a time: a state of many GB never
+    sits whole in host memory. The header's metadata is diffusers' own
+    `{"format": "pt"}`. Returns the bytes written."""
+    names = sorted(tensors)
+    header: Dict[str, Any] = {"__metadata__": {"format": "pt"}}
+    offset = 0
+    for name in names:
+        t = tensors[name]
+        if t.dtype not in _TORCH_ST:
+            raise ValueError(f"tensor {name} has dtype {t.dtype}, which safetensors lacks")
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": _TORCH_ST[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)  # the buffers start 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name in names:
+            t = tensors[name].detach().to("cpu").contiguous().reshape(-1)
+            f.write(memoryview(t.view(torch.uint8).numpy()))
+    return 8 + len(blob) + offset
+
+
+def export_diffusers_folder(folder, state_dict: Mapping[str, torch.Tensor], config) -> int:
+    """A diffusers transformer folder: config.json with the keys
+    `orv_tpu.models.weights.export_torch_pretrained` writes (the config's
+    fields but action_dim and joint_final_norm, plus the reference's
+    constants) and `diffusion_pytorch_model.safetensors`. Returns the
+    weights' bytes."""
+    out = Path(folder)
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = dataclasses.asdict(config)
+    cfg.pop("action_dim", None)
+    cfg.pop("joint_final_norm", None)
+    cfg.update({
+        "_class_name": "CogVideoXTransformer3DModelTraj",
+        "ofs_embed_dim": None,
+        "dropout": 0.0,
+        "activation_fn": "gelu-approximate",
+        "timestep_activation_fn": "silu",
+        "norm_elementwise_affine": True,
+        "num_control_blocks": 12,
+    })
+    (out / "config.json").write_text(json.dumps(cfg, indent=2))
+    return write_safetensors(out / "diffusion_pytorch_model.safetensors", state_dict)
+
+
+def dit_state_dict_from_diffusers(sd: Mapping[str, torch.Tensor], config,
+                                  from_t2v: bool = False) -> Dict[str, torch.Tensor]:
+    """A diffusers CogVideoX transformer state dict -> the state dict of the
+    port's `ControlDiT(config)`, with the JAX package's init surgery
+    (`convert_dit_state_dict`): with `from_t2v`, a conv patch embed whose
+    input channels are half of `config.in_channels` gets zero-initialized
+    extra channels (T2V -> I2V, 16 -> 32). The optional keys must match the
+    model: `patch_embed.proj.bias` exactly where `config.patch_bias`, and
+    `norm_out.norm.*`, which the model always has. Any other mismatch
+    raises by name in `load_state_dict(strict=True)`."""
+    sd = dict(sd)
+    if any(k.startswith("mv_blocks.") for k in sd):
+        raise NotImplementedError("the state dict holds mv_blocks: multiview models are not "
+                                  "ported yet (ROADMAP.md A6)")
+    w = sd["patch_embed.proj.weight"]
+    if w.dim() != 4:
+        raise NotImplementedError("a linear patch embed (CogVideoX 1.5, patch_size_t) is not "
+                                  "ported yet (ROADMAP.md A6)")
+    if from_t2v and 2 * w.shape[1] == config.in_channels:
+        sd["patch_embed.proj.weight"] = torch.cat([w, torch.zeros_like(w)], dim=1)
+    if ("patch_embed.proj.bias" in sd) != bool(config.patch_bias):
+        raise ValueError(f"patch_embed.proj.bias is {'' if config.patch_bias else 'not '}in "
+                         f"the model (patch_bias={config.patch_bias}) but "
+                         f"{'not ' if config.patch_bias else ''}in the state dict")
+    lacking = [k for k in ("norm_out.norm.weight", "norm_out.norm.bias") if k not in sd]
+    if lacking:
+        raise ValueError(f"the state dict lacks {lacking}: the output AdaLayerNorm without an "
+                         "elementwise affine is not a model either package builds")
+    return sd
 
 
 def load_diffusers_folder(folder) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:

@@ -3,10 +3,12 @@ from orv_tpu_torch.parallel.train_step import (
     LossDraws,
     TrainState,
     diffusion_loss,
+    load_state_tensors,
     make_lr_schedule,
     make_optimizer,
     make_train_step,
+    state_tensors,
 )
 
-__all__ = ["EvalDraws", "LossDraws", "TrainState", "diffusion_loss", "make_lr_schedule", "make_optimizer",
-           "make_train_step"]
+__all__ = ["EvalDraws", "LossDraws", "TrainState", "diffusion_loss", "load_state_tensors",
+           "make_lr_schedule", "make_optimizer", "make_train_step", "state_tensors"]

@@ -26,8 +26,13 @@ updates on the k-th; eps is added outside the square root and the decay
 lr*wd*p applies to every parameter. JAX's arrays are immutable; here the
 parameters, moments and accumulator are updated in place to save memory.
 
-Not ported: the mesh (sharding), CAME and prodigy, `trainable_predicate`,
-visual-control latents in the batch and `patch_size_t` frame padding.
+`state_tensors` / `load_state_tensors` flatten a `TrainState` (the
+parameters, the moments, the accumulator and the EMA) into named tensors
+and scalars and back, for `utils/checkpoint.py`.
+
+Not ported: the mesh (sharding; ROADMAP.md A7, A8), CAME and prodigy and
+`trainable_predicate` (A4), and `patch_size_t` frame padding (A6; `ControlDiT`
+refuses such a config when it is built).
 """
 
 from __future__ import annotations
@@ -223,6 +228,10 @@ class LossDraws:
     t: torch.Tensor  # [B] int64 timesteps
     drop_u: torch.Tensor  # [] uniform of the whole-batch image-CFG dropout
     mask_u: torch.Tensor  # [B] uniforms of the action-CFG mask
+    # [B, C, F, H, W] to sample the depth and label moments; None when the
+    # batch has no such key (JAX: r_cond and fold_in(r_cond, 1))
+    depth_noise: Optional[torch.Tensor] = None
+    label_noise: Optional[torch.Tensor] = None
 
     @classmethod
     def draw(cls, generator: Optional[torch.Generator], batch: Dict[str, torch.Tensor],
@@ -231,11 +240,18 @@ class LossDraws:
         lat, img = batch["latents"], batch["image_latents"]
         B, C2, F, H, W = lat.shape
         kw = dict(generator=generator, device=lat.device)
+
+        def moment_noise(key):
+            m = batch.get(key)
+            return None if m is None else torch.randn(B, m.shape[1] // 2, *m.shape[2:], **kw)
+
         return cls(lat_noise=torch.randn(B, C2 // 2, F, H, W, **kw),
                    img_noise=torch.randn(B, img.shape[1] // 2, *img.shape[2:], **kw),
                    noise=torch.randn(B, F, C2 // 2, H, W, **kw),
                    t=torch.randint(0, num_train_timesteps, (B,), **kw),
-                   drop_u=torch.rand((), **kw), mask_u=torch.rand(B, **kw))
+                   drop_u=torch.rand((), **kw), mask_u=torch.rand(B, **kw),
+                   depth_noise=moment_noise("latents_depth"),
+                   label_noise=moment_noise("latents_label"))
 
 
 @dataclasses.dataclass
@@ -300,12 +316,10 @@ def diffusion_loss(
     """One loss evaluation of the ControlDiT `model`. batch keys ([B, ...],
     the reference collate's layouts): 'latents' (moments [B, 2C, F, H, W]),
     'image_latents' (moments, F_img frames), 'prompt_embeds', optional
-    'actions' [B, F_raw, 7] and 'frame_mask' [F]. Returns (loss, metrics);
-    the metrics are detached."""
-    for key in ("latents_depth", "latents_label"):
-        if batch.get(key) is not None:
-            raise NotImplementedError(f"diffusion_loss port: batch[{key!r}] (visual-control "
-                                      "latents) is not ported yet")
+    'actions' [B, F_raw, 7], 'frame_mask' [F] and the visual-control moments
+    'latents_depth' / 'latents_label' [B, 2C, F, H, W], each sampled with
+    its `draws` noise, scaled and duplicated to 2C channels as the model's
+    `depths` / `labels`. Returns (loss, metrics); the metrics are detached."""
     lat = sample_from_moments(batch["latents"], noise=draws.lat_noise) * vae_scaling_factor
     lat = lat.permute(0, 2, 1, 3, 4)  # [B, F, C, H, W]
     img = sample_from_moments(batch["image_latents"], noise=draws.img_noise) * vae_scaling_factor
@@ -317,10 +331,22 @@ def diffusion_loss(
 
     noisy = add_noise(schedule, lat, draws.noise, draws.t)
     model_in = torch.cat([noisy, img], dim=2)  # [B, F, 2C, H, W]
+
+    def control(key, noise):
+        if batch.get(key) is None:
+            return None
+        if noise is None:
+            raise ValueError(f"batch[{key!r}] needs its moment noise in the draws")
+        c = sample_from_moments(batch[key], noise=noise) * vae_scaling_factor
+        c = c.permute(0, 2, 1, 3, 4)
+        return torch.cat([c, c], dim=2)
+
     actions = batch.get("actions")
     v_pred, is_action_mask, actions_recon = model(
-        model_in, batch["prompt_embeds"], draws.t, actions=actions, deterministic=False,
-        action_mask_u=draws.mask_u)
+        model_in, batch["prompt_embeds"], draws.t, actions=actions,
+        depths=control("latents_depth", draws.depth_noise),
+        labels=control("latents_label", draws.label_noise),
+        deterministic=False, action_mask_u=draws.mask_u)
 
     x0_pred = pred_x0_from_v(schedule, v_pred.float(), noisy, draws.t)
     w = loss_weights(schedule, draws.t).reshape(B, *([1] * (lat.dim() - 1)))
@@ -393,3 +419,60 @@ def make_train_step(tx: AdamW, schedule: DiffusionSchedule, **loss_kwargs):
         return state, metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Flat form of a TrainState (the checkpoint's)
+# ---------------------------------------------------------------------------
+
+_OPT_GROUPS = ("mu", "nu", "acc", "ema")
+
+
+def state_tensors(state: TrainState) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
+    """`state` -> ({name: tensor}, scalars), no copies made. Names are
+    "params/<key>" for every entry of the model's state dict and
+    "<group>/<parameter>" for the optimizer's lists (group mu, nu, acc
+    between the micro-steps of an accumulation, ema with `ema_decay`);
+    scalars are step, count and mini_step."""
+    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+    o = state.opt_state
+    tensors = {f"params/{k}": v.detach() for k, v in state.model.state_dict().items()}
+    for group in _OPT_GROUPS:
+        values = getattr(o, group)
+        if values is not None:
+            tensors.update({f"{group}/{n}": v.detach() for n, v in zip(names, values)})
+    return tensors, dict(step=int(state.step), count=int(o.count), mini_step=int(o.mini_step))
+
+
+def load_state_tensors(state: TrainState, items, scalars: Dict[str, int]) -> TrainState:
+    """The inverse of `state_tensors`, in place: copy every (name, tensor)
+    of `items` (an iterable, so a reader can stream them) into `state`'s
+    tensors and set its scalars. The accumulator is rebuilt when
+    `mini_step` > 0. Raises on a name `state` has no place for, a shape
+    that differs or a name missing from `items`."""
+    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+    o = state.opt_state
+    mini_step = int(scalars["mini_step"])
+    o.acc = [torch.empty_like(p) for p in trainable(state.model)] if mini_step else None
+    dest = {f"params/{k}": v for k, v in state.model.state_dict().items()}
+    for group in _OPT_GROUPS:
+        values = getattr(o, group)
+        if values is not None:
+            dest.update({f"{group}/{n}": v for n, v in zip(names, values)})
+    seen = set()
+    with torch.no_grad():
+        for name, value in items:
+            if name not in dest:
+                raise KeyError(f"checkpoint tensor {name!r} has no place in this train state "
+                               "(another model, or an EMA the optimizer does not keep)")
+            if tuple(value.shape) != tuple(dest[name].shape):
+                raise ValueError(f"checkpoint tensor {name!r} is {tuple(value.shape)}, the "
+                                 f"state's {tuple(dest[name].shape)}")
+            dest[name].copy_(value)
+            seen.add(name)
+    missing = sorted(set(dest) - seen)
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} tensor(s) of this train state: "
+                       f"{missing[:5]}")
+    state.step, o.count, o.mini_step = int(scalars["step"]), int(scalars["count"]), mini_step
+    return state

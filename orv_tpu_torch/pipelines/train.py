@@ -1,20 +1,62 @@
-"""Training entry point: `build_dit_config` and `build_dataset`.
+"""Training entry point.
 
-Counterpart of `orv_tpu/pipelines/train.py:build_dit_config` and
-`build_dataset`, which the serving entry points read too. The training
-loop (loader, checkpoint writing, tracker, validation) is not ported yet.
+Counterpart of `orv_tpu/pipelines/train.py`, on one GPU:
+
+  python -m orv_tpu_torch.pipelines.train --experiment traj_image_2b_finetune \\
+      --dataset_type bridgev2 dataset.data_root=... [--debug] [key.path=value ...]
+
+Pipeline: layered config -> ControlDiT (a diffusers folder through the
+JAX package's init surgery, or a random init from `seed`) -> RobotDataset
++ BucketSampler + threaded prefetch -> `make_train_step` (one call a
+micro-step; `max_train_steps` counts micro-steps, as in JAX) ->
+step-indexed checkpoints with rotation and resume -> inline validation
+through the real sampler -> the diffusers export `checkpoint/` (and
+`checkpoint_ema/` with `train.ema_decay`).
+
+Every random number of a micro-step goes through `LossDraws`, by default
+from a generator seeded from (seed, micro-step), the way JAX folds the
+step into its key, so a resumed run draws what an unbroken one would; a
+caller may pass `draws(step, batch)`. Validation's come through
+`EvalDraws` the same way (`val_draws`).
+
+Refused by name, with the ROADMAP.md item: any `train.mesh` axis above 1
+(A7 for sp, A8 for dp/fsdp/tp/pp; dp: -1 is 1 on one card),
+`train.loader=grain` (A10), optimizers but adam/adamw and
+`gradient_checkpointing` (A4), multiview (A6); RoPE and the 5b family
+raise in `ControlDiT` (A6).
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
+import os
+import queue
+import threading
+import time
 from pathlib import Path
+from typing import Callable, Dict, Iterator, Optional
 
+import numpy as np
+import torch
 import yaml
 
-from orv_tpu_torch.configs import Config, default_config_dir
-from orv_tpu_torch.data import CascadedRobotDataset, DatasetConfig, RobotDataset
-from orv_tpu_torch.models.dit import DiTConfig
+from orv_tpu_torch.configs import Config, default_config_dir, load_config
+from orv_tpu_torch.data import (BucketSampler, CascadedRobotDataset, DatasetConfig,
+                                RobotDataset, collate_control)
+from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
+from orv_tpu_torch.models.weights import dit_state_dict_from_diffusers
+from orv_tpu_torch.parallel.train_step import (EvalDraws, LossDraws, TrainState,
+                                               make_lr_schedule, make_optimizer,
+                                               make_train_step, trainable)
+from orv_tpu_torch.schedulers import make_schedule
+from orv_tpu_torch.utils.checkpoint import TrainCheckpointer, export_pretrained, load_pretrained
+from orv_tpu_torch.utils.device import DeviceLike, resolve_device
+from orv_tpu_torch.utils.logging import CONSOLE
+from orv_tpu_torch.utils.tracker import Tracker
+
+DrawFn = Callable[[int, Dict[str, torch.Tensor]], LossDraws]
 
 # keys the yamls carry inside `transformer:` that are NOT model architecture
 # fields (checkpoint/loader plumbing and pipeline flags). Everything else
@@ -108,3 +150,392 @@ def build_dataset(cfg: Config, split: str = "train", cascaded: bool = False):
     if cascaded:
         return CascadedRobotDataset(ds_cfg)
     return RobotDataset(ds_cfg)
+
+
+def prefetch_batches(dataset, sampler, num_threads: int = 2, depth: int = 4) -> Iterator[Dict]:
+    """Threaded loader: index batches -> collated numpy batches.
+
+    A batch that raises (resample exhaustion, collate shape mismatch) is
+    logged and skipped instead of killing its worker thread. Every worker
+    posts one sentinel when the sampler ends; the last one ends the
+    iteration. Closing the generator stops the workers. With more than one
+    thread, which collated batch comes next is not fixed."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    it = iter(sampler)
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        while not stop.is_set():
+            with lock:
+                try:
+                    idxs = next(it)
+                except StopIteration:
+                    put(None)
+                    return
+            try:
+                batch = collate_control([dataset[i] for i in idxs])
+            except Exception as e:  # noqa: BLE001 — skip the bad batch
+                CONSOLE.log(f"[yellow]prefetch: dropping batch {idxs}: {type(e).__name__}: {e}")
+                continue
+            if not put(batch):
+                return
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(num_threads)]
+    for t in threads:
+        t.start()
+    try:
+        done = 0
+        while done < num_threads:
+            b = q.get()
+            if b is None:
+                done += 1
+                continue
+            yield b
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=5)
+
+
+def init_params(cfg: Config, dit_cfg: DiTConfig, dtype=torch.bfloat16,
+                device: DeviceLike = None) -> ControlDiT:
+    """The config's ControlDiT with f32 parameters: from
+    `transformer.pretrained_name_or_path` when that folder exists (a
+    diffusers folder, through `dit_state_dict_from_diffusers` with
+    `transformer.from_t2v`; a folder of the JAX package's `model.msgpack`
+    alone is refused, naming its conversion), else a random init from
+    `seed`, logged."""
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[device.index or 0] if device.type == "cuda" else []):
+        torch.manual_seed(int(cfg.get("seed", 42)))
+        model = ControlDiT(dit_cfg, dtype=dtype, param_dtype=torch.float32, device=device)
+    pretrained = cfg.transformer.get("pretrained_name_or_path")
+    if pretrained and Path(str(pretrained)).exists():
+        _, sd = load_pretrained(str(pretrained))
+        sd = dit_state_dict_from_diffusers(
+            sd, dit_cfg, from_t2v=bool(cfg.transformer.get("from_t2v", False)))
+        model.load_state_dict(sd, strict=True)
+        CONSOLE.log(f"loaded pretrained transformer from {pretrained}")
+    elif pretrained:
+        CONSOLE.log(f"[yellow]pretrained path '{pretrained}' not found — random init")
+    return model
+
+
+@contextlib.contextmanager
+def _params_swapped(model: torch.nn.Module, tensors):
+    """Inside the block the model's trainable parameters hold `tensors` (no
+    copy: their storage is swapped), then their own again."""
+    params = trainable(model)
+    own = [p.data for p in params]
+    try:
+        for p, t in zip(params, tensors):
+            p.data = t
+        yield model
+    finally:
+        for p, t in zip(params, own):
+            p.data = t
+
+
+ValDrawFn = Callable[[int, tuple, Optional[tuple]], EvalDraws]
+
+
+@torch.no_grad()
+def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, step: int,
+                   tracker: Optional[Tracker] = None, vae=None, device: DeviceLike = None,
+                   draws: Optional[ValDrawFn] = None) -> Path:
+    """Inline validation through the real sampler on the model's current
+    weights: denoise the first `train.num_validation_videos` clips of
+    `batch` (actions and the image condition, as JAX does) and write each
+    decoded mp4 under `validation/` when a VAE is given, else one `.npz` of
+    the latents. `draws(step, noise_shape, image_shape)` gives the
+    EvalDraws (default: a generator seeded with seed + step, which also
+    feeds the stochastic DPM steps). Returns the last path written."""
+    from orv_tpu_torch.pipelines.sample import (SamplerConfig, make_sampler,
+                                                prepare_image_latents)
+
+    device = resolve_device(device)
+    dit_cfg = model.config  # RoPE models raise in ControlDiT (A6)
+    inf = cfg.get("inference", {}) or {}
+    sampler = make_sampler(model, make_schedule(), SamplerConfig(
+        num_inference_steps=int(inf.get("num_inference_steps", 50)),
+        guidance_scale=float(inf.get("guidance_scale", 1.0)),
+        use_dynamic_cfg=bool(inf.get("use_dynamic_cfg", False))), device=device)
+    scaling = float(cfg.get("vae", {}).get("scaling_factor", 1.15258426))
+    n_val = max(1, int(cfg.get("train", {}).get("num_validation_videos", 1)))
+    n_val = min(n_val, int(np.asarray(batch["latents"]).shape[0]))
+    C = dit_cfg.out_channels
+    F_lat, H, W = np.asarray(batch["latents"]).shape[2:]
+    img = batch.get("image_latents")
+    img_shape = None if img is None or img.shape[1] != 2 * C else (n_val, C, *img.shape[2:])
+    if draws is None:
+        gen = torch.Generator(device).manual_seed(int(cfg.get("seed", 42)) + step)
+        d = EvalDraws.draw(gen, (n_val, F_lat, C, H, W), img_shape)
+    else:
+        d = draws(step, (n_val, F_lat, C, H, W), img_shape)
+    on = lambda a: torch.as_tensor(np.asarray(a[:n_val])).to(device)
+    if img is not None:
+        image_latents = prepare_image_latents(on(img), F_lat, latent_channels=C,
+                                              scaling_factor=scaling, noise=d.image_noise)
+    else:  # a latents dataset may carry no image latents; validation runs on
+        image_latents = torch.zeros(n_val, F_lat, C, H, W, device=device)
+    kwargs = {}
+    if "actions" in batch:
+        kwargs["actions"] = on(batch["actions"]).to(torch.bfloat16)
+    if batch.get("prompt_embeds") is not None:
+        prompt = on(batch["prompt_embeds"]).to(torch.bfloat16)
+    else:
+        prompt = torch.zeros(n_val, dit_cfg.max_text_seq_length, dit_cfg.text_embed_dim,
+                             dtype=torch.bfloat16, device=device)
+    latents = sampler(d.noise, image_latents.to(torch.bfloat16), prompt,
+                      generator=d.generator, **kwargs)
+    val_dir = Path(out_dir) / "validation"
+    val_dir.mkdir(parents=True, exist_ok=True)
+    if vae is not None:
+        from orv_tpu_torch.models.vae import decode_chunked
+        from orv_tpu_torch.utils.video import write_video
+
+        fps = int(inf.get("save_fps", 8))
+        for i in range(n_val):
+            z = latents[i:i + 1].permute(0, 2, 1, 3, 4) / scaling
+            video = decode_chunked(vae, z, chunk_latent_frames=6, device=device)[0]
+            video = video.float().cpu().numpy()
+            frames = np.clip((video.transpose(1, 2, 3, 0) + 1.0) / 2.0, 0, 1)
+            frames = (frames * 255).round().astype(np.uint8)
+            suffix = f"_{i}" if n_val > 1 else ""
+            path = Path(write_video(str(val_dir / f"step_{step:06d}{suffix}.mp4"), frames,
+                                    fps=fps))
+            if tracker is not None:
+                tracker.log_video("validation", str(path), step)
+    else:
+        path = val_dir / f"step_{step:06d}_latents.npz"
+        np.savez(path, *(latents[i].float().cpu().numpy() for i in range(n_val)))
+        if tracker is not None:
+            tracker.log_video("validation_latents", str(path), step)
+    CONSOLE.log(f"validation @ step {step} -> {path}")
+    return path
+
+
+def total_train_steps(tcfg, dataset_len: int, batch_size: int) -> int:
+    """Total micro-steps. `max_train_steps` wins when set; with it null or
+    absent, `num_train_epochs` x steps-per-epoch, where one epoch is
+    ceil(len(dataset) / (batch x grad-accum)); 20000 with neither.
+    `train_batch_size` is the global batch."""
+    explicit = tcfg.get("max_train_steps")
+    if explicit is not None:
+        return int(explicit)
+    epochs = tcfg.get("num_train_epochs")
+    if epochs is None:
+        return 20000
+    global_batch = max(1, batch_size * int(tcfg.get("gradient_accumulation_steps", 1)))
+    steps_per_epoch = max(1, -(-dataset_len // global_batch))
+    return int(epochs) * steps_per_epoch
+
+
+def scaled_lr(tcfg, batch_size: int) -> float:
+    """Base learning rate, times grad-accum x the global batch when
+    `train.scale_lr` is set."""
+    lr = float(tcfg.get("learning_rate", 2e-4))
+    if not tcfg.get("scale_lr"):
+        return lr
+    return lr * int(tcfg.get("gradient_accumulation_steps", 1)) * batch_size
+
+
+def build_optimizer(tcfg, total_steps: int, batch_size: int):
+    """`train.optimizer` and the lr schedule of `tcfg` -> the AdamW
+    (`make_optimizer`), over `total_steps` micro-steps as JAX passes them."""
+    opt = tcfg.get("optimizer", {}) or {}
+    base_lr = scaled_lr(tcfg, batch_size)
+    if tcfg.get("scale_lr"):
+        CONSOLE.log(f"scale_lr: learning rate {base_lr:.3g}")
+    lr = make_lr_schedule(tcfg.get("lr_scheduler", "cosine_with_restarts"), base_lr,
+                          int(tcfg.get("lr_warmup_steps", 1000)), total_steps,
+                          int(tcfg.get("lr_num_cycles", 1)), power=float(tcfg.get("lr_power", 1.0)))
+    return make_optimizer(lr, opt.get("type", "adamw"), opt.get("beta1", 0.9),
+                          opt.get("beta2", 0.95), opt.get("epsilon", 1e-8),
+                          opt.get("weight_decay", 1e-3), opt.get("max_grad_norm", 1.0),
+                          int(tcfg.get("gradient_accumulation_steps", 1)), tcfg.get("ema_decay"))
+
+
+def _check_supported(cfg: Config) -> None:
+    """Refuse, naming the ROADMAP.md item, what the port's training lacks."""
+    tcfg = cfg.train
+    mesh = dict(tcfg.get("mesh", {}) or {})
+    wide = {a: int(n) for a, n in mesh.items() if a != "n_micro" and int(n) > 1}
+    if wide:
+        item = "A7" if set(wide) == {"sp"} else "A8" if "sp" not in wide else "A7 and A8"
+        raise NotImplementedError(
+            f"train.mesh {wide}: sharded training is not ported yet (ROADMAP.md {item}: A7 for "
+            "sp, A8 for dp/fsdp/tp/pp); run on one card with every axis at 1 (dp: -1 is 1)")
+    if tcfg.get("loader") == "grain":
+        raise NotImplementedError("train.loader=grain is not ported (ROADMAP.md A10); the "
+                                  "default threaded loader runs")
+    opt = (tcfg.get("optimizer", {}) or {}).get("type", "adamw")
+    if opt not in ("adam", "adamw"):
+        raise NotImplementedError(f"train.optimizer.type={opt!r} is not ported yet (ROADMAP.md "
+                                  "A4: CAME and prodigy); adam and adamw are")
+    if tcfg.get("gradient_checkpointing"):
+        raise NotImplementedError("train.gradient_checkpointing (per-block remat) is not "
+                                  "ported yet (ROADMAP.md A4)")
+    if cfg.get("multiview") or cfg.transformer.get("multiview"):
+        raise NotImplementedError("multiview training is not ported yet (ROADMAP.md A6)")
+
+
+def seeded_draws(seed: int, device: DeviceLike, num_train_timesteps: int = 1000) -> DrawFn:
+    """The default `draws(step, batch)`: micro-step `step`'s LossDraws from
+    a generator on `device` seeded from (seed, step) alone."""
+    device = resolve_device(device)
+
+    def draws(step: int, batch: Dict[str, torch.Tensor]) -> LossDraws:
+        s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+        return LossDraws.draw(torch.Generator(device).manual_seed(s), batch, num_train_timesteps)
+
+    return draws
+
+
+def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as tensors on `device` (metainfo lists stay behind)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[DrawFn] = None,
+          val_draws: Optional[ValDrawFn] = None) -> TrainState:
+    """Train the config's ControlDiT; return the final TrainState. `vae`
+    may be passed directly (library embedding, tests), else it loads from
+    `vae.pretrained_name_or_path`; it renders the validation videos.
+    `draws(step, batch)` gives micro-step `step`'s LossDraws (default in
+    the module docstring). Runs on `device`, CUDA unless "cpu" is asked."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    seed = int(cfg.get("seed", 42))
+    tcfg = cfg.train
+    out_dir = Path(tcfg.get("output_path", "outputs")) / (tcfg.get("output_dir") or "run")
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    dit_cfg = build_dit_config(cfg)
+    dtype = torch.bfloat16 if tcfg.get("mixed_precision", "bf16") == "bf16" else torch.float32
+    # train.overfit: train on the small 'val' split, so the loss should collapse
+    dataset = build_dataset(cfg, split="val" if tcfg.get("overfit") else "train")
+    bs = int(tcfg.get("train_batch_size", 4))
+    batches = prefetch_batches(dataset, BucketSampler(dataset, batch_size=bs, seed=seed,
+                                                      infinite=True))
+    tracker = None
+    try:
+        first = next(batches)
+        model = init_params(cfg, dit_cfg, dtype, device)
+        CONSOLE.log(f"model params: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B")
+
+        total_steps = total_train_steps(tcfg, len(dataset), bs)
+        tx = build_optimizer(tcfg, total_steps, bs)
+        lr = tx.schedule
+        state = TrainState.create(model, tx)
+
+        ckpt = TrainCheckpointer(str(out_dir / "checkpoints"),
+                                 max_to_keep=int(tcfg.get("checkpoints_total_limit", 2)))
+        start_step = 0
+        if tcfg.get("resume_from_checkpoint") and ckpt.latest_step() is not None:
+            ckpt.restore(state)
+            start_step = state.step
+            CONSOLE.log(f"resumed from step {start_step}")
+
+        schedule = make_schedule()
+        step_fn = make_train_step(
+            tx, schedule,
+            vae_scaling_factor=float(cfg.get("vae", {}).get("scaling_factor", 1.15258426)),
+            noised_image_dropout=float(tcfg.get("noised_image_dropout", 0.05)),
+            recon_action=bool(cfg.get("recon_action", False)))
+        draws = draws or seeded_draws(seed, device, schedule.num_train_timesteps)
+        tracker = Tracker(str(out_dir / "logs"), cfg.get("tracker_name"), config=dict(cfg))
+
+        vae_path = cfg.get("vae", {}).get("pretrained_name_or_path")
+        if vae is None and vae_path and Path(str(vae_path)).exists():
+            from orv_tpu_torch.pipelines.evaluate import load_vae
+
+            vae = load_vae(str(vae_path), device)
+            CONSOLE.log(f"loaded VAE from {vae_path} (validation video rendering)")
+
+        def validate(batch, step):
+            # with train.ema_decay, validate the EMA weights, the ones a user serves
+            ema = state.opt_state.ema
+            with _params_swapped(model, ema) if ema is not None else contextlib.nullcontext():
+                run_validation(cfg, model, batch, out_dir, step, tracker, vae, device, val_draws)
+
+        val_every = int(tcfg.get("validation_steps", 2000))
+        if not os.environ.get("NO_INIT_VAL"):
+            validate(first, start_step)
+            if os.environ.get("ONLY_INIT_VAL"):
+                return state
+
+        log_every = int(tcfg.get("log_every", 10))
+        ckpt_every = int(tcfg.get("checkpointing_steps", 500))
+        t_last = time.time()
+        batch = first
+        for step in range(start_step, total_steps):
+            b = to_device(batch, device)
+            state, metrics = step_fn(state, b, draws(step, b))
+            if (step + 1) % log_every == 0 or step == start_step:
+                m = {k: float(v) for k, v in metrics.items()}
+                dt = (time.time() - t_last) / (log_every if step > start_step else 1)
+                t_last = time.time()
+                CONSOLE.log(f"step {step + 1}/{total_steps} loss={m['loss']:.4f} "
+                            f"gnorm={m.get('grad_norm', 0):.3f} lr={lr(step):.2e} {dt:.2f}s/it")
+                tracker.log({**m, "lr": lr(step), "s_per_it": dt}, step + 1)
+            if (step + 1) % ckpt_every == 0:
+                ckpt.save(step + 1, state)
+            if (step + 1) % val_every == 0:
+                validate(batch, step + 1)
+            batch = next(batches)
+
+        ckpt.save(total_steps, state)
+        export_pretrained(str(out_dir / "checkpoint"), model.state_dict(), dit_cfg)
+        if state.opt_state.ema is not None:
+            names = [n for n, p in model.named_parameters() if p.requires_grad]
+            export_pretrained(str(out_dir / "checkpoint_ema"),
+                              {**model.state_dict(), **dict(zip(names, state.opt_state.ema))},
+                              dit_cfg)
+        CONSOLE.log(f"training done -> {out_dir}")
+        return state
+    finally:
+        batches.close()
+        if tracker is not None:
+            tracker.close()
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--base", default=str(default_config_dir() / "base_train.yaml"))
+    p.add_argument("--experiment", default=None,
+                   help="experiment name (under config/experiments) or yaml path")
+    p.add_argument("--dataset_type", default=None)
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--device", default=None, help="default: the CUDA device")
+    p.add_argument("overrides", nargs="*", help="key.path=value overrides")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    exp = args.experiment
+    if exp and not exp.endswith(".yaml"):
+        exp = str(default_config_dir() / "experiments" / f"{exp}.yaml")
+    cfg = load_config(
+        args.base, exp, args.dataset_type,
+        str(default_config_dir() / "debug.yaml") if args.debug else None,
+        args.overrides,
+    )
+    return train(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

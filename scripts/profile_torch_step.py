@@ -12,20 +12,33 @@ ranks as threads time-sharing the one card, each repeating the work outside
 attention) and one joint ring attention at [1,30,226+7800,64] with the
 online kernel, quantizes the DiT in place (`quantize_model_`) and
 times one W8A8 forward (`quant=True, attn_impl="flash_q8"`). Then, that
-model freed, it builds chip_smoke.py's 2B-recipe training model (f32
-parameters, bf16 compute) and times one optimizer step of two micro-steps
-through `make_train_step`. Each piece runs once to warm up, once timed on
-the host clock (ending in a synchronize) and once under torch.profiler. For each it prints the wall
-time, the summed device time of its kernels, the idle share (1 - device /
-wall of the profiled run), the device time by kind of kernel and the top
+model freed, it profiles one optimizer step of the 2B fine-tune recipe
+inside a short run of the training entry point itself
+(`pipelines/train.py:train`, NO_INIT_VAL, `max_train_steps` of 3 optimizer
+steps): the port's base_train.yaml + experiments/traj_image_2b_finetune.yaml
+on bridgev2 slices that chip_smoke.write_train_data writes to a temp dir,
+B=4 x 2 micro-steps, random init (f32 parameters, bf16 compute). A wrapper
+of the module's `make_train_step` marks the optimizer steps' ends: the
+first warms up, the second is timed on the host clock and the third runs
+under torch.profiler, each from the end of the optimizer step before, so
+that it holds all the loop does between (the threaded loader, `to_device`,
+the seeded draws; the recipe logs every 10th micro-step only). The run's
+final checkpoint and export are written but not profiled. The forwards run
+once to warm up, once timed on the host clock (ending in a synchronize)
+and once under torch.profiler. For each piece it prints the wall time, the
+summed device time of its kernels, the idle share (1 - device / wall of
+the profiled run), the device time by kind of kernel and the top
 kernels by device time.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -40,22 +53,15 @@ from chip_smoke import (  # noqa: E402
     FLAGSHIP,
     LATENT,
     RECIPE_2B,
-    TRAIN_LR,
-    TRAIN_OPT,
     flagship_inputs,
-    recipe_batch,
+    train_config,
+    write_train_data,
 )
 from orv_tpu_torch.models import ControlDiT  # noqa: E402
 from orv_tpu_torch.models.quantize import quantize_model_  # noqa: E402
 from orv_tpu_torch.ops.ring_attention import joint_ring_attention  # noqa: E402
-from orv_tpu_torch.parallel import (  # noqa: E402
-    TrainState,
-    make_lr_schedule,
-    make_optimizer,
-    make_train_step,
-)
 from orv_tpu_torch.parallel.sp import LocalRing  # noqa: E402
-from orv_tpu_torch.schedulers import make_schedule  # noqa: E402
+from orv_tpu_torch.pipelines import train as train_mod  # noqa: E402
 
 # kernel name -> kind, first match wins. The adaLN backwards add their sums
 # over S inside their one launch (csrc/adaln_bwd_sm90.cuh), so their time
@@ -94,6 +100,10 @@ def forward_fn(dit, inp):
     return run
 
 
+def profiler():
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def breakdown(name: str, run) -> None:
     run()
     torch.cuda.synchronize()
@@ -101,11 +111,15 @@ def breakdown(name: str, run) -> None:
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
+    report(name, wall, wall_prof, prof)
+
+
+def report(name: str, wall: float, wall_prof: float, prof) -> None:
     per_kernel, per_kind = defaultdict(lambda: [0.0, 0]), defaultdict(float)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -124,6 +138,49 @@ def breakdown(name: str, run) -> None:
     print("  top kernels (ms, launches):", flush=True)
     for n, (us, c) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {us / 1e3:9.3f} {c:5d}  {n[:110]}", flush=True)
+
+
+class OptimizerSteps:
+    """Wraps pipelines/train.py's `make_train_step`: the step function it
+    returns marks the end of every `accum`-th micro-step, an optimizer
+    step's. The first optimizer step warms up, the second is timed on the
+    host clock, the third runs under torch.profiler."""
+
+    def __init__(self, accum: int):
+        self.accum, self.calls, self.t0 = accum, 0, 0.0
+        self.wall = self.wall_prof = self.prof = None
+        self.orig = train_mod.make_train_step
+
+    def __enter__(self):
+        def make_train_step(*args, **kwargs):
+            fn = self.orig(*args, **kwargs)
+
+            def step(*a, **k):
+                out = fn(*a, **k)
+                self.calls += 1
+                if self.calls % self.accum == 0:
+                    self.boundary(self.calls // self.accum)
+                return out
+            return step
+        train_mod.make_train_step = make_train_step
+        return self
+
+    def __exit__(self, *exc):
+        train_mod.make_train_step = self.orig
+        if self.prof is not None and self.wall_prof is None:
+            self.prof.stop()
+
+    def boundary(self, k: int) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if k == 2:
+            self.wall = now - self.t0
+            self.prof = profiler()
+            self.prof.start()
+        elif k == 3:
+            self.wall_prof = now - self.t0
+            self.prof.stop()
+        self.t0 = time.perf_counter()
 
 
 def main() -> int:
@@ -150,18 +207,25 @@ def main() -> int:
     del dit, run
     torch.cuda.empty_cache()
 
-    torch.manual_seed(0)
-    model = ControlDiT(RECIPE_2B, dtype=torch.bfloat16, param_dtype=torch.float32)
-    tx = make_optimizer(make_lr_schedule(**TRAIN_LR), **TRAIN_OPT)
-    state = TrainState.create(model, tx)
-    step = make_train_step(tx, make_schedule(), recon_action=True)
-    batch, gen = recipe_batch(), torch.Generator(device="cuda").manual_seed(20)
-
-    def optimizer_step():
-        for _ in range(TRAIN_OPT["grad_accum_steps"]):
-            step(state, batch, gen)
-    breakdown(f"2B recipe optimizer step ({TRAIN_OPT['grad_accum_steps']} micro-steps)",
-              optimizer_step)
+    root = Path(tempfile.mkdtemp(prefix="orv_profile_"))
+    os.environ["NO_INIT_VAL"] = "1"
+    try:
+        write_train_data(root / "data")
+        cfg = train_config(root / "data", root / "out")
+        bs, accum = int(cfg.train.train_batch_size), int(cfg.train.gradient_accumulation_steps)
+        cfg = train_config(root / "data", root / "out", [f"train.max_train_steps={3 * accum}"])
+        assert train_mod.build_dit_config(cfg) == RECIPE_2B, train_mod.build_dit_config(cfg)
+        with OptimizerSteps(accum) as steps:
+            train_mod.train(cfg)
+        if steps.wall_prof is None:
+            raise RuntimeError(f"train made {steps.calls} micro-steps through make_train_step, "
+                               f"not the {3 * accum} to profile")
+        report(f"2B recipe optimizer step inside pipelines/train.py:train (B={bs} x {accum} "
+               "micro-steps: loader, to_device, draws, make_train_step)",
+               steps.wall, steps.wall_prof, steps.prof)
+    finally:
+        os.environ.pop("NO_INIT_VAL", None)
+        shutil.rmtree(root, ignore_errors=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"latents {LATENT}, card: {smi.stdout.strip()}", flush=True)

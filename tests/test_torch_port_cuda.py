@@ -30,6 +30,11 @@ separates from the plain version: RMS error <= 1e-4 RMS(ref). The flash
 check must reject the dq/dk/dv of a run that ignores dlse, and two
 runs of the flash backward, and of each adaLN backward, must give the same
 bits.
+
+The last two tests run `chip_smoke.tiny_train_check` (a tiny train step
+with depth and label latents, card against CPU) and
+`chip_smoke.tiny_resume_check` (the training entry point's resume round
+trip, bitwise) on the card.
 """
 
 import pytest
@@ -650,3 +655,25 @@ def test_cuda_adaln_backwards_across_row_groups(cuda, R):
     for S in (600, 226):
         _check_modulate_norm_bwd(*_mn_bwd_args(cuda, g, R, S, 1920))
         _check_gated_residual_bwd(*_gated_bwd_args(cuda, g, R, S, 1920))
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_train_step_with_control_latents_matches_cpu(cuda):
+    """chip_smoke.tiny_train_check: one train step of a 2-layer recon_action,
+    visual-guidance ControlDiT with depth and label moments in the batch,
+    bf16 kernels on the card against f32 plain versions on the CPU from the
+    same weights and draws (loss and grad norm to 2e-2 relative, no
+    gradient dropped at a kernel's output, a micro-step's launch counts)."""
+    import chip_smoke
+
+    chip_smoke.tiny_train_check()
+
+
+@pytest.mark.cuda
+def test_cuda_train_resume_equals_an_unbroken_run(cuda, tmp_path):
+    """chip_smoke.tiny_resume_check: pipelines/train.py:train at a tiny
+    config on the card, cut before micro-step 2 and 3 and resumed from the
+    latest checkpoint, ends bitwise where an unbroken run of 4 ends."""
+    import chip_smoke
+
+    chip_smoke.tiny_resume_check(tmp_path)
