@@ -123,11 +123,56 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      (TrainTimes wraps the three) and peak memory, then times one more
      optimizer step by hand on the loader's first batch, split into
      forward, backward and optimizer;
-  6. the card's name and power limit, the kernels' JSON line (launches:
-     the sum over the two generation runs for the forward kernels, over the
-     8 micro-steps of phase 5 for the backward ones, the ring attention run
-     of phase 3b for the online forward), and last the result line
-     {"ok": true, "device": {...}}.
+  6. the model surface at full width, the training state freed first: rows
+     2, 3, 6, 8 and 9 against their plain versions at the surface's shapes
+     (the MVBlock's attention [13,30,2478,64] and the 5b's [1,48,6826,64],
+     static-max and int8, each timed beside its plain version and SDPA; the
+     adaLN forward and gated residual at the 1.4b RoPE model's
+     [13,600,1792] and the 5b's [11,600,3072], timed; untimed, the
+     multiview DiTBlocks' attention [3,30,8026,64] (static-max and int8),
+     their adaLN forwards (bf16 and int8) and gated residual [39,600,1920],
+     their text stream's residual [3,226,1920], the MVBlock's
+     [3,7800,1920] and the 5b text stream's residual [1,226,3072]); tiny
+     multiview (bf16, W8A8) and 1.5-family ControlDiTs on the card against
+     the CPU, and a tiny PAB cache check (a block's cached attention fed
+     back on its inputs gives the full forward; a cache from other inputs
+     must not); then, on seeded random weights
+     at B=1, each step with its launch counts from zero, s/step and peak
+     memory: (a) evaluate on base_eval.yaml + eval/eval_traj_image_2b_multiview
+     .yaml (bridgev2_2, 3 views of a 49-frame episode written from a numpy
+     seed: latents [1, 3x13, 32, 40, 60]), the 2B DiT with 30 MVBlocks, 4
+     DPM steps, a random full VAE decoding the views' 39 latent frames as
+     one 153-frame video (as the JAX package's evaluate does), in bf16
+     (4 x 60 / 90 / 150 launches of static-max / modulate_norm /
+     gated_residual) and W8A8 (4 x flash_q8 / modulate_norm / gated_residual
+     / modulate_norm_q8 = 60 / 30 / 150 / 60: the MVBlocks' adaLN emits no
+     int8); (b) evaluate on eval/eval_traj_image_1.4b_scratch.yaml with the
+     1.4b RoPE widths passed as transformer.* keys (28 x 28 x 64, 3-chunk,
+     1792 wide; 4 x 28 / 56 / 56), then one forward of that model with its
+     tables whose largest attention logit (`max_logit`, every layer) must
+     stay under the static bound 24; (c) make_sampler on
+     experiments/traj_image_5b_finetune.yaml's transformer (48 x 64 over 42
+     layers, patch_size_t 2, RoPE, joint final norm, 6-chunk; bf16
+     parameters): 2 DPM steps over 22 latent frames at 40 x 60 (the 81-frame
+     clip's 21 padded to a multiple of 2, its 80 actions padded by 4 as the
+     JAX loss pads them: 11 x 600 + 226 = 6826 joint tokens), no decode (no
+     CogVideoX 1.5 VAE config exists), 2 x 42 / 84 / 168 launches, and the
+     same logit check; (d) PAB on the flagship, bf16 then quantized in place
+     to W8A8: 8 DPM steps with pab_skip=2 (flags T T F F T F F T), then the
+     same 8 without, printing both s/step, their ratio and both counts of
+     attention launches (a reuse step launches no attention and no norm1
+     modulate: 30 / 120 of modulate_norm (or _q8) / gated_residual), in
+     turns (PAB, exact, exact, PAB) so that the first calls fall on both;
+     the PAB latents must lie 2e-3 to 2.5e-2 of the range from the exact
+     sampler's (measured 6.9e-3 bf16, 8.1e-3 W8A8);
+  6b. every shape at which the DiT layers called a forward kernel (rows 2,
+     3, 6, 8, 9) in phases 3 to 6 (`ShapeLog`), held against its plain
+     version unless phase 2 or 6 checked it already;
+  7. the card's name and power limit, the kernels' JSON line (launches: the
+     sum over every main-path run of phases 3 to 6, the comparisons with
+     plain versions left out; every kernel must have run; each record also
+     lists its times at phase 6's shapes under "surface_shapes"), and last
+     the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -191,6 +236,8 @@ KERNELS = (attention.flash_attention, adaln.modulate_norm, adaln.gated_residual,
            attention.flash_attention_bwd_dq, attention.flash_attention_bwd_dkv,
            adaln.modulate_norm_bwd, adaln.gated_residual_bwd,
            attention.flash_attention_online_kernel)
+TOTAL_LAUNCHES = [0] * len(KERNELS)  # the kernels line's: every main-path run's, summed (`tally`)
+CHECKED = set()  # the forward kernels' shapes held against their plain versions, `ShapeLog` keys
 BF16_FORWARD = (30, 60, 120, 0, 0, 0, 0, 0, 0, 0)  # launches of one flagship forward, in KERNELS order
 Q8_FORWARD = (0, 0, 120, 30, 60, 0, 0, 0, 0, 0)
 SP = 4  # ranks of the in-process ring, all on the one card
@@ -364,10 +411,20 @@ def within(got, want, atol: float, rtol: float) -> bool:
     return bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
 
 
+def plain_by_batch(fn, q, k, v, **kwargs):
+    """A plain attention over one batch element at a time, concatenated: the
+    plain versions hold f32 scores [B, H, S, S] (23 GiB at [3,30,8026])."""
+    outs = [fn(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kwargs) for b in range(q.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
 def check_attention(g, shape, timed: bool):
     q, k, v = (torch.randn(*shape, 64, device="cuda", generator=g).bfloat16() for _ in range(3))
     out, lse = attention.flash_attention(q, k, v, static_max=24.0)
-    ref, ref_lse = attention.flash_attention_plain(q, k, v, static_max=24.0)
+    ref, ref_lse = plain_by_batch(attention.flash_attention_plain, q, k, v, static_max=24.0)
+    CHECKED.add(("flash_attention", tuple(shape), shape[2], 24.0))
     err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
     print(f"kernel flash_attn_static_max {list(q.shape)}: max_abs_err out {err:.3g} "
           f"(tol 1e-2), lse {lse_err:.3g} (tol 1e-3)", flush=True)
@@ -570,6 +627,7 @@ def check_modulate_norm(g, R, S, D, timed: bool, norm_f32: bool = False):
     args = adaln_inputs(g, R, S, D, 1.0, norm_f32)
     out = adaln.modulate_norm(*args)
     ref = adaln.modulate_norm_plain(*args)
+    CHECKED.add(("modulate_norm", (R, S, D), norm_f32))
     err = max_err(out, ref)
     print(f"kernel modulate_norm [{R}, {S}, {D}]{' f32 norm params' if norm_f32 else ''}: "
           f"max_abs_err {err:.3g} (tol 2e-2 + 1e-2|ref|)", flush=True)
@@ -595,6 +653,7 @@ def check_gated_residual(g, R, S, D, timed: bool):
     gate = torch.randn(R, 3 * D, device="cuda", generator=g).bfloat16()[:, 2 * D:]
     out = adaln.gated_residual(x, y, gate)
     ref = adaln.gated_residual_plain(x, y, gate)
+    CHECKED.add(("gated_residual", (R, S, D)))
     err = max_err(out, ref)
     print(f"kernel gated_residual [{R}, {S}, {D}]: max_abs_err {err:.3g} "
           f"(tol 1e-2 + 1e-2|ref|)", flush=True)
@@ -629,7 +688,8 @@ def check_attention_q8(g, shape, timed: bool):
     q, k, v = (torch.randn(*shape, 64, device="cuda", generator=g).bfloat16() for _ in range(3))
     k = k + 0.5  # a token mean for the smoothing to take out
     out = attention.flash_attention_q8(q, k, v)
-    ref = attention.flash_attention_q8_plain(q, k, v)
+    ref = plain_by_batch(attention.flash_attention_q8_plain, q, k, v)
+    CHECKED.add(("flash_attention_q8", tuple(shape), shape[2]))
     err, rel, ok = q8_attention_errors(out, ref)
     print(f"kernel flash_attn_q8 {list(q.shape)}: max_abs_err out {err:.3g} (tol 0.1*RMS(ref) "
           f"= {0.1 * ref.float().pow(2).mean().sqrt().item():.3g}), rel RMS err {rel:.3g} "
@@ -667,6 +727,7 @@ def check_modulate_norm_q8(g, R, S, D, timed: bool, norm_f32: bool = False):
     args = adaln_inputs(g, R, S, D, 2.0, norm_f32)
     xq, xs = adaln.modulate_norm_q8(*args)
     ref_q, ref_s = adaln.modulate_norm_q8_plain(*args)
+    CHECKED.add(("modulate_norm_q8", (R, S, D), norm_f32))
     diff = (xq.int() - ref_q.int()).abs()
     flips, s_err = (diff != 0).float().mean().item(), ((xs - ref_s).abs() / ref_s).max().item()
     print(f"kernel modulate_norm_q8 [{R}, {S}, {D}]{' f32 norm params' if norm_f32 else ''}: "
@@ -1207,10 +1268,9 @@ def watched(model):
             model.action_recon.mlp[2].weight, model.patch_embed.proj.weight]
 
 
-def train_phase(root: Path):
+def train_phase(root: Path) -> None:
     """Phase 5: the 2B fine-tune recipe through pipelines/train.py:train at
-    full width (module docstring). Returns the launch counts of its
-    micro-steps alone, in KERNELS order."""
+    full width (module docstring)."""
     t_phase = time.perf_counter()
     n_params = sum(p.numel() for p in ControlDiT(RECIPE_2B, device="meta").parameters())
     ckpt = 3 * 4 * n_params  # f32 parameters and Adam's two moments
@@ -1254,6 +1314,7 @@ def train_phase(root: Path):
     wall = time.perf_counter() - t0
     times.check_called()
     launches, peak = counts(), torch.cuda.max_memory_allocated() / 2**30
+    tally(launches)
     run = root / "out" / "run"
     n_val = len(times.s["validation"])
     want = tuple(TRAIN_STEPS * m + n_val * TRAIN_VAL_STEPS * f
@@ -1345,12 +1406,11 @@ def train_phase(root: Path):
           f"backward {parts[0][1]:.1f} / {parts[1][1]:.1f}, grad norm + optimizer: accumulate "
           f"{parts[0][2]:.1f}, apply {parts[1][2]:.1f}; peak memory of the training phase "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    return tuple(a - n_val * TRAIN_VAL_STEPS * f for a, f in zip(launches, BF16_FORWARD))
 
 
 def generate(dit, vae, inp, name: str, forward_counts):
     """4 DPM steps through make_sampler and the chunked decode; checks the
-    outputs and the launch counts. Returns (s/step, launch counts)."""
+    outputs and the launch counts. Returns s/step."""
     sampler = make_sampler(dit, make_schedule(), SamplerConfig(num_inference_steps=STEPS))
     gen = torch.Generator(device="cuda").manual_seed(10)
     torch.cuda.reset_peak_memory_stats()
@@ -1366,6 +1426,7 @@ def generate(dit, vae, inp, name: str, forward_counts):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = counts()
+    tally(launches)
     print(f"generation {name}: {STEPS} DPM steps {sample_s:.3f} s ({sample_s / STEPS:.4f} "
           f"s/step), decode_chunked(6) {decode_s:.3f} s, frames {list(video.shape)}, launches "
           f"{launches}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
@@ -1375,7 +1436,7 @@ def generate(dit, vae, inp, name: str, forward_counts):
           f"{name} decoded frames are not finite or of the wrong shape")
     check(launches == tuple(STEPS * n for n in forward_counts),
           f"{name} generation launch counts {launches}")
-    return sample_s / STEPS, launches
+    return sample_s / STEPS
 
 
 SERVING_STEPS = 4  # DPM steps of every denoise of phase 4b
@@ -1463,9 +1524,10 @@ def write_serving_data(root: Path, frames: int = 49) -> None:
              is_labeled=np.ones(1, bool))
 
 
-def serving_step(name: str, times: StageTimes, run):
-    """Run one step of phase 4b with counts and stage times from zero; print
-    its line and return (result, launch counts)."""
+def serving_step(name: str, times: StageTimes, run, steps: int = SERVING_STEPS):
+    """Run one step of phase 4b (or 6) with counts and stage times from zero;
+    print its line (s/step over `steps` DPM steps a denoise), add its counts
+    to the kernels line's and return (result, launch counts)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1477,10 +1539,11 @@ def serving_step(name: str, times: StageTimes, run):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
-    steps = max(1, times.calls["sample"]) * SERVING_STEPS
+    tally(launches)
+    n = max(1, times.calls["sample"]) * steps
     print(f"serving {name}: {wall:.2f} s; denoise {times.s['sample']:.3f} s "
-          f"({times.calls['sample']} x {SERVING_STEPS} DPM steps, "
-          f"{times.s['sample'] / steps:.4f} s/step), encode {times.s['encode']:.3f} s "
+          f"({times.calls['sample']} x {steps} DPM steps, "
+          f"{times.s['sample'] / n:.4f} s/step), encode {times.s['encode']:.3f} s "
           f"({times.calls['encode']} calls, frames {times.encode_frames}), decode "
           f"{times.s['decode']:.3f} s ({times.calls['decode']} calls); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches}", flush=True)
@@ -1629,9 +1692,491 @@ def serving_phase(root: Path) -> None:
     print(f"serving phase total: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def ring_phase(g, dit, inp, x, t, v_resident) -> int:
+# -- phase 6: the model surface at full width -----------------------------------------
+
+SURFACE_STEPS = 4  # DPM steps of (a) and (b)
+SURFACE_5B_STEPS = 2
+PAB_STEPS, PAB_SKIP = 8, 2  # (d): flags T T F F T F F T
+VIEWS = 3
+# launches of one forward, in KERNELS order: each MVBlock adds one attention, one
+# modulate_norm (its adaLN never emits int8) and one gated residual to a DiTBlock's
+MV_FORWARD = (60, 90, 150, 0, 0, 0, 0, 0, 0, 0)
+MV_Q8_FORWARD = (0, 30, 150, 60, 60, 0, 0, 0, 0, 0)
+ROPE_FORWARD = (28, 56, 56, 0, 0, 0, 0, 0, 0, 0)  # 3-chunk: 2 modulates, 2 residuals a block
+FIVE_B_FORWARD = (42, 84, 168, 0, 0, 0, 0, 0, 0, 0)
+# a PAB reuse step: no attention, norm1 computes its gates only (no modulate)
+PAB_REUSE = (0, 30, 120, 0, 0, 0, 0, 0, 0, 0)
+PAB_Q8_REUSE = (0, 0, 120, 0, 30, 0, 0, 0, 0, 0)
+# the 1.4b scratch RoPE model (transformer/base_1.4b_480_320_rope.yaml), its widths
+# passed explicitly (ROADMAP.md C, "config resolution")
+ROPE_KEYS = ["transformer.num_attention_heads=28", "transformer.attention_head_dim=64",
+             "transformer.num_layers=28", "transformer.use_rotary_positional_embeddings=true",
+             "transformer.modulate_encoder_hidden_states=false"]
+ROPE_1_4B = DiTConfig(num_attention_heads=28, attention_head_dim=64, num_layers=28,
+                      in_channels=32, out_channels=16, text_embed_dim=4096, time_embed_dim=512,
+                      sample_width=60, sample_height=40, sample_frames=17,
+                      use_rotary_positional_embeddings=True)
+FIVE_B = DiTConfig(num_attention_heads=48, attention_head_dim=64, num_layers=42, in_channels=32,
+                   out_channels=16, text_embed_dim=4096, time_embed_dim=512, patch_size_t=2,
+                   use_rotary_positional_embeddings=True, modulate_encoder_hidden_states=True,
+                   joint_final_norm=True)
+MULTIVIEW_2B = DiTConfig(num_attention_heads=30, attention_head_dim=64, num_layers=30,
+                         in_channels=32, out_channels=16, text_embed_dim=4096,
+                         time_embed_dim=512, modulate_encoder_hidden_states=True,
+                         multiview=True)
+
+
+def tally(launches) -> None:
+    """Add a main-path run's launch counts to the kernels line's."""
+    for i, n in enumerate(launches):
+        TOTAL_LAUNCHES[i] += n
+
+
+def surface_kernel_checks(g):
+    """Rows 2, 3, 6, 8 and 9 against their plain versions at the surface's
+    shapes: the MVBlock's attention [13, 30, 2478, 64] (13 frames x (3 views x
+    600 + 3 x 226 text)) and the 5b's [1, 48, 6826, 64] (11 x 600 + 226), the
+    adaLN kernels at the 1.4b RoPE model's [13, 600, 1792] and the 5b's
+    [11, 600, 3072]; untimed, the multiview DiTBlocks' (B = 3 views) attention
+    [3, 30, 8026, 64], adaLN forwards and residual [39, 600, 1920] and text
+    residual [3, 226, 1920], the MVBlock's adaLN and residual [3, 7800, 1920]
+    and the 5b text stream's residual [1, 226, 3072]. Returns {kernel name:
+    [records of the timed shapes]}."""
+    rec = lambda r, shape: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")} | {"shape": shape}
+    out = {}
+    for shape in ((13, 30, 2478), (1, 48, 6826)):
+        r = check_attention(g, shape, timed=True)
+        out.setdefault(r["name"], []).append(rec(r, [*shape, 64]))
+        r, _ = check_attention_q8(g, shape, timed=True)
+        out.setdefault(r["name"], []).append(rec(r, [*shape, 64]))
+        torch.cuda.empty_cache()
+    for R, S, D in ((13, 600, 1792), (11, 600, 3072)):
+        for fn in (check_modulate_norm, check_gated_residual):
+            r = fn(g, R, S, D, timed=True)
+            out.setdefault(r["name"], []).append(rec(r, [R, S, D]))
+    check_attention(g, (VIEWS, 30, 8026), timed=False)
+    check_attention_q8(g, (VIEWS, 30, 8026), timed=False)
+    torch.cuda.empty_cache()
+    for R, S in ((VIEWS, 13 * 600), (VIEWS * 13, 600)):
+        check_modulate_norm(g, R, S, 1920, timed=False)
+        check_gated_residual(g, R, S, 1920, timed=False)
+    check_modulate_norm_q8(g, VIEWS * 13, 600, 1920, timed=False)
+    check_gated_residual(g, VIEWS, 226, 1920, timed=False)
+    check_gated_residual(g, 1, 226, 3072, timed=False)
+    for name, recs in out.items():
+        for r in recs:
+            print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                  f"{r['library_ms']} ms", flush=True)
+    return out
+
+
+def tiny_surface_checks() -> None:
+    """Tiny multiview (V = 2, bf16 and W8A8) and 1.5-family (patch_size_t 2,
+    RoPE, joint final norm) ControlDiTs in bf16 on the card against the same
+    weights in f32 on the CPU, at the bound of tiny_reference_checks."""
+    from orv_tpu_torch.utils.embeddings import prepare_rotary_positional_embeddings
+
+    base = dict(num_attention_heads=2, attention_head_dim=64, num_layers=2, in_channels=32,
+                out_channels=16, text_embed_dim=32, time_embed_dim=64,
+                modulate_encoder_hidden_states=True)
+    gc_ = torch.Generator().manual_seed(3)
+    for name, extra, frames, views, quant in (
+            ("multiview bf16", dict(multiview=True), 3, 2, False),
+            ("multiview W8A8", dict(multiview=True), 3, 2, True),
+            ("5b-style (patch_size_t 2, RoPE, joint final norm)",
+             dict(patch_size_t=2, use_rotary_positional_embeddings=True, joint_final_norm=True),
+             4, 1, False)):
+        cfg = DiTConfig(**base, **extra)
+        torch.manual_seed(4)
+        sd = ControlDiT(cfg, dtype=torch.float32, device="cpu").state_dict()
+        for k in sd:  # the random init zeroes the MVBlocks' proj_out
+            if k.startswith("mv_blocks.") and ".proj_out." in k:
+                sd[k] = 0.05 * torch.randn(sd[k].shape, generator=gc_)
+        kw = dict(quant=True, attn_impl="flash_q8") if quant else {}
+        weights = quantize_linear_params(sd) if quant else sd
+        x = torch.randn(2, views * frames, 32, 8, 16, generator=gc_)
+        enc, t = torch.randn(2, 8, 32, generator=gc_), torch.tensor([500, 20])
+        acts = torch.randn(2, 4 * frames - 1, 7, generator=gc_)
+        rope = None
+        if cfg.use_rotary_positional_embeddings:
+            rope = prepare_rotary_positional_embeddings(64, 128, frames, patch_size_t=2,
+                                                        device="cpu")
+        outs = []
+        for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+            model = ControlDiT(cfg, dtype=dt, device=dev, **kw)
+            model.load_state_dict(weights, strict=True)
+            to = lambda a: None if a is None else a.to(dev)
+            with torch.inference_mode():
+                outs.append(model(to(x), to(enc), to(t), actions=to(acts), num_views=views,
+                                  image_rotary_emb=None if rope is None else tuple(map(to, rope))))
+        agree(outs[1], outs[0], f"tiny ControlDiT {name}, card bf16 kernels vs CPU f32 plain")
+
+
+def tiny_pab_cache_check() -> None:
+    """PAB's attention cache on the card, bf16 and W8A8, on a tiny RoPE model
+    whose weights are all perturbed (0.05 noise: the gates let attention
+    through). The cache a full forward collects, fed back on the same inputs
+    after a forward on others, must give the full forward's output (mean
+    error at most 0.05 of a stale cache's, max 1e-2 of the range) with no
+    attention launched; a cache from other inputs must move the output (mean
+    2e-3 of the range or more; measured on the CPU 1.2e-2); and the reuse
+    forward agrees with the CPU's in f32."""
+    from orv_tpu_torch.utils.embeddings import prepare_rotary_positional_embeddings
+
+    cfg = DiTConfig(num_attention_heads=2, attention_head_dim=64, num_layers=2, in_channels=32,
+                    out_channels=16, text_embed_dim=32, time_embed_dim=64,
+                    modulate_encoder_hidden_states=True, use_rotary_positional_embeddings=True)
+    gc_ = torch.Generator().manual_seed(6)
+    torch.manual_seed(7)
+    sd = {k: v + 0.05 * torch.randn(v.shape, generator=gc_)
+          for k, v in ControlDiT(cfg, dtype=torch.float32, device="cpu").state_dict().items()}
+    xa, xb = (torch.randn(1, 3, 32, 8, 16, generator=gc_) for _ in range(2))
+    enc, acts = torch.randn(1, 8, 32, generator=gc_), torch.randn(1, 11, 7, generator=gc_)
+    rope = prepare_rotary_positional_embeddings(64, 128, 3, device="cpu")
+    for name, kw in (("bf16", {}), ("W8A8", dict(quant=True, attn_impl="flash_q8"))):
+        weights = quantize_linear_params(sd) if kw else sd
+        outs = {}
+        for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+            model = ControlDiT(cfg, dtype=dt, device=dev, **kw)
+            model.load_state_dict(weights, strict=True)
+            run = lambda x, t, **k: model(
+                x.to(dev), enc.to(dev), torch.tensor([t], device=dev), actions=acts.to(dev),
+                image_rotary_emb=tuple(a.to(dev) for a in rope), **k)
+            with torch.inference_mode():
+                full, cache = run(xa, 500, collect_attn=True)
+                _, other = run(xb, 999, collect_attn=True)
+                reset_counts()
+                reuse = run(xa, 500, attn_cache=cache)
+                got = counts()
+                stale = run(xa, 500, attn_cache=other)
+            outs[dev] = full, reuse, stale
+        full, reuse, stale = (o.float().cpu() for o in outs["cuda"])
+        rng = full.abs().max().item()
+        e_reuse, e_stale = (reuse - full).abs(), (stale - full).abs()
+        print(f"tiny PAB cache {name} on the card: the cache fed back, max err "
+              f"{e_reuse.max().item() / rng:.3g} and mean {e_reuse.mean().item() / rng:.3g} of the "
+              f"range; a stale cache, mean {e_stale.mean().item() / rng:.3g}; attention launches "
+              f"of the reuse forward {got[0] + got[3]}", flush=True)
+        check(got[0] + got[3] == 0, f"a PAB reuse forward launched attention: {got}")
+        check(e_reuse.max().item() <= 1e-2 * rng
+              and e_reuse.mean().item() <= 0.05 * e_stale.mean().item()
+              and e_stale.mean().item() >= 2e-3 * rng,
+              f"the {name} PAB cache fed back does not give the full forward, or a stale one does")
+        agree(outs["cuda"][1], outs["cpu"][1], f"tiny PAB reuse forward {name}, card bf16 "
+              f"kernels vs CPU f32 plain")
+
+
+def write_surface_data(root: Path, frames: int = 49) -> None:
+    """One bridgev2 episode of VIEWS views from a numpy seed, in the eval
+    configs' layout: annotation JSON, per view v the moments of the 49-frame
+    clip [32, 13, 40, 60] and of its first frame (`*_{v}.npz`; the
+    single-view dataset reads view 0), the empty prompt's embeds
+    [226, 4096]."""
+    rng = np.random.default_rng(5)
+    emb = root / "embeddings_full" / "test"
+    for d in ("latents", "image_latents", "prompt_embeds"):
+        (emb / d).mkdir(parents=True)
+    (root / "annotations" / "test").mkdir(parents=True)
+    ann = dict(episode_id="00000", texts=["stack the blocks"],
+               state=rng.uniform(-0.5, 0.5, (frames, 7)).tolist(),
+               continuous_gripper_state=rng.uniform(0, 1, frames).tolist())
+    (root / "annotations" / "test" / "00000.json").write_text(json.dumps(ann))
+    F, C, H, W = LATENT
+    for v in range(VIEWS):
+        for kind, f in (("latents", F), ("image_latents", 1)):
+            np.savez(emb / kind / f"00000_00_{frames:02d}_{v}.npz",
+                     rng.normal(size=(2 * C, f, H, W)).astype(np.float32))
+    np.savez(emb / "prompt_embeds" / "empty.npz",
+             (0.1 * rng.standard_normal((226, 4096))).astype(np.float32))
+
+
+class LogitWatch:
+    """Records the largest attention logit (`max_logit`) of every static-max
+    attention the DiT layers launch while it is on: RoPE rotates the
+    qk-normed q and k, which keeps their norms, so the static bound of 24
+    should hold; this checks it on the card."""
+
+    def __init__(self):
+        from orv_tpu_torch.models import layers
+
+        self.layers, self.real, self.logits = layers, layers.flash_attention, []
+
+    def __enter__(self):
+        def watched(q, k, v, static_max=None):
+            self.logits.append(max_logit(q, k))
+            return self.real(q, k, v, static_max=static_max)
+        self.layers.flash_attention = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention = self.real
+
+
+class ShapeLog:
+    """Records, while it is on, the shape of every call the DiT layers make
+    to a forward kernel (`models/layers.py` binds the five wrappers by
+    name), keyed as `CHECKED` is: attention by [B, H, Sq], Skv and its
+    static bound; the adaLN forwards by [R, S, D] and whether the norm
+    params are f32; the gated residual by [R, S, D]."""
+
+    NAMES = ("flash_attention", "flash_attention_q8", "modulate_norm", "modulate_norm_q8",
+             "gated_residual")
+
+    def __init__(self):
+        from orv_tpu_torch.models import layers
+
+        self.layers, self.keys = layers, set()
+        self.real = {n: getattr(layers, n) for n in self.NAMES}
+
+    @staticmethod
+    def key(name, args, kwargs):
+        x = args[0]
+        if name == "flash_attention":
+            return name, tuple(x.shape[:3]), args[1].shape[2], kwargs.get("static_max")
+        if name == "flash_attention_q8":
+            return name, tuple(x.shape[:3]), args[1].shape[2]
+        if name == "gated_residual":
+            return name, tuple(x.shape)
+        return name, tuple(x.shape), args[3].dtype == torch.float32
+
+    def __enter__(self):
+        def logged(name, real):
+            def run(*args, **kwargs):
+                self.keys.add(self.key(name, args, kwargs))
+                return real(*args, **kwargs)
+            return run
+        for n, real in self.real.items():
+            setattr(self.layers, n, logged(n, real))
+        return self
+
+    def __exit__(self, *exc):
+        for n, real in self.real.items():
+            setattr(self.layers, n, real)
+
+
+def check_logged_shapes(g, keys) -> None:
+    """Phase 6b: each kernel against its plain version at every shape of
+    `keys` (a ShapeLog's) that phase 2 or 6 did not check."""
+    todo = sorted(keys - CHECKED, key=str)
+    print(f"main-path shapes: {len(keys)} (kernel, shape) pairs logged, {len(keys) - len(todo)} "
+          f"checked in phase 2 or 6, {len(todo)} checked now", flush=True)
+    for key in todo:
+        name, shape = key[0], key[1]
+        if name == "flash_attention":
+            check(key[2:] == (shape[2], 24.0), f"no plain-version check for {key}")
+            check_attention(g, shape, timed=False)
+        elif name == "flash_attention_q8":
+            check(key[2] == shape[2], f"no plain-version check for {key}")
+            check_attention_q8(g, shape, timed=False)
+        elif name == "gated_residual":
+            check_gated_residual(g, *shape, timed=False)
+        else:
+            fn = check_modulate_norm if name == "modulate_norm" else check_modulate_norm_q8
+            fn(g, *shape, timed=False, norm_f32=key[2])
+        torch.cuda.empty_cache()
+    check(keys <= CHECKED, f"main-path shapes left unchecked: {sorted(keys - CHECKED, key=str)}")
+
+
+def surface_phase(g, root: Path):
+    """Phase 6: the model surface at full width (module docstring). Returns
+    the records of rows 2, 3, 6 and 9 at its shapes."""
+    t_phase = time.perf_counter()
+    new_shapes = surface_kernel_checks(g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny_surface_checks()
+    tiny_pab_cache_check()
+    write_surface_data(root / "data")
+    F, C, H, W = LATENT
+    times = StageTimes()
+    built = {}  # the model evaluate builds last, for the logit check
+    real_build = evaluate_mod.build_serving_model
+
+    def keep_model(*args, **kwargs):
+        built["model"] = real_build(*args, **kwargs)
+        return built["model"]
+
+    evaluate_mod.build_serving_model = keep_model
+    times.patch()
+    try:
+        torch.manual_seed(0)
+        vae = CausalVAE(VAEConfig(), dtype=torch.bfloat16)  # f32 parameters, as evaluate loads
+
+        def eval_cfg(name, dataset_type, out, *extra):
+            return load_config(str(default_config_dir() / "base_eval.yaml"),
+                               str(default_config_dir() / "eval" / name), dataset_type,
+                               overrides=[f"dataset.data_root={root / 'data'}",
+                                          "dataset.sequence_length=48",
+                                          "transformer.pretrained_name_or_path=null",
+                                          f"evaluation.num_inference_steps={SURFACE_STEPS}",
+                                          "evaluation.batch_size=1", "evaluation.save_gif=false",
+                                          f"evaluation.output_dir={root / out}", *extra])
+
+        # (a) multiview serving: 3 views stacked on the frame axis, 30 MVBlocks
+        for label, extra, per_step in (("bf16", (), MV_FORWARD),
+                                       ("W8A8", ("evaluation.quant=true",), MV_Q8_FORWARD)):
+            cfg = eval_cfg("eval_traj_image_2b_multiview.yaml", "bridgev2_2", f"mv_{label}",
+                           *extra)
+            check(build_dit_config(cfg) == MULTIVIEW_2B,
+                  f"the multiview eval config builds {build_dit_config(cfg)}")
+            _, got = serving_step(
+                f"evaluate multiview {label} ({VIEWS} views x 49 frames, latents "
+                f"[1, {VIEWS}x{F}, {C}, {H}, {W}], 30 DiTBlocks + 30 MVBlocks, MVBlock attention "
+                f"[{F}, 30, {VIEWS * (600 + 226)}, 64])", times, lambda: evaluate(cfg, vae=vae),
+                SURFACE_STEPS)
+            check(got == tuple(SURFACE_STEPS * n for n in per_step),
+                  f"multiview {label} launch counts {got}, not {SURFACE_STEPS} x {per_step}")
+            lat = np.load(root / f"mv_{label}" / "00000_000_latents.npz")["arr_0"]
+            clip = read_video(str(root / f"mv_{label}" / "00000_000.mp4"))
+            print(f"  multiview {label}: latents {list(lat.shape)}, clip {list(clip.shape)} (the "
+                  f"views' {VIEWS * F} latent frames decoded as one video, as the JAX package's "
+                  f"evaluate does)", flush=True)
+            check(lat.shape == (VIEWS * F, C, H, W) and np.isfinite(lat).all(),
+                  f"multiview {label} latents {lat.shape}")
+            check(clip.shape == (1 + 4 * (VIEWS * F - 1), 320, 480, 3),
+                  f"multiview {label} clip {clip.shape}")
+        built.clear()
+
+        # (b) the 1.4b RoPE model (28 x 28 x 64, 3-chunk adaLN, 1792 wide)
+        cfg = eval_cfg("eval_traj_image_1.4b_scratch.yaml", "bridgev2", "rope", *ROPE_KEYS)
+        check(build_dit_config(cfg) == ROPE_1_4B, f"the RoPE eval config builds "
+                                                  f"{build_dit_config(cfg)}")
+        _, got = serving_step("evaluate 1.4b RoPE (28 x 28 x 64, 3-chunk, 49 frames)", times,
+                              lambda: evaluate(cfg, vae=vae), SURFACE_STEPS)
+        check(got == tuple(SURFACE_STEPS * n for n in ROPE_FORWARD),
+              f"RoPE launch counts {got}, not {SURFACE_STEPS} x {ROPE_FORWARD}")
+        lat = np.load(root / "rope" / "00000_000_latents.npz")["arr_0"]
+        check(lat.shape == (F, C, H, W) and np.isfinite(lat).all(), f"RoPE latents {lat.shape}")
+        check(read_video(str(root / "rope" / "00000_000.mp4")).shape == (49, 320, 480, 3),
+              "the RoPE clip")
+        model = built.pop("model")
+        rope = evaluate_mod.rotary_tables(model.config, F, H, W, "cuda")
+        x = torch.randn(1, F, 2 * C, H, W, device="cuda", generator=g).bfloat16()
+        with LogitWatch() as watch, torch.inference_mode():
+            model(x, torch.zeros(1, 226, 4096, device="cuda"), torch.full((1,), 999, device="cuda"),
+                  actions=torch.zeros(1, 48, 7, device="cuda"), image_rotary_emb=rope)
+        print(f"  RoPE 1.4b: largest attention logit over its {len(watch.logits)} layers "
+              f"{max(watch.logits):.2f} (the static bound is 24)", flush=True)
+        check(len(watch.logits) == 28 and max(watch.logits) < 24.0,
+              f"a RoPE model's logits {max(watch.logits)} pass the static bound")
+        del model, vae
+    finally:
+        times.restore()
+        evaluate_mod.build_serving_model = real_build
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the 5b family: 48 x 64 over 42 layers, patch_size_t 2, RoPE, joint final norm,
+    # 22 latent frames (the 81-frame clip's 21, padded to a multiple of 2 as the loss pads)
+    cfg = load_config(str(default_config_dir() / "base_train.yaml"),
+                      str(default_config_dir() / "experiments" / "traj_image_5b_finetune.yaml"),
+                      "bridgev2", overrides=["transformer.pretrained_name_or_path=null"])
+    check(build_dit_config(cfg) == FIVE_B, f"the 5b recipe builds {build_dit_config(cfg)}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    model = ControlDiT(FIVE_B, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"ControlDiT 5b: {n_params / 1e9:.3f} B params, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    F5 = 22
+    rand = lambda *s, dt=torch.bfloat16: torch.randn(*s, device="cuda", generator=g).to(dt)
+    actions = torch.cat([rand(1, 80, 7), torch.zeros(1, 4, 7, device="cuda").bfloat16()], 1)
+    rope = evaluate_mod.rotary_tables(FIVE_B, F5, H, W, "cuda")
+    sampler = make_sampler(model, make_schedule(), SamplerConfig(
+        num_inference_steps=SURFACE_5B_STEPS))
+    lat0, img, enc = rand(1, F5, C, H, W, dt=torch.float32), rand(1, F5, C, H, W), rand(1, 226, 4096)
+    run = lambda: sampler(lat0, img, enc, generator=torch.Generator("cuda").manual_seed(12),
+                          actions=actions, image_rotary_emb=rope)
+    run()  # the first call's costs
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = run()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / SURFACE_5B_STEPS
+    got = counts()
+    tally(got)
+    print(f"surface 5b make_sampler: {SURFACE_5B_STEPS} DPM steps over [1, {F5}, {C}, {H}, {W}] "
+          f"({F5 // 2 * 600 + 226} joint tokens), second call {step_s:.4f} s/step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {got}", flush=True)
+    check(got == tuple(SURFACE_5B_STEPS * n for n in FIVE_B_FORWARD),
+          f"5b launch counts {got}, not {SURFACE_5B_STEPS} x {FIVE_B_FORWARD}")
+    check(tuple(lat.shape) == (1, F5, C, H, W) and bool(torch.isfinite(lat).all()),
+          "the 5b latents are not finite or of the wrong shape")
+    x = torch.cat([lat0.bfloat16(), img], dim=2)
+    with LogitWatch() as watch, torch.inference_mode():
+        model(x, enc, torch.full((1,), 999, device="cuda"), actions=actions,
+              image_rotary_emb=rope)
+    print(f"  5b: largest attention logit over its {len(watch.logits)} layers "
+          f"{max(watch.logits):.2f} (the static bound is 24)", flush=True)
+    check(len(watch.logits) == 42 and max(watch.logits) < 24.0,
+          f"the 5b model's logits {max(watch.logits)} pass the static bound")
+    del model, sampler, x, lat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) PAB on the flagship, bf16 then W8A8: 8 DPM steps with pab_skip=2, then without
+    from orv_tpu_torch.pipelines.sample import pab_full_flags
+
+    flags = pab_full_flags(PAB_STEPS, PAB_SKIP, 0.1, 0.85)
+    n_full = int(flags.sum())
+    print(f"surface PAB: flags {''.join('T' if f else 'F' for f in flags)}", flush=True)
+    torch.manual_seed(0)
+    dit = ControlDiT(FLAGSHIP, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    inp = flagship_inputs(g)
+    pab_s = {}
+    for label, full_counts, reuse_counts in (("bf16", BF16_FORWARD, PAB_REUSE),
+                                             ("W8A8", Q8_FORWARD, PAB_Q8_REUSE)):
+        if label == "W8A8":
+            quantize_model_(dit)
+        outs = {}
+        # in turns, PAB, exact, exact, PAB: the model's first calls (new blocks
+        # after quantize_model_ too) fall on both sides alike
+        for skip in (PAB_SKIP, 0, 0, PAB_SKIP):
+            sampler = make_sampler(dit, make_schedule(), SamplerConfig(
+                num_inference_steps=PAB_STEPS, pab_skip=skip))
+            run = lambda: sampler(inp["lat"], inp["img"], inp["enc"],
+                                  generator=torch.Generator("cuda").manual_seed(13),
+                                  actions=inp["actions"], depths=inp["depths"],
+                                  labels=inp["labels"])
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[skip] = run()
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / PAB_STEPS
+            got = counts()
+            tally(got)
+            pab_s.setdefault((label, skip), []).append(step_s)
+            att = got[0] + got[3]
+            print(f"surface PAB {label} pab_skip={skip}: {PAB_STEPS} DPM steps {step_s:.4f} "
+                  f"s/step, attention launches {att}, launches {got}, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+            n_reuse = PAB_STEPS - n_full if skip else 0
+            want = tuple((PAB_STEPS - n_reuse) * f + n_reuse * r
+                         for f, r in zip(full_counts, reuse_counts))
+            check(got == want, f"PAB {label} pab_skip={skip} launch counts {got}, not {want}")
+            check(bool(torch.isfinite(outs[skip]).all()), f"PAB {label} latents not finite")
+        rel = ((outs[PAB_SKIP] - outs[0]).abs().max() / outs[0].abs().max()).item()
+        with_pab, without = (sum(pab_s[label, k]) / 2 for k in (PAB_SKIP, 0))
+        print(f"surface PAB {label}: s/step with PAB {with_pab:.4f}, without {without:.4f} (means "
+              f"of the two turns), ratio {with_pab / without:.3f}; PAB latents from the exact "
+              f"sampler's: max abs difference {rel:.3g} of the range (bound 2e-3 to 2.5e-2)",
+              flush=True)
+        check(2e-3 <= rel <= 2.5e-2, f"PAB {label} latents {rel:.3g} of the range from the exact "
+                                     f"sampler's, outside 2e-3 to 2.5e-2")
+    del dit, inp, outs
+    print(f"surface phase total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return new_shapes
+
+
+def ring_phase(g, dit, inp, x, t, v_resident) -> None:
     """Phase 3b: the ring through LocalRing(SP), every rank a thread on the
-    one card. Returns the online kernel's launches in the ring attention run."""
+    one card."""
     comm = LocalRing(SP)
     q, k, v = (torch.randn(1, 30, 226 + 7800, 64, device="cuda", generator=g).bfloat16()
                for _ in range(3))
@@ -1643,6 +2188,7 @@ def ring_phase(g, dit, inp, x, t, v_resident) -> int:
     torch.cuda.synchronize()
     ring_s = time.perf_counter() - t0
     ring_counts = counts()
+    tally(ring_counts)
     ref, _ = attention.flash_attention(q, k, v)
     same = all(torch.equal(o, outs[0]) for o in outs[1:])
     err = max_err(outs[0], ref)
@@ -1663,6 +2209,7 @@ def ring_phase(g, dit, inp, x, t, v_resident) -> int:
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     got = counts()
+    tally(got)
     same = all(torch.equal(o, outs[0]) for o in outs[1:])
     print(f"ControlDiT forward at sp={SP} ({SP} ranks on one card): {fwd_s:.3f} s (first call), "
           f"launches {got} (per rank {SP_FORWARD}), ranks bitwise equal {same}", flush=True)
@@ -1682,6 +2229,7 @@ def ring_phase(g, dit, inp, x, t, v_resident) -> int:
     torch.cuda.synchronize()
     sp_step = (time.perf_counter() - t0) / 2
     got = counts()
+    tally(got)
     dit.set_sp(None)
     t0 = time.perf_counter()
     ref = run()
@@ -1693,7 +2241,6 @@ def ring_phase(g, dit, inp, x, t, v_resident) -> int:
     check(got == tuple(2 * SP * n for n in SP_FORWARD), f"sp sampler launch counts {got}")
     check(same, "the sp ranks' latents differ")
     agree(lats[0], ref, f"2 DPM steps at sp={SP} vs resident", 2e-2, 3e-3)
-    return ring_counts[KERNELS.index(attention.flash_attention_online_kernel)]
 
 
 def main() -> int:
@@ -1793,6 +2340,7 @@ def main() -> int:
     finally:
         shutil.rmtree(resume_root, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()  # from here on: the main path's memory
+    shape_log = ShapeLog().__enter__()  # and its kernels' shapes, up to phase 6b
     torch.manual_seed(0)
     t0 = time.perf_counter()
     dit = ControlDiT(FLAGSHIP, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
@@ -1811,6 +2359,7 @@ def main() -> int:
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     got = counts()
+    tally(got)
     print(f"ControlDiT forward: {fwd_s:.3f} s (first call), out {list(v.shape)}, launches "
           f"in KERNELS order = {got}", flush=True)
     check(tuple(v.shape) == (1, *LATENT) and bool(torch.isfinite(v).all()),
@@ -1818,12 +2367,12 @@ def main() -> int:
     check(got == BF16_FORWARD, f"launch counts {got} != {BF16_FORWARD}")
 
     # 3b. the ring: attention, then the same DiT at sp=4, on the one card
-    ring_online = ring_phase(g, dit, inp, x, t, v)
+    ring_phase(g, dit, inp, x, t, v)
     torch.cuda.empty_cache()
 
     # 4. generation through the entry points: bf16, then the same DiT in W8A8
     vae = CausalVAE(VAEConfig(), dtype=torch.bfloat16, param_dtype=torch.bfloat16)
-    bf16_step, bf16_launches = generate(dit, vae, inp, "bf16", BF16_FORWARD)
+    bf16_step = generate(dit, vae, inp, "bf16", BF16_FORWARD)
     t0 = time.perf_counter()
     quantize_model_(dit)
     torch.cuda.synchronize()
@@ -1837,13 +2386,13 @@ def main() -> int:
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     got = counts()
+    tally(got)
     print(f"ControlDiT W8A8 forward: {fwd_s:.3f} s (first call), launches {got}", flush=True)
     check(tuple(v.shape) == (1, *LATENT) and bool(torch.isfinite(v).all()),
           "flagship W8A8 DiT output is not finite or of the wrong shape")
     check(got == Q8_FORWARD, f"W8A8 launch counts {got} != {Q8_FORWARD}")
-    q8_step, q8_launches = generate(dit, vae, inp, "W8A8", Q8_FORWARD)
+    q8_step = generate(dit, vae, inp, "W8A8", Q8_FORWARD)
     print(f"s/step side by side: bf16 {bf16_step:.4f}, W8A8 {q8_step:.4f}", flush=True)
-    launches = tuple(a + b for a, b in zip(bf16_launches, q8_launches))
 
     # 4b. the serving entry points at full width, phase 4's models freed first
     del dit, vae, inp, x, t, v
@@ -1858,12 +2407,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_root = Path(tempfile.mkdtemp(prefix="orv_train_"))
     try:
-        train_launches = train_phase(train_root)
+        train_phase(train_root)
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
-    launches = launches[:5] + train_launches[5:9] + (ring_online,)
 
-    # 6. card, kernels line, result line
+    # 6. the model surface at full width, the training state freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    surface_root = Path(tempfile.mkdtemp(prefix="orv_surface_"))
+    try:
+        surface_shapes = surface_phase(g, surface_root)
+    finally:
+        shutil.rmtree(surface_root, ignore_errors=True)
+    launches = tuple(TOTAL_LAUNCHES)
+
+    # 6b. every forward kernel against its plain version at the main path's shapes
+    shape_log.__exit__()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_logged_shapes(g, shape_log.keys)
+    check(all(launches), f"a kernel was never launched on the main path: {launches}")
+
+    # 7. card, kernels line, result line
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
@@ -1871,6 +2436,7 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     for r, n in zip(records, launches):
         r["launches"] = n
+        r["surface_shapes"] = surface_shapes.get(r["name"], [])
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@ from orv_tpu_torch.data.dataset import (
     CascadedRobotDataset,
     DatasetConfig,
     DemoRobotDataset,
+    MultiViewRobotDataset,
     RobotDataset,
     collate_control,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "CascadedRobotDataset",
     "DatasetConfig",
     "DemoRobotDataset",
+    "MultiViewRobotDataset",
     "RobotDataset",
     "collate_control",
 ]

@@ -22,8 +22,8 @@ On-disk layout:
       depth_latents,label_latents,prompt_embeds}/<name>.npz
 
 Raw frames are resized with OpenCV, as in the JAX package, so items agree
-with it bit for bit. `BucketSampler` batches the training loader. The
-multiview dataset is not ported yet (ROADMAP.md A6).
+with it bit for bit. `BucketSampler` batches the training loader.
+`MultiViewRobotDataset` stacks up to `max_n_view` views on the frame axis.
 """
 
 from __future__ import annotations
@@ -543,6 +543,112 @@ class CascadedRobotDataset(RobotDataset):
             sample_index=s["sample_index"], is_last=s["is_last"],
             next_start_frame_idx=s["next_start_frame_idx"],
         )
+        return out
+
+
+class MultiViewRobotDataset(RobotDataset):
+    """n_view <= max_n_view views per sample; per-view latents are stacked
+    along the frame axis `(v f)` (orv_tpu dataset.py:547). Item keys as
+    the single-view dataset's, with `num_views` the sample's view count.
+
+    View-count subsampling for training happens at sample level, seeded at
+    init (`seed + 1`), so BucketSampler buckets stay shape-homogeneous;
+    `view_data_ratio` caps the share of single-view samples when multiview
+    data exists (`seed + 2`)."""
+
+    # per-view-count data-ratio rebalancing: -1 leaves a view count alone
+    view_data_ratio = {1: 0.4, 2: -1.0, 3: -1.0}
+
+    def __init__(self, config: DatasetConfig, train_view_sampling: bool = True):
+        self.train_view_sampling = train_view_sampling and config.split == "train"
+        super().__init__(config)
+        if self.train_view_sampling:
+            self._rebalance_views()
+            rng = random.Random(config.seed + 1)
+            for s in self.samples:
+                if s["n_view"] > 1:
+                    s["n_view_use"] = rng.randint(1, s["n_view"])
+                else:
+                    s["n_view_use"] = s["n_view"]
+        else:
+            for s in self.samples:
+                s["n_view_use"] = s["n_view"]
+
+    def _rebalance_views(self):
+        n_views = np.array([s["n_view"] for s in self.samples])
+        counts = {v: int((n_views == v).sum()) for v in sorted(set(n_views.tolist()))}
+        if sum(c > 0 for v, c in counts.items() if v > 1) == 0:
+            return  # no multiview data: nothing to rebalance against
+        total = len(self.samples)
+        rng = random.Random(self.config.seed + 2)
+        keep = np.ones(total, dtype=bool)
+        for v, c in counts.items():
+            ratio = self.view_data_ratio.get(int(v), -1.0)
+            if ratio > 0 and c / total > ratio:
+                idxs = np.where(n_views == v)[0].tolist()
+                kept = set(rng.sample(idxs, min(c, int(ratio * total))))
+                for i in idxs:
+                    if i not in kept:
+                        keep[i] = False
+                CONSOLE.log(f"rebalance: n_view={v} {c} -> {len(kept)} samples")
+        self.samples = [s for i, s in enumerate(self.samples) if keep[i]]
+
+    def _make_sample(self, ann, ann_file, frame_ids, is_sliced):
+        s = super()._make_sample(ann, ann_file, frame_ids, is_sliced)
+        n_view = self.config.n_view or self.config.max_n_view
+        for v in range(n_view):
+            s[f"has_image_{v}"] = bool(ann.get(f"has_image_{v}", True))
+        s["n_view"] = sum(s[f"has_image_{v}"] for v in range(n_view))
+        return s
+
+    def _getitem(self, idx, ref_num=None, n_view=None):
+        cfg = self.config
+        sample = self.samples[idx]
+        if n_view is None:
+            n_view = sample.get("n_view_use", sample["n_view"])
+        n_view = min(int(n_view), sample["n_view"])
+        ref_num = self._draw_ref_num(ref_num)
+
+        with open(sample["ann_file"]) as f:
+            ann = json.load(f)
+        out: Dict[str, Any] = dict(
+            prompt="" if cfg.empty_prompt else sample["prompt"],
+            metainfo=dict(
+                episode_id=sample["episode_id"],
+                start_frame_idx=sample["start_frame_idx"],
+                num_frame=sample["num_frame"],
+                ref_num=ref_num,
+            ),
+            num_views=n_view,
+        )
+        if cfg.load_actions and not cfg.no_traj:
+            out["actions"] = self._get_actions(ann, sample["frame_ids"])
+
+        def stack_views(kind):
+            per_view = [self._load_latent(kind, sample, view=v) for v in range(n_view)]
+            if any(p is None for p in per_view):
+                return None
+            return np.concatenate([p.astype(np.float32) for p in per_view], axis=1)
+
+        if cfg.load_tensors:
+            lat = stack_views("latents")
+            if lat is None:
+                raise FileNotFoundError(f"missing multiview latents for sample {idx}")
+            out["latents"] = lat  # [2C, V*F, H, W]
+            img = stack_views("image_latents")
+            if img is not None:
+                out["image_latents"] = img
+            emb = self._load_latent("prompt_embeds", sample, view=0)
+            if emb is None:
+                emb = _load_tensor_file(str(self._emb_dir / "prompt_embeds" / "empty"))
+            if emb is not None:
+                out["prompt_embeds"] = emb.astype(np.float32)
+            if cfg.use_cond:
+                for key in cfg.control_keys:
+                    ctrl = stack_views(f"{key}_latents")
+                    if ctrl is None:
+                        raise FileNotFoundError(f"missing {key} latents for sample {idx}")
+                    out[f"latents_{key}"] = ctrl
         return out
 
 

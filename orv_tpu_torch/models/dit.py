@@ -3,11 +3,23 @@ transformer, in PyTorch.
 
 Counterpart of `orv_tpu/models/dit.py`:
   patch_embed(text, video latents) -> [text | video] token sequence
+  + multiview positional embedding (per frame across views)
   + ActionEmbed conditioning (adds to temb per frame inside adaLN)
   + visual-control injection: depth/label latents through the *shared*
     patch_embed, combine linear, single residual add
-  -> num_layers x DiTBlock (an nn.ModuleList; the JAX package scans them)
-  -> final LayerNorm -> AdaLN out -> proj_out -> unpatchify
+  -> num_layers x [MVBlock? -> DiTBlock] (nn.ModuleLists `mv_blocks` and
+     `transformer_blocks`; the JAX package scans them)
+  -> final LayerNorm -> AdaLN out -> proj_out -> unpatchify (over
+     patch_size_t frames in the 1.5 family)
+
+RoPE models take the rotary tables as `image_rotary_emb` (built by
+`utils/embeddings.py:prepare_rotary_positional_embeddings`); their patch
+embed adds no sin-cos table. A multiview model (`multiview=True`) takes
+`num_views` V and latents [B, V*F, C, H, W], views stacked on the frame
+axis; the views share the text, timestep and actions. PAB attention
+broadcast: `collect_attn=True` also returns every block's pre-gate
+attention outputs, and `attn_cache` (that list) stands in for them on a
+later step (not with multiview, as in the JAX package).
 
 `quant=True` builds the W8A8 serving model of the JAX package
 (`ControlDiT(quant=True)`): every block's projections and feed-forward
@@ -31,15 +43,15 @@ every rank runs the rest of the model on the full sequence, so every rank
 returns the whole prediction. Run it on every rank, e.g. under
 `LocalRing(n).run`. Inference only: the ring raises under grad mode.
 
-Not ported yet (the constructor raises on them): multiview, RoPE, learned
-positions, `patch_size_t` (CogVideoX 1.5), the joint final norm (5b).
-Pipeline stages, remat and the PAB attention cache are left out.
+Refused by name: `use_learned_positional_embeddings`, which the JAX config
+carries but none of its modules reads (ROADMAP.md C). Pipeline stages and
+remat are left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,12 +62,13 @@ from orv_tpu_torch.models.layers import (
     AdaLayerNormOut,
     DiTBlock,
     LayerNorm,
+    MVBlock,
     PatchEmbed,
     TimestepEmbedding,
     _linear,
 )
 from orv_tpu_torch.utils.device import DeviceLike, resolve_device
-from orv_tpu_torch.utils.embeddings import get_timestep_embedding
+from orv_tpu_torch.utils.embeddings import get_3d_sincos_pos_embed, get_timestep_embedding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +115,6 @@ class DiTConfig:
 
 
 _ATTN_IMPL = {False: "flash", True: "flash_q8"}  # the attention kernel each model runs
-_UNPORTED = ("multiview", "use_rotary_positional_embeddings",
-             "use_learned_positional_embeddings", "joint_final_norm")
 
 
 class ControlDiT(nn.Module):
@@ -122,12 +133,10 @@ class ControlDiT(nn.Module):
                  device: DeviceLike = None, quant: bool = False, attn_impl: str = "flash",
                  sp=None):
         super().__init__()
-        for name in _UNPORTED:
-            if getattr(config, name):
-                raise NotImplementedError(f"ControlDiT port: {name}=True is not ported yet")
-        if config.patch_size_t is not None:
-            raise NotImplementedError("ControlDiT port: patch_size_t is not ported yet "
-                                      "(ROADMAP.md A6)")
+        if config.use_learned_positional_embeddings:
+            raise NotImplementedError(
+                "ControlDiT port: use_learned_positional_embeddings=True is refused: the JAX "
+                "package reads the field but no module uses it (ROADMAP.md C)")
         if attn_impl != _ATTN_IMPL[quant]:
             raise ValueError(f"attn_impl={attn_impl!r} with quant={quant}: the port builds "
                              f"quant={quant} with attn_impl={_ATTN_IMPL[quant]!r} only")
@@ -135,25 +144,31 @@ class ControlDiT(nn.Module):
         c = self.config = config
         self.dtype, self.param_dtype = dtype, param_dtype
         self.quant, self.attn_impl, self.sp = quant, attn_impl, sp
+        self._view_pos_tables = {}
         inner = c.inner_dim
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.patch_embed = PatchEmbed(
             inner, c.in_channels, c.text_embed_dim, c.patch_size, c.patch_bias,
-            c.spatial_interpolation_scale, c.temporal_interpolation_scale, **kw)
+            c.spatial_interpolation_scale, c.temporal_interpolation_scale, c.patch_size_t,
+            not c.use_rotary_positional_embeddings, **kw)
         self.time_embedding = TimestepEmbedding(inner, c.time_embed_dim, **kw)
-        self.action_embed = ActionEmbed(c.action_dim, c.time_embed_dim, compress_ratio=4, **kw)
+        self.action_embed = ActionEmbed(c.action_dim, c.time_embed_dim, compress_ratio=4,
+                                        patch_size_t=c.patch_size_t, **kw)
         if c.recon_action:
             self.action_recon = ActionRecon(c.action_dim, c.time_embed_dim, compress_ratio=4,
                                             **kw)
         if c.visual_guidance:
             self.initial_combine_linear = nn.Linear(inner * c.num_control_keys, inner,
                                                     device=device, dtype=param_dtype)
+        if c.multiview:
+            self.mv_blocks = nn.ModuleList([
+                self.make_mv_block(quant, device) for _ in range(c.num_layers)])
         self.transformer_blocks = nn.ModuleList([
             self.make_block(quant, device) for _ in range(c.num_layers)])
         self.norm_final = LayerNorm(inner, c.norm_eps, device=device, param_dtype=param_dtype)
         self.norm_out = AdaLayerNormOut(c.time_embed_dim, inner, c.norm_eps, **kw)
-        self.proj_out = nn.Linear(inner, c.out_channels * c.patch_size ** 2, device=device,
-                                  dtype=param_dtype)
+        self.proj_out = nn.Linear(inner, c.out_channels * c.patch_size ** 2 * (c.patch_size_t or 1),
+                                  device=device, dtype=param_dtype)
 
     def make_block(self, quant: bool, device) -> DiTBlock:
         """One transformer block of this model's config and dtypes."""
@@ -163,6 +178,14 @@ class ControlDiT(nn.Module):
                         c.norm_eps, quant, sp=self.sp, dtype=self.dtype, device=device,
                         param_dtype=self.param_dtype)
 
+    def make_mv_block(self, quant: bool, device) -> MVBlock:
+        """One cross-view block of this model's config and dtypes."""
+        c = self.config
+        return MVBlock(c.inner_dim, c.num_attention_heads, c.attention_head_dim,
+                       c.time_embed_dim, c.modulate_encoder_hidden_states, c.attention_bias,
+                       c.norm_eps, quant, dtype=self.dtype, device=device,
+                       param_dtype=self.param_dtype)
+
     def set_sp(self, sp) -> "ControlDiT":
         """Ring every block's joint attention over the communicator `sp` from
         now on (None: resident); the weights stay as they are."""
@@ -171,12 +194,15 @@ class ControlDiT(nn.Module):
             block.attn1.sp = sp
         return self
 
-    def _embed_controls(self, depths: Optional[torch.Tensor],
-                        labels: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        """Visual-control patch embeds [B, S_vid, K*D] (None without
-        controls). They depend only on (depths, labels), so a sampler
-        computes them once and passes them back as `control_cache`."""
-        controls = [self.patch_embed.embed_video(ctrl)
+    def _embed_controls(self, depths: Optional[torch.Tensor], labels: Optional[torch.Tensor],
+                        num_views: int = 1) -> Optional[torch.Tensor]:
+        """Visual-control patch embeds [B*V, S_vid, K*D] (None without
+        controls; views stacked on the frame axis are split per view). They
+        depend only on (depths, labels), so a sampler computes them once and
+        passes them back as `control_cache`."""
+        per_view = lambda c: c.reshape(c.shape[0] * num_views, c.shape[1] // num_views,
+                                       *c.shape[2:])
+        controls = [self.patch_embed.embed_video(per_view(ctrl))
                     for ctrl in (depths, labels) if ctrl is not None]
         if not controls:
             return None
@@ -187,19 +213,28 @@ class ControlDiT(nn.Module):
 
     def forward(
         self,
-        hidden_states: torch.Tensor,  # [B, F, C, H, W] latents (+image latents on C)
+        hidden_states: torch.Tensor,  # [B, V*F, C, H, W] latents (+image latents on C)
         encoder_hidden_states: torch.Tensor,  # [B, S_txt, text_embed_dim]
         timestep: torch.Tensor,  # [B]
         actions: Optional[torch.Tensor] = None,  # [B, F_raw, action_dim]
-        depths: Optional[torch.Tensor] = None,  # [B, F, C_in, H, W]
+        depths: Optional[torch.Tensor] = None,  # [B, V*F, C_in, H, W]
         labels: Optional[torch.Tensor] = None,
         control_cache: Optional[torch.Tensor] = None,
         controls_only: bool = False,
         deterministic: bool = True,
         action_mask_u: Optional[torch.Tensor] = None,  # [B] uniforms, training only
+        image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        image_rotary_emb_view: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        num_views: int = 1,
+        attn_cache: Optional[List] = None,
+        collect_attn: bool = False,
     ):
-        """Returns the prediction [B, F, out_channels, H, W] in `dtype`, or,
+        """Returns the prediction [B, V*F, out_channels, H, W] in `dtype`, or,
         with `controls_only`, the control embeds (see `_embed_controls`).
+        `image_rotary_emb` ([S_video, head_dim] cos and sin of one view) goes
+        to every block's joint attention, `image_rotary_emb_view` to every
+        MVBlock's. With `collect_attn` the return value gains a last element,
+        the per-block (attn_h, attn_e) list that `attn_cache` takes back.
 
         The training call (`deterministic=False`) returns (prediction,
         is_action_mask [B] bool, actions_recon [B, F_raw, action_dim]), the
@@ -207,22 +242,33 @@ class ControlDiT(nn.Module):
         `recon_action`. With actions it takes `action_mask_u`: the rows with
         u < 0.1 get the learned mask embedding (action CFG)."""
         c = self.config
+        V = num_views
         if c.visual_guidance and controls_only:
-            return self._embed_controls(depths, labels)
+            return self._embed_controls(depths, labels, V)
         if controls_only:
             return None
+        if V > 1:  # b (v f) -> (b v) f: every view a sample of its own
+            hidden_states = hidden_states.reshape(
+                hidden_states.shape[0] * V, hidden_states.shape[1] // V, *hidden_states.shape[2:])
+            encoder_hidden_states = encoder_hidden_states.repeat_interleave(V, dim=0)
         B, num_frames, _, height, width = hidden_states.shape
 
-        # 1. time embedding
+        # 1. time embedding (the views share the noise level)
         t_proj = get_timestep_embedding(timestep, c.inner_dim, flip_sin_to_cos=c.flip_sin_to_cos,
                                         downscale_freq_shift=float(c.freq_shift))
         temb = self.time_embedding(t_proj)
+        if V > 1:
+            temb = temb.repeat_interleave(V, dim=0)
 
         # 2. patch embedding
         text_len = encoder_hidden_states.shape[1]
         embeds = self.patch_embed(encoder_hidden_states.to(self.dtype), hidden_states)
         enc = embeds[:, :text_len].contiguous()
         hidden = embeds[:, text_len:].contiguous()
+
+        # 2.1 multiview positional embedding, added per frame across views
+        if V > 1:
+            hidden = self._add_view_positions(hidden, V, num_frames, height, width)
 
         # 3. action conditioning: front-pad to 4n-1 frames (ActionEmbed adds one more)
         action_emb = is_action_mask = actions_recon = None
@@ -235,31 +281,65 @@ class ControlDiT(nn.Module):
                 actions = torch.cat([torch.zeros_like(actions[:, :pad_frames]), actions], dim=1)
             action_emb, is_action_mask = self.action_embed(
                 actions, None if deterministic else action_mask_u)
+            if V > 1:
+                action_emb = action_emb.repeat_interleave(V, dim=0)
             if c.recon_action and not deterministic:
                 actions_recon = self.action_recon(action_emb)[:, pad_frames:]
 
         # 4. visual-control injection (shared patch embed, combine linear)
         if c.visual_guidance:
             controls = control_cache if control_cache is not None else \
-                self._embed_controls(depths, labels)
+                self._embed_controls(depths, labels, V)
             if controls is not None:
                 tiled = hidden.repeat(1, 1, c.num_control_keys)
                 hidden = hidden + _linear(tiled + controls, self.initial_combine_linear,
                                           self.dtype)
 
         # 5. blocks
-        for block in self.transformer_blocks:
-            hidden, enc = block(hidden, enc, temb, action_emb)
+        if (attn_cache is not None or collect_attn) and c.multiview:
+            raise NotImplementedError("PAB attention broadcast does not "
+                                      "cover the multiview MVBlock path")
+        collected = []
+        for i, block in enumerate(self.transformer_blocks):
+            if c.multiview:
+                hidden = self.mv_blocks[i](hidden, enc, temb, image_rotary_emb_view, V,
+                                           num_frames)
+            out = block(hidden, enc, temb, action_emb, image_rotary_emb,
+                        None if attn_cache is None else attn_cache[i], collect_attn)
+            hidden, enc = out[:2]
+            if collect_attn:
+                collected.append(out[2])
 
-        # 6. final norm, AdaLN out, projection, unpatchify
+        # 6. final norm, AdaLN out, projection, unpatchify. The 5b family's
+        # joint_final_norm norms [text | video] together; the LayerNorm is
+        # per token, so that equals norming the video tokens alone.
         hidden = self.norm_final(hidden)
         hidden = self.norm_out(hidden, temb, action_emb)
         hidden = _linear(hidden, self.proj_out, self.dtype)
-        p = c.patch_size
+        p, pt = c.patch_size, c.patch_size_t or 1
         h, w = height // p, width // p
-        out = (hidden.reshape(B, num_frames, h, w, c.out_channels, p, p)
-               .permute(0, 1, 4, 2, 5, 3, 6)
-               .reshape(B, num_frames, c.out_channels, height, width))
-        if deterministic:
-            return out
-        return out, is_action_mask, actions_recon
+        out = (hidden.reshape(B, num_frames // pt, h, w, c.out_channels, pt, p, p)
+               .permute(0, 1, 5, 4, 2, 6, 3, 7)
+               .reshape(B // V, V * num_frames, c.out_channels, height, width))
+        if collect_attn:
+            return (out, collected) if deterministic else (
+                out, is_action_mask, actions_recon, collected)
+        return out if deterministic else (out, is_action_mask, actions_recon)
+
+    def _add_view_positions(self, hidden, V: int, num_frames: int, height: int, width: int):
+        """hidden [(b v), (f s), D] plus the sin-cos table over (view, h, w),
+        the same for every frame: (b v)(f s) -> (b f)(v s), add, and back."""
+        c = self.config
+        BV, FS, D = hidden.shape
+        b, s = BV // V, FS // num_frames
+        key = (V, height, width, hidden.device, hidden.dtype)
+        pos = self._view_pos_tables.get(key)
+        if pos is None:
+            table = get_3d_sincos_pos_embed(D, (width // c.patch_size, height // c.patch_size), V,
+                                            c.spatial_interpolation_scale, 1.0)
+            with torch.inference_mode(False):  # as PatchEmbed's own table
+                pos = torch.from_numpy(table).to(hidden.device, hidden.dtype).reshape(1, -1, D)
+            self._view_pos_tables[key] = pos
+        hidden = hidden.reshape(b, V, num_frames, s, D).transpose(1, 2).reshape(
+            b * num_frames, V * s, D) + pos
+        return hidden.reshape(b, num_frames, V, s, D).transpose(1, 2).reshape(BV, FS, D)

@@ -25,11 +25,16 @@ adaLN emits the int8 activation directly (`ops.adaln.modulate_norm_q8`), and
 the text stream is quantized by `quantize_tokens` and concatenated in int8
 before the video stream (`concat_q8`), and the joint attention runs the
 int8-QK^T kernel (`ops.attention.flash_attention_q8`).
+
+The rest of the DiT's surface: RoPE on the video part of q and k
+(`JointAttention(rope=...)`), the multiview cross-view block (`MVBlock`),
+the CogVideoX 1.5 linear patch embed over `patch_size_t` frames
+(`PatchEmbed`, `ActionEmbed`), and PAB attention broadcast
+(`DiTBlock(cached_attn=..., return_attn=...)`, `AdaLNZero(gates_only=True)`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +44,7 @@ from orv_tpu_torch.ops.adaln import gated_residual, modulate_norm, modulate_norm
 from orv_tpu_torch.ops.attention import QK_NORM_LOGIT_BOUND, flash_attention, flash_attention_q8
 from orv_tpu_torch.ops.quant import quantize_tokens, refuse_grad
 from orv_tpu_torch.ops.ring_attention import joint_ring_attention, ring_attention
-from orv_tpu_torch.utils.embeddings import get_3d_sincos_pos_embed
+from orv_tpu_torch.utils.embeddings import apply_rotary_emb, get_3d_sincos_pos_embed
 
 
 def _layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -54,12 +59,13 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tens
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def concat_q8(text: torch.Tensor, video: Tuple[torch.Tensor, torch.Tensor]):
+def concat_q8(text: torch.Tensor, video):
     """[text | video] along the sequence as one (xq, xscale) pair: the float
-    text stream [B, S_txt, D] is quantized per token (`quantize_tokens`), the
-    video stream arrives as the int8-emitting adaLN's pair."""
+    text stream [B, S_txt, D] is quantized per token (`quantize_tokens`); the
+    video stream arrives as the int8-emitting adaLN's pair, or as a float
+    tensor (the MVBlock's), which is quantized the same way."""
     tq, tscale = quantize_tokens(text)
-    vq, vscale = video
+    vq, vscale = video if isinstance(video, tuple) else quantize_tokens(video)
     return torch.cat([tq, vq], dim=1), torch.cat([tscale, vscale], dim=1)
 
 
@@ -184,16 +190,28 @@ class AdaLNZero(nn.Module):
                + enc_shift[:, None, :].float()).to(enc.dtype)
         return enc, enc_gate[:, None, :]
 
-    def forward(self, hidden, enc, temb, action_emb=None):
+    def forward(self, hidden, enc, temb, action_emb=None, gates_only: bool = False):
         """Returns (normed hidden, normed enc or None, gate, enc_gate or None).
-        gate is [B, F, 1, D] with actions, else [B, 1, D]; enc_gate [B, 1, D]."""
+        gate is [B, F, 1, D] with actions, else [B, 1, D]; enc_gate [B, 1, D].
+        `gates_only` (PAB's reuse steps): only the gate column slices of the
+        modulation linear are computed and no stream is normed; returns
+        (None, None, gate, enc_gate or None)."""
         D = self.dim
+        lin = self.linear
         if action_emb is not None:  # per-frame video modulation, rows R = B*F
             cond = F.silu(temb[:, None, :].float() + action_emb.float()).to(self.dtype)
         else:  # one modulation per sample, rows R = B
             cond = F.silu(temb.float()).to(self.dtype)
-        vid = F.linear(cond, self.linear.weight[:3 * D].to(self.dtype),
-                       self.linear.bias[:3 * D].to(self.dtype))
+        if gates_only:
+            gate = F.linear(cond, lin.weight[2 * D:3 * D].to(self.dtype),
+                            lin.bias[2 * D:3 * D].to(self.dtype))[..., None, :]
+            enc_gate = None
+            if self.modulate_enc:
+                enc_gate = F.linear(F.silu(temb.float()).to(self.dtype),
+                                    lin.weight[5 * D:].to(self.dtype),
+                                    lin.bias[5 * D:].to(self.dtype))[:, None, :]
+            return None, None, gate, enc_gate
+        vid = F.linear(cond, lin.weight[:3 * D].to(self.dtype), lin.bias[:3 * D].to(self.dtype))
         shift, scale, gate = vid.chunk(3, dim=-1)
         B, S, _ = hidden.shape
         R = cond.shape[:-1].numel()
@@ -279,9 +297,12 @@ class JointAttention(nn.Module):
             self.norm_k = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
         self.to_out = nn.ModuleList([_dense(inner, inner, out_bias, **kw)])
 
-    def forward(self, hidden, enc=None):
-        """hidden [B, S, D] (with `quant`, its (xq, xscale) pair). Returns
-        (video out, text out or None)."""
+    def forward(self, hidden, enc=None, rope=None):
+        """hidden [B, S, D] (with `quant`, its (xq, xscale) pair or a float
+        tensor that the Int8Dense layers quantize). `rope`: the (cos, sin)
+        tables [S_video, head_dim], applied to the video part of q and k
+        after the qk-LayerNorm (with `enc` None, to the whole sequence).
+        Returns (video out, text out or None)."""
         text_len = 0 if enc is None else enc.shape[1]
         if enc is None:
             x = hidden
@@ -289,7 +310,7 @@ class JointAttention(nn.Module):
             x = concat_q8(enc, hidden)
         else:
             x = torch.cat([enc, hidden], dim=1)
-        B, S, _ = (x[0] if self.quant else x).shape
+        B, S, _ = (x[0] if isinstance(x, tuple) else x).shape
 
         def heads(layer, norm=None):
             t = _apply(layer, x, self.dtype).reshape(B, S, self.heads, self.head_dim)
@@ -299,6 +320,12 @@ class JointAttention(nn.Module):
 
         norm_q, norm_k = (self.norm_q, self.norm_k) if self.qk_norm else (None, None)
         q, k, v = heads(self.to_q, norm_q), heads(self.to_k, norm_k), heads(self.to_v)
+        if rope is not None:
+            cos, sin = rope
+            q = torch.cat([q[:, :, :text_len], apply_rotary_emb(q[:, :, text_len:], cos, sin)],
+                          dim=2)
+            k = torch.cat([k[:, :, :text_len], apply_rotary_emb(k[:, :, text_len:], cos, sin)],
+                          dim=2)
         static_max = QK_NORM_LOGIT_BOUND if self.qk_norm else None
         sp_size = 1 if self.sp is None else self.sp.size
         if sp_size > 1:
@@ -374,59 +401,123 @@ class DiTBlock(nn.Module):
         self.norm2 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, quant, **kw)
         self.ff = FeedForward(dim, quant=quant, **kw)
 
-    def forward(self, hidden, enc, temb, action_emb=None):
-        n_hidden, n_enc, gate, enc_gate = self.norm1(hidden, enc, temb, action_emb)
-        attn_h, attn_e = self.attn1(n_hidden, n_enc)
+    def forward(self, hidden, enc, temb, action_emb=None, rope=None, cached_attn=None,
+                return_attn: bool = False):
+        """Returns (hidden, enc), and with `return_attn` also this block's
+        pre-gate attention outputs (attn_h, attn_e or None) for PAB's cache.
+        `cached_attn` (PAB's reuse steps): such a pair from an earlier step
+        stands in for the attention, whose norm, projections and kernel are
+        skipped; norm1 computes the gates only."""
+        if cached_attn is not None:
+            _, _, gate, enc_gate = self.norm1(hidden, enc, temb, action_emb, gates_only=True)
+            attn_h, attn_e = cached_attn
+        else:
+            n_hidden, n_enc, gate, enc_gate = self.norm1(hidden, enc, temb, action_emb)
+            attn_h, attn_e = self.attn1(n_hidden, n_enc, rope)
         hidden = gate_residual_add(hidden, attn_h, gate)
         if self.modulate_enc:
             enc = gate_residual_add(enc, attn_e, enc_gate)
 
         n_hidden, n_enc, gate_ff, enc_gate_ff = self.norm2(hidden, enc, temb, action_emb)
         if not self.modulate_enc:
-            return gate_residual_add(hidden, self.ff(n_hidden), gate_ff), enc
-        text_len = enc.shape[1]
-        if self.quant:
-            ff_out = self.ff(concat_q8(n_enc, n_hidden))
+            hidden = gate_residual_add(hidden, self.ff(n_hidden), gate_ff)
         else:
-            ff_out = self.ff(torch.cat([n_enc, n_hidden], dim=1))
-        hidden = gate_residual_add(hidden, ff_out[:, text_len:], gate_ff)
-        enc = gate_residual_add(enc, ff_out[:, :text_len], enc_gate_ff)
+            text_len = enc.shape[1]
+            if self.quant:
+                ff_out = self.ff(concat_q8(n_enc, n_hidden))
+            else:
+                ff_out = self.ff(torch.cat([n_enc, n_hidden], dim=1))
+            hidden = gate_residual_add(hidden, ff_out[:, text_len:], gate_ff)
+            enc = gate_residual_add(enc, ff_out[:, :text_len], enc_gate_ff)
+        if return_attn:
+            return hidden, enc, (attn_h, attn_e)
         return hidden, enc
 
 
+class MVBlock(nn.Module):
+    """Cross-view attention before each DiT block (orv_tpu layers.py:596):
+    the normed video stream is rearranged (b v)(f s) -> (b f)(v s) so that
+    each frame's tokens attend across views, then the zero-init `proj_out`
+    and a gated residual. Under `modulate_enc` the views' modulated text
+    streams join, (b v) n -> b (v n), repeated for every frame. Its adaLN
+    never emits int8, so under `quant` the Int8Dense layers quantize the
+    bf16 tokens themselves and the attention runs the int8-QK^T kernel;
+    `proj_out` stays a float linear. `cam_encoder` is a zero-init
+    Linear(12, dim) the reference defines but never calls, kept for
+    checkpoint parity."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, time_embed_dim: int,
+                 modulate_enc: bool = False, attention_bias: bool = True,
+                 norm_eps: float = 1e-5, quant: bool = False, dtype=torch.bfloat16,
+                 device=None, param_dtype=torch.float32):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        self.modulate_enc, self.dtype = modulate_enc, dtype
+        self.norm1 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, False, **kw)
+        self.attn1 = JointAttention(heads, head_dim, attention_bias, True, quant, True, **kw)
+        self.proj_out = nn.Linear(dim, dim, device=device, dtype=param_dtype)
+        self.cam_encoder = nn.Linear(12, dim, device=device, dtype=param_dtype)
+        for p in (*self.proj_out.parameters(), *self.cam_encoder.parameters()):
+            nn.init.zeros_(p)
+
+    def forward(self, hidden, enc, temb, rope_view=None, n_view: int = 1, n_frame: int = 1):
+        n_hidden, n_enc, gate, _ = self.norm1(hidden, enc, temb)
+        BV, FS, D = hidden.shape
+        b, s = BV // n_view, FS // n_frame
+        n_hidden = (n_hidden.reshape(b, n_view, n_frame, s, D).transpose(1, 2)
+                    .reshape(b * n_frame, n_view * s, D))
+        if self.modulate_enc:
+            n_enc = n_enc.reshape(b, n_view * n_enc.shape[1], D).repeat_interleave(n_frame, 0)
+        attn_h, _ = self.attn1(n_hidden, n_enc if self.modulate_enc else None, rope_view)
+        attn_h = _linear(attn_h, self.proj_out, self.dtype)
+        attn_h = attn_h.reshape(b, n_frame, n_view, s, D).transpose(1, 2).reshape(BV, FS, D)
+        return gate_residual_add(hidden, attn_h, gate)
+
+
 class PatchEmbed(nn.Module):
-    """Shared text+video patch embedding (CogVideoXPatchEmbed). `proj` keeps
-    the checkpoint's conv weight [D, C, p, p] and applies it as a matmul over
-    (c p1 p2)-flattened patches; the sin-cos table is built for the actual
-    (T, H, W) grid."""
+    """Shared text+video patch embedding (CogVideoXPatchEmbed). Without
+    `patch_size_t`, `proj` keeps the checkpoint's conv weight [D, C, p, p]
+    and applies it as a matmul over (c p1 p2)-flattened patches; with it
+    (CogVideoX 1.5), `proj` is the checkpoint's linear [D, C*pt*p*p] over
+    (c pt p1 p2)-flattened patches of pt frames. The sin-cos table is built
+    for the actual (T, H, W) token grid, unless `use_positional_embeddings`
+    is off (RoPE models)."""
 
     def __init__(self, embed_dim: int, in_channels: int, text_embed_dim: int,
                  patch_size: int = 2, patch_bias: bool = True,
                  spatial_interpolation_scale: float = 1.875,
-                 temporal_interpolation_scale: float = 1.0, dtype=torch.bfloat16,
+                 temporal_interpolation_scale: float = 1.0, patch_size_t=None,
+                 use_positional_embeddings: bool = True, dtype=torch.bfloat16,
                  device=None, param_dtype=torch.float32):
         super().__init__()
         self.embed_dim, self.patch_size, self.dtype = embed_dim, patch_size, dtype
+        self.patch_size_t, self.use_positional_embeddings = patch_size_t, use_positional_embeddings
         self.spatial_interpolation_scale = spatial_interpolation_scale
         self.temporal_interpolation_scale = temporal_interpolation_scale
         self._pos_tables = {}
         self.text_proj = nn.Linear(text_embed_dim, embed_dim, device=device, dtype=param_dtype)
-        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size,
-                              bias=patch_bias, device=device, dtype=param_dtype)
+        if patch_size_t is None:
+            self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size,
+                                  bias=patch_bias, device=device, dtype=param_dtype)
+        else:
+            self.proj = nn.Linear(in_channels * patch_size_t * patch_size ** 2, embed_dim,
+                                  bias=patch_bias, device=device, dtype=param_dtype)
 
     def embed_video(self, video):
-        """video [B, F, C, H, W] -> [B, F*(H/p)*(W/p), D] with positions."""
+        """video [B, F, C, H, W] -> [B, (F/pt)*(H/p)*(W/p), D] with positions."""
         B, F_, C, H, W = video.shape
-        p = self.patch_size
-        h, w = H // p, W // p
-        patches = (video.to(self.dtype).reshape(B, F_, C, h, p, w, p)
-                   .permute(0, 1, 3, 5, 2, 4, 6).reshape(B, F_ * h * w, C * p * p))
+        p, pt = self.patch_size, self.patch_size_t or 1
+        f, h, w = F_ // pt, H // p, W // p
+        patches = (video.to(self.dtype).reshape(B, f, pt, C, h, p, w, p)
+                   .permute(0, 1, 4, 6, 3, 2, 5, 7).reshape(B, f * h * w, C * pt * p * p))
         bias = None if self.proj.bias is None else self.proj.bias.to(self.dtype)
         out = F.linear(patches, self.proj.weight.reshape(self.embed_dim, -1).to(self.dtype), bias)
-        key = (F_, h, w, out.device, out.dtype)
+        if not self.use_positional_embeddings:
+            return out
+        key = (f, h, w, out.device, out.dtype)
         pos = self._pos_tables.get(key)
         if pos is None:  # the numpy table is built once per grid, not per step
-            table = get_3d_sincos_pos_embed(self.embed_dim, (w, h), F_,
+            table = get_3d_sincos_pos_embed(self.embed_dim, (w, h), f,
                                             self.spatial_interpolation_scale,
                                             self.temporal_interpolation_scale)
             # a normal tensor even under a sampler's inference mode, so that a
@@ -461,7 +552,8 @@ class TimestepEmbedding(nn.Module):
 class ActionEmbed(nn.Module):
     """7-DoF action sequence -> per-latent-frame embedding (orv_tpu
     layers.py:724). Pads one leading zero frame, groups `compress_ratio`
-    frames, MLP (keys mlp.0, mlp.3, mask_embed). Training's action-CFG mask:
+    frames (and with `patch_size_t` pt such groups), MLP (keys mlp.0, mlp.3,
+    mask_embed). Training's action-CFG mask:
     given `mask_u` [B] uniforms, the rows with `mask_u < MASK_PROB` are
     replaced by `mask_embed` (the JAX module draws the uniforms itself from
     its 'action_mask' stream). Returns (h [B, F', hidden], is_mask [B] bool)."""
@@ -469,12 +561,14 @@ class ActionEmbed(nn.Module):
     MASK_PROB = 0.1  # share of a training batch trained without actions
 
     def __init__(self, state_dim: int, hidden_size: int, compress_ratio: int = 4,
-                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
+                 patch_size_t=None, dtype=torch.bfloat16, device=None,
+                 param_dtype=torch.float32):
         super().__init__()
         self.state_dim, self.compress_ratio, self.dtype = state_dim, compress_ratio, dtype
+        self.patch_size_t = patch_size_t or 1
         kw = dict(device=device, dtype=param_dtype)
         self.mlp = nn.ModuleList([
-            nn.Linear(state_dim * compress_ratio, hidden_size * 4, **kw),
+            nn.Linear(state_dim * compress_ratio * self.patch_size_t, hidden_size * 4, **kw),
             nn.Identity(), nn.Identity(),  # activation and dropout slots of the checkpoint
             nn.Linear(hidden_size * 4, hidden_size, **kw),
         ])
@@ -487,6 +581,8 @@ class ActionEmbed(nn.Module):
         x = torch.cat([torch.zeros_like(x[:, :1]), x], dim=1)  # pad first frame
         if self.compress_ratio > 1:
             x = x.reshape(B, (F_ + 1) // self.compress_ratio, -1)
+        if self.patch_size_t > 1:
+            x = x.reshape(B, x.shape[1] // self.patch_size_t, -1)
         h = F.gelu(_linear(x, self.mlp[0], self.dtype), approximate="tanh")
         h = _linear(h, self.mlp[3], self.dtype)
         if mask_u is None:

@@ -3,9 +3,10 @@
 Counterpart of `orv_tpu/models/quantize.py`. Inside every transformer block
 the attention projections (`attn1.to_q`, `attn1.to_k`, `attn1.to_v`,
 `attn1.to_out.0`) and both feed-forward matmuls (`ff.net.0.proj`,
-`ff.net.2`) become int8 weights with one scale per output channel;
-everything outside the blocks (embeddings, adaLN modulation, the output
-norm and projection) stays as it is. Activations are quantized per token at
+`ff.net.2`) become int8 weights with one scale per output channel, and so
+do a multiview model's MVBlock attention projections (the JAX package's
+rule goes by layer name); everything else (embeddings, adaLN modulation,
+the MVBlock's `proj_out`, the output norm and projection) stays as it is. Activations are quantized per token at
 run time by `Int8Dense` (models/layers.py).
 
 State-dict names: the float `<layer>.weight` [out, in] of each of those
@@ -56,9 +57,13 @@ def quantize_model_(model):
     model `ControlDiT(quant=True, attn_impl="flash_q8")` loading
     `quantize_linear_params` of its state dict), block by block: only one
     block's weights are held twice at any time. Returns the model."""
-    for i, old in enumerate(model.transformer_blocks):
-        new = model.make_block(True, next(old.parameters()).device)
-        new.load_state_dict(quantize_linear_params(old.state_dict()), strict=True)
-        model.transformer_blocks[i] = new
+    stacks = [(model.transformer_blocks, model.make_block)]
+    if hasattr(model, "mv_blocks"):
+        stacks.append((model.mv_blocks, model.make_mv_block))
+    for blocks, make in stacks:
+        for i, old in enumerate(blocks):
+            new = make(True, next(old.parameters()).device)
+            new.load_state_dict(quantize_linear_params(old.state_dict()), strict=True)
+            blocks[i] = new
     model.quant, model.attn_impl = True, "flash_q8"
     return model

@@ -12,7 +12,11 @@ Conventions:
   Int8Dense kernel_q8 [in, out] int8  -> `weight_q8` [out, in] int8, and
     kernel_scale [out] f32            -> `weight_scale` [out] (a tree from
                                          orv_tpu's quantize_linear_params)
-  patch-embed kernel [(c p p), D]     -> conv weight [D, C, p, p]
+  patch-embed kernel [(c p p), D]     -> conv weight [D, C, p, p]; with
+                                         patch_size_t (CogVideoX 1.5) the
+                                         linear weight [D, (c pt p p)]
+  stacked `blocks/mv_block/*`          -> `mv_blocks.{i}.*` (cam_encoder_kernel
+                                         [12, D] -> cam_encoder.weight [D, 12])
   conv kernel [kt, kh, kw, I, O]      -> torch Conv3d weight [O, I, kt, kh, kw]
   (1, 3, 3) up/downsample conv kernel -> torch Conv2d weight [O, I, 3, 3]
 
@@ -24,8 +28,9 @@ with `load_state_dict(strict=True)`. `write_safetensors` and
 `export_diffusers_folder` write such folders, tensor by tensor;
 `dit_state_dict_from_diffusers` applies the JAX package's init surgery
 (`orv_tpu/models/weights.py:convert_dit_state_dict`) to a diffusers state
-dict: the T2V -> I2V zero-padding of the patch embed's input channels, and
-the optional keys checked against the config's model.
+dict: the T2V -> I2V zero-padding of the patch embed's input channels, the
+multiview blocks seeded from the main blocks (`ensure_mv_blocks`), and the
+optional keys checked against the config's model.
 """
 
 from __future__ import annotations
@@ -73,10 +78,13 @@ def dit_params_from_jax(params: Dict[str, Any], config) -> Dict[str, torch.Tenso
     p = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
-    kernel = np.asarray(p["patch_embed"]["proj"]["kernel"])  # [(c p p), D]
+    kernel = np.asarray(p["patch_embed"]["proj"]["kernel"])  # [(c [pt] p p), D]
     ps = config.patch_size
     D = kernel.shape[1]
-    sd["patch_embed.proj.weight"] = _tensor(kernel.T.reshape(D, -1, ps, ps))
+    if config.patch_size_t is None:  # the conv of CogVideoX 1.0
+        sd["patch_embed.proj.weight"] = _tensor(kernel.T.reshape(D, -1, ps, ps))
+    else:  # the linear of CogVideoX 1.5
+        sd["patch_embed.proj.weight"] = _tensor(kernel.T)
     if "bias" in p["patch_embed"]["proj"]:
         sd["patch_embed.proj.bias"] = _tensor(p["patch_embed"]["proj"]["bias"])
     _lin(sd, "patch_embed.text_proj", p["patch_embed"]["text_proj"])
@@ -89,15 +97,17 @@ def dit_params_from_jax(params: Dict[str, Any], config) -> Dict[str, torch.Tenso
         key = f"transformer_blocks.{i}"
         _adaln(sd, f"{key}.norm1", blk["norm1"])
         _adaln(sd, f"{key}.norm2", blk["norm2"])
-        attn = blk["attn1"]
-        for name in ("to_q", "to_k", "to_v"):
-            _lin(sd, f"{key}.attn1.{name}", attn[name])
-        _lin(sd, f"{key}.attn1.to_out.0", attn["to_out"])
-        for qk in ("norm_q", "norm_k"):
-            sd[f"{key}.attn1.{qk}.weight"] = _tensor(attn[qk]["scale"])
-            sd[f"{key}.attn1.{qk}.bias"] = _tensor(attn[qk]["bias"])
+        _attn(sd, f"{key}.attn1", blk["attn1"])
         _lin(sd, f"{key}.ff.net.0.proj", blk["ff"]["net_0_proj"])
         _lin(sd, f"{key}.ff.net.2", blk["ff"]["net_2"])
+        if "mv_block" in p["blocks"]:
+            mv = _index(p["blocks"]["mv_block"], i)
+            key = f"mv_blocks.{i}"
+            _adaln(sd, f"{key}.norm1", mv["norm1"])
+            _attn(sd, f"{key}.attn1", mv["attn1"])
+            _lin(sd, f"{key}.proj_out", mv["proj_out"])
+            sd[f"{key}.cam_encoder.weight"] = _tensor(np.asarray(mv["cam_encoder_kernel"]).T)
+            sd[f"{key}.cam_encoder.bias"] = _tensor(mv["cam_encoder_bias"])
 
     sd["norm_final.weight"] = _tensor(p["norm_final"]["scale"])
     sd["norm_final.bias"] = _tensor(p["norm_final"]["bias"])
@@ -117,6 +127,15 @@ def dit_params_from_jax(params: Dict[str, Any], config) -> Dict[str, torch.Tenso
     if "initial_combine_linear" in p:
         _lin(sd, "initial_combine_linear", p["initial_combine_linear"])
     return sd
+
+
+def _attn(sd, key, attn):
+    for name in ("to_q", "to_k", "to_v"):
+        _lin(sd, f"{key}.{name}", attn[name])
+    _lin(sd, f"{key}.to_out.0", attn["to_out"])
+    for qk in ("norm_q", "norm_k"):
+        sd[f"{key}.{qk}.weight"] = _tensor(attn[qk]["scale"])
+        sd[f"{key}.{qk}.bias"] = _tensor(attn[qk]["bias"])
 
 
 def _index(tree, i):
@@ -295,19 +314,18 @@ def dit_state_dict_from_diffusers(sd: Mapping[str, torch.Tensor], config,
     port's `ControlDiT(config)`, with the JAX package's init surgery
     (`convert_dit_state_dict`): with `from_t2v`, a conv patch embed whose
     input channels are half of `config.in_channels` gets zero-initialized
-    extra channels (T2V -> I2V, 16 -> 32). The optional keys must match the
-    model: `patch_embed.proj.bias` exactly where `config.patch_bias`, and
-    `norm_out.norm.*`, which the model always has. Any other mismatch
-    raises by name in `load_state_dict(strict=True)`."""
+    extra channels (T2V -> I2V, 16 -> 32; a CogVideoX 1.5 linear patch embed
+    passes as it is); `mv_blocks.*` are kept for a multiview config and
+    dropped for any other, as the JAX package drops them, and a multiview
+    config without them gets them seeded (`ensure_mv_blocks`). The optional
+    keys must match the model: `patch_embed.proj.bias` exactly where
+    `config.patch_bias`, and `norm_out.norm.*`, which the model always has.
+    Any other mismatch raises by name in `load_state_dict(strict=True)`."""
     sd = dict(sd)
-    if any(k.startswith("mv_blocks.") for k in sd):
-        raise NotImplementedError("the state dict holds mv_blocks: multiview models are not "
-                                  "ported yet (ROADMAP.md A6)")
+    if not config.multiview:
+        sd = {k: v for k, v in sd.items() if not k.startswith("mv_blocks.")}
     w = sd["patch_embed.proj.weight"]
-    if w.dim() != 4:
-        raise NotImplementedError("a linear patch embed (CogVideoX 1.5, patch_size_t) is not "
-                                  "ported yet (ROADMAP.md A6)")
-    if from_t2v and 2 * w.shape[1] == config.in_channels:
+    if from_t2v and w.dim() == 4 and 2 * w.shape[1] == config.in_channels:
         sd["patch_embed.proj.weight"] = torch.cat([w, torch.zeros_like(w)], dim=1)
     if ("patch_embed.proj.bias" in sd) != bool(config.patch_bias):
         raise ValueError(f"patch_embed.proj.bias is {'' if config.patch_bias else 'not '}in "
@@ -317,6 +335,31 @@ def dit_state_dict_from_diffusers(sd: Mapping[str, torch.Tensor], config,
     if lacking:
         raise ValueError(f"the state dict lacks {lacking}: the output AdaLayerNorm without an "
                          "elementwise affine is not a model either package builds")
+    return ensure_mv_blocks(sd, config)
+
+
+def ensure_mv_blocks(sd: Mapping[str, torch.Tensor], config) -> Dict[str, torch.Tensor]:
+    """The JAX package's stage-3 surgery (`orv_tpu/models/weights.py:
+    ensure_mv_blocks`) on a state dict: a multiview config whose weights
+    hold no `mv_blocks.*` gets them, each block's `norm1` and `attn1`
+    copied from `transformer_blocks.{i}`, and `proj_out` and the unused
+    `cam_encoder` zero, in the dtype of the block's `to_q` weight, so that
+    the cross-view path is an identity at step 0. Any other state dict is
+    returned as it is."""
+    sd = dict(sd)
+    if not config.multiview or any(k.startswith("mv_blocks.") for k in sd):
+        return sd
+    D = config.inner_dim
+    for i in range(config.num_layers):
+        src, dst = f"transformer_blocks.{i}.", f"mv_blocks.{i}."
+        for k in [k for k in sd if k.startswith((src + "norm1.", src + "attn1."))]:
+            sd[dst + k[len(src):]] = sd[k].clone()
+        like = sd[src + "attn1.to_q.weight"]
+        zeros = lambda *shape: torch.zeros(shape, dtype=like.dtype, device=like.device)
+        sd[dst + "proj_out.weight"] = zeros(D, D)
+        sd[dst + "proj_out.bias"] = zeros(D)
+        sd[dst + "cam_encoder.weight"] = zeros(D, 12)
+        sd[dst + "cam_encoder.bias"] = zeros(D)
     return sd
 
 

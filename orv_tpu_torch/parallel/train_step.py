@@ -31,8 +31,9 @@ parameters, the moments, the accumulator and the EMA) into named tensors
 and scalars and back, for `utils/checkpoint.py`.
 
 Not ported: the mesh (sharding; ROADMAP.md A7, A8), CAME and prodigy and
-`trainable_predicate` (A4), and `patch_size_t` frame padding (A6; `ControlDiT`
-refuses such a config when it is built).
+`trainable_predicate` (A4), and the training side of the model surface
+(A11): `diffusion_loss` refuses a RoPE, `patch_size_t` or multiview model by
+name, since it lacks their rotary tables, frame padding and views.
 """
 
 from __future__ import annotations
@@ -304,6 +305,19 @@ def compute_action_loss(actions, recon, mask, weights=(0.4, 5.0, 1.0)):
     return weights[0] * rot, weights[1] * pos, weights[2] * grip
 
 
+def refuse_model_surface(dit_cfg, who: str) -> None:
+    """Raise by name on a model whose training the port lacks (ROADMAP.md
+    A11): a RoPE model's loss needs the rotary tables, a `patch_size_t`
+    model's the frame padding, a multiview model's the per-view latents."""
+    for name, on in (("use_rotary_positional_embeddings", dit_cfg.use_rotary_positional_embeddings),
+                     ("patch_size_t", dit_cfg.patch_size_t is not None),
+                     ("multiview", dit_cfg.multiview)):
+        if on:
+            raise NotImplementedError(
+                f"{who}: training a model with {name} is not ported yet (ROADMAP.md A11); "
+                "its serving path is")
+
+
 def diffusion_loss(
     model: torch.nn.Module,
     batch: Dict[str, torch.Tensor],
@@ -319,7 +333,9 @@ def diffusion_loss(
     'actions' [B, F_raw, 7], 'frame_mask' [F] and the visual-control moments
     'latents_depth' / 'latents_label' [B, 2C, F, H, W], each sampled with
     its `draws` noise, scaled and duplicated to 2C channels as the model's
-    `depths` / `labels`. Returns (loss, metrics); the metrics are detached."""
+    `depths` / `labels`. Returns (loss, metrics); the metrics are detached.
+    Refuses RoPE, `patch_size_t` and multiview models (ROADMAP.md A11)."""
+    refuse_model_surface(model.config, "diffusion_loss")
     lat = sample_from_moments(batch["latents"], noise=draws.lat_noise) * vae_scaling_factor
     lat = lat.permute(0, 2, 1, 3, 4)  # [B, F, C, H, W]
     img = sample_from_moments(batch["image_latents"], noise=draws.img_noise) * vae_scaling_factor

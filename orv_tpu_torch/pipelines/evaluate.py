@@ -10,9 +10,11 @@ Every random number goes through `EvalDraws` (`parallel/train_step.py`):
 by default a `torch.Generator` seeded with `cfg.seed`; a caller may pass
 its own `draws` function.
 
-Not ported yet, and refused: PAB (`evaluation.pab_skip > 0`, ROADMAP.md A6)
-and sharded serving (`evaluation.mesh` axes > 1, A7/A8); multiview and
-RoPE configs raise in `ControlDiT` (A6).
+Multiview configs (`runtime.multiview`) read `MultiViewRobotDataset`, whose
+views stack on the frame axis; RoPE models get their rotary tables for one
+view's frames; `evaluation.pab_skip > 0` turns on PAB attention broadcast
+(single-view only, as in the JAX package). Not ported yet, and refused:
+sharded serving (`evaluation.mesh` axes > 1, ROADMAP.md A7/A8).
 
 Usage:
   python -m orv_tpu_torch.pipelines.evaluate --dataset_type rt1 \\
@@ -36,7 +38,7 @@ from orv_tpu_torch.data import collate_control
 from orv_tpu_torch.models import ControlDiT
 from orv_tpu_torch.models.quantize import quantize_model_
 from orv_tpu_torch.models.vae import CausalVAE, VAEConfig, decode_chunked, encode_auto
-from orv_tpu_torch.models.weights import load_diffusers_folder
+from orv_tpu_torch.models.weights import ensure_mv_blocks, load_diffusers_folder
 from orv_tpu_torch.parallel.train_step import EvalDraws
 from orv_tpu_torch.pipelines.sample import (
     SamplerConfig, make_sampler, prepare_control_latents, prepare_image_latents,
@@ -45,6 +47,7 @@ from orv_tpu_torch.pipelines.train import build_dataset, build_dit_config
 from orv_tpu_torch.schedulers import make_schedule
 from orv_tpu_torch.utils.checkpoint import has_pretrained, load_pretrained
 from orv_tpu_torch.utils.device import DeviceLike, resolve_device
+from orv_tpu_torch.utils.embeddings import prepare_rotary_positional_embeddings
 from orv_tpu_torch.utils.logging import CONSOLE
 
 DrawFn = Callable[..., EvalDraws]
@@ -138,10 +141,6 @@ def _encode_raw(batch: Dict[str, Any], vae: Optional[CausalVAE], dit_cfg,
 
 
 def _check_supported(ev) -> None:
-    if int(ev.get("pab_skip", 0)) > 0:
-        raise NotImplementedError(
-            "evaluation.pab_skip > 0 (PAB attention broadcast) is not ported yet "
-            "(ROADMAP.md A6: PAB)")
     mesh = ev.get("mesh", {}) or {}
     wide = {a: int(n) for a, n in mesh.items() if int(n) > 1}
     if wide:
@@ -169,7 +168,7 @@ def build_serving_model(cfg: Config, device: DeviceLike = None) -> ControlDiT:
     pretrained = cfg.transformer.get("pretrained_name_or_path")
     if pretrained and has_pretrained(pretrained):
         _, sd = load_pretrained(pretrained)
-        model.load_state_dict(sd, strict=True)
+        model.load_state_dict(ensure_mv_blocks(sd, dit_cfg), strict=True)
         CONSOLE.log(f"loaded transformer from {pretrained}")
     else:
         CONSOLE.log("[yellow]no pretrained transformer — random init (smoke mode)")
@@ -187,6 +186,17 @@ def load_vae(path, device: DeviceLike = None) -> CausalVAE:
     return vae
 
 
+def rotary_tables(dit_cfg, num_frames: int, height: int, width: int, device):
+    """The RoPE model's (cos, sin) for `num_frames` latent frames of
+    height x width latents (one view's), else None."""
+    if not dit_cfg.use_rotary_positional_embeddings:
+        return None
+    return prepare_rotary_positional_embeddings(
+        height=height * 8, width=width * 8, num_frames=num_frames,
+        patch_size=dit_cfg.patch_size, patch_size_t=dit_cfg.patch_size_t,
+        attention_head_dim=dit_cfg.attention_head_dim, device=device)
+
+
 def _moment_shape(moments, C: int):
     """The noise shape that samples `moments` [B, 2C, ...], or None when
     they are latents already (or absent)."""
@@ -194,12 +204,14 @@ def _moment_shape(moments, C: int):
         moments.shape[0], C, *moments.shape[2:])
 
 
-def _denoise_inputs(batch, mode: str, C: int, scaling: float, draws: DrawFn, device,
+def _denoise_inputs(batch, mode: str, dit_cfg, scaling: float, draws: DrawFn, device,
                     with_image: bool = True):
     """A batch's draws, image latents (None unless `with_image`) and the
-    sampler's conditioning kwargs (actions, depth and label controls as the
-    mode asks)."""
+    sampler's kwargs: the view count, the RoPE tables of one view's frames,
+    and the actions, depth and label controls as the mode asks."""
     B, _, F_lat, H, W = batch["latents"].shape
+    C = dit_cfg.out_channels
+    nv = int(batch.get("num_views", 1))  # views stack on the frame axis
     depth = batch.get("latents_depth") if "depth" in mode else None
     label = batch.get("latents_label") if "label" in mode else None
     d = draws((B, F_lat, C, H, W),
@@ -208,11 +220,11 @@ def _denoise_inputs(batch, mode: str, C: int, scaling: float, draws: DrawFn, dev
     on = lambda a: torch.as_tensor(np.asarray(a)).to(device)
     image_latents = None
     if with_image:
-        nv = int(batch.get("num_views", 1))  # views stack on the frame axis
         image_latents = prepare_image_latents(
             on(batch["image_latents"]), F_lat // nv, latent_channels=C, num_views=nv,
             scaling_factor=scaling, noise=d.image_noise).to(torch.bfloat16)
-    kwargs: Dict[str, Any] = {}
+    kwargs: Dict[str, Any] = dict(
+        num_views=nv, image_rotary_emb=rotary_tables(dit_cfg, F_lat // nv, H, W, device))
     if "actions" in batch and "traj" in mode:
         kwargs["actions"] = on(batch["actions"]).to(torch.bfloat16)
     if depth is not None:
@@ -262,6 +274,10 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
             guidance_scale=float(ev.get("guidance_scale", 1.0)),
             use_dynamic_cfg=bool(ev.get("use_dynamic_cfg", False)),
             scheduler=ev.get("scheduler", "dpm"),
+            # opt-in PAB attention broadcast (evaluation.pab_skip > 0)
+            pab_skip=int(ev.get("pab_skip", 0)),
+            pab_start=float(ev.get("pab_start", 0.1)),
+            pab_end=float(ev.get("pab_end", 0.85)),
         ),
         device=device,
     )
@@ -278,14 +294,14 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
                                  out_dir, device, chunk_frames, save_fps, save_gif)
 
     bs = int(ev.get("batch_size", 1))
-    C = dit_cfg.out_channels
     results = []
     pool = ThreadPoolExecutor(2)
     try:
         for bnum, (idxs, batch) in enumerate(prefetch_eval_batches(
                 dataset, indices, bs, int(ev.get("num_workers", 0)))):
             batch = _encode_raw(batch, vae, dit_cfg, chunk_frames, device)
-            d, image_latents, kwargs = _denoise_inputs(batch, mode, C, scaling, draws, device)
+            d, image_latents, kwargs = _denoise_inputs(batch, mode, dit_cfg, scaling, draws,
+                                                       device)
             prompt_embeds = torch.as_tensor(batch["prompt_embeds"]).to(device, torch.bfloat16)
             latents = sampler(d.noise, image_latents, prompt_embeds, generator=d.generator,
                               **kwargs)
@@ -345,7 +361,6 @@ def _cascaded_rollout(cfg, dataset, dit_cfg, sampler, mode, scaling, draws, vae,
     n_proc, pid = _dist()
     ep_keys = sorted(episodes)[pid::n_proc]
     results = []
-    C = dit_cfg.out_channels
     decode = lambda lat: decode_chunked(vae, lat.permute(0, 2, 1, 3, 4) / scaling,
                                         chunk_latent_frames=6, device=device)
     for ep in ep_keys:
@@ -360,7 +375,7 @@ def _cascaded_rollout(cfg, dataset, dit_cfg, sampler, mode, scaling, draws, vae,
             item = _encode_raw(item, vae, dit_cfg, chunk_frames, device)
             F_lat = item["latents"].shape[2]
             first = image_latents is None
-            d, image, kwargs = _denoise_inputs(item, mode, C, scaling, draws, device,
+            d, image, kwargs = _denoise_inputs(item, mode, dit_cfg, scaling, draws, device,
                                                with_image=first)
             if first:  # the first chunk starts from the dataset's reference image
                 image_latents = image

@@ -25,7 +25,7 @@ from orv_tpu_torch.data import DatasetConfig, DemoRobotDataset
 from orv_tpu_torch.models import ControlDiT, DiTConfig
 from orv_tpu_torch.models.vae import CausalVAE, VAEConfig, decode_chunked, encode_auto
 from orv_tpu_torch.parallel.train_step import EvalDraws
-from orv_tpu_torch.pipelines.evaluate import load_vae, save_video, to_uint8
+from orv_tpu_torch.pipelines.evaluate import load_vae, rotary_tables, save_video, to_uint8
 from orv_tpu_torch.pipelines.sample import SamplerConfig, make_sampler
 from orv_tpu_torch.schedulers import make_schedule
 from orv_tpu_torch.utils.checkpoint import has_pretrained, load_pretrained
@@ -55,10 +55,9 @@ def generate_video(
 ) -> np.ndarray:
     """-> video [C, T, H, W] f32 in [-1, 1]. The reference frame's latent is
     its posterior mean; `draws` (only `noise` [1, F_lat, C, h, w] and
-    `generator` are read) default to a torch.Generator seeded with `seed`."""
-    if pab_skip > 0:
-        raise NotImplementedError("pab_skip > 0 (PAB attention broadcast) is not ported yet "
-                                  "(ROADMAP.md A6: PAB)")
+    `generator` are read) default to a torch.Generator seeded with `seed`.
+    `pab_skip > 0` turns on PAB attention broadcast (approximate); a RoPE
+    model gets its rotary tables."""
     device = resolve_device(device)
     cfg = model.config
     H, W = ref_image.shape[:2]
@@ -76,12 +75,14 @@ def generate_video(
 
     sampler = make_sampler(model, make_schedule(),
                            SamplerConfig(num_inference_steps=num_inference_steps,
-                                         guidance_scale=guidance_scale), device=device)
+                                         guidance_scale=guidance_scale, pab_skip=pab_skip),
+                           device=device)
     kwargs = {}
     if actions is not None:
         kwargs["actions"] = torch.as_tensor(np.asarray(actions))[None].to(device, torch.bfloat16)
     prompt = torch.as_tensor(np.asarray(prompt_embeds))[None].to(device, torch.bfloat16)
-    latents = sampler(draws.noise, image_latents, prompt, generator=draws.generator, **kwargs)
+    latents = sampler(draws.noise, image_latents, prompt, generator=draws.generator,
+                      image_rotary_emb=rotary_tables(cfg, F_lat, h, w, device), **kwargs)
     z = latents.permute(0, 2, 1, 3, 4) / scaling_factor
     video = decode_chunked(vae, z, chunk_latent_frames=6, device=device)
     return video[0].cpu().numpy()
@@ -97,7 +98,7 @@ def main(argv=None):
     p.add_argument("--num_frames", type=int, default=17)
     p.add_argument("--num_inference_steps", type=int, default=50)
     p.add_argument("--pab_skip", type=int, default=0,
-                   help="PAB attention broadcast (not ported yet: must be 0)")
+                   help="PAB attention broadcast (0=off, approximate)")
     p.add_argument("--episode", type=int, default=0)
     p.add_argument("--device", default=None, help="default: the CUDA device")
     args = p.parse_args(argv)

@@ -11,14 +11,21 @@ over the same tables (`ts`, `back`, `prev`, `have_old`, `gs`):
     `torch.Generator`, old-pred threading) or DDIM
 
 Raw reference pixels go through `preprocess_video` (resize, normalize) and
-the VAE encode (`encode_reference_pixels`). PAB attention broadcast
-(`pab_skip`) is not ported yet.
+the VAE encode (`encode_reference_pixels`).
+
+PAB attention broadcast (`pab_skip > 0`, the JAX package's opt-in
+approximation): `pab_full_flags` marks the full steps; a full step runs the
+model with `collect_attn=True` and keeps every block's pre-gate attention
+outputs, a reuse step runs it on that cache (`attn_cache`), skipping the
+attention's norm, projections and kernel. The step's flag is a Python
+bool here, where the JAX scan needs a `lax.cond`. The cache lives only
+inside one `sample` call.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +42,11 @@ class SamplerConfig:
     use_dynamic_cfg: bool = False
     scheduler: str = "dpm"  # "dpm" | "ddim"
     stochastic_dpm: bool = True  # reference DPM step always injects noise
+    # PAB attention broadcast: full attention every (pab_skip+1)-th step inside
+    # [pab_start, pab_end)*n, the cached per-block outputs in between; 0: off
+    pab_skip: int = 0
+    pab_start: float = 0.1
+    pab_end: float = 0.85
 
 
 def sample_from_moments(moments: torch.Tensor,
@@ -143,6 +155,19 @@ def prepare_control_latents(
     return torch.cat([x, x], dim=2)
 
 
+def pab_full_flags(n: int, skip: int, start_frac: float, end_frac: float) -> np.ndarray:
+    """Per-step full-attention flags for PAB: outside [w0, w1) every step
+    is full; inside, full every (skip+1)-th step. Step 0 is always full
+    (the cache must be populated before the first reuse)."""
+    w0 = max(1, int(round(start_frac * n)))
+    w1 = min(n, int(round(end_frac * n)))
+    flags = np.ones(n, dtype=bool)
+    for i in range(w0, w1):
+        flags[i] = (i - w0) % (skip + 1) == 0
+    flags[0] = True
+    return flags
+
+
 def make_sampler(
     model: torch.nn.Module,
     schedule: DiffusionSchedule,
@@ -150,10 +175,10 @@ def make_sampler(
     device: DeviceLike = None,
 ):
     """Returns `sample(latents, image_latents, prompt_embeds, generator=None,
-    negative_prompt_embeds=None, actions=None, depths=None, labels=None)`
-    that runs the full denoise on `device` (CUDA unless `device="cpu"`) and
-    returns clean latents [B, F, C, H, W] f32. `generator` feeds the
-    stochastic DPM noise."""
+    negative_prompt_embeds=None, actions=None, depths=None, labels=None,
+    image_rotary_emb=None, num_views=1)` that runs the full denoise on
+    `device` (CUDA unless `device="cpu"`) and returns clean latents
+    [B, V*F, C, H, W] f32. `generator` feeds the stochastic DPM noise."""
     if config.scheduler not in ("dpm", "ddim"):
         raise ValueError(f"unknown scheduler {config.scheduler}")
     device = resolve_device(device)
@@ -171,6 +196,8 @@ def make_sampler(
     else:
         gs = np.full((n,), config.guidance_scale)
     gs = gs.astype(np.float32)
+    full = (pab_full_flags(n, config.pab_skip, config.pab_start, config.pab_end)
+            if config.pab_skip > 0 else None)
 
     @torch.inference_mode()
     def sample(
@@ -182,8 +209,14 @@ def make_sampler(
         actions: Optional[torch.Tensor] = None,
         depths: Optional[torch.Tensor] = None,
         labels: Optional[torch.Tensor] = None,
+        image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        num_views: int = 1,
     ) -> torch.Tensor:
+        if full is not None and num_views > 1:
+            raise NotImplementedError("PAB attention broadcast is "
+                                      "single-view (MVBlock not covered)")
         to = lambda x: None if x is None else x.to(device)
+        rope = None if image_rotary_emb is None else tuple(map(to, image_rotary_emb))
         image_in, prompt_in = to(image_latents), to(prompt_embeds)
         actions_in, depths_in, labels_in = to(actions), to(depths), to(labels)
         if do_cfg:
@@ -199,19 +232,27 @@ def make_sampler(
         control_cache = None
         if depths_in is not None or labels_in is not None:
             control_cache = model(None, prompt_in, None, depths=depths_in, labels=labels_in,
-                                  controls_only=True)
+                                  controls_only=True, num_views=num_views)
 
         old = torch.zeros_like(lat)
+        attn_cache = None
         for i in range(n):
             model_in = torch.cat([lat, lat], dim=0) if do_cfg else lat
             model_in = torch.cat([model_in.to(image_in.dtype), image_in], dim=2)
             t_b = torch.full((B,), int(ts[i]), dtype=torch.int64, device=device)
-            v_pred = model(
-                model_in, prompt_in, t_b, actions=actions_in,
+            kwargs = dict(
+                actions=actions_in,
                 depths=None if control_cache is not None else depths_in,
                 labels=None if control_cache is not None else labels_in,
-                control_cache=control_cache,
-            ).float()
+                control_cache=control_cache, image_rotary_emb=rope, num_views=num_views)
+            if full is None:
+                v_pred = model(model_in, prompt_in, t_b, **kwargs)
+            elif full[i]:  # full attention, refreshing the cache (the old one freed first)
+                attn_cache = None
+                v_pred, attn_cache = model(model_in, prompt_in, t_b, collect_attn=True, **kwargs)
+            else:
+                v_pred = model(model_in, prompt_in, t_b, attn_cache=attn_cache, **kwargs)
+            v_pred = v_pred.float()
             if do_cfg:
                 v_uncond, v_text = v_pred.chunk(2, dim=0)
                 v_pred = v_uncond + torch.tensor(gs[i]) * (v_text - v_uncond)

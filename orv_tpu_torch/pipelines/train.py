@@ -22,8 +22,9 @@ caller may pass `draws(step, batch)`. Validation's come through
 Refused by name, with the ROADMAP.md item: any `train.mesh` axis above 1
 (A7 for sp, A8 for dp/fsdp/tp/pp; dp: -1 is 1 on one card),
 `train.loader=grain` (A10), optimizers but adam/adamw and
-`gradient_checkpointing` (A4), multiview (A6); RoPE and the 5b family
-raise in `ControlDiT` (A6).
+`gradient_checkpointing` (A4), and the training side of the model surface
+(A11): multiview, RoPE models and `patch_size_t` (the 1.5 family), whose
+loss needs the rotary tables and the frame padding that it lacks.
 """
 
 from __future__ import annotations
@@ -44,12 +45,13 @@ import yaml
 
 from orv_tpu_torch.configs import Config, default_config_dir, load_config
 from orv_tpu_torch.data import (BucketSampler, CascadedRobotDataset, DatasetConfig,
-                                RobotDataset, collate_control)
+                                MultiViewRobotDataset, RobotDataset, collate_control)
 from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
 from orv_tpu_torch.models.weights import dit_state_dict_from_diffusers
 from orv_tpu_torch.parallel.train_step import (EvalDraws, LossDraws, TrainState,
                                                make_lr_schedule, make_optimizer,
-                                               make_train_step, trainable)
+                                               make_train_step, refuse_model_surface,
+                                               trainable)
 from orv_tpu_torch.schedulers import make_schedule
 from orv_tpu_torch.utils.checkpoint import TrainCheckpointer, export_pretrained, load_pretrained
 from orv_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -144,11 +146,13 @@ def build_dataset(cfg: Config, split: str = "train", cascaded: bool = False):
         renderings_folder=d.get("renderings_folder", "renderings"),
         load_condGT=d.get("load_condGT", False),
     )
-    if cfg.get("multiview"):
-        raise NotImplementedError(
-            "multiview datasets are not ported yet (ROADMAP.md A6: multiview)")
     if cascaded:
+        if cfg.get("multiview"):
+            raise ValueError("cascaded multiview evaluation is not supported "
+                             "(matches the reference: cascaded mode is single-view)")
         return CascadedRobotDataset(ds_cfg)
+    if cfg.get("multiview"):
+        return MultiViewRobotDataset(ds_cfg)
     return RobotDataset(ds_cfg)
 
 
@@ -264,7 +268,7 @@ def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, s
                                                 prepare_image_latents)
 
     device = resolve_device(device)
-    dit_cfg = model.config  # RoPE models raise in ControlDiT (A6)
+    dit_cfg = model.config  # train() refuses RoPE models (A11)
     inf = cfg.get("inference", {}) or {}
     sampler = make_sampler(model, make_schedule(), SamplerConfig(
         num_inference_steps=int(inf.get("num_inference_steps", 50)),
@@ -386,8 +390,10 @@ def _check_supported(cfg: Config) -> None:
     if tcfg.get("gradient_checkpointing"):
         raise NotImplementedError("train.gradient_checkpointing (per-block remat) is not "
                                   "ported yet (ROADMAP.md A4)")
-    if cfg.get("multiview") or cfg.transformer.get("multiview"):
-        raise NotImplementedError("multiview training is not ported yet (ROADMAP.md A6)")
+    if cfg.get("multiview"):  # the model config's own flag: refuse_model_surface
+        raise NotImplementedError("multiview training is not ported yet (ROADMAP.md A11)")
+    refuse_model_surface(build_dit_config(cfg), "train()")
+
 
 
 def seeded_draws(seed: int, device: DeviceLike, num_train_timesteps: int = 1000) -> DrawFn:

@@ -188,6 +188,10 @@ def test_control_dit_matches_jax(regime, guidance, actions, prec, monkeypatch):
 
 
 def test_control_dit_unported_options_raise():
-    for field in ("multiview", "joint_final_norm", "use_rotary_positional_embeddings"):
-        with pytest.raises(NotImplementedError):
-            ControlDiT(dataclasses.replace(DiTConfig(**TINY), **{field: True}), device="cpu")
+    """The JAX config's use_learned_positional_embeddings is read by no JAX
+    module: the port refuses it by name rather than ignore it. Multiview,
+    RoPE, patch_size_t and the joint final norm are built
+    (tests/test_torch_port_model_surface.py)."""
+    with pytest.raises(NotImplementedError, match="use_learned_positional_embeddings"):
+        ControlDiT(dataclasses.replace(DiTConfig(**TINY), use_learned_positional_embeddings=True),
+                   device="cpu")

@@ -324,11 +324,11 @@ def test_inference_main_smoke_mode(tmp_path):
 
 
 def test_refusals(setup, tmp_path):
-    """PAB, a mesh axis past 1 and a msgpack-only folder raise, naming what
-    to do; nothing is generated."""
+    """A mesh axis past 1 and a msgpack-only folder raise, naming what to
+    do; nothing is generated. (PAB runs since the model surface was ported:
+    tests/test_torch_port_model_surface_serving.py.)"""
     s = setup
-    for extra, match in ((["evaluation.pab_skip=2"], "A6"), (["evaluation.mesh.sp=2"], "A7"),
-                         (["evaluation.mesh.tp=2"], "A8")):
+    for extra, match in ((["evaluation.mesh.sp=2"], "A7"), (["evaluation.mesh.tp=2"], "A8")):
         _, tcfg = configs(s, COND, "refused", extra)
         with pytest.raises(NotImplementedError, match=match):
             tevaluate.evaluate(tcfg, device="cpu")
@@ -339,10 +339,6 @@ def test_refusals(setup, tmp_path):
     _, tcfg = configs(s, COND, "refused", [f"transformer.pretrained_name_or_path={jax_only}"])
     with pytest.raises(ValueError, match="export_torch_pretrained"):
         tevaluate.evaluate(tcfg, device="cpu")
-    model = ControlDiT(DiTConfig(**DIT), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tinference.generate_video(model, None, np.zeros((32, 48, 3)), None, np.zeros((8, 32)),
-                                  pab_skip=1, device="cpu")
     assert not (s["root"] / "refused_port").exists() or not any(
         (s["root"] / "refused_port").glob("*.npz"))
 

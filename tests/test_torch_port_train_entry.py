@@ -231,8 +231,14 @@ def test_loss_draws_cover_the_batch_controls_and_refusals():
     d2.depth_noise = None
     with pytest.raises(ValueError, match="latents_depth"):
         diffusion_loss(model, batch, make_schedule(), d2)
-    with pytest.raises(NotImplementedError, match="patch_size_t.*A6"):
-        ControlDiT(DiTConfig(**DIT, patch_size_t=2), dtype=torch.float32, device="cpu")
+    # the loss lacks the 1.5 family's frame padding, RoPE's tables and the
+    # views: it refuses such a model by name (ROADMAP.md A11)
+    for extra in (dict(patch_size_t=2), dict(use_rotary_positional_embeddings=True),
+                  dict(multiview=True)):
+        name = next(iter(extra))
+        surface = ControlDiT(DiTConfig(**dict(DIT, **extra)), dtype=torch.float32, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"{name}.*A11"):
+            diffusion_loss(surface, batch, make_schedule(), d)
 
 
 # -- loader ---------------------------------------------------------------------
@@ -380,17 +386,24 @@ def test_optional_keys_are_accepted_where_the_model_has_them_and_refused_by_name
     no_norm = {k: t(v) for k, v in sd.items() if not k.startswith("norm_out.norm.")}
     with pytest.raises(ValueError, match="norm_out.norm.weight"):
         dit_state_dict_from_diffusers(no_norm, tcfg)
-    with pytest.raises(NotImplementedError, match="A6"):
-        dit_state_dict_from_diffusers(dict(got, **{"mv_blocks.0.norm1.linear.weight": 0}), tcfg)
+    # mv_blocks in a single-view config's load are dropped, as JAX's
+    # convert_dit_state_dict drops them; a multiview model takes them
+    # (tests/test_torch_port_model_surface.py), and train() refuses it (A11)
+    assert dit_state_dict_from_diffusers(
+        dict(got, **{"mv_blocks.0.norm1.linear.weight": torch.zeros(1)}), tcfg).keys() == got.keys()
     # a T2V checkpoint proper has no action or control heads: the strict load
     # names them (JAX's apply fails on them too, ROADMAP.md C)
     bare = {k: v for k, v in got.items() if not k.startswith(("action_", "initial_combine"))}
     with pytest.raises(RuntimeError, match="action_embed.mlp.0.weight"):
         ControlDiT(tcfg, device="cpu").load_state_dict(
             dit_state_dict_from_diffusers(bare, tcfg), strict=True)
+    # a linear patch embed (CogVideoX 1.5) passes as it is; the strict load
+    # of a conv model names it, a patch_size_t model takes it
     linear = dict(got, **{"patch_embed.proj.weight": torch.zeros(128, 64)})
-    with pytest.raises(NotImplementedError, match="A6"):
-        dit_state_dict_from_diffusers(linear, tcfg)
+    loaded = dit_state_dict_from_diffusers(linear, tcfg, from_t2v=True)
+    assert loaded["patch_embed.proj.weight"].shape == (128, 64)
+    with pytest.raises(RuntimeError, match="patch_embed.proj.weight"):
+        ControlDiT(tcfg, device="cpu").load_state_dict(loaded, strict=True)
 
 
 # -- checkpoints ------------------------------------------------------------------
@@ -436,7 +449,10 @@ def test_checkpointer_rotates_skips_and_restores(tmp_path):
     (["train.mesh.sp=2"], "A7"), (["train.mesh.dp=2"], "A8"), (["train.mesh.fsdp=2"], "A8"),
     (["train.mesh.tp=2"], "A8"), (["train.mesh.pp=2"], "A8"), (["train.loader=grain"], "A10"),
     (["train.optimizer.type=came"], "A4"), (["train.optimizer.type=prodigy"], "A4"),
-    (["train.gradient_checkpointing=true"], "A4"), (["runtime.multiview=true"], "A6"),
+    (["train.gradient_checkpointing=true"], "A4"), (["runtime.multiview=true"], "A11"),
+    (["transformer.multiview=true"], "A11"),
+    (["transformer.use_rotary_positional_embeddings=true"], "A11"),
+    (["transformer.patch_size_t=2"], "A11"),
 ])
 def test_unported_options_are_refused_by_name(setup, tmp_path, extra, item):
     cfg = load(tconfigs, PORT_CFG, setup["one"], tmp_path, extra)
