@@ -11,7 +11,7 @@ PyTorch version beside it that the CPU path and the tests use.
   schedulers — DDIM / DPM-solver++ steps
   models     — ControlDiT, causal VAE (decode side), weight bridge
   pipelines  — the sampler
-  parallel   — the training step (diffusion loss, AdamW, make_train_step)
+  parallel   — the training step (diffusion loss; AdamW, CAME, prodigy; make_train_step)
 
 Entry points (`ControlDiT`, `CausalVAE`, `make_sampler`, `decode_chunked`,
 `make_train_step`) run on `cuda` unless the caller passes `device="cpu"`.

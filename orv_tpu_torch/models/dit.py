@@ -43,9 +43,19 @@ every rank runs the rest of the model on the full sequence, so every rank
 returns the whole prediction. Run it on every rank, e.g. under
 `LocalRing(n).run`. Inference only: the ring raises under grad mode.
 
+Per-block remat (`remat=True`, the JAX package's `gradient_checkpointing`,
+dit.py:385-394): under grad mode each cell of the block loop (the MVBlock,
+if any, then its DiTBlock: JAX's `_BlockCell`) runs under
+`torch.utils.checkpoint` (non-reentrant), so the backward recomputes its
+forward, kernels included: a micro-step launches every forward kernel of
+the blocks twice and every backward kernel once. `remat_policy="dots"`
+(`dots_with_no_batch_dims_saveable`) keeps the matmuls' outputs (`mm` and
+`addmm`, the linears) and recomputes the rest. The sampler's inference mode
+never remats.
+
 Refused by name: `use_learned_positional_embeddings`, which the JAX config
-carries but none of its modules reads (ROADMAP.md C). Pipeline stages and
-remat are left out.
+carries but none of its modules reads (ROADMAP.md C). Pipeline stages are
+left out.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from orv_tpu_torch.models.layers import (
@@ -115,6 +126,14 @@ class DiTConfig:
 
 
 _ATTN_IMPL = {False: "flash", True: "flash_q8"}  # the attention kernel each model runs
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)  # the linears' products
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`remat_policy="dots"`: keep the outputs of the 2-D matmuls the linears
+    run (JAX's `dots_with_no_batch_dims_saveable`), recompute the rest."""
+    CP = torch.utils.checkpoint.CheckpointPolicy
+    return CP.MUST_SAVE if op in _DOTS else CP.PREFER_RECOMPUTE
 
 
 class ControlDiT(nn.Module):
@@ -127,12 +146,16 @@ class ControlDiT(nn.Module):
     bf16 model into one in place. `attn_impl` must be the one `quant` picks:
     "flash" (bf16 kernel) without it, "flash_q8" (int8-QK^T kernel) with it.
     `sp`: a communicator whose ranks ring every block's joint attention
-    (None or size 1: the sequence stays resident)."""
+    (None or size 1: the sequence stays resident). `remat`, `remat_policy`:
+    per-block recompute under grad (module docstring)."""
 
     def __init__(self, config: DiTConfig, dtype=torch.bfloat16, param_dtype=torch.float32,
                  device: DeviceLike = None, quant: bool = False, attn_impl: str = "flash",
-                 sp=None):
+                 sp=None, remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
+        if remat_policy not in (None, "dots"):
+            raise ValueError(f"remat_policy={remat_policy!r}: None (recompute everything) "
+                             "or 'dots' (keep the linears' outputs)")
         if config.use_learned_positional_embeddings:
             raise NotImplementedError(
                 "ControlDiT port: use_learned_positional_embeddings=True is refused: the JAX "
@@ -144,6 +167,7 @@ class ControlDiT(nn.Module):
         c = self.config = config
         self.dtype, self.param_dtype = dtype, param_dtype
         self.quant, self.attn_impl, self.sp = quant, attn_impl, sp
+        self.remat, self.remat_policy = remat, remat_policy
         self._view_pos_tables = {}
         inner = c.inner_dim
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
@@ -300,12 +324,15 @@ class ControlDiT(nn.Module):
             raise NotImplementedError("PAB attention broadcast does not "
                                       "cover the multiview MVBlock path")
         collected = []
-        for i, block in enumerate(self.transformer_blocks):
-            if c.multiview:
-                hidden = self.mv_blocks[i](hidden, enc, temb, image_rotary_emb_view, V,
-                                           num_frames)
-            out = block(hidden, enc, temb, action_emb, image_rotary_emb,
-                        None if attn_cache is None else attn_cache[i], collect_attn)
+        remat = self.remat and torch.is_grad_enabled()
+        for i in range(len(self.transformer_blocks)):
+            args = (i, hidden, enc, temb, action_emb, image_rotary_emb, image_rotary_emb_view, V,
+                    num_frames, None if attn_cache is None else attn_cache[i], collect_attn)
+            if remat:
+                out = torch.utils.checkpoint.checkpoint(
+                    self._cell, *args, use_reentrant=False, context_fn=self._remat_context)
+            else:
+                out = self._cell(*args)
             hidden, enc = out[:2]
             if collect_attn:
                 collected.append(out[2])
@@ -325,6 +352,22 @@ class ControlDiT(nn.Module):
             return (out, collected) if deterministic else (
                 out, is_action_mask, actions_recon, collected)
         return out if deterministic else (out, is_action_mask, actions_recon)
+
+    def _cell(self, i: int, hidden, enc, temb, action_emb, rope, rope_view, V: int,
+              num_frames: int, cached_attn, collect_attn: bool):
+        """One step of the block loop, the unit of remat: the MVBlock (of a
+        multiview model), then the DiTBlock."""
+        if self.config.multiview:
+            hidden = self.mv_blocks[i](hidden, enc, temb, rope_view, V, num_frames)
+        return self.transformer_blocks[i](hidden, enc, temb, action_emb, rope, cached_attn,
+                                          collect_attn)
+
+    def _remat_context(self):
+        """The checkpoint's context: everything recomputed, or with
+        `remat_policy="dots"` the matmuls' outputs kept."""
+        if self.remat_policy != "dots":
+            return torch.utils.checkpoint.noop_context_fn()
+        return torch.utils.checkpoint.create_selective_checkpoint_contexts(_save_dots)
 
     def _add_view_positions(self, hidden, V: int, num_frames: int, height: int, width: int):
         """hidden [(b v), (f s), D] plus the sin-cos table over (view, h, w),

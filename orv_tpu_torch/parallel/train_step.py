@@ -1,4 +1,4 @@
-"""Training step: v-prediction diffusion loss + action recon, AdamW.
+"""Training step: v-prediction diffusion loss + action recon; AdamW, CAME, prodigy.
 
 Counterpart of `orv_tpu/parallel/train_step.py` on one GPU. The loss
 replicates the JAX package's (and so the reference train loop's):
@@ -17,33 +17,42 @@ seven ways for the same draws, train_step.py:259), `LossDraws.draw` makes
 them on the device from a `torch.Generator`, and `diffusion_loss` takes
 them as an argument, so a test can hand both packages the same numbers.
 
+The loss takes the rest of the model surface as the JAX package's does:
+`num_views` for a multiview model's per-view latents, `image_rotary_emb`
+for a RoPE model's tables, and `patch_size_t` for the 1.5 family's frame
+padding (zeros at the end to a multiple of pt, the actions by 4 raw frames a
+padded latent frame, the padded tail out of `frame_mask`).
+
 The optimizer follows optax, not torch's defaults: `make_optimizer` builds
-`MultiSteps(chain(clip_by_global_norm, adamw) [+ params EMA])` as one
-in-place `AdamW`: the lr of applied update k is `schedule(k)` counted from
-0; the clip scales by max_norm/norm only when norm >= max_norm, with no
-epsilon; accumulation keeps the running mean of the k micro-gradients and
-updates on the k-th; eps is added outside the square root and the decay
-lr*wd*p applies to every parameter. JAX's arrays are immutable; here the
-parameters, moments and accumulator are updated in place to save memory.
+`MultiSteps(chain(multi_transform({train: chain(clip_by_global_norm,
+rule), freeze: set_to_zero}), params_ema), k)` as one in-place `Optimizer`
+whose rule is Adam(W), CAME (`parallel/came.py`) or prodigy
+(`parallel/prodigy.py`): the lr of applied update k is `schedule(k)` counted
+from 0; the clip scales by max_norm/norm only when norm >= max_norm, with no
+epsilon, over the trainable parameters only; accumulation keeps the running
+mean of the k micro-gradients and updates on the k-th; a
+`trainable_predicate` freezes the parameters it rejects, which still take
+gradients (the logged grad norm covers them) but never move, and the EMA
+covers every parameter. JAX's arrays are immutable; here the parameters,
+the rule's state and the accumulator are updated in place to save memory.
 
 `state_tensors` / `load_state_tensors` flatten a `TrainState` (the
-parameters, the moments, the accumulator and the EMA) into named tensors
-and scalars and back, for `utils/checkpoint.py`.
+parameters, the rule's tensors and scalars, the accumulator and the EMA)
+into named tensors and scalars and back, for `utils/checkpoint.py`.
 
-Not ported: the mesh (sharding; ROADMAP.md A7, A8), CAME and prodigy and
-`trainable_predicate` (A4), and the training side of the model surface
-(A11): `diffusion_loss` refuses a RoPE, `patch_size_t` or multiview model by
-name, since it lacks their rotary tables, frame padding and views.
+Not ported: the mesh (sharding; ROADMAP.md A7, A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from orv_tpu_torch.parallel.came import Came
+from orv_tpu_torch.parallel.prodigy import Prodigy
 from orv_tpu_torch.pipelines.sample import sample_from_moments
 from orv_tpu_torch.schedulers.scheduling import (
     DiffusionSchedule,
@@ -108,16 +117,34 @@ def make_lr_schedule(
 
 @dataclasses.dataclass
 class OptState:
-    """AdamW state: `count` applied updates (the schedule's step), the two
-    moments, the MultiSteps position and running-mean accumulator, and the
-    optional EMA of the parameters."""
+    """The optimizer's state: `count` applied updates (the schedule's step);
+    the inner rule's tensors as named groups (`tensors[group][leaf]`: Adam's
+    mu and nu, CAME's m, row, col, sq, res_row, res_col, prodigy's exp_avg,
+    exp_avg_sq, grad_sum, params0; a field a leaf does not use has no entry)
+    and its 0-d f32 `scalars`; `mask`, which of the step's parameters train
+    (the others are frozen); the MultiSteps position and the running mean of
+    the trainable parameters' micro-gradients; the optional EMA of every
+    parameter. `layout` is what the rule derived from the parameters' names
+    at init (CAME's leaf plan), not part of a checkpoint."""
 
     count: int
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
+    tensors: Dict[str, Dict[str, torch.Tensor]]
+    mask: List[bool]
+    scalars: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     mini_step: int = 0
     acc: Optional[List[torch.Tensor]] = None
     ema: Optional[List[torch.Tensor]] = None
+    layout: Any = None
+
+    @property
+    def mu(self) -> List[torch.Tensor]:
+        """Adam's first moments, in the trainable parameters' order."""
+        return list(self.tensors["mu"].values())
+
+    @property
+    def nu(self) -> List[torch.Tensor]:
+        """Adam's second moments, in the trainable parameters' order."""
+        return list(self.tensors["nu"].values())
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -127,56 +154,32 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _chunks(n: int, size: int = 32):
+    """Slices of range(n), `size` at a time: a rule's foreach temporaries stay
+    a few tensors' size."""
     return (slice(i, min(i + size, n)) for i in range(0, n, size))
 
 
-class AdamW:
-    """optax.MultiSteps(chain(clip_by_global_norm(max_grad_norm),
-    adamw(schedule, b1, b2, eps, weight_decay)) [+ params_ema], k) applied
-    in place: `update` changes the parameters on every k-th call."""
+class Adam:
+    """optax.adamw's update (adam: weight_decay 0) on the trainable leaves:
+    moments mu and nu per leaf, bias-corrected, eps outside the square root,
+    decoupled decay lr*wd*p."""
 
-    def __init__(self, schedule: Callable[[int], float], beta1: float, beta2: float,
-                 epsilon: float, weight_decay: float, max_grad_norm: float,
-                 grad_accum_steps: int = 1, ema_decay: Optional[float] = None):
-        self.schedule = schedule
+    def __init__(self, beta1: float, beta2: float, epsilon: float, weight_decay: float):
         self.b1, self.b2, self.eps, self.wd = beta1, beta2, epsilon, weight_decay
-        self.max_grad_norm = max_grad_norm
-        self.k = grad_accum_steps
-        self.ema_decay = ema_decay
 
-    def init(self, params: Sequence[torch.Tensor]) -> OptState:
-        ema = None if self.ema_decay is None else [p.detach().clone() for p in params]
-        return OptState(count=0, mu=[torch.zeros_like(p) for p in params],
-                        nu=[torch.zeros_like(p) for p in params], ema=ema)
+    def init(self, params, names):
+        return {"mu": {n: torch.zeros_like(p) for n, p in zip(names, params)},
+                "nu": {n: torch.zeros_like(p) for n, p in zip(names, params)}}, {}, None
 
-    @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], state: OptState,
-               params: Sequence[torch.Tensor]) -> None:
-        """Take `grads` (owned from here on: they may be updated in place)."""
-        if state.mini_step == 0:
-            state.acc = list(grads)  # acc + (g - acc) / 1 with acc = 0
-        else:  # optax's running mean of the micro-gradients
-            for i, g in enumerate(grads):
-                state.acc[i].add_((g - state.acc[i]) / (state.mini_step + 1))
-        if state.mini_step < self.k - 1:
-            state.mini_step += 1
-            return
-        u, params = state.acc, list(params)
-        state.acc, state.mini_step = None, 0
-
-        # clip_by_global_norm: t / norm * max_norm when norm >= max_norm
-        norm = global_norm(u)
-        trigger = norm < self.max_grad_norm
-        one = torch.ones_like(norm)
-        torch._foreach_div_(u, torch.where(trigger, one, norm))
-        torch._foreach_mul_(u, torch.where(trigger, one, one * self.max_grad_norm))
-
-        lr = self.schedule(state.count)
-        state.count += 1
+    def apply(self, u: List[torch.Tensor], params: List[torch.Tensor], state: OptState,
+              lr: float) -> None:
+        """Update `params` in place by the clipped mean gradients `u` (owned:
+        they may be overwritten); `state.count` is this update's, from 1."""
         bc1 = 1.0 - self.b1 ** state.count
         bc2 = 1.0 - self.b2 ** state.count
-        for sl in _chunks(len(params)):  # bounds the temporaries to a few tensors' size
-            p, g, mu, nu = params[sl], u[sl], state.mu[sl], state.nu[sl]
+        mus, nus = state.mu, state.nu
+        for sl in _chunks(len(params)):
+            p, g, mu, nu = params[sl], u[sl], mus[sl], nus[sl]
             torch._foreach_mul_(mu, self.b1)
             torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
             torch._foreach_mul_(nu, self.b2)
@@ -190,9 +193,82 @@ class AdamW:
             if self.wd:
                 torch._foreach_add_(step, p, alpha=self.wd)
             torch._foreach_add_(p, step, alpha=-lr)
-            if state.ema is not None:
+
+
+class Optimizer:
+    """optax.MultiSteps(chain(multi_transform({"train": chain(
+    clip_by_global_norm(max_grad_norm), rule), "freeze": set_to_zero()}),
+    params_ema), k) applied in place, as the JAX package's `make_optimizer`
+    builds it: `update` changes the parameters on every k-th call.
+
+    With a `trainable_predicate(name)`, the parameters it rejects are frozen:
+    they still take gradients (the step's `grad_norm` is over every
+    parameter, as JAX logs it), but the rule, its state and the clip's norm
+    cover the trainable ones only, and the frozen ones never move (no decay
+    either). The running mean of the micro-gradients is kept for the
+    trainable parameters only: MultiSteps accumulates every leaf, but a
+    frozen leaf's mean reaches nothing but `set_to_zero`. The EMA comes
+    after the multi_transform and covers every parameter."""
+
+    def __init__(self, schedule: Callable[[int], float], rule, max_grad_norm: float,
+                 grad_accum_steps: int = 1, ema_decay: Optional[float] = None,
+                 trainable_predicate: Optional[Callable[[str], bool]] = None):
+        self.schedule, self.rule = schedule, rule
+        self.max_grad_norm = max_grad_norm
+        self.k = grad_accum_steps
+        self.ema_decay = ema_decay
+        self.trainable_predicate = trainable_predicate
+
+    def init(self, params: Sequence[torch.Tensor],
+             names: Optional[Sequence[str]] = None) -> OptState:
+        """The state for `params` (every parameter the step differentiates),
+        named by `names` (the model's parameter names; without them the
+        parameters are named by position and none is frozen)."""
+        params = list(params)
+        if names is None:
+            if self.trainable_predicate is not None:
+                raise ValueError("a trainable_predicate needs the parameters' names")
+            names = [str(i) for i in range(len(params))]
+        pred = self.trainable_predicate
+        mask = [True if pred is None else bool(pred(n)) for n in names]
+        train = [(n, p) for n, p, m in zip(names, params, mask) if m]
+        tensors, scalars, layout = self.rule.init([p for _, p in train], [n for n, _ in train])
+        ema = None if self.ema_decay is None else [p.detach().clone() for p in params]
+        return OptState(count=0, tensors=tensors, mask=mask, scalars=scalars, ema=ema,
+                        layout=layout)
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: OptState,
+               params: Sequence[torch.Tensor]) -> None:
+        """Take `grads` (owned from here on: they may be updated in place)."""
+        grads = [g for g, m in zip(grads, state.mask) if m]
+        if state.mini_step == 0:
+            state.acc = grads  # acc + (g - acc) / 1 with acc = 0
+        else:  # optax's running mean of the micro-gradients
+            for i, g in enumerate(grads):
+                state.acc[i].add_((g - state.acc[i]) / (state.mini_step + 1))
+        if state.mini_step < self.k - 1:
+            state.mini_step += 1
+            return
+        u, params = state.acc, list(params)
+        state.acc, state.mini_step = None, 0
+
+        # clip_by_global_norm over the trainable leaves: t / norm * max_norm
+        # when norm >= max_norm
+        norm = global_norm(u)
+        trigger = norm < self.max_grad_norm
+        one = torch.ones_like(norm)
+        torch._foreach_div_(u, torch.where(trigger, one, norm))
+        torch._foreach_mul_(u, torch.where(trigger, one, one * self.max_grad_norm))
+
+        lr = self.schedule(state.count)
+        state.count += 1
+        self.rule.apply(u, [p for p, m in zip(params, state.mask) if m], state, lr)
+        del u
+        if state.ema is not None:
+            for sl in _chunks(len(params)):
                 torch._foreach_mul_(state.ema[sl], self.ema_decay)
-                torch._foreach_add_(state.ema[sl], p, alpha=1.0 - self.ema_decay)
+                torch._foreach_add_(state.ema[sl], params[sl], alpha=1.0 - self.ema_decay)
 
 
 def make_optimizer(
@@ -204,15 +280,38 @@ def make_optimizer(
     weight_decay: float = 1e-3,
     max_grad_norm: float = 1.0,
     grad_accum_steps: int = 1,
+    trainable_predicate: Optional[Callable[[str], bool]] = None,
+    beta3: float = 0.98,
+    prodigy_safeguard_warmup: bool = False,
+    prodigy_decouple: bool = False,
+    prodigy_use_bias_correction: bool = False,
     ema_decay: Optional[float] = None,
-) -> AdamW:
-    """The JAX package's `make_optimizer` for "adam" (no decay) and "adamw".
-    CAME and prodigy are not ported yet."""
-    if optimizer not in ("adam", "adamw"):
-        raise NotImplementedError(f"optimizer {optimizer!r} is not ported (adam/adamw only)")
-    return AdamW(learning_rate_schedule, beta1, beta2, epsilon,
-                 weight_decay if optimizer == "adamw" else 0.0, max_grad_norm,
-                 grad_accum_steps, None if ema_decay is None else float(ema_decay))
+) -> Optimizer:
+    """The JAX package's `make_optimizer`, its arguments in its order:
+    "adam" (no decay), "adamw", "came" (`parallel/came.py`: eps 1e-30 and
+    1e-16, betas (beta1, beta2, beta3), decoupled decay; `epsilon` unused)
+    or "prodigy" (`parallel/prodigy.py`, optax.contrib.prodigy with
+    learning_rate 1.0: the schedule is not used; betas (beta1, beta2), eps,
+    decay, safeguard_warmup). `trainable_predicate(name)` takes a parameter
+    name of the port's model (`mv_blocks.3.attn1.to_q.weight`) and freezes
+    the parameters it rejects (`Optimizer`)."""
+    if optimizer in ("adam", "adamw"):
+        rule = Adam(beta1, beta2, epsilon, weight_decay if optimizer == "adamw" else 0.0)
+    elif optimizer == "prodigy":
+        if prodigy_decouple or prodigy_use_bias_correction:
+            raise ValueError(
+                "prodigy_decouple / prodigy_use_bias_correction are not supported by the "
+                "optax prodigy implementation (reference defaults are false — leave them "
+                "unset)")
+        rule = Prodigy(betas=(beta1, beta2), eps=epsilon, weight_decay=weight_decay,
+                       safeguard_warmup=prodigy_safeguard_warmup)
+    elif optimizer == "came":
+        rule = Came(beta1, beta2, beta3, weight_decay=weight_decay)
+    else:
+        raise ValueError(f"unsupported optimizer {optimizer} (adam/adamw/prodigy/came); the "
+                         "reference's bnb-8bit/torchao-4bit variants are not ported")
+    return Optimizer(learning_rate_schedule, rule, max_grad_norm, grad_accum_steps,
+                     None if ema_decay is None else float(ema_decay), trainable_predicate)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +324,7 @@ class LossDraws:
 
     lat_noise: torch.Tensor  # [B, C, F, H, W] to sample the video latents' moments
     img_noise: torch.Tensor  # [B, C, F_img, H, W] to sample the image latents' moments
-    noise: torch.Tensor  # [B, F, C, H, W] diffusion noise
+    noise: torch.Tensor  # [B, F, C, H, W] diffusion noise (F padded as the loss pads it)
     t: torch.Tensor  # [B] int64 timesteps
     drop_u: torch.Tensor  # [] uniform of the whole-batch image-CFG dropout
     mask_u: torch.Tensor  # [B] uniforms of the action-CFG mask
@@ -236,11 +335,13 @@ class LossDraws:
 
     @classmethod
     def draw(cls, generator: Optional[torch.Generator], batch: Dict[str, torch.Tensor],
-             num_train_timesteps: int = 1000) -> "LossDraws":
-        """Fresh draws for `batch` on its device."""
+             num_train_timesteps: int = 1000, patch_size_t: Optional[int] = None) -> "LossDraws":
+        """Fresh draws for `batch` on its device. With `patch_size_t`, the
+        diffusion noise covers the frames the loss pads to a multiple of it."""
         lat, img = batch["latents"], batch["image_latents"]
         B, C2, F, H, W = lat.shape
         kw = dict(generator=generator, device=lat.device)
+        F_noise = F + (-F % patch_size_t if patch_size_t else 0)
 
         def moment_noise(key):
             m = batch.get(key)
@@ -248,7 +349,7 @@ class LossDraws:
 
         return cls(lat_noise=torch.randn(B, C2 // 2, F, H, W, **kw),
                    img_noise=torch.randn(B, img.shape[1] // 2, *img.shape[2:], **kw),
-                   noise=torch.randn(B, F, C2 // 2, H, W, **kw),
+                   noise=torch.randn(B, F_noise, C2 // 2, H, W, **kw),
                    t=torch.randint(0, num_train_timesteps, (B,), **kw),
                    drop_u=torch.rand((), **kw), mask_u=torch.rand(B, **kw),
                    depth_noise=moment_noise("latents_depth"),
@@ -305,19 +406,6 @@ def compute_action_loss(actions, recon, mask, weights=(0.4, 5.0, 1.0)):
     return weights[0] * rot, weights[1] * pos, weights[2] * grip
 
 
-def refuse_model_surface(dit_cfg, who: str) -> None:
-    """Raise by name on a model whose training the port lacks (ROADMAP.md
-    A11): a RoPE model's loss needs the rotary tables, a `patch_size_t`
-    model's the frame padding, a multiview model's the per-view latents."""
-    for name, on in (("use_rotary_positional_embeddings", dit_cfg.use_rotary_positional_embeddings),
-                     ("patch_size_t", dit_cfg.patch_size_t is not None),
-                     ("multiview", dit_cfg.multiview)):
-        if on:
-            raise NotImplementedError(
-                f"{who}: training a model with {name} is not ported yet (ROADMAP.md A11); "
-                "its serving path is")
-
-
 def diffusion_loss(
     model: torch.nn.Module,
     batch: Dict[str, torch.Tensor],
@@ -326,20 +414,43 @@ def diffusion_loss(
     vae_scaling_factor: float = 1.15258426,
     noised_image_dropout: float = 0.05,
     recon_action: bool = False,
+    num_views: int = 1,
+    image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    patch_size_t: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One loss evaluation of the ControlDiT `model`. batch keys ([B, ...],
-    the reference collate's layouts): 'latents' (moments [B, 2C, F, H, W]),
-    'image_latents' (moments, F_img frames), 'prompt_embeds', optional
-    'actions' [B, F_raw, 7], 'frame_mask' [F] and the visual-control moments
-    'latents_depth' / 'latents_label' [B, 2C, F, H, W], each sampled with
-    its `draws` noise, scaled and duplicated to 2C channels as the model's
-    `depths` / `labels`. Returns (loss, metrics); the metrics are detached.
-    Refuses RoPE, `patch_size_t` and multiview models (ROADMAP.md A11)."""
-    refuse_model_surface(model.config, "diffusion_loss")
+    the reference collate's layouts): 'latents' (moments [B, 2C, F, H, W];
+    a multiview batch stacks its `num_views` views on F), 'image_latents'
+    (moments, F_img frames), 'prompt_embeds', optional 'actions' [B, F_raw, 7],
+    'frame_mask' [F] and the visual-control moments 'latents_depth' /
+    'latents_label' [B, 2C, F, H, W], each sampled with its `draws` noise,
+    scaled and duplicated to 2C channels as the model's `depths` / `labels`.
+    `image_rotary_emb`: a RoPE model's (cos, sin) tables for one view.
+    `patch_size_t` (the 1.5 family): a frame count it does not divide is
+    zero-padded at the end to a multiple of it, the actions by 4 raw frames
+    a padded latent frame and the control latents alike, and the padded
+    tail leaves the loss through `frame_mask` (merged with the batch's);
+    single-view only, as in the JAX package. Returns (loss, metrics); the
+    metrics are detached."""
     lat = sample_from_moments(batch["latents"], noise=draws.lat_noise) * vae_scaling_factor
     lat = lat.permute(0, 2, 1, 3, 4)  # [B, F, C, H, W]
     img = sample_from_moments(batch["image_latents"], noise=draws.img_noise) * vae_scaling_factor
     img = img.permute(0, 2, 1, 3, 4)
+    actions, frame_mask = batch.get("actions"), batch.get("frame_mask")
+    pad_frames = 0
+    if patch_size_t and lat.shape[1] % patch_size_t:
+        if num_views > 1:
+            raise ValueError("patch_size_t frame padding is single-view only "
+                             "(matches the reference train loop)")
+        pad_frames = patch_size_t - lat.shape[1] % patch_size_t
+        lat = torch.cat([lat, lat.new_zeros((lat.shape[0], pad_frames, *lat.shape[2:]))], dim=1)
+        if actions is not None:
+            actions = torch.cat([actions, actions.new_zeros(
+                (actions.shape[0], pad_frames * 4, actions.shape[2]))], dim=1)
+        fm = torch.ones(lat.shape[1], dtype=torch.bool, device=lat.device)
+        fm[-pad_frames:] = False
+        frame_mask = fm if frame_mask is None else torch.cat(
+            [frame_mask.bool(), fm[frame_mask.shape[0]:]])
     B, F = lat.shape[:2]
     img = torch.cat([img, img.new_zeros((B, F - img.shape[1], *img.shape[2:]))], dim=1)
     # image-CFG dropout of the whole batch, as the reference's python-level rand
@@ -355,19 +466,20 @@ def diffusion_loss(
             raise ValueError(f"batch[{key!r}] needs its moment noise in the draws")
         c = sample_from_moments(batch[key], noise=noise) * vae_scaling_factor
         c = c.permute(0, 2, 1, 3, 4)
+        if pad_frames and c.shape[1] < F:
+            c = torch.cat([c, c.new_zeros((c.shape[0], F - c.shape[1], *c.shape[2:]))], dim=1)
         return torch.cat([c, c], dim=2)
 
-    actions = batch.get("actions")
     v_pred, is_action_mask, actions_recon = model(
         model_in, batch["prompt_embeds"], draws.t, actions=actions,
         depths=control("latents_depth", draws.depth_noise),
         labels=control("latents_label", draws.label_noise),
-        deterministic=False, action_mask_u=draws.mask_u)
+        deterministic=False, action_mask_u=draws.mask_u, image_rotary_emb=image_rotary_emb,
+        num_views=num_views)
 
     x0_pred = pred_x0_from_v(schedule, v_pred.float(), noisy, draws.t)
     w = loss_weights(schedule, draws.t).reshape(B, *([1] * (lat.dim() - 1)))
     sq = w * (x0_pred - lat) ** 2
-    frame_mask = batch.get("frame_mask")
     if frame_mask is not None:
         fm = frame_mask.reshape(1, -1, 1, 1, 1).float()
         per_b = (sq * fm).reshape(B, -1).sum(1) / (fm.sum() * sq[0].numel() / F)
@@ -398,30 +510,40 @@ class TrainState:
     opt_state: OptState
 
     @classmethod
-    def create(cls, model: torch.nn.Module, tx: AdamW) -> "TrainState":
-        return cls(step=0, model=model, opt_state=tx.init(trainable(model)))
+    def create(cls, model: torch.nn.Module, tx: Optimizer) -> "TrainState":
+        names, params = zip(*named_grad_params(model))
+        return cls(step=0, model=model, opt_state=tx.init(params, names))
 
 
-def trainable(model: torch.nn.Module) -> List[torch.nn.Parameter]:
-    """The parameters the optimizer updates, in `model.parameters()` order."""
-    return [p for p in model.parameters() if p.requires_grad]
+def named_grad_params(model: torch.nn.Module) -> List[Tuple[str, torch.nn.Parameter]]:
+    """(name, parameter) of every parameter the step differentiates (those
+    that require grad), in `model.named_parameters()` order; the frozen
+    ones of a `trainable_predicate` are among them."""
+    return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
 
 
-def make_train_step(tx: AdamW, schedule: DiffusionSchedule, **loss_kwargs):
+def grad_params(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """The parameters of `named_grad_params`."""
+    return [p for _, p in named_grad_params(model)]
+
+
+def make_train_step(tx: Optimizer, schedule: DiffusionSchedule, **loss_kwargs):
     """The training step: `step(state, batch, rng) -> (state, metrics)`.
 
-    One call is one micro-step: the loss and its gradients, then `tx.update`
-    (which applies on every `grad_accum_steps`-th call). `rng` is a
-    `torch.Generator` to draw the step's `LossDraws` from, or the draws
-    themselves. A parameter that gets no gradient takes a zero one, as in
-    JAX. metrics: the loss terms and `grad_norm`, the global norm of this
-    micro-step's gradients, all detached device scalars."""
+    One call is one micro-step: the loss and the gradients of every
+    parameter, then `tx.update` (which applies on every `grad_accum_steps`-th
+    call). `rng` is a `torch.Generator` to draw the step's `LossDraws` from,
+    or the draws themselves. A parameter that gets no gradient takes a zero
+    one, as in JAX. metrics: the loss terms and `grad_norm`, the global norm
+    of this micro-step's gradients over every parameter (frozen ones too, as
+    JAX logs it), all detached device scalars. `loss_kwargs` go to
+    `diffusion_loss`."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              rng: Union[torch.Generator, LossDraws, None]):
-        params = trainable(state.model)
+        params = grad_params(state.model)
         draws = rng if isinstance(rng, LossDraws) else LossDraws.draw(
-            rng, batch, schedule.num_train_timesteps)
+            rng, batch, schedule.num_train_timesteps, loss_kwargs.get("patch_size_t"))
         for p in params:
             p.grad = None
         loss, metrics = diffusion_loss(state.model, batch, schedule, draws, **loss_kwargs)
@@ -441,46 +563,56 @@ def make_train_step(tx: AdamW, schedule: DiffusionSchedule, **loss_kwargs):
 # Flat form of a TrainState (the checkpoint's)
 # ---------------------------------------------------------------------------
 
-_OPT_GROUPS = ("mu", "nu", "acc", "ema")
+def _state_places(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every tensor of `state` by its checkpoint name (`state_tensors`)."""
+    named = named_grad_params(state.model)
+    o = state.opt_state
+    places = {f"params/{k}": v for k, v in state.model.state_dict().items()}
+    trained = [n for (n, _), m in zip(named, o.mask) if m]
+    for group, names, values in (("acc", trained, o.acc), ("ema", [n for n, _ in named], o.ema)):
+        if values is not None:
+            places.update({f"{group}/{n}": v for n, v in zip(names, values)})
+    for group, leaves in o.tensors.items():
+        places.update({f"{group}/{leaf}": v for leaf, v in leaves.items()})
+    places.update({f"scalar/{k}": v for k, v in o.scalars.items()})
+    return places
 
 
 def state_tensors(state: TrainState) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
     """`state` -> ({name: tensor}, scalars), no copies made. Names are
-    "params/<key>" for every entry of the model's state dict and
-    "<group>/<parameter>" for the optimizer's lists (group mu, nu, acc
-    between the micro-steps of an accumulation, ema with `ema_decay`);
-    scalars are step, count and mini_step."""
-    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+    "params/<key>" for every entry of the model's state dict,
+    "<group>/<leaf>" for the optimizer rule's tensors (Adam's mu and nu by
+    parameter name, CAME's fields by leaf, prodigy's by parameter name; a
+    frozen parameter has none), "acc/<parameter>" for the trainable
+    parameters' accumulator between the micro-steps of an accumulation,
+    "ema/<parameter>" for every parameter's EMA with `ema_decay`, and
+    "scalar/<name>" for the rule's 0-d tensors (prodigy's estim_lr and
+    numerator_weighted); the scalars returned are step, count and
+    mini_step."""
     o = state.opt_state
-    tensors = {f"params/{k}": v.detach() for k, v in state.model.state_dict().items()}
-    for group in _OPT_GROUPS:
-        values = getattr(o, group)
-        if values is not None:
-            tensors.update({f"{group}/{n}": v.detach() for n, v in zip(names, values)})
+    tensors = {k: v.detach() for k, v in _state_places(state).items()}
     return tensors, dict(step=int(state.step), count=int(o.count), mini_step=int(o.mini_step))
 
 
-def load_state_tensors(state: TrainState, items, scalars: Dict[str, int]) -> TrainState:
+def load_state_tensors(state: TrainState, items: Iterable[Tuple[str, torch.Tensor]],
+                       scalars: Dict[str, int]) -> TrainState:
     """The inverse of `state_tensors`, in place: copy every (name, tensor)
     of `items` (an iterable, so a reader can stream them) into `state`'s
     tensors and set its scalars. The accumulator is rebuilt when
     `mini_step` > 0. Raises on a name `state` has no place for, a shape
     that differs or a name missing from `items`."""
-    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
     o = state.opt_state
     mini_step = int(scalars["mini_step"])
-    o.acc = [torch.empty_like(p) for p in trainable(state.model)] if mini_step else None
-    dest = {f"params/{k}": v for k, v in state.model.state_dict().items()}
-    for group in _OPT_GROUPS:
-        values = getattr(o, group)
-        if values is not None:
-            dest.update({f"{group}/{n}": v for n, v in zip(names, values)})
+    trained = [p for p, m in zip(grad_params(state.model), o.mask) if m]
+    o.acc = [torch.empty_like(p) for p in trained] if mini_step else None
+    dest = _state_places(state)
     seen = set()
     with torch.no_grad():
         for name, value in items:
             if name not in dest:
                 raise KeyError(f"checkpoint tensor {name!r} has no place in this train state "
-                               "(another model, or an EMA the optimizer does not keep)")
+                               "(another model, optimizer or trainable set, or an EMA the "
+                               "optimizer does not keep)")
             if tuple(value.shape) != tuple(dest[name].shape):
                 raise ValueError(f"checkpoint tensor {name!r} is {tuple(value.shape)}, the "
                                  f"state's {tuple(dest[name].shape)}")

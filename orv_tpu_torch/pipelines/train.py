@@ -19,12 +19,19 @@ step into its key, so a resumed run draws what an unbroken one would; a
 caller may pass `draws(step, batch)`. Validation's come through
 `EvalDraws` the same way (`val_draws`).
 
+The rest of the model surface trains as in the JAX package: a multiview
+model (the stage-3 recipes) reads each batch's view count and trains its
+`mv_blocks` only (the other parameters frozen by the optimizer's
+`trainable_predicate`), a RoPE model takes tables built from the first
+batch's grid, and the 1.5 family's loss pads the frames to a multiple of
+`patch_size_t`; `train.gradient_checkpointing` remats every block,
+`train.remat_policy` as in the JAX package; `train.optimizer.type` is adam,
+adamw, came or prodigy. A stage-3 run starts from a stage-2 export whose
+`mv_blocks` are seeded (`ensure_mv_blocks`).
+
 Refused by name, with the ROADMAP.md item: any `train.mesh` axis above 1
-(A7 for sp, A8 for dp/fsdp/tp/pp; dp: -1 is 1 on one card),
-`train.loader=grain` (A10), optimizers but adam/adamw and
-`gradient_checkpointing` (A4), and the training side of the model surface
-(A11): multiview, RoPE models and `patch_size_t` (the 1.5 family), whose
-loss needs the rotary tables and the frame padding that it lacks.
+(A7 for sp, A8 for dp/fsdp/tp/pp; dp: -1 is 1 on one card) and
+`train.loader=grain` (A10).
 """
 
 from __future__ import annotations
@@ -48,13 +55,13 @@ from orv_tpu_torch.data import (BucketSampler, CascadedRobotDataset, DatasetConf
                                 MultiViewRobotDataset, RobotDataset, collate_control)
 from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
 from orv_tpu_torch.models.weights import dit_state_dict_from_diffusers
-from orv_tpu_torch.parallel.train_step import (EvalDraws, LossDraws, TrainState,
+from orv_tpu_torch.parallel.train_step import (EvalDraws, LossDraws, TrainState, grad_params,
                                                make_lr_schedule, make_optimizer,
-                                               make_train_step, refuse_model_surface,
-                                               trainable)
+                                               make_train_step, named_grad_params)
 from orv_tpu_torch.schedulers import make_schedule
 from orv_tpu_torch.utils.checkpoint import TrainCheckpointer, export_pretrained, load_pretrained
 from orv_tpu_torch.utils.device import DeviceLike, resolve_device
+from orv_tpu_torch.utils.embeddings import prepare_rotary_positional_embeddings
 from orv_tpu_torch.utils.logging import CONSOLE
 from orv_tpu_torch.utils.tracker import Tracker
 
@@ -213,16 +220,21 @@ def prefetch_batches(dataset, sampler, num_threads: int = 2, depth: int = 4) -> 
 
 def init_params(cfg: Config, dit_cfg: DiTConfig, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> ControlDiT:
-    """The config's ControlDiT with f32 parameters: from
+    """The config's ControlDiT with f32 parameters, remat as
+    `train.gradient_checkpointing` and `train.remat_policy` ask: from
     `transformer.pretrained_name_or_path` when that folder exists (a
     diffusers folder, through `dit_state_dict_from_diffusers` with
-    `transformer.from_t2v`; a folder of the JAX package's `model.msgpack`
+    `transformer.from_t2v`, which seeds the `mv_blocks` of a multiview model
+    from a folder without them; a folder of the JAX package's `model.msgpack`
     alone is refused, naming its conversion), else a random init from
     `seed`, logged."""
     device = resolve_device(device)
+    tcfg = cfg.get("train", {}) or {}
     with torch.random.fork_rng(devices=[device.index or 0] if device.type == "cuda" else []):
         torch.manual_seed(int(cfg.get("seed", 42)))
-        model = ControlDiT(dit_cfg, dtype=dtype, param_dtype=torch.float32, device=device)
+        model = ControlDiT(dit_cfg, dtype=dtype, param_dtype=torch.float32, device=device,
+                           remat=bool(tcfg.get("gradient_checkpointing", False)),
+                           remat_policy=tcfg.get("remat_policy"))
     pretrained = cfg.transformer.get("pretrained_name_or_path")
     if pretrained and Path(str(pretrained)).exists():
         _, sd = load_pretrained(str(pretrained))
@@ -237,9 +249,9 @@ def init_params(cfg: Config, dit_cfg: DiTConfig, dtype=torch.bfloat16,
 
 @contextlib.contextmanager
 def _params_swapped(model: torch.nn.Module, tensors):
-    """Inside the block the model's trainable parameters hold `tensors` (no
-    copy: their storage is swapped), then their own again."""
-    params = trainable(model)
+    """Inside the block the model's parameters (`grad_params`) hold `tensors`
+    (no copy: their storage is swapped), then their own again."""
+    params = grad_params(model)
     own = [p.data for p in params]
     try:
         for p, t in zip(params, tensors):
@@ -263,12 +275,16 @@ def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, s
     decoded mp4 under `validation/` when a VAE is given, else one `.npz` of
     the latents. `draws(step, noise_shape, image_shape)` gives the
     EvalDraws (default: a generator seeded with seed + step, which also
-    feeds the stochastic DPM steps). Returns the last path written."""
+    feeds the stochastic DPM steps). A RoPE model takes tables for the
+    batch's grid. As in the JAX package, the sampler takes no `num_views`:
+    a multiview model denoises its batch's V x F latent frames as one view
+    (ROADMAP.md C, "noted in the reference"), and a `patch_size_t` model
+    needs a frame count it divides. Returns the last path written."""
     from orv_tpu_torch.pipelines.sample import (SamplerConfig, make_sampler,
                                                 prepare_image_latents)
 
     device = resolve_device(device)
-    dit_cfg = model.config  # train() refuses RoPE models (A11)
+    dit_cfg = model.config
     inf = cfg.get("inference", {}) or {}
     sampler = make_sampler(model, make_schedule(), SamplerConfig(
         num_inference_steps=int(inf.get("num_inference_steps", 50)),
@@ -279,6 +295,13 @@ def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, s
     n_val = min(n_val, int(np.asarray(batch["latents"]).shape[0]))
     C = dit_cfg.out_channels
     F_lat, H, W = np.asarray(batch["latents"]).shape[2:]
+    pt = dit_cfg.patch_size_t
+    if pt and F_lat % pt:
+        raise ValueError(
+            f"run_validation samples the batch's {F_lat} latent frames unpadded, which "
+            f"patch_size_t={pt} does not divide (the JAX package's run_validation fails on "
+            "them too); train such clips with NO_INIT_VAL=1 and validation_steps past "
+            "max_train_steps")
     img = batch.get("image_latents")
     img_shape = None if img is None or img.shape[1] != 2 * C else (n_val, C, *img.shape[2:])
     if draws is None:
@@ -295,6 +318,10 @@ def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, s
     kwargs = {}
     if "actions" in batch:
         kwargs["actions"] = on(batch["actions"]).to(torch.bfloat16)
+    if dit_cfg.use_rotary_positional_embeddings:
+        kwargs["image_rotary_emb"] = prepare_rotary_positional_embeddings(
+            height=H * 8, width=W * 8, num_frames=F_lat, patch_size=dit_cfg.patch_size,
+            patch_size_t=pt, attention_head_dim=dit_cfg.attention_head_dim, device=device)
     if batch.get("prompt_embeds") is not None:
         prompt = on(batch["prompt_embeds"]).to(torch.bfloat16)
     else:
@@ -354,9 +381,10 @@ def scaled_lr(tcfg, batch_size: int) -> float:
     return lr * int(tcfg.get("gradient_accumulation_steps", 1)) * batch_size
 
 
-def build_optimizer(tcfg, total_steps: int, batch_size: int):
-    """`train.optimizer` and the lr schedule of `tcfg` -> the AdamW
-    (`make_optimizer`), over `total_steps` micro-steps as JAX passes them."""
+def build_optimizer(tcfg, total_steps: int, batch_size: int, multiview: bool = False):
+    """`train.optimizer` and the lr schedule of `tcfg` -> the `Optimizer`
+    (`make_optimizer`), over `total_steps` micro-steps as JAX passes them; a
+    multiview model trains its `mv_blocks` only (JAX's `"mv_block" in path`)."""
     opt = tcfg.get("optimizer", {}) or {}
     base_lr = scaled_lr(tcfg, batch_size)
     if tcfg.get("scale_lr"):
@@ -364,10 +392,21 @@ def build_optimizer(tcfg, total_steps: int, batch_size: int):
     lr = make_lr_schedule(tcfg.get("lr_scheduler", "cosine_with_restarts"), base_lr,
                           int(tcfg.get("lr_warmup_steps", 1000)), total_steps,
                           int(tcfg.get("lr_num_cycles", 1)), power=float(tcfg.get("lr_power", 1.0)))
-    return make_optimizer(lr, opt.get("type", "adamw"), opt.get("beta1", 0.9),
-                          opt.get("beta2", 0.95), opt.get("epsilon", 1e-8),
-                          opt.get("weight_decay", 1e-3), opt.get("max_grad_norm", 1.0),
-                          int(tcfg.get("gradient_accumulation_steps", 1)), tcfg.get("ema_decay"))
+    return make_optimizer(
+        lr, opt.get("type", "adamw"), opt.get("beta1", 0.9), opt.get("beta2", 0.95),
+        opt.get("epsilon", 1e-8), opt.get("weight_decay", 1e-3), opt.get("max_grad_norm", 1.0),
+        int(tcfg.get("gradient_accumulation_steps", 1)),
+        trainable_predicate=mv_blocks_only if multiview else None,
+        beta3=opt.get("beta3") or 0.98,  # the yaml ships beta3: null
+        prodigy_safeguard_warmup=bool(opt.get("prodigy_safeguard_warmup", False)),
+        prodigy_decouple=bool(opt.get("prodigy_decouple", False)),
+        prodigy_use_bias_correction=bool(opt.get("prodigy_use_bias_correction", False)),
+        ema_decay=tcfg.get("ema_decay"))
+
+
+def mv_blocks_only(name: str) -> bool:
+    """The multiview stage's `trainable_predicate`: the cross-view blocks."""
+    return name.startswith("mv_blocks.")
 
 
 def _check_supported(cfg: Config) -> None:
@@ -383,27 +422,19 @@ def _check_supported(cfg: Config) -> None:
     if tcfg.get("loader") == "grain":
         raise NotImplementedError("train.loader=grain is not ported (ROADMAP.md A10); the "
                                   "default threaded loader runs")
-    opt = (tcfg.get("optimizer", {}) or {}).get("type", "adamw")
-    if opt not in ("adam", "adamw"):
-        raise NotImplementedError(f"train.optimizer.type={opt!r} is not ported yet (ROADMAP.md "
-                                  "A4: CAME and prodigy); adam and adamw are")
-    if tcfg.get("gradient_checkpointing"):
-        raise NotImplementedError("train.gradient_checkpointing (per-block remat) is not "
-                                  "ported yet (ROADMAP.md A4)")
-    if cfg.get("multiview"):  # the model config's own flag: refuse_model_surface
-        raise NotImplementedError("multiview training is not ported yet (ROADMAP.md A11)")
-    refuse_model_surface(build_dit_config(cfg), "train()")
 
 
-
-def seeded_draws(seed: int, device: DeviceLike, num_train_timesteps: int = 1000) -> DrawFn:
+def seeded_draws(seed: int, device: DeviceLike, num_train_timesteps: int = 1000,
+                 patch_size_t: Optional[int] = None) -> DrawFn:
     """The default `draws(step, batch)`: micro-step `step`'s LossDraws from
-    a generator on `device` seeded from (seed, step) alone."""
+    a generator on `device` seeded from (seed, step) alone (the diffusion
+    noise over the frames the loss pads to a multiple of `patch_size_t`)."""
     device = resolve_device(device)
 
     def draws(step: int, batch: Dict[str, torch.Tensor]) -> LossDraws:
         s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
-        return LossDraws.draw(torch.Generator(device).manual_seed(s), batch, num_train_timesteps)
+        return LossDraws.draw(torch.Generator(device).manual_seed(s), batch, num_train_timesteps,
+                              patch_size_t)
 
     return draws
 
@@ -442,7 +473,8 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
         CONSOLE.log(f"model params: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B")
 
         total_steps = total_train_steps(tcfg, len(dataset), bs)
-        tx = build_optimizer(tcfg, total_steps, bs)
+        multiview = bool(cfg.get("multiview"))
+        tx = build_optimizer(tcfg, total_steps, bs, multiview)
         lr = tx.schedule
         state = TrainState.create(model, tx)
 
@@ -455,12 +487,30 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
             CONSOLE.log(f"resumed from step {start_step}")
 
         schedule = make_schedule()
-        step_fn = make_train_step(
-            tx, schedule,
+        image_rotary_emb = None
+        if dit_cfg.use_rotary_positional_embeddings:  # tables for the first batch's grid
+            F_lat, h_lat, w_lat = first["latents"].shape[2:]
+            image_rotary_emb = prepare_rotary_positional_embeddings(
+                height=h_lat * 8, width=w_lat * 8, num_frames=F_lat,
+                patch_size=dit_cfg.patch_size, patch_size_t=dit_cfg.patch_size_t,
+                attention_head_dim=dit_cfg.attention_head_dim, device=device)
+        step_kwargs = dict(
             vae_scaling_factor=float(cfg.get("vae", {}).get("scaling_factor", 1.15258426)),
             noised_image_dropout=float(tcfg.get("noised_image_dropout", 0.05)),
-            recon_action=bool(cfg.get("recon_action", False)))
-        draws = draws or seeded_draws(seed, device, schedule.num_train_timesteps)
+            recon_action=bool(cfg.get("recon_action", False)),
+            image_rotary_emb=image_rotary_emb, patch_size_t=dit_cfg.patch_size_t)
+        # a step per view count: multiview batches are homogeneous in it, and
+        # the frame padding is single-view
+        steps = {1: make_train_step(tx, schedule, **step_kwargs)}
+
+        def step_for(nv: int):
+            if nv not in steps:
+                steps[nv] = make_train_step(tx, schedule, **{
+                    **step_kwargs, "num_views": nv, "patch_size_t": None})
+            return steps[nv]
+
+        draws = draws or seeded_draws(seed, device, schedule.num_train_timesteps,
+                                      dit_cfg.patch_size_t)
         tracker = Tracker(str(out_dir / "logs"), cfg.get("tracker_name"), config=dict(cfg))
 
         vae_path = cfg.get("vae", {}).get("pretrained_name_or_path")
@@ -487,8 +537,9 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
         t_last = time.time()
         batch = first
         for step in range(start_step, total_steps):
+            nv = int(batch.get("num_views", 1)) if multiview else 1
             b = to_device(batch, device)
-            state, metrics = step_fn(state, b, draws(step, b))
+            state, metrics = step_for(nv)(state, b, draws(step, b))
             if (step + 1) % log_every == 0 or step == start_step:
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = (time.time() - t_last) / (log_every if step > start_step else 1)
@@ -505,7 +556,7 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
         ckpt.save(total_steps, state)
         export_pretrained(str(out_dir / "checkpoint"), model.state_dict(), dit_cfg)
         if state.opt_state.ema is not None:
-            names = [n for n, p in model.named_parameters() if p.requires_grad]
+            names = [n for n, _ in named_grad_params(model)]
             export_pretrained(str(out_dir / "checkpoint_ema"),
                               {**model.state_dict(), **dict(zip(names, state.opt_state.ema))},
                               dit_cfg)

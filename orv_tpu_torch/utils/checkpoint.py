@@ -6,9 +6,12 @@ Counterpart of `orv_tpu/utils/checkpoint.py`.
 to `max_to_keep` and `latest_step` for resume, as the JAX package's orbax
 manager does. Its format is the port's own: one directory per step,
 `<directory>/<step>/`, holding `state.safetensors` (the model's state dict
-and the optimizer's moments, accumulator and EMA, named by
-`parallel/train_step.py:state_tensors`) and `state.json` (step, count,
-mini_step). The port cannot read an orbax checkpoint, and the JAX package
+and the optimizer's state, named by `parallel/train_step.py:state_tensors`:
+the rule's tensors for the trainable parameters only, Adam's moments,
+CAME's per-leaf m, factored rows and columns or full second moment (a
+field a leaf does not use is absent), prodigy's four tensors and its two
+scalars as 0-d tensors; the accumulator between micro-steps; the EMA of
+every parameter) and `state.json` (step, count, mini_step). The port cannot read an orbax checkpoint, and the JAX package
 cannot read this one: a run resumes in the package that wrote it.
 
 The port's inference artifact is a diffusers folder (`config.json` plus

@@ -209,7 +209,7 @@ def prepare_rotary_positional_embeddings(
     """(cos, sin) f32 tensors [T*H*W, head_dim] on `device` (CUDA unless
     "cpu" is asked) for the video token grid: the 1.0 crop-grid tables, or
     with `patch_size_t` the 1.5 slice tables over ceil(F / patch_size_t)
-    frames."""
+    frames. Never inference tensors."""
     grid_height = height // (vae_scale_factor_spatial * patch_size)
     grid_width = width // (vae_scale_factor_spatial * patch_size)
     base_size_width = base_width // (vae_scale_factor_spatial * patch_size)
@@ -236,4 +236,7 @@ def prepare_rotary_positional_embeddings(
             max_size=(base_size_height, base_size_width),
         )
     device = resolve_device(device)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    # normal tensors even under a sampler's inference mode, so that a training
+    # step may take tables an inline validation built (as PatchEmbed's table)
+    with torch.inference_mode(False):
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)

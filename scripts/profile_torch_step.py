@@ -29,6 +29,18 @@ and once under torch.profiler. For each piece it prints the wall time, the
 summed device time of its kernels, the idle share (1 - device / wall of
 the profiled run), the device time by kind of kernel and the top
 kernels by device time.
+
+Last it profiles one micro-step of the stage-3 multiview recipe
+(`experiments/traj_image_2b_multiview.yaml`'s model: the 2B DiT with 30
+MVBlocks, seeded random weights, per-block remat, only the `mv_blocks`
+training) at the recipe's B=3 with 3 views of 5 latent frames, by hand:
+the loss, its backward and one applied optimizer update (accumulation 1),
+synchronized between the three. Besides the breakdown it splits the
+device time by region (forward, backward, optimizer) and names the
+recompute: the forward kinds' kernels (flash forward, adaLN forward,
+gated residual) that ran inside the backward, and the forward region's
+device time, which the recompute repeats (its GEMMs cannot be told from
+the backward's by name).
 """
 
 from __future__ import annotations
@@ -45,23 +57,28 @@ from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (  # noqa: E402
     FLAGSHIP,
     LATENT,
+    MULTIVIEW_2B,
     RECIPE_2B,
     flagship_inputs,
     train_config,
     write_train_data,
 )
 from orv_tpu_torch.models import ControlDiT  # noqa: E402
+from orv_tpu_torch.parallel import (LossDraws, TrainState, diffusion_loss,  # noqa: E402
+                                    make_lr_schedule, make_optimizer)
+from orv_tpu_torch.parallel.train_step import global_norm, grad_params  # noqa: E402
 from orv_tpu_torch.models.quantize import quantize_model_  # noqa: E402
 from orv_tpu_torch.ops.ring_attention import joint_ring_attention  # noqa: E402
 from orv_tpu_torch.parallel.sp import LocalRing  # noqa: E402
 from orv_tpu_torch.pipelines import train as train_mod  # noqa: E402
+from orv_tpu_torch.schedulers import make_schedule  # noqa: E402
 
 # kernel name -> kind, first match wins. The adaLN backwards add their sums
 # over S inside their one launch (csrc/adaln_bwd_sm90.cuh), so their time
@@ -83,6 +100,12 @@ KINDS = [
     ("AdamW and clip (torch._foreach_*, plain PyTorch)", re.compile(r"multi_tensor|foreach")),
     ("elementwise, reductions, copies (plain PyTorch)", re.compile(r".")),
 ]
+
+
+# the stage-3 micro-step's regions (`record_function` ranges), and the forward
+# kinds whose kernels inside the backward are the recompute's
+REGIONS = ("forward", "backward", "optimizer")
+FORWARD_KINDS = re.compile(r"flash_fwd_static_max|modulate_norm|gated_residual")  # and no "bwd"
 
 
 def kind(name: str) -> str:
@@ -119,11 +142,15 @@ def breakdown(name: str, run) -> None:
     report(name, wall, wall_prof, prof)
 
 
+def device_events(prof):
+    """The profile's device events, less the ranges of `record_function`
+    that it also records on the device timeline (`REGIONS`)."""
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in REGIONS]
+
+
 def report(name: str, wall: float, wall_prof: float, prof) -> None:
     per_kernel, per_kind = defaultdict(lambda: [0.0, 0]), defaultdict(float)
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_events(prof):
         us = e.time_range.elapsed_us()
         per_kernel[e.name][0] += us
         per_kernel[e.name][1] += 1
@@ -183,6 +210,71 @@ class OptimizerSteps:
         self.t0 = time.perf_counter()
 
 
+
+
+def stage3_micro_step(views: int = 3, batch_size: int = 3) -> None:
+    """One stage-3 micro-step by its regions (module docstring)."""
+    torch.manual_seed(0)
+    model = ControlDiT(MULTIVIEW_2B, dtype=torch.bfloat16, param_dtype=torch.float32, remat=True)
+    tx = make_optimizer(make_lr_schedule("constant", 2e-4, warmup_steps=0),
+                        trainable_predicate=train_mod.mv_blocks_only)
+    state = TrainState.create(model, tx)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    batch = dict(latents=rand(batch_size, 32, views * 5, 40, 60),
+                 image_latents=rand(batch_size, 32, views, 40, 60),
+                 prompt_embeds=0.1 * rand(batch_size, 226, 4096),
+                 actions=0.1 * rand(batch_size, 16, 7))
+    sched, params = make_schedule(), grad_params(model)
+
+    def run():
+        draws = LossDraws.draw(g, batch)
+        with record_function("forward"):
+            loss, _ = diffusion_loss(model, batch, sched, draws, num_views=views)
+            torch.cuda.synchronize()
+        with record_function("backward"):
+            loss.backward()
+            torch.cuda.synchronize()
+        with record_function("optimizer"):
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            for p in params:
+                p.grad = None
+            global_norm(grads)
+            tx.update(grads, state.opt_state, params)
+            torch.cuda.synchronize()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with profiler() as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_prof = time.perf_counter() - t0
+    report(f"stage-3 micro-step (2B + 30 MVBlocks, remat, mv_blocks train; B={batch_size} x "
+           f"{views} views x 5 latent frames, one applied AdamW update)", wall, wall_prof, prof)
+    starts = {e.name: e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CPU and e.name in REGIONS}
+    bounds = [starts[r] for r in REGIONS]
+    device, recompute = defaultdict(float), 0.0
+    for e in device_events(prof):
+        i = sum(e.time_range.start >= b for b in bounds[1:3])
+        us = e.time_range.elapsed_us()
+        device[REGIONS[i]] += us
+        if REGIONS[i] == "backward" and FORWARD_KINDS.search(e.name) and "bwd" not in e.name:
+            recompute += us
+    total = sum(device.values())
+    print("  by region (device ms, share): " + ", ".join(
+        f"{r} {device[r] / 1e3:.1f} ({device[r] / total:.1%})" for r in REGIONS)
+        + f"; the forward kinds' kernels inside the backward (the recompute's flash forwards, "
+        f"adaLN forwards and gated residuals) {recompute / 1e3:.1f} ms ({recompute / total:.1%}); "
+        f"the recompute repeats the blocks' forward, about the forward region's "
+        f"{device['forward'] / 1e3:.1f} ms ({device['forward'] / total:.1%} of the step); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs an NVIDIA GPU", file=sys.stderr)
@@ -226,6 +318,8 @@ def main() -> int:
     finally:
         os.environ.pop("NO_INIT_VAL", None)
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stage3_micro_step()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"latents {LATENT}, card: {smi.stdout.strip()}", flush=True)

@@ -231,14 +231,6 @@ def test_loss_draws_cover_the_batch_controls_and_refusals():
     d2.depth_noise = None
     with pytest.raises(ValueError, match="latents_depth"):
         diffusion_loss(model, batch, make_schedule(), d2)
-    # the loss lacks the 1.5 family's frame padding, RoPE's tables and the
-    # views: it refuses such a model by name (ROADMAP.md A11)
-    for extra in (dict(patch_size_t=2), dict(use_rotary_positional_embeddings=True),
-                  dict(multiview=True)):
-        name = next(iter(extra))
-        surface = ControlDiT(DiTConfig(**dict(DIT, **extra)), dtype=torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"{name}.*A11"):
-            diffusion_loss(surface, batch, make_schedule(), d)
 
 
 # -- loader ---------------------------------------------------------------------
@@ -388,7 +380,7 @@ def test_optional_keys_are_accepted_where_the_model_has_them_and_refused_by_name
         dit_state_dict_from_diffusers(no_norm, tcfg)
     # mv_blocks in a single-view config's load are dropped, as JAX's
     # convert_dit_state_dict drops them; a multiview model takes them
-    # (tests/test_torch_port_model_surface.py), and train() refuses it (A11)
+    # (tests/test_torch_port_model_surface.py)
     assert dit_state_dict_from_diffusers(
         dict(got, **{"mv_blocks.0.norm1.linear.weight": torch.zeros(1)}), tcfg).keys() == got.keys()
     # a T2V checkpoint proper has no action or control heads: the strict load
@@ -448,17 +440,42 @@ def test_checkpointer_rotates_skips_and_restores(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (["train.mesh.sp=2"], "A7"), (["train.mesh.dp=2"], "A8"), (["train.mesh.fsdp=2"], "A8"),
     (["train.mesh.tp=2"], "A8"), (["train.mesh.pp=2"], "A8"), (["train.loader=grain"], "A10"),
-    (["train.optimizer.type=came"], "A4"), (["train.optimizer.type=prodigy"], "A4"),
-    (["train.gradient_checkpointing=true"], "A4"), (["runtime.multiview=true"], "A11"),
-    (["transformer.multiview=true"], "A11"),
-    (["transformer.use_rotary_positional_embeddings=true"], "A11"),
-    (["transformer.patch_size_t=2"], "A11"),
 ])
 def test_unported_options_are_refused_by_name(setup, tmp_path, extra, item):
     cfg = load(tconfigs, PORT_CFG, setup["one"], tmp_path, extra)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         ttrain.train(cfg, device="cpu")
     assert not (tmp_path / "run").exists()  # refused before anything is written
+
+
+@pytest.mark.parametrize("option", ["prodigy_decouple", "prodigy_use_bias_correction"])
+def test_prodigy_variants_are_refused_as_jax_refuses_them(setup, tmp_path, option):
+    """The prodigy variants optax lacks raise the JAX package's ValueError
+    in both packages' `train`, before a step runs."""
+    extra = ["train.optimizer.type=prodigy", f"train.optimizer.{option}=true",
+             "transformer.pretrained_name_or_path=null"]
+    with pytest.raises(ValueError, match="prodigy_decouple / prodigy_use_bias_correction") as want:
+        jtrain.train(load(jconfigs, JAX_CFG, setup["one"], tmp_path / "jax",
+                          extra + ["train.mesh.dp=1", "train.mesh.tp=8"]))
+    with pytest.raises(ValueError, match="prodigy_decouple / prodigy_use_bias_correction") as got:
+        ttrain.train(load(tconfigs, PORT_CFG, setup["one"], tmp_path / "port", extra),
+                     device="cpu")
+    assert str(got.value) == str(want.value)
+    assert not (tmp_path / "port" / "run" / "checkpoints").exists()
+
+
+def test_multiview_frame_padding_is_refused_as_jax_refuses_it():
+    """The 1.5 family's frame padding is single-view: a multiview batch of
+    odd frames under patch_size_t raises JAX's ValueError."""
+    batch = {k: torch.tensor(v) for k, v in _control_batch().items()}
+    model = ControlDiT(DiTConfig(**dict(DIT, multiview=True, max_n_view=2)),
+                       dtype=torch.float32, device="cpu")
+    draws = LossDraws.draw(torch.Generator().manual_seed(0), batch, patch_size_t=2)
+    with pytest.raises(ValueError, match="single-view only"):
+        diffusion_loss(model, batch, make_schedule(), draws, num_views=2, patch_size_t=2)
+    with pytest.raises(ValueError, match="single-view only"):
+        jax_train_step.diffusion_loss(None, None, _control_batch(), jax_make_schedule(),
+                                      jax.random.PRNGKey(0), num_views=2, patch_size_t=2)
 
 
 def test_a_jax_flax_folder_is_refused_naming_its_conversion(setup, tmp_path):
