@@ -96,6 +96,28 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      without the first forward's costs); inference.main in its tiny smoke
      mode over a demo
      folder of 17 png frames;
+  4c. the offline path at full width on seeded random weights, phase 4b's
+     models freed first: data_process.extract of two 49-frame 320x480
+     episodes from a source generator (mp4 + annotation JSON; a render.npz
+     of depths and labels beside each); encode_dataset.encode_split on the
+     2B recipe's config with the default bf16 VAE, ref_nums 1 and 5 and
+     depth and label latents (18 slices of 17 frames: s/slice, s/clip,
+     files by kind, peak memory), again (nothing written), then with one
+     file deleted (that file only rewritten, every other file's mtime
+     unchanged), and the zero empty prompt; T5-v1.1-XXL (24 x 4096, bf16)
+     on 226 token ids ([1] + [0] * 225: no tokenizer files are in the
+     repository): ms a call, its device time split into GEMMs and the rest,
+     peak memory; a 2-layer full-width encoder saved as a sharded folder and
+     loaded back through from_pretrained, bitwise equal; a 2-layer narrow
+     encoder on the card against the CPU in f32 (`agree`); train on the
+     encoded latents (the 2B recipe cut to 4 of 30 layers, 2 micro-steps,
+     no validation): launches 2 x train_micro_step_counts(4), finite
+     losses; metrics.main with random torchvision- and pytorch-i3d-named
+     safetensors folders (non-identity batch norms) over two 49-frame
+     gt/pred pairs: PSNR, SSIM, FID and FVD at 16/32/48/49; the feature
+     networks' device ms a 32-frame Inception batch and an 8-clip I3D batch
+     at 16x224x224 in f32; the card's features against the CPU's on one
+     batch each, within 1e-3 of their RMS;
   5. training through the entry point, the serving models freed first:
      pipelines/train.py:train on the port's base_train.yaml +
      experiments/traj_image_2b_finetune.yaml (30 layers x 30 heads x 64,
@@ -244,8 +266,11 @@ from orv_tpu_torch.configs import default_config_dir, load_config
 from orv_tpu_torch.data import BucketSampler
 from orv_tpu_torch.models import (CausalVAE, ControlDiT, DiTConfig, VAEConfig, decode_chunked,
                                   encode_auto)
+from orv_tpu_torch.models.feature_extractors import I3D, ConvBN, InceptionV3Pool3
 from orv_tpu_torch.models.layers import quantize_tokens
 from orv_tpu_torch.models.quantize import quantize_linear_params, quantize_model_
+from orv_tpu_torch.models.text_encoder import T5Config, T5Encoder
+from orv_tpu_torch.models.weights import write_safetensors
 from orv_tpu_torch.ops import _build, adaln, attention
 from orv_tpu_torch.ops.ring_attention import joint_ring_attention
 from orv_tpu_torch.parallel import (
@@ -259,9 +284,11 @@ from orv_tpu_torch.parallel import (
 from orv_tpu_torch.parallel.sp import LocalRing
 from orv_tpu_torch.parallel.train_step import global_norm, grad_params
 from orv_tpu_torch.pipelines import train as train_mod
-from orv_tpu_torch.pipelines import SamplerConfig, decode_latents, make_sampler
+from orv_tpu_torch.pipelines import SamplerConfig, data_process, decode_latents, make_sampler
+from orv_tpu_torch.pipelines import encode_dataset as encode_mod
 from orv_tpu_torch.pipelines import evaluate as evaluate_mod
 from orv_tpu_torch.pipelines import inference as inference_mod
+from orv_tpu_torch.pipelines import metrics as metrics_mod
 from orv_tpu_torch.pipelines.evaluate import evaluate
 from orv_tpu_torch.pipelines.inference import generate_video
 from orv_tpu_torch.pipelines.train import build_dit_config
@@ -1958,12 +1985,11 @@ SMOKE_FORWARD = (2, 4, 4, 0, 0, 0, 0, 0, 0, 0)
 class StageTimes:
     """Wall seconds (card synchronized) and calls of the entry points' stages:
     the sampler's denoise, the VAE encode and the decode. `patch` wraps the
-    names the serving modules call, `restore` puts them back."""
+    names `modules` call (those each has), `restore` puts them back."""
 
-    def __init__(self):
-        self.modules = (evaluate_mod, inference_mod)
-        self.saved = {(m, n): getattr(m, n) for m in self.modules
-                      for n in ("make_sampler", "encode_auto", "decode_chunked")}
+    def __init__(self, modules=(evaluate_mod, inference_mod)):
+        self.saved = {(m, n): getattr(m, n) for m in modules
+                      for n in ("make_sampler", "encode_auto", "decode_chunked") if hasattr(m, n)}
         self.reset()
 
     def reset(self):
@@ -2200,6 +2226,343 @@ def serving_phase(root: Path) -> None:
     finally:
         times.restore()
     print(f"serving phase total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# -- phase 4c: the offline path (raw episodes -> latents -> train; T5; FID/FVD) -------------
+
+OFFLINE_FRAMES = 49  # frames an episode (two episodes, 320x480)
+OFFLINE_LAYERS = 4  # (d): the 2B recipe cut to 4 of its 30 layers, full width
+OFFLINE_STEPS = 2  # (d): micro-steps
+T5_NARROW = T5Config(d_model=256, d_kv=64, num_heads=4, d_ff=512, num_layers=2)
+
+
+def conv_flop(model, shape) -> int:
+    """Operations of one forward of a conv net on an input of `shape`, two a
+    multiply-add of every conv, from the convs' output shapes (the model and
+    the input on the meta device: nothing is computed)."""
+    total = [0]
+
+    def count(m, _, out):
+        total[0] += 2 * m.weight[0].numel() * out.numel()
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
+    model(torch.empty(shape, device="meta"))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def offline_episodes(frames: int = OFFLINE_FRAMES):
+    """Two raw single-camera episodes from a numpy seed, as a TFDS source
+    yields them: smooth 320x480 frames (codec-friendly), states, gripper,
+    actions."""
+    rng = np.random.default_rng(4)
+    yy, xx = np.meshgrid(np.arange(320), np.arange(480), indexing="ij")
+    t = np.arange(frames)[:, None, None, None]
+    for i in range(2):
+        pix = (128 + 60 * np.sin(0.05 * xx[None, :, :, None] + 0.1 * t + i + np.arange(3))
+               + 40 * np.cos(0.07 * yy)[None, :, :, None]
+               + rng.normal(0, 4, (frames, 320, 480, 3)))
+        yield dict(episode_id=f"{i:05d}", texts=["put the spoon in the pot"],
+                   frames={0: np.clip(pix, 0, 255).astype(np.uint8)},
+                   state=rng.uniform(-0.5, 0.5, (frames, 7)).tolist(),
+                   continuous_gripper_state=rng.uniform(0, 1, frames).tolist(),
+                   action=rng.uniform(-1, 1, (frames, 7)).tolist())
+
+
+def offline_encode(cfg, root: Path, vae) -> None:
+    """(b): encode_split with depth and label latents and ref_nums 1 and 5,
+    then again (everything skipped), then with one file deleted (that file
+    only rewritten); the zero empty prompt."""
+    out = root / "data" / "embeddings_full" / "train"
+    kw = dict(ref_nums=[1, 5], encode_conds=True)
+    torch.cuda.reset_peak_memory_stats()
+    times = StageTimes((encode_mod,))
+    times.patch()
+    t0 = time.perf_counter()
+    try:
+        written = encode_mod.encode_split(cfg, vae, "train", **kw)
+    finally:
+        times.restore()
+    wall = time.perf_counter() - t0
+    kinds = {}
+    for p in map(Path, written):
+        kind = p.parent.name + ("_ref5" if p.stem.endswith("_ref5") else "")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    n_slices = kinds.get("latents", 0)
+    clips = max(times.calls["encode"], 1)
+    print(f"offline encode_split (bf16 VAE, ref_nums 1 and 5, depth and label): {wall:.2f} s for "
+          f"{n_slices} slices, {wall / max(n_slices, 1):.3f} s/slice; {times.calls['encode']} "
+          f"clips "
+          f"({sum(times.encode_frames)} frames) encoded in {times.s['encode']:.2f} s, "
+          f"{times.s['encode'] / clips:.3f} s/clip; files {dict(sorted(kinds.items()))}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    check(n_slices == 18 and all(kinds.get(k) == 18 for k in
+                                ("image_latents", "image_latents_ref5", "depth_latents",
+                                 "label_latents")), f"encode_split wrote {kinds}")
+    for kind, frames in (("latents", 5), ("image_latents", 1), ("depth_latents", 5),
+                         ("label_latents", 5)):
+        m = np.load(out / kind / "00001_32_17_0.npz")["arr_0"]
+        check(m.shape == (32, frames, 40, 60) and np.isfinite(m).all(),
+              f"{kind} moments {m.shape} not finite [32, {frames}, 40, 60]")
+    ref5 = np.load(out / "image_latents" / "00001_32_17_ref5.npz")["arr_0"]
+    check(ref5.shape == (32, 2, 40, 60), f"ref5 moments {ref5.shape}")
+    again = encode_mod.encode_split(cfg, vae, "train", **kw)
+    print(f"offline encode_split again: {len(again)} files written (all skipped)", flush=True)
+    check(again == [], f"a second encode_split wrote {again}")
+    gone = out / "label_latents" / "00000_16_17_0.npz"
+    old = np.load(gone)["arr_0"]
+    gone.unlink()
+    mtimes = {p: p.stat().st_mtime_ns for p in out.rglob("*.npz")}
+    third = encode_mod.encode_split(cfg, vae, "train", **kw)
+    same = {p: p.stat().st_mtime_ns for p in mtimes} == mtimes
+    new = np.load(gone)["arr_0"]
+    print(f"offline encode_split after deleting {gone.name}: wrote "
+          f"{[Path(p).name for p in third]}, "
+          f"other files untouched: {same}, rewritten file bitwise equal: "
+          f"{np.array_equal(new, old)} (max diff {np.abs(new - old).max():.3g})", flush=True)
+    check(third == [str(gone)] and same, "the backfill rewrote more or less than the deleted file")
+    encode_mod.encode_empty_prompt(cfg, out)
+    emb = np.load(out / "prompt_embeds" / "empty.npz")["arr_0"]
+    check(emb.shape == (226, 4096) and not emb.any(), "the zero empty prompt")
+
+
+def offline_t5(root: Path) -> None:
+    """(c): T5-v1.1-XXL at full width on random weights, a 2-layer full-width
+    encoder's sharded folder round trip, a 2-layer narrow encoder against the
+    CPU in f32."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("transformers", "tokenizers", "sentencepiece")}
+    # no T5 tokenizer files are in the repository, so no route can tokenize
+    # here: the empty prompt's ids are T5's </s> (1) then the pad (0)
+    ids = torch.tensor([[1] + [0] * 225], device="cuda")
+    print(f"offline T5 tokenizer packages installed: {have}; no tokenizer files in the "
+          f"repository, so the empty prompt's ids are [1] + [0] * 225", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    t5 = T5Encoder(T5Config(), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in t5.parameters())
+    build = time.perf_counter() - t0
+    with torch.inference_mode():
+        out = t5(ids)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(10):
+            out = t5(ids)
+        ev[1].record()
+        torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / 10
+    flop = 2 * (n - t5.shared.weight.numel()) * ids.shape[1]
+    print(f"offline T5-v1.1-XXL (24 x 4096, 64 heads x 64, d_ff 10240, bf16, random): "
+          f"{n / 1e9:.3f} B parameters built in {build:.1f} s; {ms:.2f} ms a call on 226 tokens "
+          f"({flop / 1e12:.2f} TFLOP of projections, {flop / ms / 1e9:.1f} TFLOP/s; bound "
+          f"{flop / PEAK_BF16_FLOPS * 1e3:.2f} ms); out {list(out.shape)} {out.dtype}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    check(tuple(out.shape) == (1, 226, 4096) and out.dtype == torch.float32
+          and bool(torch.isfinite(out).all()), "the XXL encoder's output")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        t5(ids)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # cuBLAS's Hopper GEMMs are named nvjet_*, its older and batched ones *gemm* / xmma
+    gemm = [e for e in kernels if re.search(r"nvjet|gemm|xmma|cutlass|cublas", e.name, re.I)]
+    us = lambda evs: sum(e.time_range.elapsed_us() for e in evs)
+    print(f"offline T5-XXL one call by torch.profiler: {len(kernels)} kernels, "
+          f"{us(kernels) / 1e3:.2f} "
+          f"ms of device time: GEMMs {len(gemm)} / {us(gemm) / 1e3:.2f} ms, the rest "
+          f"{len(kernels) - len(gemm)} / {(us(kernels) - us(gemm)) / 1e3:.2f} ms", flush=True)
+    del t5, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t5 = T5Encoder(dataclasses.replace(T5Config(), num_layers=2), dtype=torch.bfloat16)
+    folder = root / "t5_2layer"
+    t0 = time.perf_counter()
+    files = t5.save_pretrained(folder, max_shard_bytes=512 << 20)
+    back = T5Encoder.from_pretrained(folder, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        same = torch.equal(back(ids), t5(ids))
+    size = sum((folder / f).stat().st_size for f in files)
+    print(f"offline T5 2-layer full-width folder: {len(files)} shards, {size / 1e9:.2f} GB, "
+          f"saved and loaded in {time.perf_counter() - t0:.1f} s; output bitwise equal: {same}",
+          flush=True)
+    check(len(files) > 1 and same, "the sharded T5 folder did not round-trip")
+    del t5, back
+    shutil.rmtree(folder)
+
+    torch.manual_seed(1)
+    card = T5Encoder(T5_NARROW, dtype=torch.bfloat16)
+    cpu = T5Encoder(T5_NARROW, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()})
+    narrow_ids = torch.randint(2, T5_NARROW.vocab_size, (2, 226),
+                               generator=torch.Generator().manual_seed(2))
+    narrow_ids[0, 150:] = 0  # trailing pads, attended as in the reference
+    with torch.inference_mode():
+        agree(card(narrow_ids.cuda()), cpu(narrow_ids), "offline T5 2-layer narrow bf16 card vs "
+              "f32 CPU")
+    del card, cpu
+
+
+def write_feature_weights(root: Path):
+    """Random InceptionV3 (torchvision names) and I3D (pytorch-i3d names)
+    state dicts with non-identity batch norms, as safetensors folders."""
+    g = torch.Generator().manual_seed(5)
+    out = []
+    for name, model, conv in (("inception", InceptionV3Pool3(device="meta"), "conv"),
+                              ("i3d", I3D(device="meta"), "conv3d")):
+        sd = {}
+        for key, m in model.named_modules():
+            if isinstance(m, ConvBN):
+                w = m.conv.weight
+                sd[f"{key}.{conv}.weight"] = torch.randn(w.shape, generator=g) * math.sqrt(
+                    2.0 / w[0].numel())
+                c = w.shape[0]
+                sd[f"{key}.bn.weight"] = 0.5 + torch.rand(c, generator=g)
+                sd[f"{key}.bn.bias"] = 0.1 * torch.randn(c, generator=g)
+                sd[f"{key}.bn.running_mean"] = 0.1 * torch.randn(c, generator=g)
+                sd[f"{key}.bn.running_var"] = 0.5 + torch.rand(c, generator=g)
+        if name == "i3d":
+            sd["logits.conv3d.weight"] = 0.05 * torch.randn(model.logits.weight.shape, generator=g)
+            sd["logits.conv3d.bias"] = 0.1 * torch.randn(400, generator=g)
+        (root / name).mkdir(parents=True)
+        write_safetensors(root / name / "model.safetensors", sd)
+        out.append(root / name)
+    return out
+
+
+def offline_metrics(root: Path) -> None:
+    """(e): metrics.main with FID and FVD over two 49-frame gt/pred pairs, the
+    feature networks' times, and the card's features against the CPU's."""
+    from orv_tpu_torch.models import feature_extractors as fe
+
+    inc, i3d = write_feature_weights(root / "weights")
+    rng = np.random.default_rng(6)
+    for d in ("gt", "pred"):
+        (root / d).mkdir()
+    for i in range(2):
+        clip = read_video(str(root / "data" / "videos" / f"{i:05d}.mp4"))
+        write_video(str(root / "gt" / f"{i:05d}.mp4"), clip)
+        noisy = np.clip(clip.astype(np.int16) + rng.integers(-20, 21, clip.shape), 0, 255)
+        write_video(str(root / "pred" / f"{i:05d}.mp4"), noisy.astype(np.uint8))
+    t0 = time.perf_counter()
+    summary = metrics_mod.main(["--gt_dir", str(root / "gt"), "--pred_dir", str(root / "pred"),
+                                "--output_csv", str(root / "metrics.csv"),
+                                "--inception_weights", str(inc), "--i3d_weights", str(i3d)])
+    wall = time.perf_counter() - t0
+    print(f"offline metrics.main (2 pairs of 49 frames, FID and FVD): {wall:.1f} s; "
+          + ", ".join(f"{k} {v:.6g}" for k, v in summary.items() if k != "name"), flush=True)
+    check([k for k in summary if k.startswith("fvd_")] == ["fvd_16", "fvd_32", "fvd_48", "fvd_49"]
+          and all(math.isfinite(v) for k, v in summary.items() if k != "name"),
+          f"metrics.main's summary {summary}")
+
+    sd = fe.load_torch_state_dict(inc)
+    model = fe._load(fe.InceptionV3Pool3(), sd, fe.convert_inception_state_dict)
+    x = torch.rand(32, 3, 299, 299, device="cuda", generator=torch.Generator("cuda").manual_seed(7))
+    with torch.inference_mode():
+        inc_ms = call_ms("inception 32 frames", model, (x * 2 - 1,), n=10)
+    del model, x
+    model = fe._load(fe.I3D(), fe.load_torch_state_dict(i3d), fe.convert_i3d_state_dict)
+    x = torch.rand(8, 3, 16, 224, 224, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(8))
+    with torch.inference_mode():
+        i3d_ms = call_ms("i3d 8 clips", model, (x * 2 - 1,), n=5)
+    del model, x
+    inc_flop = conv_flop(fe.InceptionV3Pool3(device="meta"), (32, 3, 299, 299))
+    i3d_flop = conv_flop(fe.I3D(device="meta"), (8, 3, 16, 224, 224))
+    print(f"offline feature networks (f32, TF32 off): InceptionV3 pool3 {inc_ms:.2f} ms a 32-frame "
+          f"batch at 299x299 ({inc_flop / 32e9:.3f} GFLOP a frame, {inc_flop / inc_ms / 1e9:.1f} "
+          f"TFLOP/s; f32 bound {inc_flop / PEAK_F32_FLOPS * 1e3:.2f} ms), I3D {i3d_ms:.2f} ms an "
+          f"8-clip batch at 16x224x224 ({i3d_flop / 8e9:.3f} GFLOP a clip, "
+          f"{i3d_flop / i3d_ms / 1e9:.1f} TFLOP/s; f32 bound "
+          f"{i3d_flop / PEAK_F32_FLOPS * 1e3:.2f} ms)", flush=True)
+
+    frames = read_video(str(root / "gt" / "00000.mp4")).astype(np.float32) / 255.0
+    for what, make, batch in (
+            ("InceptionV3 pool3, 8 frames", fe.inception_pool3_features, frames[:8]),
+            ("I3D, one 16-frame clip", fe.i3d_features,
+             metrics_mod.center_crop_resize(frames[:16])[None])):
+        card, ref = (make(str(inc if "Incep" in what else i3d), device=d)(batch)
+                     for d in ("cuda", "cpu"))
+        err = np.abs(card - ref).max() / np.sqrt(np.mean(ref ** 2))
+        print(f"offline features card vs CPU f32 ({what}): max error {err:.3g} of the RMS "
+              f"(tol 1e-3)", flush=True)
+        check(err <= 1e-3, f"the card's {what} features disagree with the CPU's")
+
+
+def offline_phase(root: Path) -> None:
+    """Phase 4c: raw episodes -> latents -> train, the T5 encoder and FID/FVD
+    (module docstring)."""
+    t_phase = time.perf_counter()
+    written = data_process.extract(offline_episodes(), str(root / "data"), split="train",
+                                   num_workers=2)
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        (root / "data" / f"{i:05d}").mkdir()
+        np.savez(root / "data" / f"{i:05d}" / "render.npz",
+                 depths=rng.uniform(0.0, 0.5, (OFFLINE_FRAMES, 1, 320, 480)).astype(np.float32),
+                 semantics=rng.integers(0, 60, (OFFLINE_FRAMES, 1, 320, 480)).astype(np.int32),
+                 is_labeled=np.ones(1, bool))
+    print(f"offline extract: {len(written)} episodes of {OFFLINE_FRAMES} frames at 320x480 "
+          f"(mp4 + annotation JSON) and their render.npz in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    check(len(written) == 2, f"extract wrote {written}")
+
+    cfg = train_config(root / "data", root / "out", [
+        f"transformer.num_layers={OFFLINE_LAYERS}", f"train.max_train_steps={OFFLINE_STEPS}",
+        "train.checkpointing_steps=1000", "train.log_every=1", "train.validation_steps=1000"])
+    torch.manual_seed(0)
+    vae = CausalVAE(VAEConfig(), dtype=torch.bfloat16)  # f32 parameters, as main() loads one
+    offline_encode(cfg, root, vae)
+    del vae
+    offline_t5(root)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    old = os.environ.get("NO_INIT_VAL")
+    os.environ["NO_INIT_VAL"] = "1"
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        state = train_mod.train(cfg)
+    finally:
+        if old is None:
+            os.environ.pop("NO_INIT_VAL")
+        else:
+            os.environ["NO_INIT_VAL"] = old
+    wall = time.perf_counter() - t0
+    launches = counts()
+    tally(launches)
+    want = tuple(OFFLINE_STEPS * c for c in train_micro_step_counts(OFFLINE_LAYERS))
+    logs = [m for m in map(json.loads, (root / "out" / "run" / "logs" / "metrics.jsonl")
+                           .read_text().splitlines()) if "loss" in m]
+    print(f"offline train on the encoded latents (2B recipe cut to {OFFLINE_LAYERS} of 30 layers, "
+          f"B={cfg.train.train_batch_size} x {cfg.train.gradient_accumulation_steps}, "
+          f"{OFFLINE_STEPS} micro-steps): {wall:.1f} s with the final checkpoint and export; "
+          f"losses {[round(m['loss'], 5) for m in logs]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches} = "
+          f"{OFFLINE_STEPS} x {train_micro_step_counts(OFFLINE_LAYERS)}", flush=True)
+    check(launches == want, f"offline train launch counts {launches} != {want}")
+    check(state.step == OFFLINE_STEPS and len(logs) == OFFLINE_STEPS
+          and all(math.isfinite(m["loss"]) for m in logs), "offline train's steps or losses")
+    del state
+    shutil.rmtree(root / "out")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    offline_metrics(root)
+    print(f"offline phase total: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # -- phase 6: the model surface at full width -----------------------------------------
@@ -2941,6 +3304,15 @@ def main() -> int:
         serving_phase(serving_root)
     finally:
         shutil.rmtree(serving_root, ignore_errors=True)
+
+    # 4c. the offline path: raw episodes -> latents -> train, T5, FID/FVD
+    gc.collect()
+    torch.cuda.empty_cache()
+    offline_root = Path(tempfile.mkdtemp(prefix="orv_offline_"))
+    try:
+        offline_phase(offline_root)
+    finally:
+        shutil.rmtree(offline_root, ignore_errors=True)
 
     # 5. training through the entry point at full width, the serving models freed first;
     # 5c. the model surface's training side, phase 5's state freed, from its export

@@ -19,6 +19,9 @@ Conventions:
                                          [12, D] -> cam_encoder.weight [D, 12])
   conv kernel [kt, kh, kw, I, O]      -> torch Conv3d weight [O, I, kt, kh, kw]
   (1, 3, 3) up/downsample conv kernel -> torch Conv2d weight [O, I, 3, 3]
+  feature-network kernel [*k, I, O]   -> Conv2d/Conv3d weight [O, I, *k]
+  T5 Dense kernel [in, out]           -> Linear weight [out, in]; its
+                                         embeddings keep their layout
 
 A diffusers folder (`config.json` plus `diffusion_pytorch_model.safetensors`,
 or shards listed in `diffusion_pytorch_model.safetensors.index.json`) reads
@@ -363,6 +366,15 @@ def ensure_mv_blocks(sd: Mapping[str, torch.Tensor], config) -> Dict[str, torch.
     return sd
 
 
+def weight_files(folder: Path, stem: str):
+    """The shards that `{stem}.safetensors.index.json` lists, else
+    `{stem}.safetensors`, else []."""
+    index = folder / f"{stem}.safetensors.index.json"
+    if index.exists():
+        return sorted({folder / v for v in json.loads(index.read_text())["weight_map"].values()})
+    return [folder / f"{stem}.safetensors"] if (folder / f"{stem}.safetensors").exists() else []
+
+
 def load_diffusers_folder(folder) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """A diffusers model folder -> (its config.json as a dict, its state
     dict as CPU tensors). Reads the shards an
@@ -371,16 +383,85 @@ def load_diffusers_folder(folder) -> Tuple[Dict[str, Any], Dict[str, torch.Tenso
     folder = Path(folder)
     cfg_path = folder / "config.json"
     config = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
-    index = folder / "diffusion_pytorch_model.safetensors.index.json"
-    if index.exists():
-        files = sorted({folder / v for v in json.loads(index.read_text())["weight_map"].values()})
-    elif (folder / "diffusion_pytorch_model.safetensors").exists():
-        files = [folder / "diffusion_pytorch_model.safetensors"]
-    else:
-        files = sorted(folder.glob("*.safetensors"))
+    files = weight_files(folder, "diffusion_pytorch_model") or sorted(folder.glob("*.safetensors"))
     if not files:
         raise FileNotFoundError(f"no safetensors weights in {folder}")
     sd: Dict[str, torch.Tensor] = {}
     for f in files:
         sd.update(read_safetensors(f))
     return config, sd
+
+
+# ---------------------------------------------------------------------------
+# the offline models: T5 encoder, InceptionV3, I3D
+# ---------------------------------------------------------------------------
+
+def t5_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """transformers' `FlaxT5EncoderModel.params` (`{'shared': {'embedding'},
+    'encoder': {'block': {'0': {'layer': {...}}}, 'final_layer_norm'}}`, or
+    that under 'params') -> the port's `T5Encoder` state dict: Dense
+    kernels [in, out] become Linear weights [out, in]; embeddings (the
+    token table [vocab, d], the relative bias [buckets, heads]) and norm
+    weights keep their layout."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {"shared.weight": _tensor(p["shared"]["embedding"])}
+    enc = p["encoder"]
+    for i, blk in sorted(enc["block"].items(), key=lambda kv: int(kv[0])):
+        key = f"encoder.block.{i}.layer"
+        attn, ff = blk["layer"]["0"], blk["layer"]["1"]
+        for name in ("q", "k", "v", "o"):
+            sd[f"{key}.0.SelfAttention.{name}.weight"] = _tensor(
+                np.asarray(attn["SelfAttention"][name]["kernel"]).T)
+        if "relative_attention_bias" in attn["SelfAttention"]:
+            sd[f"{key}.0.SelfAttention.relative_attention_bias.weight"] = _tensor(
+                attn["SelfAttention"]["relative_attention_bias"]["embedding"])
+        for j, sub in ((0, attn), (1, ff)):
+            sd[f"{key}.{j}.layer_norm.weight"] = _tensor(sub["layer_norm"]["weight"])
+        for name, lin in ff["DenseReluDense"].items():
+            sd[f"{key}.1.DenseReluDense.{name}.weight"] = _tensor(np.asarray(lin["kernel"]).T)
+    sd["encoder.final_layer_norm.weight"] = _tensor(enc["final_layer_norm"]["weight"])
+    return sd
+
+
+def t5_state_dict_from_hf(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A transformers T5 (encoder) state dict -> the port's `T5Encoder`
+    state dict. The names are the same; the encoder's token table, which
+    transformers ties to `shared` and may save under
+    `encoder.embed_tokens.weight` as well or instead, becomes `shared.weight`
+    (both present must be equal). Decoder keys, which a full T5 holds, are
+    left in, so that a strict load names them."""
+    sd = dict(sd)
+    tied = sd.pop("encoder.embed_tokens.weight", None)
+    if tied is not None:
+        if "shared.weight" in sd and not torch.equal(sd["shared.weight"], tied):
+            raise ValueError("encoder.embed_tokens.weight differs from shared.weight, which it "
+                             "is tied to")
+        sd.setdefault("shared.weight", tied)
+    return sd
+
+
+def _conv_tree(tree: Dict[str, Any], prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    """Flax conv leaves -> torch: a `kernel` [*k, I, O] becomes `weight`
+    [O, I, *k]; a `bias` stays."""
+    for name, sub in tree.items():
+        key = f"{prefix}{name}"
+        if name == "kernel":
+            k = np.asarray(sub)
+            sd[f"{prefix}weight"] = _tensor(np.transpose(k, (k.ndim - 1, k.ndim - 2,
+                                                             *range(k.ndim - 2))))
+        elif name == "bias":
+            sd[key] = _tensor(sub)
+        else:
+            _conv_tree(sub, f"{key}.", sd)
+
+
+def feature_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """`InceptionV3Pool3` or `I3D` params of the JAX package (BN folded:
+    `Mixed_5b/branch1x1/conv/{kernel,bias}`, `logits/{kernel,bias}`) -> the
+    port's state dict of the same model."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_tree(params.get("params", params), "", sd)
+    return sd
+
+
+inception_params_from_jax = i3d_params_from_jax = feature_params_from_jax

@@ -1,18 +1,23 @@
-"""Video quality metrics, in numpy and scipy.
+"""Video quality metrics, in numpy and scipy, with the FID and FVD
+feature networks in PyTorch.
 
 Counterpart of `orv_tpu/pipelines/metrics.py`:
 
   * PSNR / SSIM: per-frame at 320x256 resize, data_range 1.0, averaged over
     frames then episodes
-  * FID / FVD: the Fréchet distance over pooled features; `compute_fid` and
-    `compute_fvd` take the feature extractor as a callable and raise
-    without one. The InceptionV3 and I3D extractors are not ported yet
-    (ROADMAP.md A9), so `main` computes PSNR and SSIM only and refuses
-    `--inception_weights` / `--i3d_weights`.
+  * FID: the Fréchet distance over InceptionV3 pool3 features (2048-d) of
+    the first 16 frames of each video
+  * FVD: the Fréchet distance over I3D logits (400-d) at lengths 16..N
+
+`compute_fid` and `compute_fvd` take the feature extractor as a callable
+and raise without one; `main` builds them from `--inception_weights` and
+`--i3d_weights`, folders of torchvision- / pytorch-i3d-named safetensors
+(`models/feature_extractors.py`), and runs them in f32 with TF32 off.
 
 Usage:
   python -m orv_tpu_torch.pipelines.metrics --gt_dir <dir> --pred_dir <dir> \
-      [--output_csv metrics.csv]
+      [--output_csv metrics.csv] [--inception_weights <folder>] \
+      [--i3d_weights <folder>] [--device cpu]
 """
 
 from __future__ import annotations
@@ -197,21 +202,23 @@ def main(argv=None):
     p.add_argument("--output_csv", default="metrics.csv")
     p.add_argument("--suffix", default=".mp4")
     p.add_argument("--inception_weights", default=None,
-                   help="InceptionV3 weights for FID (not ported yet)")
+                   help="folder of InceptionV3 safetensors (torchvision naming): enables FID")
     p.add_argument("--i3d_weights", default=None,
-                   help="I3D weights for FVD (not ported yet)")
+                   help="folder of I3D safetensors (pytorch-i3d naming): enables FVD")
+    p.add_argument("--device", default=None, help="default: the CUDA device")
     args = p.parse_args(argv)
-    if args.inception_weights or args.i3d_weights:
-        raise NotImplementedError(
-            "FID and FVD need the InceptionV3 and I3D feature extractors, which are not "
-            "ported yet (ROADMAP.md A9)")
 
     pairs = pair_files(args.gt_dir, args.pred_dir, args.suffix)
     if not pairs:
         raise SystemExit(f"no (gt, pred) pairs found between {args.gt_dir} and {args.pred_dir}")
     rows = []
+    gts, preds = [], []
+    collect = bool(args.inception_weights or args.i3d_weights)
     for gt_path, pred_path in pairs:
         gt, pred = read_video(gt_path), read_video(pred_path)
+        if collect:
+            gts.append(gt)
+            preds.append(pred)
         ps, ss = video_psnr_ssim(pred, gt)
         rows.append({"name": Path(pred_path).stem, "psnr": ps, "ssim": ss})
         CONSOLE.log(f"{Path(pred_path).stem}: PSNR {ps:.2f} SSIM {ss:.4f}")
@@ -219,12 +226,35 @@ def main(argv=None):
                "psnr": float(np.mean([r["psnr"] for r in rows])),
                "ssim": float(np.mean([r["ssim"] for r in rows]))}
     fields = ["name", "psnr", "ssim"]
+    if collect:
+        import torch
+
+        # the feature networks run in f32, as the JAX package's do
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if args.inception_weights:
+        from orv_tpu_torch.models.feature_extractors import inception_pool3_features
+
+        fid = compute_fid(gts, preds, inception_pool3_features(args.inception_weights,
+                                                               device=args.device))
+        summary["fid"] = fid
+        fields.append("fid")
+        CONSOLE.log(f"FID: {fid:.3f}")
+    if args.i3d_weights:
+        from orv_tpu_torch.models.feature_extractors import i3d_features
+
+        fvd = compute_fvd(gts, preds, i3d_features(args.i3d_weights, device=args.device))
+        for L, val in fvd.items():
+            summary[f"fvd_{L}"] = val
+            fields.append(f"fvd_{L}")
+            CONSOLE.log(f"FVD@{L}: {val:.3f}")
     with open(args.output_csv, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=fields)
         w.writeheader()
         w.writerows(rows)
         w.writerow(summary)
     CONSOLE.log(f"wrote {args.output_csv} ({len(rows)} pairs)")
+    return summary
 
 
 if __name__ == "__main__":

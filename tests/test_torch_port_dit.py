@@ -28,6 +28,7 @@ from orv_tpu.models.weights import export_dit_state_dict
 from orv_tpu_torch.models import ControlDiT, DiTConfig
 from orv_tpu_torch.models.layers import DiTBlock
 from orv_tpu_torch.models.weights import dit_params_from_jax
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 TINY = dict(num_attention_heads=4, attention_head_dim=16, num_layers=2, in_channels=32,
             out_channels=16, text_embed_dim=32, time_embed_dim=64, max_text_seq_length=8,

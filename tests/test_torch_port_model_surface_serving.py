@@ -49,6 +49,7 @@ from test_torch_port_serving import (CASCADED, COND, DIT, JAX_CFG, PORT_CFG, _ch
                                      assert_latents_close, compare_outputs, configs, jax_draws,
                                      port_vae, run_both, setup)  # noqa: F401 (fixture)
 from test_torch_port_serving_data import LAT_HW, SEQ, _assert_items_equal, randomize, write_dataset
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 MULTIVIEW = "eval/eval_traj_image_2b_multiview.yaml"
 V = 2

@@ -24,6 +24,7 @@ from orv_tpu.ops.attention import flash_attention as jax_flash_attention
 from orv_tpu.ops.attention import mha_reference as jax_mha_reference
 from orv_tpu_torch.models.layers import gate_residual_add
 from orv_tpu_torch.ops import adaln, attention
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
 

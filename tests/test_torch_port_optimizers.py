@@ -52,6 +52,7 @@ from orv_tpu_torch.pipelines import train as ttrain
 from test_torch_port_serving_data import randomize
 from test_torch_port_train_entry import (DIT, JAX_CFG, PORT_CFG, fix_uniforms, load, make_setup,
                                          replayed_draws)
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 TREE = dict(num_attention_heads=2, attention_head_dim=16, num_layers=3, in_channels=32,
             out_channels=16, text_embed_dim=32, time_embed_dim=32, max_text_seq_length=8,

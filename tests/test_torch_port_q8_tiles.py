@@ -16,6 +16,7 @@ import torch
 
 from orv_tpu.ops.attention import _pick_block as jax_pick_block
 from orv_tpu_torch.ops import _build, attention
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 # around the 128-key tiles and the 1024-key scale blocks, up to 4100
 _SKV = (1, 2, 63, 64, 127, 128, 129, 255, 256, 257, 383, 384, 385, 895, 896, 897, 1000, 1023,

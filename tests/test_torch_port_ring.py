@@ -51,6 +51,7 @@ from orv_tpu_torch.ops.ring_attention import joint_ring_attention, ring_attentio
 from orv_tpu_torch.parallel.sp import LocalRing
 from orv_tpu_torch.pipelines import sample as tsample
 from orv_tpu_torch.schedulers import make_schedule
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TIMEOUT = 60.0  # seconds any rank may wait at a collective

@@ -29,6 +29,7 @@ from orv_tpu_torch.models import CausalVAE, ControlDiT, DiTConfig, VAEConfig, de
 from orv_tpu_torch.models.weights import dit_params_from_jax, vae_params_from_jax
 from orv_tpu_torch.pipelines import sample as tsample
 from orv_tpu_torch.schedulers import make_schedule
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 DIT = dict(num_attention_heads=4, attention_head_dim=16, num_layers=2, in_channels=32,
@@ -180,23 +181,28 @@ def test_prepare_latents_match_jax():
 
 def test_port_imports_no_jax_and_no_orv_tpu():
     """Every orv_tpu_torch module (the serving subpackages data/ and the
-    entry points in pipelines/ and utils/ among them) and chip_smoke import
-    in a fresh process without pulling in jax or any module of the JAX
-    package."""
+    entry points in pipelines/ and utils/ among them, and the offline path's
+    text encoder, feature extractors, data_process and encode_dataset) and
+    chip_smoke import in a fresh process without pulling in jax, flax,
+    transformers or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import orv_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(orv_tpu_torch.__path__, 'orv_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k.split('.')[0] in ('flax', 'transformers')\n"
         "       or k == 'orv_tpu' or k.startswith('orv_tpu.')]\n"
         "assert not bad, bad\n"
+        "for m in ('models.text_encoder', 'models.feature_extractors',\n"
+        "          'pipelines.data_process', 'pipelines.encode_dataset'):\n"
+        "    assert 'orv_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('orv_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 35
+    assert int(res.stdout.strip()) >= 41
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

@@ -14,6 +14,7 @@ from orv_tpu.schedulers import scheduling as jsched
 from orv_tpu.utils import embeddings as jemb
 from orv_tpu_torch.schedulers import scheduling as tsched
 from orv_tpu_torch.utils import embeddings as temb
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("flip,shift", [(True, 0.0), (False, 1.0)])

@@ -54,6 +54,7 @@ from orv_tpu_torch.utils import video as tvideo
 from orv_tpu_torch.utils.checkpoint import load_pretrained
 
 from test_torch_port_serving_data import VAE, randomize, write_dataset
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_CFG, PORT_CFG = REPO / "orv_tpu" / "config", REPO / "orv_tpu_torch" / "config"

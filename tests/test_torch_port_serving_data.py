@@ -49,6 +49,7 @@ from orv_tpu_torch.pipelines import metrics as tmetrics
 from orv_tpu_torch.pipelines import sample as tsample
 from orv_tpu_torch.pipelines import train as ttrain
 from orv_tpu_torch.utils import video as tvideo
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_CFG, PORT_CFG = REPO / "orv_tpu" / "config", REPO / "orv_tpu_torch" / "config"
@@ -501,7 +502,9 @@ def test_frechet_distance_matches_jax():
 
 def test_metrics_main_writes_the_csv(tmp_path):
     """The CLI over mp4 pairs: both packages pair the same files and write
-    the same CSV; FID/FVD weights are refused until their extractors land."""
+    the same CSV; with `--i3d_weights` (a folder) the port adds FVD (FID and
+    FVD are held against JAX's in tests/test_torch_port_offline.py), and it
+    refuses a weights file by name."""
     rng = np.random.default_rng(12)
     for d in ("gt", "pred"):
         (tmp_path / d).mkdir()
@@ -517,8 +520,15 @@ def test_metrics_main_writes_the_csv(tmp_path):
     tmetrics.main(args("port.csv"))
     jmetrics.main(args("jax.csv"))
     assert (tmp_path / "port.csv").read_text() == (tmp_path / "jax.csv").read_text()
-    with pytest.raises(NotImplementedError, match="A9"):
-        tmetrics.main(args("x.csv") + ["--inception_weights", "w.pt"])
+    from test_torch_port_feature_extractors import write_feature_weights
+
+    _, i3d = write_feature_weights(tmp_path / "weights")
+    summary = tmetrics.main(args("fvd.csv") + ["--i3d_weights", str(i3d), "--device", "cpu"])
+    assert np.isfinite(summary["fvd_5"])  # the clips' 5 frames: FVD at their one length
+    assert (tmp_path / "fvd.csv").read_text().splitlines()[0] == "name,psnr,ssim,fvd_5"
+    with pytest.raises(ValueError, match="w.pt is not a folder"):
+        tmetrics.main(args("x.csv") + ["--inception_weights", str(tmp_path / "w.pt"),
+                                       "--device", "cpu"])
 
 
 def test_yaml_reader_is_pyyaml():

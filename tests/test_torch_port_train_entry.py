@@ -71,6 +71,7 @@ from orv_tpu_torch.utils.tracker import Tracker
 
 from test_torch_port_serving_data import C_LAT, LAT_HW, SEQ, randomize, write_dataset
 from test_torch_port_train_step import _seeded, t
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_CFG, PORT_CFG = REPO / "orv_tpu" / "config", REPO / "orv_tpu_torch" / "config"

@@ -33,6 +33,7 @@ from test_torch_port_serving_data import C_LAT, LAT_HW, SEQ, randomize
 from test_torch_port_train_entry import (DIT, F_LAT, JAX_CFG, PORT_CFG, _control_batch,
                                          fix_uniforms, load, make_setup, overrides,
                                          replayed_draws)
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

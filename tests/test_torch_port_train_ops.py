@@ -31,6 +31,7 @@ from orv_tpu.ops import adaln as jax_adaln
 from orv_tpu.ops.attention import attention_with_lse
 from orv_tpu.ops.attention import flash_attention as jax_flash_attention
 from orv_tpu_torch.ops import adaln, attention
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 

@@ -65,6 +65,7 @@ from orv_tpu_torch.schedulers import (
     make_schedule,
     pred_x0_from_v,
 )
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 TINY = dict(num_attention_heads=4, attention_head_dim=16, num_layers=2, in_channels=32,
             out_channels=16, text_embed_dim=32, time_embed_dim=64, max_text_seq_length=8,

@@ -56,6 +56,7 @@ from test_torch_port_model_surface_serving import add_views
 from test_torch_port_serving_data import C_LAT, LAT_HW, SEQ, randomize, write_dataset
 from test_torch_port_train_entry import DROP_U, JAX_CFG, MASK_U, PORT_CFG, fix_uniforms
 from test_torch_port_train_step import t
+from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
 
 H, W = LAT_HW
 F = SEQ // 4 + 1  # 3 latent frames of a 9-frame slice
