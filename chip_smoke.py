@@ -118,6 +118,36 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      networks' device ms a 32-frame Inception batch and an 8-clip I3D batch
      at 16x224x224 in f32; the card's features against the CPU's on one
      batch each, within 1e-3 of their RMS;
+  4d. the data factory at full width, phase 4c's models freed first: two
+     seeded episodes of 49 metric depth frames at 320x480 (153,600 points a
+     frame) of a table and three boxes 0.25-0.35 m below a camera that
+     moves a few millimetres, with per-point labels, objects.txt, instance
+     masks and phase 4c's mp4 and annotation JSON; the eight actions
+     through prepare_dataset.main in the reference order (reconstruction
+     --dense, cameras, align_cameras, caption, caption_post_process,
+     labeling, labels_post_process, render at 240x320), each one's seconds,
+     every action returning both episodes, launches of hard voxelization
+     and the forward rasterizer exactly 2 x 49 (counted in the spawned
+     stage workers and sent back), every frame's occupancy non-empty,
+     render.npz's semantics uint8 and depths f32 [49,1,240,320] with the
+     four object labels and the background present, depths in [0.01, 0.4]
+     and the share of pixels with alpha > 0.1 within 0.03 of the share the
+     scene's surfaces cover; outlier removal's host seconds and share of
+     the reconstruction; the actions again (caption_post_process, then the
+     other seven at once) rewrite no file's bytes and launch nothing; the
+     factory's kernels against their plain versions on the card (hard and
+     dynamic voxelization bitwise on a full frame and 37 points fewer; the
+     forward rasterizer on frame 0's gaussians at 240x320 and 237x317 to
+     1e-5; the backward on 3000 gaussians at 64x96 and 61x93 against
+     autograd through the plain version, to 1e-4 of each largest
+     gradient, and whether a second run gives the same bits), each with
+     its device time (torch.profiler: the wrappers read a count back to
+     size their outputs, so they cannot be captured in a CUDA graph), the
+     plain version's and a bytes bound; the kernels' other entry points on
+     episode 0 (dynamic voxelization of its 49 clouds, the depth loss's
+     gradient through rasterize on its 49 frames: 49 launches each); last
+     encode_split of one slice with depth and label latents from the
+     factory's own render.npz (dataset.ori_size the render's 240x320);
   5. training through the entry point, the serving models freed first:
      pipelines/train.py:train on the port's base_train.yaml +
      experiments/traj_image_2b_finetune.yaml (30 layers x 30 heads x 64,
@@ -239,12 +269,14 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      sum over every main-path run of phases 3 to 6, the comparisons with
      plain versions left out; every kernel must have run; each record also
      lists its times at phase 6's shapes under "surface_shapes" and at phase
-     5c's under "surface_train_shapes"), and last
+     5c's under "surface_train_shapes"; the factory's four records last, with
+     phase 4d's launches), and last
      the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -257,6 +289,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -272,6 +305,8 @@ from orv_tpu_torch.models.quantize import quantize_linear_params, quantize_model
 from orv_tpu_torch.models.text_encoder import T5Config, T5Encoder
 from orv_tpu_torch.models.weights import write_safetensors
 from orv_tpu_torch.ops import _build, adaln, attention
+from orv_tpu_torch.ops import gaussian_raster as raster_mod
+from orv_tpu_torch.ops import voxelize as voxelize_mod
 from orv_tpu_torch.ops.ring_attention import joint_ring_attention
 from orv_tpu_torch.parallel import (
     LossDraws,
@@ -2565,6 +2600,446 @@ def offline_phase(root: Path) -> None:
     print(f"offline phase total: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# -- phase 4d: the data factory (depth episodes -> occupancy -> condition maps) ----------
+
+def raster_scene(n: int, H: int, W: int, seed: int):
+    """A seeded scene for the rasterizer checks: (settings, arrays) of n
+    anisotropic, rotated gaussians (unnormalized quaternions) before a
+    pinhole camera at H x W: a tenth behind the near plane (view depth under
+    0.2), some off screen, and a twentieth large ones past the frustum
+    clamp (1.3 tan-fov) that still reach the image."""
+    from orv_tpu_torch.ops.gaussian_raster import view_settings
+
+    rng = np.random.default_rng(seed)
+    f = 0.9 * W
+    z = rng.uniform(0.25, 3.0, n)
+    z[: n // 10] = rng.uniform(0.05, 0.19, n // 10)
+    u = rng.uniform(-0.7, 0.7, n)
+    v = rng.uniform(-0.7, 0.7, n) * H / W
+    scales = rng.uniform(0.004, 0.04, (n, 3)) * z[:, None]
+    big = slice(n // 10, n // 10 + n // 20)
+    u[big] = rng.choice([-1, 1], len(u[big])) * rng.uniform(0.75, 0.9, len(u[big]))
+    scales[big] = rng.uniform(0.15, 0.3, (len(u[big]), 3)) * z[big, None]
+    cam = np.stack([u * z, v * z, z, np.ones(n)], 1)
+    a = 0.3
+    c2w = np.array([[math.cos(a), 0, math.sin(a), 0.05], [0, 1, 0, -0.02],
+                    [-math.sin(a), 0, math.cos(a), 0.1], [0, 0, 0, 1]])
+    K = np.array([[f, 0, W / 2 + 1.5], [0, 1.05 * f, H / 2 - 2.5], [0, 0, 1]])
+    settings = view_settings(c2w, K, (H, W), bg_color=(0.1, 0.2, 0.3))
+    arrays = dict(means3d=(cam @ c2w.T)[:, :3], colors=rng.uniform(0, 1, (n, 3)),
+                  opacities=rng.uniform(0.1, 1.0, n), scales=scales,
+                  rotations=rng.normal(size=(n, 4)), features=rng.uniform(0, 1, (n, 12)))
+    return settings, {k: x.astype(np.float32) for k, x in arrays.items()}
+
+
+FACTORY_FRAMES = 49  # frames an episode, at data_process's 320x480
+FACTORY_HW = (320, 480)
+FACTORY_K = np.array([[450.0, 0.0, 240.0], [0.0, 450.0, 160.0], [0.0, 0.0, 1.0]])
+FACTORY_RENDER = (240, 320)  # run_render's default image shape
+# the scene, in the occupancy workspace [-0.2, 0.2]^2 x [0, 0.4] (1 mm voxels):
+# (label, x0, x1, y0, y1, top z) of a table and three boxes; the camera looks
+# straight down from 0.40 m, so every surface lies 0.25-0.35 m in front of it
+# (the rasterizer culls under 0.2 m, the render clamps depth to 0.4 m); the
+# floor, 0.7 m away, lies outside the workspace and renders as background
+FACTORY_SURFACES = ((1, -0.15, 0.15, -0.10, 0.10, 0.05), (2, -0.09, -0.03, 0.00, 0.05, 0.13),
+                    (3, -0.01, 0.04, -0.04, 0.01, 0.10), (4, -0.14, -0.10, 0.06, 0.10, 0.15))
+FACTORY_OBJECTS = {1: "table", 2: "red box", 3: "blue box", 4: "green box"}
+FACTORY_KERNELS = (voxelize_mod.hard_voxelize, voxelize_mod.dynamic_voxelize,
+                   raster_mod.rasterize, raster_mod.rasterize_backward)
+FACTORY_LAUNCHES = [0] * len(FACTORY_KERNELS)  # the kernels line's, summed over 4d's main path
+FACTORY_ACTIONS = (("reconstruction", "--dense"), ("cameras",), ("align_cameras",), ("caption",),
+                   ("caption_post_process",), ("labeling",), ("labels_post_process",),
+                   ("render",))
+
+
+def factory_pose(f: int, ep: int) -> np.ndarray:
+    """cam -> world of frame f: looking down (x right, y and z flipped) from
+    0.40 m, moving a few millimetres and turning 0.02 rad about the vertical."""
+    a = 2 * math.pi * f / FACTORY_FRAMES + ep
+    yaw = 0.02 * math.sin(a)
+    c, s = math.cos(yaw), math.sin(yaw)
+    pose = np.eye(4)
+    pose[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) @ np.diag([1.0, -1.0, -1.0])
+    pose[:3, 3] = [0.004 * math.sin(a), 0.003 * math.cos(a), 0.40]
+    return pose
+
+
+def factory_cast(pose: np.ndarray, K: np.ndarray, hw, shift: float = 0.0):
+    """(depth [H,W] f32 along the view axis, label [H,W]) of the scene seen
+    through (pose, K): the nearest horizontal surface each pixel's ray meets
+    (0 where it meets the floor); boxes shifted by `shift` in x."""
+    H, W = hw
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    d = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1], np.ones_like(u)], -1)
+    dw = d @ pose[:3, :3].T  # world direction per unit view depth (z component -1)
+    depth = np.full((H, W), pose[2, 3] + 0.30)  # the floor at z = -0.30
+    label = np.zeros((H, W), np.int64)
+    for lab, x0, x1, y0, y1, top in FACTORY_SURFACES:
+        dx = shift if lab > 1 else 0.0
+        t = pose[2, 3] - top
+        x = pose[0, 3] + t * dw[..., 0]
+        y = pose[1, 3] + t * dw[..., 1]
+        hit = (x >= x0 + dx) & (x <= x1 + dx) & (y >= y0) & (y <= y1) & (t < depth)
+        depth[hit], label[hit] = t, lab
+    return depth.astype(np.float32), label
+
+
+def write_factory_episodes(root: Path) -> list:
+    """Two seeded depth episodes under root (data_process's layout: the mp4s
+    and annotation JSONs of phase 4c's generator, and per episode depth/,
+    intrinsics.json, poses.npy, per-point labels/, objects.txt and masks/).
+    Returns each episode's share of the render's pixels that the
+    workspace's surfaces cover, seen from its first pose (the alpha > 0.1
+    share its render must come near)."""
+    data_process.extract(offline_episodes(FACTORY_FRAMES), str(root), split="train",
+                         num_workers=2)
+    rng = np.random.default_rng(11)
+    names = sorted(FACTORY_OBJECTS.values())  # the objects_file backend's (sorted) order
+    shares = []
+    for ep in range(2):
+        d = root / f"{ep:05d}"
+        for sub in ("depth", "labels", "masks"):
+            (d / sub).mkdir(parents=True)
+        (d / "intrinsics.json").write_text(json.dumps({"K": FACTORY_K.tolist()}))
+        (d / "objects.txt").write_text("\n".join(FACTORY_OBJECTS.values()) + "\n")
+        poses = np.stack([factory_pose(f, ep) for f in range(FACTORY_FRAMES)])
+        np.save(d / "poses.npy", poses)
+        for f in range(FACTORY_FRAMES):
+            depth, label = factory_cast(poses[f], FACTORY_K, FACTORY_HW, shift=0.01 * ep)
+            depth += rng.normal(0, 2e-4, depth.shape).astype(np.float32)
+            np.save(d / "depth" / f"{f:05d}.npy", depth)
+            np.save(d / "labels" / f"{f:05d}.npy", label.reshape(-1))
+            ids = {v: k for k, v in FACTORY_OBJECTS.items()}
+            np.save(d / "masks" / f"frame_{f:04d}.npy", np.stack([label == ids[n] for n in names]))
+        _, label = factory_cast(poses[0], FACTORY_K, FACTORY_RENDER, shift=0.01 * ep)
+        shares.append(float((label > 0).mean()))
+    return shares
+
+
+def factory_kernel_checks(g, data: Path, t0: float):
+    """The factory's kernels against their plain versions on the card, on the
+    factory's own data: voxelization bitwise (hard, at points_to_voxels'
+    limits, and dynamic) on one full frame and at a ragged count; the
+    forward rasterizer on frame 0's gaussians at the render's size and at a
+    ragged one; the backward on a 3000-gaussian scene at 64 x 96 and 61 x 93
+    against autograd through the plain version. Then device times a frame
+    beside the plain versions' and a bytes bound. Returns the records."""
+    from orv_tpu_torch.pipelines import prepare_dataset as pd
+
+    ep = data / "00000"
+    pts = pd.depth_unproject_backend(str(ep))["points"][0]
+    labels = np.load(ep / "labels" / "00000.npy")
+    cloud = torch.tensor(np.concatenate([pts, labels[:, None].astype(np.float32)], 1),
+                         device="cuda")
+    vox_args = (pd.VOXEL_SIZE, pd.POINT_CLOUD_RANGE)
+    for n in (len(cloud), len(cloud) - 37):
+        c = cloud[:n].contiguous()
+        got = voxelize_mod.voxelization(c, *vox_args, max_points=16, max_voxels=2_000_000)
+        want = voxelize_mod.voxelization_plain(c, *vox_args, 16, 2_000_000)
+        same = all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, want))
+        dyn = torch.equal(voxelize_mod.voxelization(c, *vox_args, max_points=-1),
+                          voxelize_mod.voxelization_plain(c, *vox_args, max_points=-1))
+        print(f"kernel voxelize on {n} points: {len(got[1])} voxels, hard bitwise equal "
+              f"{same}, dynamic bitwise equal {dyn}", flush=True)
+        check(same and dyn, f"voxelization disagrees with its plain version at {n} points")
+    M = len(got[1])
+
+    occ = np.load(ep / "occupancy.npz")
+    n0 = int(occ["frame_sizes"][0])
+    gauss = pd.occupancy_to_gaussians(occ["coors"][:n0], occ["labels"][:n0], device="cuda")
+    centers, feat, rot, scales, opac = gauss
+    rgb = torch.zeros_like(centers)
+    pose0 = np.load(ep / "poses.npy")[0]
+    for hw in (FACTORY_RENDER, (237, 317)):
+        settings = raster_mod.view_settings(pose0, FACTORY_K, hw)
+        args = (centers, rgb, opac, scales, rot, feat)
+        got = raster_mod.rasterize(settings, *args)
+        want = raster_mod.rasterize_plain(settings, *args)
+        err = max(max_err(a, b) for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]))
+        print(f"kernel gaussian_raster forward, {n0} gaussians at {hw[0]}x{hw[1]}: radii bitwise "
+              f"{torch.equal(got[2], want[2])}, max_abs_err {err:.3g} (tol 1e-5)", flush=True)
+        check(torch.equal(got[2], want[2]) and err <= 1e-5,
+              f"the rasterizer disagrees with its plain version at {hw}")
+    fwd_err = err
+    settings = raster_mod.view_settings(pose0, FACTORY_K, FACTORY_RENDER)
+    args = (centers, rgb, opac, scales, rot, feat)
+
+    bwd_errs = []
+    for hw in ((64, 96), (61, 93)):
+        s_small, arr = raster_scene(3000, *hw, seed=hw[1])
+        t = {k: torch.tensor(v, device="cuda") for k, v in arr.items()}
+        grads = dict(grad_color=torch.randn(3, *hw, generator=g, device="cuda"),
+                     grad_depth=torch.randn(*hw, generator=g, device="cuda"),
+                     grad_alpha=torch.randn(*hw, generator=g, device="cuda"),
+                     grad_feature=torch.randn(12, *hw, generator=g, device="cuda"))
+        bargs = (t["means3d"], t["colors"], t["opacities"], t["scales"], t["rotations"])
+        got = raster_mod.rasterize_backward(s_small, *bargs, features=t["features"], **grads)
+        want = raster_mod.rasterize_backward_plain(s_small, *bargs, features=t["features"],
+                                                   **grads)
+        rel = {k: max_err(got[k], want[k]) / max(want[k].abs().max().item(), 1e-30) for k in want}
+        again = raster_mod.rasterize_backward(s_small, *bargs, features=t["features"], **grads)
+        bitwise = all(torch.equal(got[k], again[k]) for k in got)
+        print(f"kernel gaussian_raster backward, 3000 gaussians at {hw[0]}x{hw[1]}: error of "
+              f"the largest gradient {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} (tol "
+              f"1e-4); a second run bitwise equal: {bitwise}", flush=True)
+        check(max(rel.values()) <= 1e-4, f"the raster backward disagrees at {hw}")
+        bwd_errs.append(max(rel.values()))
+    bwd_call = (s_small, *bargs, grads["grad_color"], grads["grad_depth"], grads["grad_alpha"],
+                t["features"], grads["grad_feature"])
+
+    print(f"factory kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    # device times a frame, beside the plain versions' and a bytes bound
+    hard = lambda c: voxelize_mod.voxelization(c, *vox_args, max_points=16, max_voxels=2_000_000)
+    records = []
+    vox_bytes = cloud.numel() * 4 + M * (16 * 4 * 4 + 3 * 4 + 4)
+    dyn_bytes = cloud.numel() * 4 + len(cloud) * 3 * 4
+    n_g = len(centers)
+    fwd_bytes = n_g * (3 + 3 + 1 + 3 + 4 + 12) * 4 + 17 * math.prod(FACTORY_RENDER) * 4 + n_g * 4
+    hw_b = (61, 93)
+    bwd_bytes = (3000 * (3 + 3 + 1 + 3 + 4 + 12) * 4 * 2 + 17 * math.prod(hw_b) * 4)
+    for name, src, line, fn, plain, call, nbytes_, err in (
+            ("voxelize_hard", "voxelize.cu", "orv_tpu/ops/native/voxelize.cpp:94", hard,
+             lambda c: voxelize_mod.voxelization_plain(c, *vox_args, 16, 2_000_000), (cloud,),
+             vox_bytes, 0.0),
+            ("voxelize_dynamic", "voxelize.cu", "orv_tpu/ops/native/voxelize.cpp:59",
+             lambda c: voxelize_mod.voxelization(c, *vox_args, max_points=-1),
+             lambda c: voxelize_mod.voxelization_plain(c, *vox_args, max_points=-1), (cloud,),
+             dyn_bytes, 0.0),
+            ("gaussian_raster_fwd", "gaussian_raster.cu",
+             "orv_tpu/ops/native/gaussian_raster.cpp:205",
+             lambda *a: raster_mod.rasterize(settings, *a),
+             lambda *a: raster_mod.rasterize_plain(settings, *a), args, fwd_bytes, fwd_err),
+            ("gaussian_raster_bwd", "gaussian_raster.cu",
+             "orv_tpu/ops/native/gaussian_raster.cpp:264",
+             raster_mod.rasterize_backward, raster_mod.rasterize_backward_plain, bwd_call,
+             bwd_bytes, max(bwd_errs))):
+        ms = profiled_ms(fn, [call], 10)
+        plain_ms = profiled_ms(plain, [call], 1)  # thousands of small kernels a call
+        print(f"split {name}: " + device_split(fn, call), flush=True)
+        bound, by = bound_ms(nbytes_)
+        records.append(dict(name=name, route="cuda", source=f"orv_tpu_torch/ops/csrc/{src}",
+                            replaces=line, launches=0, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None))
+        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), library none (device time by torch.profiler)", flush=True)
+    return records
+
+
+@contextlib.contextmanager
+def spawned_workers_skip_this_script():
+    """While open, the factory's spawned stage workers do not re-run this
+    script as __mp_main__ (multiprocessing re-runs the parent's main file
+    when it has one): they start as the workers of `python -m
+    orv_tpu_torch.pipelines.prepare_dataset` do, importing the factory alone
+    (torch only where a stage runs on the device; torch's import takes 7 s
+    on the card's machine), not this script's models and pipelines."""
+    main = sys.modules["__main__"]
+    path = main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            main.__file__ = path
+
+
+def device_split(fn, call, n: int = 5, top: int = 6) -> str:
+    """A call's device time by kernel (torch.profiler, the mean of n calls),
+    the largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(*call)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", ""))[0]
+            name = name.split("::")[-1].replace("void ", "").strip()[:40]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / n
+    if not by:  # a diagnostic line, not a check: the times above are checked
+        return "torch.profiler recorded no device events for these calls"
+    parts = sorted(by.items(), key=lambda kv: -kv[1])[:top]
+    return (f"{sum(by.values()) / 1e3:.4f} ms a call in {len(by)} kinds: "
+            + ", ".join(f"{k} {v / 1e3:.4f}" for k, v in parts))
+
+
+def factory_counts():
+    return tuple(k.launches for k in FACTORY_KERNELS)
+
+
+def factory_tree(root: Path):
+    """{path: (mtime_ns, bytes)} of every file under root."""
+    return {p: (p.stat().st_mtime_ns, p.read_bytes()) for p in root.rglob("*") if p.is_file()}
+
+
+def factory_phase(root: Path) -> list:
+    """Phase 4d: the data factory at full width (module docstring). Returns
+    the factory kernels' records for the kernels line."""
+    from orv_tpu_torch.pipelines import prepare_dataset as pd
+
+    t_phase = time.perf_counter()
+    data = root / "data"
+    t0 = time.perf_counter()
+    shares_want = write_factory_episodes(data)
+    print(f"factory episodes: 2 x {FACTORY_FRAMES} depth frames at {FACTORY_HW[0]}x"
+          f"{FACTORY_HW[1]} (+ mp4, annotation JSON, labels, masks) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for k in FACTORY_KERNELS:
+        k.launches = 0
+    pd.stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    wall = {}
+    for action, *flags in FACTORY_ACTIONS:
+        t0 = time.perf_counter()
+        with spawned_workers_skip_this_script():
+            done = pd.main(["--action", action, "--data_root", str(data), *flags])
+        wall[action] = time.perf_counter() - t0
+        n_done = len(done)
+        print(f"factory {action}: {wall[action]:.2f} s, "
+              + (f"{n_done} captions clustered" if isinstance(done, dict)
+                 else f"episodes {[Path(e).name for e in done]}"), flush=True)
+        check(n_done == 4 if isinstance(done, dict) else n_done == 2,
+              f"factory action {action} returned {done}: a worker failed on an episode")
+    launches = factory_counts()
+    recon = wall["reconstruction"]
+    st = dict(pd.stats)
+    print(f"factory launches (hard voxelize / dynamic / raster forward / backward) {launches}; "
+          f"reconstruction {recon:.2f} s of which outlier removal (host, cKDTree) "
+          f"{st.get('outlier_removal_s', 0):.2f} s ({st.get('outlier_removal_s', 0) / recon:.1%}), "
+          f"TSDF {st.get('tsdf_fuse_s', 0):.2f} s, voxelize + vote "
+          f"{st.get('voxelize_s', 0):.2f} s; render {st.get('render_s', 0):.2f} s in its worker; "
+          f"workers' peak device memory {st.get('worker_peak_bytes', 0) / 2**30:.2f} GiB",
+          flush=True)
+    check(launches[0] == 2 * FACTORY_FRAMES and launches[2] == 2 * FACTORY_FRAMES,
+          f"the factory launched {launches}, not {2 * FACTORY_FRAMES} voxelizations and renders")
+    frame_points, frame_gauss = [], []
+    for ep, share_want in zip(("00000", "00001"), shares_want):
+        occ = np.load(data / ep / "occupancy.npz")
+        sizes = occ["frame_sizes"]
+        check(len(sizes) == FACTORY_FRAMES and (sizes > 0).all() and sizes.sum() == len(occ["coors"]),
+              f"episode {ep}'s occupancy frames {sizes}")
+        frame_gauss += list(sizes)
+        frame_points.append(len(np.load(data / ep / "dense_surface.npz")["points"]))
+        r = np.load(data / ep / "render.npz")
+        sem, dep = r["semantics"], r["depths"]
+        shape = (FACTORY_FRAMES, 1, *FACTORY_RENDER)
+        check(sem.dtype == np.uint8 and dep.dtype == np.float32 and sem.shape == shape
+              and dep.shape == shape, f"render.npz {sem.dtype} {sem.shape}, {dep.dtype} {dep.shape}")
+        present = set(np.unique(sem).tolist())
+        share = float((sem != pd.NUM_SEMANTIC_CHANNELS - 1).mean())
+        print(f"factory render {ep}: labels present {sorted(present)}, depths in "
+              f"[{dep.min():.4f}, {dep.max():.4f}], alpha > 0.1 on {share:.4f} of the pixels "
+              f"(the scene's surfaces cover {share_want:.4f} from the first pose)", flush=True)
+        check(set(FACTORY_OBJECTS) | {pd.NUM_SEMANTIC_CHANNELS - 1} <= present,
+              f"render {ep} lacks an object label or the background: {sorted(present)}")
+        check(dep.min() >= 0.01 and dep.max() <= 0.4 and abs(share - share_want) <= 0.03,
+              f"render {ep}: depths or the covered share off")
+    n_pts = [len(p) for p in pd.depth_unproject_backend(str(data / "00000"))["points"][:1]]
+    print(f"factory sizes: {n_pts[0]} points a frame unprojected (+ {frame_points} TSDF surface "
+          f"points an episode), gaussians a frame {min(frame_gauss)}-{max(frame_gauss)} "
+          f"(mean {np.mean(frame_gauss):.0f})", flush=True)
+    check(launches[1] == 0 and launches[3] == 0, f"the factory launched {launches}")
+    tally_factory(launches)
+
+    # again: caption_post_process first (it rewrites the vocabulary that
+    # labeling reads), then the other seven at once in threads (each spawns
+    # its workers; a worker's start is mostly its 7 s import of torch)
+    before = factory_tree(data)
+    t0 = time.perf_counter()
+    pd.main(["--action", "caption_post_process", "--data_root", str(data)])
+    again = [(a, *f) for a, *f in FACTORY_ACTIONS if a != "caption_post_process"]
+    with spawned_workers_skip_this_script(), ThreadPoolExecutor(len(again)) as pool:
+        runs = [pool.submit(pd.main, ["--action", a, "--data_root", str(data), *f])
+                for a, *f in again]
+        again_done = [r.result() for r in runs]
+    check(all(len(d) == 2 for d in again_done), f"the second run's episodes {again_done}")
+    after = factory_tree(data)
+    rewritten = sorted(str(p.relative_to(data)) for p in after if after[p][0] != before.get(p, (0,))[0])
+    same_bytes = {p: v[1] for p, v in after.items()} == {p: v[1] for p, v in before.items()}
+    print(f"factory actions again: {time.perf_counter() - t0:.1f} s; files rewritten "
+          f"{rewritten} (caption_post_process re-clusters by design), every file's bytes "
+          f"unchanged: {same_bytes}", flush=True)
+    check(same_bytes and set(rewritten) <= {"captions/labels.txt", "captions/all_captions.jsonl"},
+          "a second run of the actions wrote something")
+    check(factory_counts() == launches, "a second run of the actions launched a kernel")
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.perf_counter()
+    records = factory_kernel_checks(g, data, t0)
+    print(f"factory kernel checks and times: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the kernels' other entry points, as a user of the ops calls them:
+    # dynamic voxelization of every frame's cloud and the rasterizer's
+    # gradient by autograd, on episode 0's data
+    t0 = time.perf_counter()
+    for k in FACTORY_KERNELS:
+        k.launches = 0
+    ep = data / "00000"
+    clouds = pd.depth_unproject_backend(str(ep))["points"]
+    for c in clouds:
+        coors = voxelize_mod.voxelization(torch.tensor(c, device="cuda"), pd.VOXEL_SIZE,
+                                          pd.POINT_CLOUD_RANGE, max_points=-1)
+        check(coors.shape == (len(c), 3), "dynamic voxelization's shape")
+    occ = dict(np.load(ep / "occupancy.npz"))
+    pose0 = np.load(ep / "poses.npy")[0]
+    settings = raster_mod.view_settings(pose0, FACTORY_K, FACTORY_RENDER)
+    target = torch.tensor(np.load(ep / "render.npz")["depths"][:, 0], device="cuda")
+    off = 0
+    norms = []
+    for f, n in enumerate(occ["frame_sizes"]):
+        centers, feat, rot, scales, opac = pd.occupancy_to_gaussians(
+            occ["coors"][off:off + n], occ["labels"][off:off + n], device="cuda")
+        off += n
+        means = centers.clone().requires_grad_(True)
+        _, _, _, depth, alpha = raster_mod.rasterize(settings, means, torch.zeros_like(centers),
+                                                     opac, scales, rot, feat)
+        # the render's own depth moved 2%: a loss with a gradient
+        loss = (depth / alpha.clamp(min=1e-6) - 1.02 * target[f]).square().mul(alpha > 0.1).mean()
+        (grad,) = torch.autograd.grad(loss, means)
+        norms.append(grad.norm().item())
+    other = factory_counts()
+    print(f"factory entry points (dynamic voxelization of {len(clouds)} clouds, the depth loss's "
+          f"gradient through rasterize on {len(norms)} frames): {time.perf_counter() - t0:.1f} s, "
+          f"launches {other}; gradient "
+          f"norms {min(norms):.4g}-{max(norms):.4g}, all finite "
+          f"{all(math.isfinite(x) for x in norms)}", flush=True)
+    check(other == (0, FACTORY_FRAMES, FACTORY_FRAMES, FACTORY_FRAMES)
+          and all(math.isfinite(x) and x > 0 for x in norms),
+          f"the entry points' launches {other} or gradients {norms}")
+    tally_factory(other)
+
+    # encode_split on one episode, its depth and label latents from render.npz
+    cfg = train_config(data, root / "out", [f"dataset.ori_size=[{FACTORY_RENDER[0]}, "
+                                            f"{FACTORY_RENDER[1]}]"])
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    vae = CausalVAE(VAEConfig(), dtype=torch.bfloat16)
+    print(f"factory VAE built in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    written = encode_mod.encode_split(cfg, vae, "train", max_samples=1, ref_nums=[1],
+                                      encode_conds=True)
+    out = data / "embeddings_full" / "train"
+    kinds = sorted(Path(p).parent.name for p in written)
+    print(f"factory encode_split (one slice, the factory's render.npz): {time.perf_counter() - t0:.1f}"
+          f" s; wrote {kinds}", flush=True)
+    check(kinds == ["depth_latents", "image_latents", "label_latents", "latents"],
+          f"encode_split wrote {kinds}")
+    for p in written:
+        m = np.load(p)["arr_0"]
+        check(m.shape[0] == 32 and np.isfinite(m).all(), f"{p}: moments {m.shape} not finite")
+    del vae
+    print(f"factory phase: {time.perf_counter() - t_phase:.1f} s; peak memory of this process "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return records
+
+
+def tally_factory(launches) -> None:
+    for i, n in enumerate(launches):
+        FACTORY_LAUNCHES[i] += n
+
+
 # -- phase 6: the model surface at full width -----------------------------------------
 
 SURFACE_STEPS = 4  # DPM steps of (a) and (b)
@@ -3314,6 +3789,15 @@ def main() -> int:
     finally:
         shutil.rmtree(offline_root, ignore_errors=True)
 
+    # 4d. the data factory: depth episodes -> occupancy -> condition maps -> latents
+    gc.collect()
+    torch.cuda.empty_cache()
+    factory_root = Path(tempfile.mkdtemp(prefix="orv_factory_"))
+    try:
+        factory_records = factory_phase(factory_root)
+    finally:
+        shutil.rmtree(factory_root, ignore_errors=True)
+
     # 5. training through the entry point at full width, the serving models freed first;
     # 5c. the model surface's training side, phase 5's state freed, from its export
     gc.collect()
@@ -3355,7 +3839,10 @@ def main() -> int:
         r["launches"] = n
         r["surface_shapes"] = surface_shapes.get(r["name"], [])
         r["surface_train_shapes"] = train_shapes.get(r["name"], [])
-    print(json.dumps({"kernels": records}), flush=True)
+    for r, n in zip(factory_records, FACTORY_LAUNCHES):
+        r["launches"] = n
+    check(all(FACTORY_LAUNCHES), f"a factory kernel was never launched: {FACTORY_LAUNCHES}")
+    print(json.dumps({"kernels": records + factory_records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -25,11 +25,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source on top of NVCC_FLAGS: the rasterizer's products and
+# sums round one at a time, as its plain version's do (no FMA contraction),
+# since its 1/255 and 1e-4 thresholds turn ulps into whole splats
+SOURCE_FLAGS = {"gaussian_raster.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+_counted: Dict[str, object] = {}  # "module:qualname" -> every wrapper `count` has seen
 build_log = ""  # ptxas register/spill report of the last build
 build_seconds = 0.0
 
@@ -50,7 +55,8 @@ def _build(sources: List[Path], so_path: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s.name, []), "-c", str(s),
+                               "-o", str(o)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for s, o in zip(sources, objs)]
     logs, failed = [], []
@@ -78,7 +84,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             sources = sorted(CSRC.glob("*.cu"))
-            h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+            h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(SOURCE_FLAGS).encode())
             for s in sources + sorted(CSRC.glob("*.cuh")):  # headers the sources include
                 h.update(s.name.encode())
                 h.update(s.read_bytes())
@@ -108,6 +114,27 @@ def count(wrapper) -> None:
     (`parallel/sp.py:LocalRing`) launches kernels from one thread per rank."""
     with _count_lock:
         wrapper.launches += 1
+        _counted[f"{wrapper.__module__}:{wrapper.__qualname__}"] = wrapper
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launch counts of every wrapper that launched in this process, by
+    "module:qualname": a worker process sends them to its parent."""
+    with _count_lock:
+        return {name: w.launches for name, w in _counted.items()}
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add another process's `launch_counts` to this process's wrappers."""
+    import importlib
+
+    for name, n in counts.items():
+        module, qualname = name.split(":")
+        wrapper = importlib.import_module(module)
+        for part in qualname.split("."):
+            wrapper = getattr(wrapper, part)
+        with _count_lock:
+            wrapper.launches += n
 
 
 def check(err: int, name: str) -> None:

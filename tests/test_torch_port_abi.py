@@ -24,7 +24,9 @@ ENTRY_POINTS = ("orv_flash_attn_static_max", "orv_flash_attn_online", "orv_flash
                 "orv_flash_attn_bwd_dq", "orv_flash_attn_bwd_dkv", "orv_modulate_norm",
                 "orv_modulate_norm_q8", "orv_modulate_norm_bwd", "orv_gated_residual",
                 "orv_gated_residual_bwd", "orv_modulate_norm_bwd_limits",
-                "orv_gated_residual_bwd_limits")
+                "orv_gated_residual_bwd_limits", "orv_voxel_keys", "orv_voxel_number",
+                "orv_voxel_scatter", "orv_raster_preprocess", "orv_raster_keys",
+                "orv_raster_ranges", "orv_raster_forward", "orv_raster_backward")
 _DECL = re.compile(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(orv_\w+)\s*\(([^)]*)\)', re.S)
 
 

@@ -677,3 +677,107 @@ def test_cuda_train_resume_equals_an_unbroken_run(cuda, tmp_path):
     import chip_smoke
 
     chip_smoke.tiny_resume_check(tmp_path)
+
+
+# -- the data factory's kernels: voxelization and the Gaussian-splat rasterizer --------
+#
+# Voxelization against its plain version bitwise (hard and dynamic), at
+# point counts around the 256-thread block and past max_points and
+# max_voxels. The rasterizer forward against its plain version on the card:
+# radii bitwise, the images to 1e-5 absolute (the same f32 operations in the
+# same order, expf in both; sums taken in another order), at H and W that
+# are not multiples of 16, features on and off. The backward kernel against
+# autograd through the plain version: each gradient to 1e-4 of its largest
+# magnitude (atomicAdd sums in another order, from run to run).
+
+def _cloud(g, n, device):
+    pts = torch.rand(n, 4, generator=g, device=device) * 0.5 - 0.1
+    pts[: n // 3, :3] = torch.rand(n // 3, 3, generator=g, device=device) * 0.02  # dense corner
+    pts[:, 3] = torch.randint(0, 12, (n,), generator=g, device=device).float()
+    return pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,max_points,max_voxels", [(1, 4, 10), (255, 4, 10), (257, 35, 20000),
+                                                     (5000, 3, 400), (100003, 16, 2_000_000)])
+def test_cuda_voxelization_matches_plain(cuda, n, max_points, max_voxels):
+    from orv_tpu_torch.ops import voxelize
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    pts = _cloud(g, n, cuda)
+    vs, cr = (0.001, 0.002, 0.001), (-0.05, -0.05, 0.0, 0.2, 0.2, 0.3)
+    before = (voxelize.hard_voxelize.launches, voxelize.dynamic_voxelize.launches)
+    got = voxelize.voxelization(pts, vs, cr, max_points=max_points, max_voxels=max_voxels)
+    want = voxelize.voxelization_plain(pts, vs, cr, max_points, max_voxels)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    again = voxelize.voxelization(pts, vs, cr, max_points=max_points, max_voxels=max_voxels)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dyn = voxelize.voxelization(pts, vs, cr, max_points=-1)
+    assert torch.equal(dyn, voxelize.voxelization_plain(pts, vs, cr, max_points=-1))
+    assert (voxelize.hard_voxelize.launches, voxelize.dynamic_voxelize.launches) == (
+        before[0] + 2, before[1] + 1)
+    with pytest.raises(ValueError):
+        voxelize.voxelization(pts.double(), vs, cr)
+
+
+def _scene_tensors(cuda, n, H, W, seed, features=True):
+    import chip_smoke
+
+    settings, arr = chip_smoke.raster_scene(n, H, W, seed)
+    t = {k: torch.tensor(v, device=cuda) for k, v in arr.items()}
+    if not features:
+        t["features"] = None
+    return settings, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,H,W,features", [(1, 16, 16, True), (300, 37, 53, True),
+                                            (300, 37, 53, False), (3000, 64, 96, True),
+                                            (20000, 240, 320, True)])
+def test_cuda_rasterize_matches_plain(cuda, n, H, W, features):
+    from orv_tpu_torch.ops import gaussian_raster as gr
+
+    settings, t = _scene_tensors(cuda, n, H, W, seed=n + H, features=features)
+    args = (t["means3d"], t["colors"], t["opacities"], t["scales"], t["rotations"], t["features"])
+    before = gr.rasterize.launches
+    got = gr.rasterize(settings, *args)
+    assert gr.rasterize.launches == before + 1
+    want = gr.rasterize_plain(settings, *args)
+    assert torch.equal(got[2], want[2])
+    for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,H,W,features", [(300, 37, 53, True), (300, 37, 53, False),
+                                            (3000, 64, 96, True)])
+def test_cuda_rasterize_backward_matches_autograd_of_plain(cuda, n, H, W, features):
+    from orv_tpu_torch.ops import gaussian_raster as gr
+
+    settings, t = _scene_tensors(cuda, n, H, W, seed=n + W, features=features)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    grads = dict(grad_color=torch.randn(3, H, W, generator=g, device=cuda),
+                 grad_depth=torch.randn(H, W, generator=g, device=cuda),
+                 grad_alpha=torch.randn(H, W, generator=g, device=cuda),
+                 grad_feature=torch.randn(12, H, W, generator=g, device=cuda))
+    args = (t["means3d"], t["colors"], t["opacities"], t["scales"], t["rotations"])
+    before = gr.rasterize_backward.launches
+    got = gr.rasterize_backward(settings, *args, features=t["features"], **grads)
+    assert gr.rasterize_backward.launches == before + 1
+    want = gr.rasterize_backward_plain(settings, *args, features=t["features"], **grads)
+    for k in want:
+        scale = want[k].abs().max().item()
+        err = (got[k] - want[k]).abs().max().item()
+        assert err <= 1e-4 * max(scale, 1e-30), (k, err, scale)
+    # autograd through rasterize runs the same backward kernel
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    feat = None if t["features"] is None else t["features"].clone().requires_grad_(True)
+    color, feature, _, depth, alpha = gr.rasterize(settings, *leaves, feat)
+    loss = ((color * grads["grad_color"]).sum() + (depth * grads["grad_depth"]).sum()
+            + (alpha * grads["grad_alpha"]).sum() + (feature * grads["grad_feature"]).sum())
+    loss.backward()
+    assert gr.rasterize_backward.launches == before + 2
+    for k, leaf in zip(("means3d", "colors", "opacities", "scales", "rotations"), leaves):
+        torch.testing.assert_close(leaf.grad, got[k], atol=1e-5 * got[k].abs().max().item(),
+                                   rtol=1e-5)
