@@ -140,7 +140,7 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      forward rasterizer on frame 0's gaussians at 240x320 and 237x317 to
      1e-5; the backward on 3000 gaussians at 64x96 and 61x93 against
      autograd through the plain version, to 1e-4 of each largest
-     gradient, and whether a second run gives the same bits), each with
+     gradient, and a second run bitwise equal to the first), each with
      its device time (torch.profiler: the wrappers read a count back to
      size their outputs, so they cannot be captured in a CUDA graph), the
      plain version's and a bytes bound; the kernels' other entry points on
@@ -219,6 +219,30 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      backward kernels timed at the shapes 5c launched (rows 4-5 at
      [15,30,2478,64] and [1,48,2026,64], rows 7 and 10 at [3,600,3072] and
      [20,600,1792]) beside their bounds, plain versions and SDPA's backward;
+  5d. context parallelism, phase 5c's state freed first: SP_RANKS (2)
+     rank processes on cuda:0 over gloo (ProcessGroupRing; NCCL refuses two
+     ranks on one card, and autograd runs CUDA backward nodes on a thread of
+     its own, which LocalRing refuses; the CUDA tensors pass through host
+     memory: a correctness harness, not a speed), each importing this
+     script (`sp_worker`): joint_ring_attention at [1,30,226+7800,64] under
+     grad with static_max=None (row 1) and 24 (row 2), forward and backward
+     against the resident flash forward and backward on the card (out atol
+     2e-2, dq/dk/dv within the backward's bound `rms_agree`), launches per
+     rank 5 forwards, 5 dq and 5 dk/dv (all with dlse), both ranks' results
+     bitwise equal, and a planted fault (the flash backward's dlse dropped)
+     rejected; pipelines/train.py:train with train.mesh.sp=2 on the 2B
+     recipe cut to 8 of 30 layers (17-frame slices, 3000 video tokens, the
+     recipe's B=4 x accumulation 2, 2 micro-steps, no validation; rank 0's
+     checkpoint save and export counted, not written): launches per rank 2 x
+     (40 / 16 / 32 / 0 / 0 / 40 / 40 / 16 / 31), both ranks' parameters,
+     moments and batches bitwise equal, only rank 0 writing; rank 0 then
+     runs the same train resident on the sp run's batches (the same draws):
+     each micro-step's loss within 2^-8 and grad norm within 1e-2 of the
+     resident run's (relative), the first moments within 1e-2 RMS;
+     evaluate with evaluation.mesh.sp=2 at the flagship (2 DPM steps,
+     traj-image-depth-label, latents only): launches per rank 2 x (150 / 60
+     / 120), only rank 0's files, the latents within 2e-2 and 3e-3 of their
+     range of the resident evaluate's;
   6. the model surface at full width, the training state freed first: rows
      2, 3, 6, 8 and 9 against their plain versions at the surface's shapes
      (the MVBlock's attention [13,30,2478,64] and the 5b's [1,48,6826,64],
@@ -279,11 +303,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
 import re
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -1980,6 +2006,355 @@ def surface_train_phase(g, root: Path, stage2: Path):
     return records
 
 
+# -- phase 5d: context parallelism, the ranks as processes on the one card ----------------
+#
+# NCCL refuses two ranks on one card and autograd runs CUDA backward nodes on
+# a thread of its own (which LocalRing cannot carry), so the sp ranks of this
+# phase are SP_RANKS processes on cuda:0 over gloo, their CUDA tensors passing
+# through host memory: a correctness harness, not a speed.
+
+SP_RANKS = 2
+# the 2B recipe cut to 8 of its 30 layers (0.47 B parameters), so that two
+# ranks' training state and activations and rank 0's resident run fit the card
+SP_TRAIN_LAYERS = 8
+SP_TRAIN_STEPS = 2  # micro-steps: one optimizer step at the recipe's accumulation 2
+SP_EVAL_STEPS = 2  # DPM steps of the sp evaluate
+SP_RING_TEXT, SP_RING_VIDEO = 226, 7800
+# sp train against resident on the card: each micro-step's loss within one bf16
+# rounding (2^-8 relative; the ring moves only the merges' roundings), its grad
+# norm and the first moments after the one update ((1 - b1) x the two
+# micro-steps' mean gradient, RMS error over RMS(ref)) within the backward
+# kernels' RMS bound of 1e-2 (`rms_agree`)
+SP_LOSS_REL, SP_GRAD_REL = 2.0 ** -8, 1e-2
+
+
+def sp_attention_calls(n: int) -> int:
+    """Flash forwards of one joint ring attention on one rank: the video
+    queries against the text, the local chunk and n - 1 rotated chunks, the
+    text queries against the text and the local chunk."""
+    return n + 3
+
+
+def sp_train_counts(num_layers: int, n: int):
+    """Launches of one sp micro-step on one rank, in KERNELS order: the
+    resident micro-step's, with each attention and its dq and dk/dv n + 3
+    times (the backwards all with dlse)."""
+    c = list(train_micro_step_counts(num_layers))
+    for i in (0, 5, 6):
+        c[i] *= sp_attention_calls(n)
+    return tuple(c)
+
+
+def _bits(tensors) -> str:
+    """sha256 of the tensors' bytes: ranks' results compare bitwise."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sp_ring_check(comm, static_max, fault: bool = False) -> dict:
+    """joint_ring_attention forward and backward over the ranks at
+    [1,30,226+7800,64] against the resident flash forward and backward on
+    the card; `fault`: the flash backward's dlse dropped (a planted fault)."""
+    g = torch.Generator(device="cuda").manual_seed(21)  # the same inputs on every rank
+    T, S = SP_RING_TEXT, SP_RING_VIDEO
+    q, k, v, do = (torch.randn(1, 30, T + S, 64, device="cuda", generator=g).bfloat16()
+                   for _ in range(4))
+    orig = attention.flash_attention_bwd
+    if fault:
+        attention.flash_attention_bwd = lambda *a: orig(*a[:7], None)
+    try:
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = joint_ring_attention(*leaves, T, comm, static_max=static_max)
+        out.backward(do)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+    finally:
+        attention.flash_attention_bwd = orig
+    ref_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref, _ = attention.flash_attention(*ref_leaves, static_max=static_max)
+    ref.backward(do)
+    grads = [x.grad for x in leaves]
+    return dict(static_max=static_max, fault=fault, ms=ms, launches=launches,
+                out_err=max_err(out, ref),
+                grads_agree=all(rms_agree(a, b.grad) for a, b in zip(grads, ref_leaves)),
+                grad_rms_rel=[rms_errors(a, b.grad)[1] for a, b in zip(grads, ref_leaves)],
+                bits=_bits([out, *grads]))
+
+
+class SpTrainHooks:
+    """Around one run of pipelines/train.py:train (through its module
+    names): counts the checkpoint saves and exports and writes none (rank
+    0's alone are due), records the bits of each micro-step's batch, and
+    with `replay` feeds the run those batches instead of its loader's (the
+    two-thread loader's order is not fixed, so a resident run compared with
+    an sp run takes the sp run's batches)."""
+
+    def __init__(self, replay=None):
+        self.saved = (train_mod.export_pretrained, TrainCheckpointer.save, train_mod.to_device)
+        self.calls = {"checkpoint": 0, "export": 0}
+        self.bits, self.batches, self.replay = [], [], replay
+
+    def __enter__(self):
+        def export_pretrained(*args):
+            self.calls["export"] += 1
+
+        def save(ckpt, step, state):
+            self.calls["checkpoint"] += 1
+            return True
+
+        def to_device(batch, device):
+            if self.replay is not None:
+                batch = self.replay[len(self.batches)]
+            arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+            self.batches.append(arrays)
+            self.bits.append(_bits(torch.from_numpy(np.ascontiguousarray(arrays[k]))
+                                   for k in sorted(arrays)))
+            return self.saved[2](batch, device)
+
+        train_mod.export_pretrained, TrainCheckpointer.save = export_pretrained, save
+        train_mod.to_device = to_device
+        return self
+
+    def __exit__(self, *exc):
+        train_mod.export_pretrained, TrainCheckpointer.save, train_mod.to_device = self.saved
+
+
+def sp_train_run(root: Path, out: str, comm=None, replay=None) -> tuple:
+    """pipelines/train.py:train on the 2B recipe cut to SP_TRAIN_LAYERS
+    layers, at sp = the ring's size (resident without one); returns
+    (state, launches, seconds, hooks, logged metrics)."""
+    cfg = train_config(root / "data", root / out, [
+        f"transformer.num_layers={SP_TRAIN_LAYERS}",
+        f"train.mesh.sp={1 if comm is None else comm.size}",
+        f"train.max_train_steps={SP_TRAIN_STEPS}", "train.checkpointing_steps=1000",
+        "train.validation_steps=1000", "train.log_every=1", "train.lr_warmup_steps=0"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SpTrainHooks(replay) as hooks:
+        state = train_mod.train(cfg, sp=comm)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    logs = root / out / "run" / "logs" / "metrics.jsonl"
+    metrics = [m for m in map(json.loads, logs.read_text().splitlines()) if "loss" in m] \
+        if logs.exists() else []
+    return state, counts(), secs, hooks, metrics
+
+
+def sp_eval_run(root: Path, out: str, comm=None) -> tuple:
+    """pipelines/evaluate.py:evaluate at the flagship, SP_EVAL_STEPS DPM
+    steps, no VAE (latents only), at sp = the ring's size (resident without
+    one); returns (names, launches, seconds)."""
+    cfg = load_config(
+        str(default_config_dir() / "base_eval.yaml"),
+        str(default_config_dir() / "eval" / "eval_traj_image_cond_2b_finetune.yaml"),
+        "bridgev2", overrides=[
+            f"dataset.data_root={root / 'serving'}", "dataset.sequence_length=48",
+            "transformer.pretrained_name_or_path=null", "transformer.visual_guidance=true",
+            f"evaluation.num_inference_steps={SP_EVAL_STEPS}", "evaluation.batch_size=1",
+            "evaluation.mode=traj-image-depth-label",
+            f"evaluation.mesh.sp={1 if comm is None else comm.size}",
+            f"evaluation.output_dir={root / out}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = evaluate(cfg, sp=comm)
+    torch.cuda.synchronize()
+    return names, counts(), time.perf_counter() - t0
+
+
+def sp_worker(rank: int, world: int, port: int, root: str) -> int:
+    """One rank of phase 5d, a process of its own on cuda:0: the bare ring
+    under grad (and once with a planted fault), train and evaluate at sp =
+    world; rank 0 then runs the same train (on the sp run's batches) and
+    evaluate resident and compares. Writes its results to
+    root/sp_rank{rank}.json for the parent."""
+    from orv_tpu_torch.parallel.sp import ProcessGroupRing
+
+    root = Path(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    os.environ["NO_INIT_VAL"] = "1"  # phase 5 runs the inline validation
+    comm = ProcessGroupRing.init_process_group("gloo", f"tcp://localhost:{port}", world, rank,
+                                               timeout=300.0)
+    t_start = time.perf_counter()
+    res = dict(rank=rank, ring=[sp_ring_check(comm, sm) for sm in (None, 24.0)],
+               fault=sp_ring_check(comm, 24.0, fault=True))
+    state, launches, secs, hooks, metrics = sp_train_run(root, "train_sp", comm)
+    params = [p.detach() for p in state.model.parameters()]
+    res["train"] = dict(launches=launches, s=secs, writes=hooks.calls, batches=hooks.bits,
+                        params=_bits(params),
+                        moments=_bits(state.opt_state.mu + state.opt_state.nu), metrics=metrics)
+    sp_mu = torch.cat([m.flatten() for m in state.opt_state.mu]) if rank == 0 else None
+    del state, params
+    names, launches, secs = sp_eval_run(root, "eval_sp", comm)
+    res["evaluate"] = dict(names=names, launches=launches, s=secs)
+    # the group ends here: rank 0's resident runs must not see a group of 2
+    # (evaluate would split its work list over it)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    if rank == 0:  # the same runs resident, to compare with
+        state, launches, secs, res_hooks, metrics = sp_train_run(root, "train_res",
+                                                                 replay=hooks.batches)
+        mu = torch.cat([m.flatten() for m in state.opt_state.mu])
+        err, rel, rms = rms_errors(sp_mu, mu)
+        res["train_resident"] = dict(launches=launches, s=secs, writes=res_hooks.calls,
+                                     batches=res_hooks.bits, metrics=metrics,
+                                     moment_rms_rel=rel, moment_max_rel=err / rms)
+        del state, mu, sp_mu
+        names, launches, secs = sp_eval_run(root, "eval_res")
+        res["evaluate_resident"] = dict(names=names, launches=launches, s=secs)
+    res["s"] = time.perf_counter() - t_start
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    (root / f"sp_rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def sp_phase(root: Path) -> None:
+    """Phase 5d (module docstring): SP_RANKS rank processes on the card,
+    their results checked here."""
+    t_phase = time.perf_counter()
+    n_slices = write_train_data(root / "data")
+    write_serving_data(root / "serving")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (f"import sys; sys.path.insert(0, {str(Path(__file__).resolve().parent)!r}); "
+            "import chip_smoke; sys.exit(chip_smoke.sp_worker(*map(int, sys.argv[1:4]), "
+            "sys.argv[4]))")
+    logs = [open(root / f"sp_rank{r}.log", "w+") for r in range(SP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(SP_RANKS), str(port),
+                               str(root)], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(SP_RANKS)]
+    deadline = time.monotonic() + 600.0
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        tail = f.read()[-3000:]
+        f.close()
+        if procs[r].returncode != 0:
+            print(f"sp rank {r} failed (exit {procs[r].returncode}):\n{tail}", flush=True)
+    check(all(p.returncode == 0 for p in procs), "an sp rank process failed")
+    res = [json.loads((root / f"sp_rank{r}.json").read_text()) for r in range(SP_RANKS)]
+    n = SP_RANKS
+
+    # the bare ring under grad
+    want = {None: tuple(sp_attention_calls(n) if kk in (attention.flash_attention_online_kernel,
+                                                        attention.flash_attention_bwd_dq,
+                                                        attention.flash_attention_bwd_dkv)
+                        else 0 for kk in KERNELS),
+            24.0: tuple(sp_attention_calls(n) if kk in (attention.flash_attention,
+                                                        attention.flash_attention_bwd_dq,
+                                                        attention.flash_attention_bwd_dkv)
+                        else 0 for kk in KERNELS)}
+    for i, sm in enumerate((None, 24.0)):
+        rings = [r["ring"][i] for r in res]
+        launches = [tuple(r["launches"]) for r in rings]
+        same = all(r["bits"] == rings[0]["bits"] for r in rings)
+        print(f"joint_ring_attention under grad [1,30,{SP_RING_TEXT}+{SP_RING_VIDEO},64], "
+              f"static_max={sm}, {n} rank processes on one card over gloo: forward+backward "
+              f"{rings[0]['ms']:.1f} ms (rank 0, host clock), launches per rank {launches[0]}, "
+              f"ranks bitwise equal {same}, out max_abs_err {rings[0]['out_err']:.3g} (tol 2e-2), "
+              f"dq/dk/dv RMS error {', '.join(f'{e:.3g}' for e in rings[0]['grad_rms_rel'])} of "
+              f"RMS(ref) (tol 1e-2, max 0.1)", flush=True)
+        check(all(l == want[sm] for l in launches), f"ring launches {launches} != {want[sm]}")
+        check(same, "the ranks' ring gradients differ")
+        check(all(r["out_err"] <= 2e-2 and r["grads_agree"] for r in rings),
+              f"the ring under grad (static_max={sm}) disagrees with the resident flash")
+        for l in launches:
+            tally(l)
+    faults = [r["fault"] for r in res]
+    print(f"planted fault (the flash backward's dlse dropped): dq/dk/dv RMS error "
+          f"{', '.join(f'{e:.3g}' for e in faults[0]['grad_rms_rel'])} of RMS(ref); rejected "
+          f"{not any(f['grads_agree'] for f in faults)}", flush=True)
+    check(not any(f["grads_agree"] for f in faults), "the ring check let a dropped dlse pass")
+
+    # train at sp
+    tr = [r["train"] for r in res]
+    ref = res[0]["train_resident"]
+    want = tuple(SP_TRAIN_STEPS * c for c in sp_train_counts(SP_TRAIN_LAYERS, n))
+    want_res = tuple(SP_TRAIN_STEPS * c for c in train_micro_step_counts(SP_TRAIN_LAYERS))
+    losses = [(m["loss"], m["grad_norm"]) for m in tr[0]["metrics"]]
+    ref_losses = [(m["loss"], m["grad_norm"]) for m in ref["metrics"]]
+    print(f"train at train.mesh.sp={n} ({TRAIN_RECIPE}, {SP_TRAIN_LAYERS} of 30 layers, "
+          f"{n_slices} slices, the recipe's B=4 x accumulation 2, {SP_TRAIN_STEPS} micro-steps, "
+          f"{n} rank "
+          f"processes on one card): {tr[0]['s']:.1f} s (rank 0; resident {ref['s']:.1f} s); "
+          f"launches per rank {[tuple(t['launches']) for t in tr]} (want {want}), resident "
+          f"{tuple(ref['launches'])}; (loss, grad norm) per micro-step sp {losses}, resident "
+          f"{ref_losses}; first moments RMS error {ref['moment_rms_rel']:.3g} of RMS(ref), max "
+          f"{ref['moment_max_rel']:.3g}; parameters and moments bitwise equal across ranks "
+          f"{len({t['params'] for t in tr}) == 1 and len({t['moments'] for t in tr}) == 1}; "
+          f"same batches {len({tuple(t['batches']) for t in tr}) == 1}; writes per rank "
+          f"{[t['writes'] for t in tr]}", flush=True)
+    check(all(tuple(t["launches"]) == want for t in tr), "sp train launch counts")
+    check(tuple(ref["launches"]) == want_res, "resident train launch counts")
+    check(len({t["params"] for t in tr}) == 1 and len({t["moments"] for t in tr}) == 1,
+          "the sp ranks' parameters or moments differ")
+    check(len({tuple(t["batches"]) for t in tr}) == 1 and ref["batches"] == tr[0]["batches"]
+          and len(tr[0]["batches"]) == SP_TRAIN_STEPS, "the ranks took different batches")
+    check(tr[0]["writes"] == {"checkpoint": 1, "export": 1}
+          and all(t["writes"] == {"checkpoint": 0, "export": 0} for t in tr[1:]),
+          "only rank 0 may write the checkpoint and the export")
+    check(len(losses) == SP_TRAIN_STEPS == len(ref_losses)
+          and all(math.isfinite(a) and math.isfinite(b) for a, b in losses), "sp train metrics")
+    check(all(abs(a - c) <= SP_LOSS_REL * abs(c) and abs(b - d) <= SP_GRAD_REL * abs(d)
+              for (a, b), (c, d) in zip(losses, ref_losses)),
+          "sp train's loss or grad norm disagrees with the resident run")
+    check(ref["moment_rms_rel"] <= SP_GRAD_REL, "sp train's moments disagree with resident")
+    for t in tr:
+        tally(t["launches"])
+    tally(ref["launches"])
+
+    # evaluate at sp
+    ev = [r["evaluate"] for r in res]
+    ev_ref = res[0]["evaluate_resident"]
+    per_rank = tuple(sp_attention_calls(n) * c if kk is attention.flash_attention else c
+                     for kk, c in zip(KERNELS, BF16_FORWARD))
+    want = tuple(SP_EVAL_STEPS * c for c in per_rank)
+    lat = np.load(root / "eval_sp" / "00000_000_latents.npz")["arr_0"]
+    lat_ref = np.load(root / "eval_res" / "00000_000_latents.npz")["arr_0"]
+    files = sorted(p.name for p in (root / "eval_sp").iterdir())
+    print(f"evaluate at evaluation.mesh.sp={n} (flagship, {SP_EVAL_STEPS} DPM steps, "
+          f"traj-image-depth-label, no VAE): {ev[0]['s']:.1f} s (rank 0; resident "
+          f"{ev_ref['s']:.1f} s), launches per rank {[tuple(e['launches']) for e in ev]} (want "
+          f"{want}), files {files}", flush=True)
+    check(all(tuple(e["launches"]) == want for e in ev), "sp evaluate launch counts")
+    check(all(e["names"] == ev_ref["names"] for e in ev), "sp evaluate's clips")
+    check(files == ["00000_000_latents.npz", "manifest.json", "manifest_0.json"],
+          f"sp evaluate wrote {files}")
+    check(lat.shape == lat_ref.shape and bool(np.isfinite(lat).all()), "sp evaluate latents")
+    agree(torch.from_numpy(lat), torch.from_numpy(lat_ref),
+          f"evaluate sp={n} vs resident latents", 2e-2, 3e-3)
+    for e in ev:
+        tally(e["launches"])
+    tally(ev_ref["launches"])
+    print(f"sp phase: {time.perf_counter() - t_phase:.1f} s (ranks {res[0]['s']:.1f} and "
+          f"{res[1]['s']:.1f} s after their start; peak memory rank 0 "
+          f"{res[0]['peak_gib']:.1f} GiB, rank 1 {res[1]['peak_gib']:.1f} GiB)", flush=True)
+
+
 def generate(dit, vae, inp, name: str, forward_counts):
     """4 DPM steps through make_sampler and the chunked decode; checks the
     outputs and the launch counts. Returns s/step."""
@@ -2722,7 +3097,8 @@ def factory_kernel_checks(g, data: Path, t0: float):
     limits, and dynamic) on one full frame and at a ragged count; the
     forward rasterizer on frame 0's gaussians at the render's size and at a
     ragged one; the backward on a 3000-gaussian scene at 64 x 96 and 61 x 93
-    against autograd through the plain version. Then device times a frame
+    against autograd through the plain version, and its second run against
+    its first, bitwise. Then device times a frame
     beside the plain versions' and a bytes bound. Returns the records."""
     from orv_tpu_torch.pipelines import prepare_dataset as pd
 
@@ -2783,6 +3159,7 @@ def factory_kernel_checks(g, data: Path, t0: float):
               f"the largest gradient {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} (tol "
               f"1e-4); a second run bitwise equal: {bitwise}", flush=True)
         check(max(rel.values()) <= 1e-4, f"the raster backward disagrees at {hw}")
+        check(bitwise, f"the raster backward's second run at {hw} differs in its bits")
         bwd_errs.append(max(rel.values()))
     bwd_call = (s_small, *bargs, grads["grad_color"], grads["grad_depth"], grads["grad_alpha"],
                 t["features"], grads["grad_feature"])
@@ -3811,6 +4188,16 @@ def main() -> int:
         train_shapes = surface_train_phase(g, train_root, train_root / "out" / "run" / "checkpoint")
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
+
+    # 5d. context parallelism: the ring under grad, train and evaluate at sp=2, the
+    # ranks as processes on the one card
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp_root = Path(tempfile.mkdtemp(prefix="orv_sp_"))
+    try:
+        sp_phase(sp_root)
+    finally:
+        shutil.rmtree(sp_root, ignore_errors=True)
 
     # 6. the model surface at full width, the training state freed first
     gc.collect()

@@ -41,7 +41,10 @@ dit.py:166-170) threads a communicator (`parallel/sp.py`) into every block,
 whose joint attention then rings over the ranks (`ops/ring_attention.py`);
 every rank runs the rest of the model on the full sequence, so every rank
 returns the whole prediction. Run it on every rank, e.g. under
-`LocalRing(n).run`. Inference only: the ring raises under grad mode.
+`LocalRing(n).run`. It trains: the ring's collectives are differentiable
+(`parallel/sp.py`), every rank's gradients come out the same bit for bit,
+and remat recomputes the ring, collectives included, in the backward. On
+CUDA the ranks of a training run are processes (`ProcessGroupRing`).
 
 Per-block remat (`remat=True`, the JAX package's `gradient_checkpointing`,
 dit.py:385-394): under grad mode each cell of the block loop (the MVBlock,

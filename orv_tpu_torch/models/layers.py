@@ -16,8 +16,8 @@ The bf16 model trains: `modulate_norm`, `gated_residual` and
 gradient is lost at a kernel's output.
 
 Sequence parallelism (`sp`, the JAX package's `sp_mesh`): a communicator of
-size > 1 rings every joint attention over its ranks; every other layer runs
-on the full sequence on every rank.
+size > 1 rings every joint attention over its ranks, forward and backward;
+every other layer runs on the full sequence on every rank.
 
 W8A8 serving (`quant=True`, the JAX package's `quant` flag): the block
 projections and feed-forward matmuls are `Int8Dense`, the video stream's
@@ -31,6 +31,9 @@ The rest of the DiT's surface: RoPE on the video part of q and k
 the CogVideoX 1.5 linear patch embed over `patch_size_t` frames
 (`PatchEmbed`, `ActionEmbed`), and PAB attention broadcast
 (`DiTBlock(cached_attn=..., return_attn=...)`, `AdaLNZero(gates_only=True)`).
+
+Off the main path, as in the JAX package: `FloatGroupNorm`, `Fuser` and
+`ConditioningEmbedding`, which the reference defines and never calls.
 """
 
 from __future__ import annotations
@@ -615,3 +618,104 @@ class ActionRecon(nn.Module):
         if self.compress_ratio > 1:
             h = h.reshape(B, F_ * self.compress_ratio, self.state_dim)
         return h[:, 1:]
+
+
+class FloatGroupNorm(nn.Module):
+    """GroupNorm in f32, cast back to the input's dtype (orv_tpu
+    layers.py:799; reference components.py:107-109), over channels last.
+    For x of 3 or more dims the statistics of each group run over the
+    channels in the group and the third axis from the end of the grouped
+    tensor (the tokens of [B, F, P, D], the frames of [B, F, D]); for 2-dim
+    x over the group's channels alone (layers.py:816-817). Keys `weight`,
+    `bias` (flax `scale`, `bias`)."""
+
+    def __init__(self, groups: int, channels: int, device=None, param_dtype=torch.float32):
+        super().__init__()
+        if channels % groups:
+            raise ValueError(f"FloatGroupNorm: {channels} channels in {groups} groups")
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(channels, device=device, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        g = xf.reshape(*xf.shape[:-1], self.groups, xf.shape[-1] // self.groups)
+        dims = (-3, -1) if xf.dim() >= 3 else (-1,)
+        mean = g.mean(dim=dims, keepdim=True)
+        var = (g - mean).pow(2).mean(dim=dims, keepdim=True)
+        g = (g - mean) * torch.rsqrt(var + 1e-5)
+        return (g.reshape(xf.shape) * self.weight + self.bias).to(x.dtype)
+
+
+class Fuser(nn.Module):
+    """Spatio-temporal FiLM of hidden states by action hidden states (orv_tpu
+    layers.py:822; reference components.py:121-162): h + GroupNorm(h) *
+    gamma + beta, gamma and beta projected from the action states to
+    out_channels // 4 (`gamma_spatial`, `beta_spatial`) and then to
+    out_channels (`gamma_temporal`, `beta_temporal`, zero-initialised, so
+    the module starts as the identity). The reference defines it and its
+    main path never calls it. h [B, F, P, D], action_hidden_states [B, F, P,
+    action_in_channel]; D == out_channels."""
+
+    def __init__(self, action_in_channel: int = 128, out_channels: int = 1152,
+                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(device=device, dtype=param_dtype)
+        self.gamma_spatial = nn.Linear(action_in_channel, out_channels // 4, **kw)
+        self.beta_spatial = nn.Linear(action_in_channel, out_channels // 4, **kw)
+        self.gamma_temporal = nn.Linear(out_channels // 4, out_channels, **kw)
+        self.beta_temporal = nn.Linear(out_channels // 4, out_channels, **kw)
+        with torch.no_grad():
+            for layer in (self.gamma_spatial, self.beta_spatial):
+                layer.bias.zero_()
+            for layer in (self.gamma_temporal, self.beta_temporal):
+                layer.weight.zero_()
+                layer.bias.zero_()
+        self.traj_cond_norm = FloatGroupNorm(min(32, out_channels), out_channels, device,
+                                             param_dtype)
+
+    def forward(self, h: torch.Tensor, action_hidden_states: torch.Tensor) -> torch.Tensor:
+        # the temporal projections act on the channels of each (b p) f row, as
+        # the JAX package's rearranges leave them
+        gamma = _linear(_linear(action_hidden_states, self.gamma_spatial, self.dtype),
+                        self.gamma_temporal, self.dtype)
+        beta = _linear(_linear(action_hidden_states, self.beta_spatial, self.dtype),
+                       self.beta_temporal, self.dtype)
+        return h + self.traj_cond_norm(h) * gamma + beta
+
+
+class ConditioningEmbedding(nn.Module):
+    """ControlNet-style conv encoder of raw condition images (orv_tpu
+    layers.py:856; reference components.py:165-197, which defines it and
+    never calls it): 3x3 convs with padding 1, SiLU after each but the
+    last, every second block of stride 2. Takes and returns NHWC, as the
+    JAX module does ([B, H, W, C] -> [B, H/8, W/8, embedding_channels] with
+    the default 4 widths); the convs run in NCHW inside. Keys conv_in,
+    blocks.{j} (flax `block_{j}`), conv_out; flax HWIO kernels transpose to
+    OIHW."""
+
+    def __init__(self, embedding_channels: int, block_out_channels=(16, 32, 96, 256),
+                 in_channels: int = 3, dtype=torch.bfloat16, device=None,
+                 param_dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        ch = tuple(block_out_channels)
+        conv = lambda i, o, stride: nn.Conv2d(i, o, 3, stride=stride, padding=1, device=device,
+                                              dtype=param_dtype)
+        self.conv_in = conv(in_channels, ch[0], 1)
+        blocks = []
+        for i in range(len(ch) - 1):
+            blocks += [conv(ch[i], ch[i], 1), conv(ch[i], ch[i + 1], 2)]
+        self.blocks = nn.ModuleList(blocks)
+        self.conv_out = conv(ch[-1], embedding_channels, 1)
+
+    def _conv(self, layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), layer.weight.to(self.dtype), layer.bias.to(self.dtype),
+                        layer.stride, layer.padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self._conv(self.conv_in, x.permute(0, 3, 1, 2)))
+        for layer in self.blocks:
+            h = F.silu(self._conv(layer, h))
+        return self._conv(self.conv_out, h).permute(0, 2, 3, 1)

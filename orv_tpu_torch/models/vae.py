@@ -22,8 +22,8 @@ diffusers keys (`encoder.down_blocks.{i}.downsamplers.0.conv`,
 
 `encode_chunked` and `encode_auto` chunk exactly as the JAX package does
 (GroupNorm statistics are per chunk), so their numbers follow it whatever
-the card could hold at once. `tiled_decode` is not ported: no entry point
-calls it.
+the card could hold at once. `tiled_decode` is the JAX package's spatially
+tiled decode with its linear-ramp overlap-add, around any decode function.
 """
 
 from __future__ import annotations
@@ -388,3 +388,57 @@ def encode_auto(vae: CausalVAE, video: torch.Tensor, chunk_frames: int = 8,
         return vae.encode(video.to(device))
     finally:
         vae.clear_cache()
+
+
+def tiled_decode(decode_fn, latents: torch.Tensor, tile_latent_h: int = 24,
+                 tile_latent_w: int = 32, overlap: int = 8, out_channels: int = 3,
+                 temporal_expand: int = 4) -> torch.Tensor:
+    """Spatially tiled decode with normalised linear-ramp overlap-add
+    (orv_tpu/models/vae.py:493-580; the reference's `enable_tiling`).
+
+    latents [B, C, T, H, W] are zero-padded so that every tile has the same
+    th x tw latent size (th = min(tile_latent_h, H), likewise tw); tiles
+    start every th - overlap rows and tw - overlap columns (one tile, no
+    overlap, where the latents fit in one). `decode_fn` maps a tile [B, C,
+    T, th, tw] to video [B, out_channels, T_out, 8 th, 8 tw] (for example a
+    closure over `decode_chunked`); each decoded tile is weighted by the
+    outer product of two ramps that rise over the overlap's 8 * overlap
+    pixels ((1..n) / (n + 1), never 0) and fall back at the far edge, added
+    into an f32 canvas, and the canvas is divided by the summed weights.
+    Returns f32 [B, out_channels, T_out, 8 H, 8 W], T_out = (T - 1) *
+    temporal_expand + 1 (1 for T = 1), on the latents' device."""
+    B, C, T, H, W = latents.shape
+    sf = 8
+    th, tw = min(tile_latent_h, H), min(tile_latent_w, W)
+    overlap = min(overlap, max(0, min(th, tw) - 1))
+    if H <= th and W <= tw:
+        overlap = 0  # one tile: no seams to blend
+    step_h, step_w = max(1, th - overlap), max(1, tw - overlap)
+    n_th = 1 if H <= th else -(-(H - th) // step_h) + 1
+    n_tw = 1 if W <= tw else -(-(W - tw) // step_w) + 1
+    pad_h = (n_th - 1) * step_h + th - H
+    pad_w = (n_tw - 1) * step_w + tw - W
+    z = F.pad(latents, (0, pad_w, 0, pad_h))
+
+    def ramp(n_px: int, ov_px: int) -> torch.Tensor:
+        w = torch.ones(n_px, dtype=torch.float64)
+        if ov_px > 0:
+            r = (torch.arange(ov_px, dtype=torch.float64) + 1.0) / (ov_px + 1.0)
+            w[:ov_px] = r
+            w[-ov_px:] = r.flip(0)
+        return w
+
+    ov_px = overlap * sf
+    w_tile = torch.outer(ramp(th * sf, ov_px), ramp(tw * sf, ov_px)).to(
+        device=latents.device, dtype=torch.float32)
+    T_out = (T - 1) * temporal_expand + 1 if T > 1 else 1
+    canvas = torch.zeros((B, out_channels, T_out, z.shape[3] * sf, z.shape[4] * sf),
+                         dtype=torch.float32, device=latents.device)
+    weight = torch.zeros(canvas.shape[3:], dtype=torch.float32, device=latents.device)
+    for ti in range(n_th):
+        for tj in range(n_tw):
+            r, c = ti * step_h, tj * step_w
+            tile = decode_fn(z[:, :, :, r:r + th, c:c + tw]).float()
+            canvas[..., r * sf:(r + th) * sf, c * sf:(c + tw) * sf] += tile * w_tile
+            weight[r * sf:(r + th) * sf, c * sf:(c + tw) * sf] += w_tile
+    return (canvas / weight)[..., :H * sf, :W * sf]

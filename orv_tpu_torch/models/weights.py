@@ -22,6 +22,9 @@ Conventions:
   feature-network kernel [*k, I, O]   -> Conv2d/Conv3d weight [O, I, *k]
   T5 Dense kernel [in, out]           -> Linear weight [out, in]; its
                                          embeddings keep their layout
+  Fuser / FloatGroupNorm /            -> Linear [out, in], Conv2d [O, I, 3, 3]
+    ConditioningEmbedding trees          from HWIO, GroupNorm `scale` ->
+                                         `weight` (`aux_params_from_jax`)
 
 A diffusers folder (`config.json` plus `diffusion_pytorch_model.safetensors`,
 or shards listed in `diffusion_pytorch_model.safetensors.index.json`) reads
@@ -227,6 +230,32 @@ _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": n
 _TORCH_ST = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
              torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
              torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def aux_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The param tree (`{'params': ...}` or its inner dict) of one of the
+    modules off the main path, `Fuser`, `FloatGroupNorm` or
+    `ConditioningEmbedding` (orv_tpu/models/layers.py:799-876), -> the port
+    module's state dict: flax Dense kernels [in, out] -> Linear weights
+    [out, in], Conv kernels HWIO -> Conv2d weights OIHW, GroupNorm `scale`
+    -> `weight`; ConditioningEmbedding's `block_{j}` -> `blocks.{j}`."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                key = f"blocks.{name[6:]}" if name.startswith("block_") else name
+                walk(value, f"{prefix}{key}.")
+                continue
+            a = np.asarray(value)
+            if name == "kernel":
+                sd[f"{prefix}weight"] = _tensor(a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1)))
+            else:
+                sd[f"{prefix}{'weight' if name == 'scale' else name}"] = _tensor(a)
+
+    walk(p, "")
+    return sd
 
 
 def read_safetensors(path) -> Dict[str, torch.Tensor]:

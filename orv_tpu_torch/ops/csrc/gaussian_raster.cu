@@ -31,11 +31,16 @@
 //       is done;
 //   (d) backward_kernel walks each pixel's splats twice (:308-384): once for
 //       the final transmittance and the total payload, once for each splat's
-//       gradients, which it adds with atomicAdd to per-gaussian sums (so the
-//       order of the additions, and the last bits, vary from run to run);
-//       backward_geom_kernel, one thread a gaussian, recomputes the
-//       preprocess and takes conic -> cov2D -> cov3D -> quaternion, scale
-//       and means (:390-537).
+//       gradients. Each splat's gradients are summed over the tile's pixels
+//       in a fixed order (a shuffle tree in each warp, then the warps in
+//       order through shared memory) into the splat's slot of the sorted key
+//       list, one slot a (tile, gaussian); backward_sum_kernel, one thread a
+//       gaussian, adds its slots in the order emit_keys_kernel wrote them
+//       (its tiles row by row), found through the inverse of the sort's
+//       permutation. No atomics: two runs give the same bits, as the C++'s
+//       serial scatter does (:264). backward_geom_kernel, one thread a
+//       gaussian, recomputes the preprocess and takes conic -> cov2D ->
+//       cov3D -> quaternion, scale and means (:390-537).
 // Built with -fmad=false (ops/_build.py:SOURCE_FLAGS) and expf, not __expf:
 // the 1/255 and 1e-4 thresholds turn ulps into whole splats.
 
@@ -323,17 +328,24 @@ forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_li
   out_alpha[pix] = 1.0f - T;
 }
 
-// accum [n, 6]: d pix_x, d pix_y, d tz, d conic (3), zero on entry.
+// A splat's gradients from one pixel, or from one tile: d color (3), d
+// opacity, d pix_x, d pix_y, d tz, d conic (3), d feature (kFeat).
+constexpr int kGrad = 3 + 1 + 6 + kFeat;
+constexpr int kGeomGrad = 3 + 1 + 6;  // the entries before the features
+constexpr int kRound = 32;  // splats summed over the block per round
+constexpr int kWarps = kBlock / 32;
+
+// partial [keys, kGrad]: a slot per sorted key, zero on entry; a tile writes
+// the slots of the splats its pixels reach.
 __global__ void __launch_bounds__(kBlock)
 backward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_list,
                 const float2* __restrict__ xy, const float4* __restrict__ conic_op,
                 const float* __restrict__ depth, const float* __restrict__ colors,
                 const float* __restrict__ features, Cam c, const float* __restrict__ grad_color,
                 const float* __restrict__ grad_feature, const float* __restrict__ grad_depth,
-                const float* __restrict__ grad_alpha, float* __restrict__ accum,
-                float* __restrict__ g_colors, float* __restrict__ g_features,
-                float* __restrict__ g_opacities) {
+                const float* __restrict__ grad_alpha, float* __restrict__ partial) {
   __shared__ Batch sb;
+  __shared__ float wsum[kWarps][kRound][kGrad];
   const int tile = blockIdx.x;
   const int x = (tile % c.tiles_x) * kTile + threadIdx.x % kTile;
   const int y = (tile / c.tiles_x) * kTile + threadIdx.x / kTile;
@@ -398,50 +410,118 @@ backward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_l
     block_last = red[0];
     for (int w = 1; w < kBlock / 32; ++w) block_last = max(block_last, red[w]);
   }
+  // the block walks every splat up to block_last together (a pixel past its
+  // own last splat adds zeros), kRound splats a round: each warp's sum of
+  // a splat goes to wsum, then the block adds the warps in order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_grad = with_feat ? kGrad : kGeomGrad;  // the features' sums stay zero
   float T_run = 1.0f, prefix = 0.0f;
   for (int base = range.x; base <= block_last; base += kBlock) {
     __syncthreads();
     load_batch(sb, point_list, xy, conic_op, depth, base + threadIdx.x, range.y);
     __syncthreads();
     const int m = min(kBlock, block_last + 1 - base);
-    for (int j = 0; j < m && base + j <= last; ++j) {
-      const float4 co = sb.conic_op[j];
-      float dx, dy;
-      const float power = splat_power(sb.xy[j], co, fx, fy, dx, dy);
-      if (power > 0.0f) continue;
-      const float G = expf(power);
-      const float alpha = fminf(0.99f, co.w * G);
-      if (alpha < 1.0f / 255.0f) continue;
-      const float w = alpha * T_run;
-      const int id = sb.id[j];
-      const float* col = colors + 3LL * id;
-      float payload = col[0] * dC[0] + col[1] * dC[1] + col[2] * dC[2] + sb.depth[j] * dD;
-      if (with_feat) {
-        const float* f = features + (long long)kFeat * id;
-        for (int k = 0; k < kFeat; ++k) payload += f[k] * dF[k];
+    for (int j0 = 0; j0 < m; j0 += kRound) {
+      const int mr = min(kRound, m - j0);
+      for (int r = 0; r < mr; ++r) {
+        const int j = j0 + r;
+        float gr[kGrad];
+#pragma unroll
+        for (int q = 0; q < kGrad; ++q) gr[q] = 0.0f;
+        bool hit = false;
+        if (base + j <= last) {
+          const float4 co = sb.conic_op[j];
+          float dx, dy;
+          const float power = splat_power(sb.xy[j], co, fx, fy, dx, dy);
+          const float G = expf(power);
+          const float alpha = fminf(0.99f, co.w * G);
+          if (power <= 0.0f && alpha >= 1.0f / 255.0f) {
+            hit = true;
+            const float w = alpha * T_run;
+            const int id = sb.id[j];
+            const float* col = colors + 3LL * id;
+            float payload = col[0] * dC[0] + col[1] * dC[1] + col[2] * dC[2] + sb.depth[j] * dD;
+            if (with_feat) {
+              const float* f = features + (long long)kFeat * id;
+              for (int k = 0; k < kFeat; ++k) payload += f[k] * dF[k];
+            }
+            prefix += w * payload;
+            const float suffix = total - prefix;
+            for (int k = 0; k < 3; ++k) gr[k] = w * dC[k];
+            if (with_feat)
+              for (int k = 0; k < kFeat; ++k) gr[kGeomGrad + k] = w * dF[k];
+            gr[6] = w * dD;  // the expected-depth payload
+            const float one_m = fmaxf(1.0f - alpha, 1e-6f);
+            const float d_alpha =
+                T_run * payload - (suffix + T_final * bg_dot) / one_m + (T_final / one_m) * dA;
+            if (co.w * G < 0.99f) {  // alpha = min(0.99, o G): the clamp kills local gradients
+              gr[3] = d_alpha * G;
+              const float d_power = d_alpha * co.w * G;
+              gr[7] = d_power * (-0.5f * dx * dx);
+              gr[8] = d_power * (-dx * dy);
+              gr[9] = d_power * (-0.5f * dy * dy);
+              gr[4] = d_power * (-(co.x * dx + co.y * dy));
+              gr[5] = d_power * (-(co.z * dy + co.y * dx));
+            }
+            T_run *= (1.0f - alpha);
+          }
+        }
+        if (__any_sync(~0u, hit)) {
+#pragma unroll
+          for (int q = 0; q < kGrad; ++q) {
+            if (q >= n_grad) break;
+            float x = gr[q];
+            for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(~0u, x, o);
+            if (lane == 0) wsum[warp][r][q] = x;
+          }
+        } else if (lane == 0) {
+          for (int q = 0; q < n_grad; ++q) wsum[warp][r][q] = 0.0f;
+        }
       }
-      prefix += w * payload;
-      const float suffix = total - prefix;
-      for (int k = 0; k < 3; ++k) atomicAdd(g_colors + 3LL * id + k, w * dC[k]);
-      if (with_feat)
-        for (int k = 0; k < kFeat; ++k) atomicAdd(g_features + (long long)kFeat * id + k, w * dF[k]);
-      float* acc = accum + 6LL * id;
-      atomicAdd(acc + 2, w * dD);  // the expected-depth payload
-      const float one_m = fmaxf(1.0f - alpha, 1e-6f);
-      const float d_alpha =
-          T_run * payload - (suffix + T_final * bg_dot) / one_m + (T_final / one_m) * dA;
-      if (co.w * G < 0.99f) {  // alpha = min(0.99, o G): the clamp kills local gradients
-        atomicAdd(g_opacities + id, d_alpha * G);
-        const float d_power = d_alpha * co.w * G;
-        atomicAdd(acc + 3, d_power * (-0.5f * dx * dx));
-        atomicAdd(acc + 4, d_power * (-dx * dy));
-        atomicAdd(acc + 5, d_power * (-0.5f * dy * dy));
-        atomicAdd(acc + 0, d_power * (-(co.x * dx + co.y * dy)));
-        atomicAdd(acc + 1, d_power * (-(co.z * dy + co.y * dx)));
+      __syncthreads();
+      for (int e = threadIdx.x; e < mr * n_grad; e += kBlock) {
+        const int r = e / n_grad, q = e % n_grad;
+        float x = wsum[0][r][q];
+        for (int w = 1; w < kWarps; ++w) x += wsum[w][r][q];
+        partial[(long long)(base + j0 + r) * kGrad + q] = x;
       }
-      T_run *= (1.0f - alpha);
+      __syncthreads();
     }
   }
+}
+
+// slot_of[perm[k]] = k: the sorted position of each key emit_keys_kernel wrote.
+__global__ void __launch_bounds__(256)
+invert_perm_kernel(const long long* __restrict__ perm, int total, int* __restrict__ slot_of) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < total) slot_of[perm[k]] = k;
+}
+
+// One thread a gaussian: its tiles' partial sums added in the order its keys
+// were written (offsets[i] on, touched[i] of them). accum [n, 6]: d pix_x,
+// d pix_y, d tz, d conic (3); g_colors [n, 3], g_opacities [n], g_features
+// [n, kFeat] (null: not written); every one written whole.
+__global__ void __launch_bounds__(256)
+backward_sum_kernel(int n, const int* __restrict__ touched, const int* __restrict__ offsets,
+                    const int* __restrict__ slot_of, const float* __restrict__ partial,
+                    float* __restrict__ accum, float* __restrict__ g_colors,
+                    float* __restrict__ g_opacities, float* __restrict__ g_features) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float sum[kGrad];
+#pragma unroll
+  for (int q = 0; q < kGrad; ++q) sum[q] = 0.0f;
+  const int first = offsets[i], count = touched[i];
+  for (int u = first; u < first + count; ++u) {
+    const float* p = partial + (long long)slot_of[u] * kGrad;
+#pragma unroll
+    for (int q = 0; q < kGrad; ++q) sum[q] += p[q];
+  }
+  for (int k = 0; k < 3; ++k) g_colors[3LL * i + k] = sum[k];
+  g_opacities[i] = sum[3];
+  for (int k = 0; k < 6; ++k) accum[6LL * i + k] = sum[4 + k];
+  if (g_features)
+    for (int k = 0; k < kFeat; ++k) g_features[(long long)kFeat * i + k] = sum[kGeomGrad + k];
 }
 
 // The geometry chain of one gaussian (gaussian_raster.cpp:390-537).
@@ -655,9 +735,12 @@ extern "C" int orv_raster_forward(const void* ranges, const void* point_list, co
   return (int)cudaGetLastError();
 }
 
-// (d) the backward: accum [n, 6], g_colors, g_features, g_opacities zeroed
-// by the caller; g_means3d, g_scales, g_rotations written whole. features
-// and grad_feature may be null (then g_features stays zero).
+// (d) the backward: accum [n, 6] scratch; g_colors, g_opacities,
+// g_means3d, g_scales, g_rotations written whole, g_features too where
+// features and grad_feature are given (else it is not touched). perm [total]
+// int64 is the key sort's permutation, touched and offsets [n] the
+// preprocess's, partial [total, 22] f32 zeroed by the caller and slot_of
+// [total] int32 scratch.
 extern "C" int orv_raster_backward(const void* ranges, const void* point_list, const void* xy,
                                    const void* conic_op, const void* depth, const void* means3d,
                                    const void* scales, const void* rotations, const void* colors,
@@ -666,16 +749,24 @@ extern "C" int orv_raster_backward(const void* ranges, const void* point_list, c
                                    const void* grad_depth, const void* grad_alpha, void* accum,
                                    void* g_means3d, void* g_colors, void* g_features,
                                    void* g_opacities, void* g_scales, void* g_rotations,
-                                   void* stream) {
+                                   const void* perm, const void* touched, const void* offsets,
+                                   int total, void* partial, void* slot_of, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Cam c = make_cam(params, height, width);
+  const bool with_feat = features != nullptr && grad_feature != nullptr;
   backward_kernel<<<c.tiles_x * c.tiles_y, kBlock, 0, s>>>(
       (const int2*)ranges, (const int*)point_list, (const float2*)xy, (const float4*)conic_op,
       (const float*)depth, (const float*)colors, (const float*)features, c,
       (const float*)grad_color, (const float*)grad_feature, (const float*)grad_depth,
-      (const float*)grad_alpha, (float*)accum, (float*)g_colors, (float*)g_features,
-      (float*)g_opacities);
+      (const float*)grad_alpha, (float*)partial);
+  if (total > 0)
+    invert_perm_kernel<<<blocks_for(total), 256, 0, s>>>((const long long*)perm, total,
+                                                        (int*)slot_of);
   if (n > 0) {
+    backward_sum_kernel<<<blocks_for(n), 256, 0, s>>>(
+        n, (const int*)touched, (const int*)offsets, (const int*)slot_of,
+        (const float*)partial, (float*)accum, (float*)g_colors, (float*)g_opacities,
+        with_feat ? (float*)g_features : nullptr);
     backward_geom_kernel<<<blocks_for(n), 256, 0, s>>>(
         (const float*)means3d, (const float*)scales, (const float*)rotations, n, c,
         (const float*)accum, (float*)g_means3d, (float*)g_scales, (float*)g_rotations);

@@ -250,7 +250,8 @@ _KEYS_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c
 _RANGES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
 _FWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5)
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-             + [ctypes.c_void_p] * 12)
+             + [ctypes.c_void_p] * 14 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+_GRAD_SLOT = 3 + 1 + 6 + NUM_FEATURE_CHANNELS  # a (tile, gaussian) key's partial sums
 
 
 def _host_params(settings):
@@ -260,7 +261,9 @@ def _host_params(settings):
 
 def _bin(settings, means3d, scales, rotations, opacities):
     """(a) preprocess and (b) binning on the card: radii and the per-gaussian
-    blend inputs, the tiles' ranges and the depth-ordered point list."""
+    blend inputs, the tiles' ranges and the depth-ordered point list; for
+    the backward, each gaussian's key count and first key (`touched`,
+    `offsets`) and the sort's permutation."""
     n = means3d.shape[0]
     H, W = settings.image_height, settings.image_width
     dev = means3d.device
@@ -293,7 +296,7 @@ def _bin(settings, means3d, scales, rotations, opacities):
     _build.check(err, "raster ranges")
     del params
     return dict(radii=radii, xy=xy, conic_op=conic_op, depth=depth, ranges=ranges,
-                point_list=point_list)
+                point_list=point_list, touched=touched, offsets=offsets, perm=perm)
 
 
 def _forward_kernel(settings, binned, colors, features):
@@ -320,14 +323,20 @@ def _forward_kernel(settings, binned, colors, features):
 
 def _backward_kernel(settings, binned, means3d, colors, opacities, scales, rotations, features,
                      grad_color, grad_feature, grad_depth, grad_alpha):
-    """(d) the backward: the six gradients, in rasterize_backward's dict."""
+    """(d) the backward: the six gradients, in rasterize_backward's dict.
+    Each tile sums a splat's gradients over its pixels into the splat's key
+    slot (`partial`), and each gaussian's slots are added in a fixed order:
+    two runs give the same bits."""
     n = means3d.shape[0]
     H, W = settings.image_height, settings.image_width
     dev = means3d.device
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    accum, g_colors, g_feats, g_opac = z(n, 6), z(n, 3), z(n, NUM_FEATURE_CHANNELS), z(n)
+    keys = binned["perm"].shape[0]
+    accum, g_colors, g_feats, g_opac = e(n, 6), e(n, 3), z(n, NUM_FEATURE_CHANNELS), e(n)
     g_means, g_scales, g_rots = e(n, 3), e(n, 3), e(n, 4)
+    partial = z(keys, _GRAD_SLOT)
+    slot_of = torch.empty((keys,), dtype=torch.int32, device=dev)
     grads = [None if g is None else g.float().contiguous()
              for g in (grad_color, grad_feature, grad_depth, grad_alpha)]
     for g, shape in zip(grads, ((3, H, W), (NUM_FEATURE_CHANNELS, H, W), (H, W), (H, W))):
@@ -346,7 +355,9 @@ def _backward_kernel(settings, binned, means3d, colors, opacities, scales, rotat
         features.data_ptr() if with_feat else None, n, params_ptr, H, W, gc.data_ptr(),
         gf.data_ptr() if with_feat else None, gd.data_ptr(), ga.data_ptr(), accum.data_ptr(),
         g_means.data_ptr(), g_colors.data_ptr(), g_feats.data_ptr(), g_opac.data_ptr(),
-        g_scales.data_ptr(), g_rots.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        g_scales.data_ptr(), g_rots.data_ptr(), binned["perm"].data_ptr(),
+        binned["touched"].data_ptr(), binned["offsets"].data_ptr(), keys, partial.data_ptr(),
+        slot_of.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "raster backward")
     _build.count(rasterize_backward)
     del params

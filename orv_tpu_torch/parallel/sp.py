@@ -8,13 +8,14 @@ code that runs on every rank (`ops/ring_attention.py`, `ControlDiT(sp=...)`)
 takes it as an argument. Its interface:
 
   rank, size                the calling rank and the number of ranks;
-  rotate(tensors)           each rank sends its tensors to rank + 1 and
-                            returns those of rank - 1 (a ppermute);
+  rotate(tensors, shift=1)  each rank sends its tensors to rank + shift and
+                            returns those of rank - shift (a ppermute);
   all_reduce_sum(t)         the sum over ranks, added in rank order, so
                             every rank gets the same bits;
   all_reduce_max(t)         the elementwise max over ranks;
   all_gather_seq(t, dim)    the ranks' tensors concatenated along `dim`, in
-                            rank order.
+                            rank order;
+  broadcast(obj, src=0)     rank `src`'s picklable object on every rank.
 
 Two implementations:
 
@@ -23,6 +24,10 @@ Two implementations:
   rotation, `all_reduce(MAX)` for the max, `all_gather` into a list for the
   gather and for the sum (gathered, then added in rank order: a reduction
   in the backend's own order would give another rounding than `LocalRing`).
+  Over gloo, CUDA tensors pass through host memory: gloo's point-to-point
+  ops take CPU tensors only, and NCCL refuses two ranks on one card, so
+  ranks that share a card talk over gloo. That is a correctness harness,
+  not a speed.
 * `LocalRing(n)` is n ranks in one process: `run(fn)` calls `fn` on n
   threads at once, one per rank, with the rank held in a thread-local.
   Tensors pass by reference through one slot per rank between waits on a
@@ -31,12 +36,33 @@ Two implementations:
   An exception in any rank aborts the barrier, every other rank stops at
   its next collective, and `run` re-raises the first error: a failing rank
   never leaves the others waiting.
+
+The differentiable collectives below (`rotate`, `all_reduce_sum`,
+`all_reduce_max`, `all_gather_seq`, `replicated_input`,
+`replicated_output`) carry the transpose rules that `shard_map` with
+`check_rep=False` applies in `orv_tpu/ops/ring_attention.py`: the rotation's
+backward is the inverse rotation, the sum's a sum, the max carries no
+gradient (JAX's `stop_gradient`, ring_attention.py:99-104), the gather's a
+reduce-scatter; at the boundary of a ring function, the cotangent of an
+output every rank holds whole is divided by the number of ranks and the
+cotangent of an input every rank holds whole is summed over the ranks. The
+sums go in rank order, so every rank ends a backward with the same bits.
+
+Autograd runs the backward of CUDA tensors on a worker thread of its own,
+one a device, not on the thread that called `backward()`. `LocalRing`'s
+ranks are threads told apart by a thread-local, and one rank's wait at a
+collective there would block the others' backward, so `LocalRing` refuses
+to record a differentiable collective on CUDA: run such ranks as
+processes (`ProcessGroupRing`). On the CPU the calling thread runs the
+backward, and `LocalRing` carries it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import datetime
+import os
 import threading
 from typing import Callable, List, Optional, Sequence
 
@@ -121,10 +147,10 @@ class LocalRing:
         self._barrier.wait()  # nobody posts the next value before all have read
         return values
 
-    def rotate(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def rotate(self, tensors: Sequence[torch.Tensor], shift: int = 1) -> List[torch.Tensor]:
         if self.size == 1:
             return list(tensors)
-        return list(self._exchange(list(tensors))[(self.rank - 1) % self.size])
+        return list(self._exchange(list(tensors))[(self.rank - shift) % self.size])
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         return _sum_in_rank_order(self._exchange(t))
@@ -135,17 +161,24 @@ class LocalRing:
     def all_gather_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return torch.cat(self._exchange(t), dim=dim)
 
+    def broadcast(self, obj, src: int = 0):
+        """Rank `src`'s `obj`; the other ranks get a deep copy of it."""
+        value = self._exchange(obj if self.rank == src else None)[src]
+        return value if self.rank == src else copy.deepcopy(value)
+
 
 class ProcessGroupRing:
     """One rank per process over a `torch.distributed` process group
     (`group=None`: the default one). Create the group with a finite
     timeout, as `init_process_group` below does, so a rank that dies leaves
-    the others with an error and not a hang."""
+    the others with an error and not a hang. Over gloo, CUDA tensors are
+    staged through host memory (module docstring)."""
 
     def __init__(self, group: Optional[dist.ProcessGroup] = None):
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self._via_host = dist.get_backend(group) == "gloo"
 
     @staticmethod
     def init_process_group(backend: str, init_method: str, world_size: int, rank: int,
@@ -158,36 +191,223 @@ class ProcessGroupRing:
                                 rank=rank, timeout=datetime.timedelta(seconds=timeout))
         return ProcessGroupRing()
 
+    @staticmethod
+    def from_env(timeout: float = 600.0) -> Optional["ProcessGroupRing"]:
+        """Under `torchrun` (WORLD_SIZE > 1 in the environment): pick this
+        rank's card, start the default group from the environment's address
+        and return the ring over it; else None. NCCL where every rank has a
+        card of its own, else gloo (the ranks share a card or run on the
+        CPU)."""
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world <= 1:
+            return None
+        if dist.is_initialized():
+            return ProcessGroupRing()
+        rank = int(os.environ["RANK"])
+        cards = torch.cuda.device_count()
+        if cards:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % cards)
+        backend = "nccl" if cards >= world else "gloo"
+        return ProcessGroupRing.init_process_group(backend, "env://", world, rank, timeout)
+
     def _peer(self, rank: int) -> int:
         rank %= self.size
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
-    def rotate(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
+        return t.cpu() if self._via_host and t.is_cuda else t
+
+    def rotate(self, tensors: Sequence[torch.Tensor], shift: int = 1) -> List[torch.Tensor]:
         if self.size == 1:
             return list(tensors)
-        outs = [torch.empty_like(t) for t in tensors]
+        sends = [self._host(t) for t in tensors]
+        outs = [torch.empty_like(t) for t in sends]
         ops = []
-        for t, o in zip(tensors, outs):
-            ops.append(dist.P2POp(dist.isend, t.contiguous(), self._peer(self.rank + 1),
-                                  self.group))
-            ops.append(dist.P2POp(dist.irecv, o, self._peer(self.rank - 1), self.group))
+        for t, o in zip(sends, outs):
+            ops.append(dist.P2POp(dist.isend, t, self._peer(self.rank + shift), self.group))
+            ops.append(dist.P2POp(dist.irecv, o, self._peer(self.rank - shift), self.group))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return outs
+        return [o.to(t.device) for o, t in zip(outs, tensors)]
 
     def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=self.group)
-        return parts
+        h = self._host(t)
+        parts = [torch.empty_like(h) for _ in range(self.size)]
+        dist.all_gather(parts, h, group=self.group)
+        return [p.to(t.device) for p in parts]
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         return _sum_in_rank_order(self._gather(t))
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
-        out = t.clone()
+        out = self._host(t).clone()
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
-        return out
+        return out.to(t.device)
 
     def all_gather_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return torch.cat(self._gather(t), dim=dim)
+
+    def broadcast(self, obj, src: int = 0):
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=self._peer(src), group=self.group)
+        return box[0]
+
+
+def resolve_ranks(n: int, comm, what: str):
+    """The communicator of `n` ranks that `what` (a config key) asks for:
+    `comm` when given, else a `ProcessGroupRing` over the default
+    `torch.distributed` group when that has `n` ranks. Raises, naming the
+    cause, when there are not `n` ranks."""
+    if comm is not None:
+        if comm.size != n:
+            raise ValueError(f"{what}={n} but the communicator passed has {comm.size} ranks")
+        return comm
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(
+            f"{what}={n} needs {n} ranks, and this process has {world}: pass a communicator "
+            f"of {n} ranks (sp=LocalRing({n}) inside its run, or a ProcessGroupRing), or start "
+            f"{n} processes under a torch.distributed group of world size {n} "
+            f"(torchrun --nproc_per_node {n})")
+    return ProcessGroupRing()
+
+
+_init_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def seeded_init(seed: int, device: torch.device):
+    """PyTorch's global generators seeded with `seed` inside the block and
+    restored after it. Ranks that are threads of one process (`LocalRing`)
+    share those generators, so they take the block in turns: each rank's
+    model then starts from the same weights."""
+    with _init_lock, torch.random.fork_rng(
+            devices=[device.index or 0] if device.type == "cuda" else []):
+        torch.manual_seed(seed)
+        yield
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives
+# ---------------------------------------------------------------------------
+
+def _check_backward(comm, tensors: Sequence[torch.Tensor], what: str) -> bool:
+    """Whether autograd records `what` on these tensors; raises where
+    `LocalRing` would have to carry that backward on CUDA."""
+    recorded = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if recorded and isinstance(comm, LocalRing) and any(t.is_cuda for t in tensors):
+        raise RuntimeError(
+            f"{what}: LocalRing cannot carry a backward on CUDA: autograd runs CUDA backward "
+            "nodes on its own device thread, where a LocalRing rank is unknown and one rank's "
+            "wait at a collective blocks the others; run the ranks as processes "
+            "(ProcessGroupRing), or run under torch.no_grad()")
+    return recorded
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, shift, *tensors):
+        ctx.comm, ctx.shift = comm, shift
+        return tuple(t.detach() for t in comm.rotate(tensors, shift))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.comm.rotate([g.contiguous() for g in grads], -ctx.shift))
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, t):
+        ctx.comm = comm
+        return comm.all_reduce_sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm.all_reduce_sum(g.contiguous())
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, t, dim):
+        ctx.comm, ctx.dim, ctx.n = comm, dim, t.shape[dim]
+        return comm.all_gather_seq(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = ctx.comm.all_reduce_sum(g.contiguous())
+        return None, total.narrow(ctx.dim, ctx.comm.rank * ctx.n, ctx.n), None
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, t):
+        ctx.comm = comm
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm.all_reduce_sum(g.contiguous())
+
+
+class _ReplicatedOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, t):
+        ctx.size = comm.size
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g / ctx.size
+
+
+def rotate(comm, tensors: Sequence[torch.Tensor], shift: int = 1) -> List[torch.Tensor]:
+    """`comm.rotate`, differentiable: the backward sends each cotangent back
+    to the rank it came from (rank - shift)."""
+    if comm.size == 1:
+        return list(tensors)
+    if not _check_backward(comm, tensors, "rotate"):
+        return comm.rotate(tensors, shift)
+    return list(_Rotate.apply(comm, shift, *tensors))
+
+
+def all_reduce_sum(comm, t: torch.Tensor) -> torch.Tensor:
+    """`comm.all_reduce_sum`, differentiable: the backward sums the ranks'
+    cotangents (the transpose of psum)."""
+    if comm.size == 1:
+        return t
+    if not _check_backward(comm, [t], "all_reduce_sum"):
+        return comm.all_reduce_sum(t)
+    return _AllReduceSum.apply(comm, t)
+
+
+def all_reduce_max(comm, t: torch.Tensor) -> torch.Tensor:
+    """`comm.all_reduce_max` of `t` detached: the max carries no gradient."""
+    return t.detach() if comm.size == 1 else comm.all_reduce_max(t.detach())
+
+
+def all_gather_seq(comm, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`comm.all_gather_seq`, differentiable: the backward is a
+    reduce-scatter (this rank's slice of the cotangent, summed over the
+    ranks)."""
+    if comm.size == 1:
+        return t
+    if not _check_backward(comm, [t], "all_gather_seq"):
+        return comm.all_gather_seq(t, dim)
+    return _AllGatherSeq.apply(comm, t, dim)
+
+
+def replicated_input(comm, t: torch.Tensor) -> torch.Tensor:
+    """`t`, a tensor that every rank holds whole, entering per-rank code:
+    the backward sums its cotangent over the ranks."""
+    if comm.size == 1 or not _check_backward(comm, [t], "replicated_input"):
+        return t
+    return _ReplicatedInput.apply(comm, t)
+
+
+def replicated_output(comm, t: torch.Tensor) -> torch.Tensor:
+    """`t`, a result that every rank holds whole: the backward divides its
+    cotangent by the number of ranks."""
+    if comm.size == 1 or not _check_backward(comm, [t], "replicated_output"):
+        return t
+    return _ReplicatedOutput.apply(comm, t)

@@ -40,7 +40,11 @@ the rule's state and the accumulator are updated in place to save memory.
 parameters, the rule's tensors and scalars, the accumulator and the EMA)
 into named tensors and scalars and back, for `utils/checkpoint.py`.
 
-Not ported: the mesh (sharding; ROADMAP.md A7, A8).
+Under sequence parallelism (`ControlDiT(sp=...)`, `pipelines/train.py`'s
+`train.mesh.sp`) the step runs unchanged on every rank: the ring's
+collectives give every rank the same gradients, bit for bit, so the clip,
+the grad norm, the EMA and the update agree with no all-reduce here. Not
+ported: data and model parallelism (dp, fsdp, tp, pp; ROADMAP.md A8).
 """
 
 from __future__ import annotations

@@ -13,8 +13,17 @@ its own `draws` function.
 Multiview configs (`runtime.multiview`) read `MultiViewRobotDataset`, whose
 views stack on the frame axis; RoPE models get their rotary tables for one
 view's frames; `evaluation.pab_skip > 0` turns on PAB attention broadcast
-(single-view only, as in the JAX package). Not ported yet, and refused:
-sharded serving (`evaluation.mesh` axes > 1, ROADMAP.md A7/A8).
+(single-view only, as in the JAX package).
+
+Sequence-parallel serving (`evaluation.mesh.sp = n`, the JAX package's
+`sp_mesh`): one model on each of n ranks, the sampler ringing every block's
+joint attention over them, the same draws on every rank (the default
+generator is seeded alike), and rank 0 alone writing; the work list is not
+split over those ranks. The ranks are the `sp` communicator passed in
+(`LocalRing(n)`, whose `run` calls `evaluate` on every rank) or the
+`torch.distributed` group of world size n (`torchrun --nproc_per_node n`).
+As in JAX, sp is exclusive with dp/fsdp/tp (a ValueError). Not ported yet,
+and refused: dp/fsdp/tp serving (ROADMAP.md A8).
 
 Usage:
   python -m orv_tpu_torch.pipelines.evaluate --dataset_type rt1 \\
@@ -39,6 +48,7 @@ from orv_tpu_torch.models import ControlDiT
 from orv_tpu_torch.models.quantize import quantize_model_
 from orv_tpu_torch.models.vae import CausalVAE, VAEConfig, decode_chunked, encode_auto
 from orv_tpu_torch.models.weights import ensure_mv_blocks, load_diffusers_folder
+from orv_tpu_torch.parallel.sp import ProcessGroupRing, resolve_ranks, seeded_init
 from orv_tpu_torch.parallel.train_step import EvalDraws
 from orv_tpu_torch.pipelines.sample import (
     SamplerConfig, make_sampler, prepare_control_latents, prepare_image_latents,
@@ -140,13 +150,20 @@ def _encode_raw(batch: Dict[str, Any], vae: Optional[CausalVAE], dit_cfg,
     return batch
 
 
-def _check_supported(ev) -> None:
+def _check_supported(ev) -> int:
+    """Return `evaluation.mesh.sp`; raise on sp with dp/fsdp/tp (JAX's
+    ValueError, orv_tpu/pipelines/evaluate.py:153-155) and on dp/fsdp/tp,
+    naming the ROADMAP.md item."""
     mesh = ev.get("mesh", {}) or {}
-    wide = {a: int(n) for a, n in mesh.items() if int(n) > 1}
+    sp = int(mesh.get("sp", 1))
+    if sp > 1 and any(int(mesh.get(a, 1)) > 1 for a in ("dp", "fsdp", "tp")):
+        raise ValueError("evaluation.mesh.sp is exclusive with dp/fsdp/tp")
+    wide = {a: int(n) for a, n in mesh.items() if a != "sp" and int(n) > 1}
     if wide:
         raise NotImplementedError(
-            f"evaluation.mesh {wide}: sharded serving is not ported yet (ROADMAP.md A7 for "
-            "sp, A8 for dp/fsdp/tp); run with every mesh axis at 1")
+            f"evaluation.mesh {wide}: dp/fsdp/tp serving is not ported yet (ROADMAP.md A8); "
+            "run with those axes at 1 (evaluation.mesh.sp rings one model over its ranks)")
+    return sp
 
 
 def _dist():
@@ -156,15 +173,18 @@ def _dist():
     return 1, 0
 
 
-def build_serving_model(cfg: Config, device: DeviceLike = None) -> ControlDiT:
+def build_serving_model(cfg: Config, device: DeviceLike = None, sp=None) -> ControlDiT:
     """The config's ControlDiT (`build_dit_config`) with f32 parameters and
     bf16 compute, loaded from `transformer.pretrained_name_or_path` (a
-    diffusers folder) or, with none, a random init (smoke mode); with
-    `evaluation.quant` turned into the W8A8 model (int8 block linears,
-    int8-QK^T attention) in place."""
+    diffusers folder) or, with none, a random init from `seed` (smoke mode);
+    with `evaluation.quant` turned into the W8A8 model (int8 block linears,
+    int8-QK^T attention) in place. `sp`: the communicator every block's
+    joint attention rings over (None: resident)."""
     dit_cfg = build_dit_config(cfg)
-    model = ControlDiT(dit_cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
-                       device=device)
+    device = resolve_device(device)
+    with seeded_init(int(cfg.get("seed", 42)), device):
+        model = ControlDiT(dit_cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                           device=device, sp=sp)
     pretrained = cfg.transformer.get("pretrained_name_or_path")
     if pretrained and has_pretrained(pretrained):
         _, sd = load_pretrained(pretrained)
@@ -237,21 +257,26 @@ def _denoise_inputs(batch, mode: str, dit_cfg, scaling: float, draws: DrawFn, de
 
 
 def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[CausalVAE] = None,
-             device: DeviceLike = None, draws: Optional[DrawFn] = None):
+             device: DeviceLike = None, draws: Optional[DrawFn] = None, sp=None):
     """Generate every clip of the config's dataset (this rank's share), write
     `{episode}_{start:03d}_latents.npz`, and with a VAE the decoded `.mp4`
     and `.gif`, then `manifest.json`. `vae` may be passed directly (library
     embedding, tests); otherwise it loads from cfg.vae.pretrained_name_or_path.
     `draws(noise_shape, image_shape, depth_shape, label_shape)` supplies each
     denoise's EvalDraws; by default they come from one torch.Generator
-    seeded with cfg.seed. Runs on `device`, CUDA unless "cpu" is asked."""
+    seeded with cfg.seed. Runs on `device`, CUDA unless "cpu" is asked.
+    With `evaluation.mesh.sp = n > 1`, call it on every rank: `sp` is the
+    communicator of n ranks, or None for the torch.distributed group
+    (module docstring); every rank returns the clip names."""
     device = resolve_device(device)
     ev = cfg.evaluation
-    _check_supported(ev)
+    n_sp = _check_supported(ev)
+    comm = resolve_ranks(n_sp, sp, "evaluation.mesh.sp") if n_sp > 1 or sp is not None else None
+    writer = comm is None or comm.rank == 0
     out_dir = Path(ev.get("output_dir", "eval_outputs"))
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    model = build_serving_model(cfg, device)
+    model = build_serving_model(cfg, device, sp=comm)
     dit_cfg = model.config
 
     vae_path = cfg.get("vae", {}).get("pretrained_name_or_path")
@@ -262,7 +287,7 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
     cascaded = bool(ev.get("cascaded", False))
     dataset = build_dataset(cfg, split=cfg.dataset.get("split", "test"), cascaded=cascaded)
 
-    n_proc, pid = _dist()
+    n_proc, pid = _dist() if comm is None else (1, 0)  # sp ranks share one work list
     indices = list(range(len(dataset)))[pid::n_proc]
     if max_batches is not None:
         indices = indices[: max_batches * int(ev.get("batch_size", 1))]
@@ -291,7 +316,8 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
 
     if cascaded:
         return _cascaded_rollout(cfg, dataset, dit_cfg, sampler, mode, scaling, draws, vae,
-                                 out_dir, device, chunk_frames, save_fps, save_gif)
+                                 out_dir, device, chunk_frames, save_fps, save_gif,
+                                 n_proc, pid, writer)
 
     bs = int(ev.get("batch_size", 1))
     results = []
@@ -309,6 +335,9 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
             for j, i in enumerate(idxs):
                 meta = batch["metainfos"][j]
                 name = f"{meta['episode_id']}_{meta['start_frame_idx']:03d}"
+                results.append(name)
+                if not writer:
+                    continue
                 lat_np = latents[j].float().cpu().numpy()
                 np.savez(out_dir / f"{name}_latents.npz", lat_np)
                 if vae is not None:
@@ -316,10 +345,11 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
                     video = decode_chunked(vae, z, chunk_latent_frames=6, device=device)
                     pool.submit(save_video, str(out_dir / f"{name}.mp4"),
                                 to_uint8(video[0].cpu().numpy()), save_fps, save_gif)
-                results.append(name)
             CONSOLE.log(f"eval batch {bnum + 1}: {len(idxs)} episodes done")
     finally:
         pool.shutdown(wait=True)
+    if not writer:
+        return results
     with open(out_dir / f"manifest_{pid}.json", "w") as f:
         json.dump(results, f)
     _merge_manifests(out_dir, n_proc, pid)
@@ -346,19 +376,19 @@ def _merge_manifests(out_dir: Path, n_proc: int, pid: int, stem: str = "manifest
 
 
 def _cascaded_rollout(cfg, dataset, dit_cfg, sampler, mode, scaling, draws, vae, out_dir,
-                      device, chunk_frames, save_fps, save_gif):
+                      device, chunk_frames, save_fps, save_gif, n_proc: int, pid: int,
+                      writer: bool = True):
     """Long-horizon generation: per episode, run chunks in order; each chunk
     after the first is conditioned on the GENERATED frame at the previous
     chunk's next_start_frame_idx. With a VAE the chaining frame is
     re-encoded from pixels; without one the matching latent frame carries
-    over directly."""
+    over directly. Every sp rank chains; only the `writer` writes."""
     from collections import defaultdict
 
     episodes = defaultdict(list)
     for i, s in enumerate(dataset.samples):
         episodes[str(s["episode_id"])].append((s["sample_index"], i))
     # work-list sharding by EPISODE (a chunk chain stays on one process)
-    n_proc, pid = _dist()
     ep_keys = sorted(episodes)[pid::n_proc]
     results = []
     decode = lambda lat: decode_chunked(vae, lat.permute(0, 2, 1, 3, 4) / scaling,
@@ -406,6 +436,9 @@ def _cascaded_rollout(cfg, dataset, dit_cfg, sampler, mode, scaling, draws, vae,
                 pad = ref.new_zeros((1, F_lat - 1, *ref.shape[2:]))
                 image_latents = torch.cat([ref, pad], dim=1).to(torch.bfloat16)
 
+        results.append(ep)
+        if not writer:
+            continue
         stitched = np.concatenate(chunks_out, axis=0)  # [sum F_lat, C, H, W]
         np.savez(out_dir / f"{ep}_cascaded_latents.npz", stitched,
                  chunk_starts=np.asarray(chunk_starts))
@@ -425,8 +458,9 @@ def _cascaded_rollout(cfg, dataset, dit_cfg, sampler, mode, scaling, draws, vae,
                 prev_end = start + (v.shape[1] - 1) * interval
             video = np.concatenate([v for v in keep if v.shape[1]], axis=1)
             save_video(str(out_dir / f"{ep}_cascaded.mp4"), to_uint8(video), save_fps, save_gif)
-        results.append(ep)
         CONSOLE.log(f"cascaded episode {ep}: {len(chunks_out)} chunks")
+    if not writer:
+        return results
     with open(out_dir / f"manifest_cascaded_{pid}.json", "w") as f:
         json.dump(results, f)
     _merge_manifests(out_dir, n_proc, pid, stem="manifest_cascaded")
@@ -457,6 +491,7 @@ def main(argv=None):
                 f"{default_config_dir()}/{{eval,experiments}}/{exp}.yaml"
             )
     cfg = load_config(args.base, exp, args.dataset_type, None, args.overrides)
+    ProcessGroupRing.from_env()  # under torchrun: the group of the ranks
     return evaluate(cfg, max_batches=args.max_batches, device=args.device)
 
 

@@ -29,9 +29,22 @@ batch's grid, and the 1.5 family's loss pads the frames to a multiple of
 adamw, came or prodigy. A stage-3 run starts from a stage-2 export whose
 `mv_blocks` are seeded (`ensure_mv_blocks`).
 
-Refused by name, with the ROADMAP.md item: any `train.mesh` axis above 1
-(A7 for sp, A8 for dp/fsdp/tp/pp; dp: -1 is 1 on one card) and
-`train.loader=grain` (A10).
+Context parallelism (`train.mesh.sp = n`, the JAX package's `sp_mesh`):
+the DiT rings every block's joint attention over n ranks
+(`ControlDiT(sp=...)`), AD runs through the ring, and every rank ends each
+micro-step with the same gradients, bit for bit, so the clip, the logged
+grad norm, the EMA and the optimizer move every rank's parameters alike
+with no gradient all-reduce. The ranks are the `sp` communicator passed in
+(`LocalRing(n)`, whose `run` calls `train` on every rank) or the
+`torch.distributed` group of world size n that `main` starts under
+`torchrun --nproc_per_node n` (`ProcessGroupRing`). Every rank takes rank
+0's batches (the threaded loader's order is not fixed) and resumes from the
+same checkpoint; only rank 0 writes checkpoints, exports, validation videos
+and tracker lines. As in JAX, sp composes with dp/fsdp only: tp or pp > 1
+with sp is a ValueError.
+
+Refused by name, with the ROADMAP.md item: dp, fsdp, tp or pp above 1 (A8;
+dp: -1 is 1) and `train.loader=grain` (A10).
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from orv_tpu_torch.data import (BucketSampler, CascadedRobotDataset, DatasetConf
                                 MultiViewRobotDataset, RobotDataset, collate_control)
 from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
 from orv_tpu_torch.models.weights import dit_state_dict_from_diffusers
+from orv_tpu_torch.parallel.sp import ProcessGroupRing, resolve_ranks, seeded_init
 from orv_tpu_torch.parallel.train_step import (EvalDraws, LossDraws, TrainState, grad_params,
                                                make_lr_schedule, make_optimizer,
                                                make_train_step, named_grad_params)
@@ -219,7 +233,7 @@ def prefetch_batches(dataset, sampler, num_threads: int = 2, depth: int = 4) -> 
 
 
 def init_params(cfg: Config, dit_cfg: DiTConfig, dtype=torch.bfloat16,
-                device: DeviceLike = None) -> ControlDiT:
+                device: DeviceLike = None, sp=None) -> ControlDiT:
     """The config's ControlDiT with f32 parameters, remat as
     `train.gradient_checkpointing` and `train.remat_policy` ask: from
     `transformer.pretrained_name_or_path` when that folder exists (a
@@ -227,14 +241,14 @@ def init_params(cfg: Config, dit_cfg: DiTConfig, dtype=torch.bfloat16,
     `transformer.from_t2v`, which seeds the `mv_blocks` of a multiview model
     from a folder without them; a folder of the JAX package's `model.msgpack`
     alone is refused, naming its conversion), else a random init from
-    `seed`, logged."""
+    `seed`, logged. `sp`: the communicator every block's joint attention
+    rings over (None: resident)."""
     device = resolve_device(device)
     tcfg = cfg.get("train", {}) or {}
-    with torch.random.fork_rng(devices=[device.index or 0] if device.type == "cuda" else []):
-        torch.manual_seed(int(cfg.get("seed", 42)))
+    with seeded_init(int(cfg.get("seed", 42)), device):
         model = ControlDiT(dit_cfg, dtype=dtype, param_dtype=torch.float32, device=device,
                            remat=bool(tcfg.get("gradient_checkpointing", False)),
-                           remat_policy=tcfg.get("remat_policy"))
+                           remat_policy=tcfg.get("remat_policy"), sp=sp)
     pretrained = cfg.transformer.get("pretrained_name_or_path")
     if pretrained and Path(str(pretrained)).exists():
         _, sd = load_pretrained(str(pretrained))
@@ -268,7 +282,7 @@ ValDrawFn = Callable[[int, tuple, Optional[tuple]], EvalDraws]
 @torch.no_grad()
 def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, step: int,
                    tracker: Optional[Tracker] = None, vae=None, device: DeviceLike = None,
-                   draws: Optional[ValDrawFn] = None) -> Path:
+                   draws: Optional[ValDrawFn] = None, write: bool = True) -> Optional[Path]:
     """Inline validation through the real sampler on the model's current
     weights: denoise the first `train.num_validation_videos` clips of
     `batch` (actions and the image condition, as JAX does) and write each
@@ -279,7 +293,9 @@ def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, s
     batch's grid. As in the JAX package, the sampler takes no `num_views`:
     a multiview model denoises its batch's V x F latent frames as one view
     (ROADMAP.md C, "noted in the reference"), and a `patch_size_t` model
-    needs a frame count it divides. Returns the last path written."""
+    needs a frame count it divides. Returns the last path written. With
+    `write=False` (an sp rank other than 0) it denoises, since the model
+    rings over every rank, and writes and decodes nothing: returns None."""
     from orv_tpu_torch.pipelines.sample import (SamplerConfig, make_sampler,
                                                 prepare_image_latents)
 
@@ -329,6 +345,8 @@ def run_validation(cfg: Config, model: ControlDiT, batch: Dict, out_dir: Path, s
                              dtype=torch.bfloat16, device=device)
     latents = sampler(d.noise, image_latents.to(torch.bfloat16), prompt,
                       generator=d.generator, **kwargs)
+    if not write:
+        return None
     val_dir = Path(out_dir) / "validation"
     val_dir.mkdir(parents=True, exist_ok=True)
     if vae is not None:
@@ -409,19 +427,25 @@ def mv_blocks_only(name: str) -> bool:
     return name.startswith("mv_blocks.")
 
 
-def _check_supported(cfg: Config) -> None:
-    """Refuse, naming the ROADMAP.md item, what the port's training lacks."""
+def _check_supported(cfg: Config) -> int:
+    """Refuse, naming the ROADMAP.md item, what the port's training lacks;
+    return `train.mesh.sp`. tp or pp with sp is JAX's ValueError
+    (orv_tpu/pipelines/train.py:373-375)."""
     tcfg = cfg.train
     mesh = dict(tcfg.get("mesh", {}) or {})
-    wide = {a: int(n) for a, n in mesh.items() if a != "n_micro" and int(n) > 1}
+    sp = int(mesh.get("sp", 1))
+    if sp > 1 and any(int(mesh.get(a, 1)) > 1 for a in ("tp", "pp")):
+        raise ValueError("train.mesh.sp composes with dp/fsdp only (tp=pp=1)")
+    wide = {a: int(n) for a, n in mesh.items() if a not in ("n_micro", "sp") and int(n) > 1}
     if wide:
-        item = "A7" if set(wide) == {"sp"} else "A8" if "sp" not in wide else "A7 and A8"
         raise NotImplementedError(
-            f"train.mesh {wide}: sharded training is not ported yet (ROADMAP.md {item}: A7 for "
-            "sp, A8 for dp/fsdp/tp/pp); run on one card with every axis at 1 (dp: -1 is 1)")
+            f"train.mesh {wide}: data and model parallelism are not ported yet (ROADMAP.md "
+            "A8, dp/fsdp/tp/pp); run with those axes at 1 (dp: -1 is 1), train.mesh.sp as "
+            "you like")
     if tcfg.get("loader") == "grain":
         raise NotImplementedError("train.loader=grain is not ported (ROADMAP.md A10); the "
                                   "default threaded loader runs")
+    return sp
 
 
 def seeded_draws(seed: int, device: DeviceLike, num_train_timesteps: int = 1000,
@@ -445,14 +469,26 @@ def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
+def _rank0_batches(batches: Optional[Iterator[Dict]], comm) -> Iterator[Dict]:
+    """Rank 0's batches on every rank: rank 0 draws from `batches` and
+    broadcasts each; the other ranks (whose `batches` is None) receive."""
+    while True:
+        yield comm.broadcast(next(batches) if comm.rank == 0 else None)
+
+
 def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[DrawFn] = None,
-          val_draws: Optional[ValDrawFn] = None) -> TrainState:
+          val_draws: Optional[ValDrawFn] = None, sp=None) -> TrainState:
     """Train the config's ControlDiT; return the final TrainState. `vae`
     may be passed directly (library embedding, tests), else it loads from
     `vae.pretrained_name_or_path`; it renders the validation videos.
     `draws(step, batch)` gives micro-step `step`'s LossDraws (default in
-    the module docstring). Runs on `device`, CUDA unless "cpu" is asked."""
-    _check_supported(cfg)
+    the module docstring). Runs on `device`, CUDA unless "cpu" is asked.
+    With `train.mesh.sp = n > 1`, call it on every rank: `sp` is the
+    communicator of n ranks, or None for the torch.distributed group
+    (module docstring)."""
+    n_sp = _check_supported(cfg)
+    comm = resolve_ranks(n_sp, sp, "train.mesh.sp") if n_sp > 1 or sp is not None else None
+    writer = comm is None or comm.rank == 0
     device = resolve_device(device)
     seed = int(cfg.get("seed", 42))
     tcfg = cfg.train
@@ -464,12 +500,15 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
     # train.overfit: train on the small 'val' split, so the loss should collapse
     dataset = build_dataset(cfg, split="val" if tcfg.get("overfit") else "train")
     bs = int(tcfg.get("train_batch_size", 4))
-    batches = prefetch_batches(dataset, BucketSampler(dataset, batch_size=bs, seed=seed,
-                                                      infinite=True))
+    loader = None
+    if writer:
+        loader = prefetch_batches(dataset, BucketSampler(dataset, batch_size=bs, seed=seed,
+                                                         infinite=True))
+    batches = loader if comm is None else _rank0_batches(loader, comm)
     tracker = None
     try:
         first = next(batches)
-        model = init_params(cfg, dit_cfg, dtype, device)
+        model = init_params(cfg, dit_cfg, dtype, device, sp=comm)
         CONSOLE.log(f"model params: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B")
 
         total_steps = total_train_steps(tcfg, len(dataset), bs)
@@ -511,7 +550,8 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
 
         draws = draws or seeded_draws(seed, device, schedule.num_train_timesteps,
                                       dit_cfg.patch_size_t)
-        tracker = Tracker(str(out_dir / "logs"), cfg.get("tracker_name"), config=dict(cfg))
+        if writer:
+            tracker = Tracker(str(out_dir / "logs"), cfg.get("tracker_name"), config=dict(cfg))
 
         vae_path = cfg.get("vae", {}).get("pretrained_name_or_path")
         if vae is None and vae_path and Path(str(vae_path)).exists():
@@ -524,7 +564,8 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
             # with train.ema_decay, validate the EMA weights, the ones a user serves
             ema = state.opt_state.ema
             with _params_swapped(model, ema) if ema is not None else contextlib.nullcontext():
-                run_validation(cfg, model, batch, out_dir, step, tracker, vae, device, val_draws)
+                run_validation(cfg, model, batch, out_dir, step, tracker, vae, device, val_draws,
+                               write=writer)
 
         val_every = int(tcfg.get("validation_steps", 2000))
         if not os.environ.get("NO_INIT_VAL"):
@@ -540,19 +581,21 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
             nv = int(batch.get("num_views", 1)) if multiview else 1
             b = to_device(batch, device)
             state, metrics = step_for(nv)(state, b, draws(step, b))
-            if (step + 1) % log_every == 0 or step == start_step:
+            if writer and ((step + 1) % log_every == 0 or step == start_step):
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = (time.time() - t_last) / (log_every if step > start_step else 1)
                 t_last = time.time()
                 CONSOLE.log(f"step {step + 1}/{total_steps} loss={m['loss']:.4f} "
                             f"gnorm={m.get('grad_norm', 0):.3f} lr={lr(step):.2e} {dt:.2f}s/it")
                 tracker.log({**m, "lr": lr(step), "s_per_it": dt}, step + 1)
-            if (step + 1) % ckpt_every == 0:
+            if writer and (step + 1) % ckpt_every == 0:
                 ckpt.save(step + 1, state)
             if (step + 1) % val_every == 0:
                 validate(batch, step + 1)
             batch = next(batches)
 
+        if not writer:
+            return state
         ckpt.save(total_steps, state)
         export_pretrained(str(out_dir / "checkpoint"), model.state_dict(), dit_cfg)
         if state.opt_state.ema is not None:
@@ -563,7 +606,8 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
         CONSOLE.log(f"training done -> {out_dir}")
         return state
     finally:
-        batches.close()
+        if loader is not None:
+            loader.close()
         if tracker is not None:
             tracker.close()
 
@@ -591,6 +635,7 @@ def main(argv=None):
         str(default_config_dir() / "debug.yaml") if args.debug else None,
         args.overrides,
     )
+    ProcessGroupRing.from_env()  # under torchrun: the group of the sp ranks
     return train(cfg, device=args.device)
 
 

@@ -688,7 +688,8 @@ def test_cuda_train_resume_equals_an_unbroken_run(cuda, tmp_path):
 # same order, expf in both; sums taken in another order), at H and W that
 # are not multiples of 16, features on and off. The backward kernel against
 # autograd through the plain version: each gradient to 1e-4 of its largest
-# magnitude (atomicAdd sums in another order, from run to run).
+# magnitude (its sums run over tiles and pixels in another order), and a
+# second run bitwise equal to the first.
 
 def _cloud(g, n, device):
     pts = torch.rand(n, 4, generator=g, device=device) * 0.5 - 0.1
@@ -781,3 +782,52 @@ def test_cuda_rasterize_backward_matches_autograd_of_plain(cuda, n, H, W, featur
     for k, leaf in zip(("means3d", "colors", "opacities", "scales", "rotations"), leaves):
         torch.testing.assert_close(leaf.grad, got[k], atol=1e-5 * got[k].abs().max().item(),
                                    rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,H,W,features", [(300, 37, 53, False), (3000, 61, 93, True),
+                                            (20000, 240, 320, True)])
+def test_cuda_rasterize_backward_repeats_its_bits(cuda, n, H, W, features):
+    """Two runs of the backward give the same bits (each splat's gradients
+    are summed in a fixed order, no atomics), and the gradients stay within
+    1e-4 of each largest gradient of autograd through the plain version
+    (checked below 20000 gaussians, where the plain version's graph stays
+    small)."""
+    from orv_tpu_torch.ops import gaussian_raster as gr
+
+    settings, t = _scene_tensors(cuda, n, H, W, seed=n + H + W, features=features)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    grads = dict(grad_color=torch.randn(3, H, W, generator=g, device=cuda),
+                 grad_depth=torch.randn(H, W, generator=g, device=cuda),
+                 grad_alpha=torch.randn(H, W, generator=g, device=cuda),
+                 grad_feature=torch.randn(12, H, W, generator=g, device=cuda))
+    args = (t["means3d"], t["colors"], t["opacities"], t["scales"], t["rotations"])
+    first = gr.rasterize_backward(settings, *args, features=t["features"], **grads)
+    second = gr.rasterize_backward(settings, *args, features=t["features"], **grads)
+    for k in first:
+        assert torch.equal(first[k], second[k]), k
+    if n < 20000:
+        want = gr.rasterize_backward_plain(settings, *args, features=t["features"], **grads)
+        for k in want:
+            scale = want[k].abs().max().item()
+            err = (first[k] - want[k]).abs().max().item()
+            assert err <= 1e-4 * max(scale, 1e-30), (k, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_local_ring_refuses_a_backward(cuda):
+    """Autograd runs CUDA backward nodes on its own device thread, where a
+    LocalRing rank is unknown: the ring refuses to record a backward on CUDA
+    tensors by name, and still runs under no_grad."""
+    from orv_tpu_torch.ops.ring_attention import joint_ring_attention
+    from orv_tpu_torch.parallel.sp import LocalRing
+
+    comm = LocalRing(2, timeout=60)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, 2, 8 + 64, 64, device=cuda, generator=g).bfloat16()
+               .requires_grad_() for _ in range(3))
+    with pytest.raises(RuntimeError, match="LocalRing cannot carry a backward on CUDA"):
+        comm.run(lambda: joint_ring_attention(q, k, v, 8, comm))
+    with torch.no_grad():
+        outs = comm.run(lambda: joint_ring_attention(q, k, v, 8, comm))
+    assert torch.equal(outs[0], outs[1])

@@ -325,11 +325,12 @@ def test_inference_main_smoke_mode(tmp_path):
 
 
 def test_refusals(setup, tmp_path):
-    """A mesh axis past 1 and a msgpack-only folder raise, naming what to
-    do; nothing is generated. (PAB runs since the model surface was ported:
-    tests/test_torch_port_model_surface_serving.py.)"""
+    """A dp/fsdp/tp mesh axis past 1 and a msgpack-only folder raise, naming
+    what to do; nothing is generated. (PAB runs since the model surface was
+    ported: tests/test_torch_port_model_surface_serving.py; sp serving
+    since context parallelism was: tests/test_torch_port_sp_train.py.)"""
     s = setup
-    for extra, match in ((["evaluation.mesh.sp=2"], "A7"), (["evaluation.mesh.tp=2"], "A8")):
+    for extra, match in ((["evaluation.mesh.tp=2"], "A8"), (["evaluation.mesh.dp=2"], "A8")):
         _, tcfg = configs(s, COND, "refused", extra)
         with pytest.raises(NotImplementedError, match=match):
             tevaluate.evaluate(tcfg, device="cpu")

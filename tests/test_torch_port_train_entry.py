@@ -439,7 +439,7 @@ def test_checkpointer_rotates_skips_and_restores(tmp_path):
 # -- refusals, device, CLI --------------------------------------------------------
 
 @pytest.mark.parametrize("extra,item", [
-    (["train.mesh.sp=2"], "A7"), (["train.mesh.dp=2"], "A8"), (["train.mesh.fsdp=2"], "A8"),
+    (["train.mesh.dp=2"], "A8"), (["train.mesh.fsdp=2"], "A8"),
     (["train.mesh.tp=2"], "A8"), (["train.mesh.pp=2"], "A8"), (["train.loader=grain"], "A10"),
 ])
 def test_unported_options_are_refused_by_name(setup, tmp_path, extra, item):
