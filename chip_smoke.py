@@ -243,6 +243,25 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      traj-image-depth-label, latents only): launches per rank 2 x (150 / 60
      / 120), only rank 0's files, the latents within 2e-2 and 3e-3 of their
      range of the resident evaluate's;
+  5e. data and model parallelism, phase 5d's state freed first: MESH_RANKS
+     (4) rank processes on cuda:0 over gloo, as in phase 5d (`mesh_worker`),
+     each logging its kernels' shapes for phase 6b. Rank 0 first runs
+     pipelines/train.py:train resident on the 2B recipe cut to 8 of 30
+     layers (phase 5d's cut) at full width (30 heads x 64, D 1920; the recipe's B=4 x
+     accumulation 2, 2 micro-steps, its action-recon head off as the yaml
+     resolves it), and every rank then trains on its batches at dp2 x tp2,
+     fsdp2 x pp2 (n_micro 2), pp2 x tp2 and fsdp2 x sp2 (the pipeline's data
+     shards given their rows of the resident draws): launches per rank 2 x
+     the resident micro-step's (dp2 x tp2), 2 x a micro-step of 12 block
+     cells (a pipeline stage runs its 4 layers on each of its 3 ticks) and
+     2 x the sp=2 ring's (fsdp2 x sp2); each micro-step's loss within 2^-8
+     and grad norm within 1e-2 of the resident run's (relative), the whole
+     first moments within 1e-2 RMS; then evaluate at evaluation.mesh dp=2,
+     tp=2 (8 layers, 2 DPM steps, a batch of 2 clips of their own split over
+     dp) in bf16 and W8A8, 2 x (8 / 16 / 32) and 2 x (32 / 8 / 16) launches
+     per rank,
+     the latents within 2e-2 (W8A8 4e-2) and 3e-3 of their range of rank
+     0's resident evaluate's; each rank's peak memory and the phase's time;
   6. the model surface at full width, the training state freed first: rows
      2, 3, 6, 8 and 9 against their plain versions at the surface's shapes
      (the MVBlock's attention [13,30,2478,64] and the 5b's [1,48,6826,64],
@@ -329,7 +348,7 @@ from orv_tpu_torch.models.feature_extractors import I3D, ConvBN, InceptionV3Pool
 from orv_tpu_torch.models.layers import quantize_tokens
 from orv_tpu_torch.models.quantize import quantize_linear_params, quantize_model_
 from orv_tpu_torch.models.text_encoder import T5Config, T5Encoder
-from orv_tpu_torch.models.weights import write_safetensors
+from orv_tpu_torch.models.weights import gather_state_dict, write_safetensors
 from orv_tpu_torch.ops import _build, adaln, attention
 from orv_tpu_torch.ops import gaussian_raster as raster_mod
 from orv_tpu_torch.ops import voxelize as voxelize_mod
@@ -342,8 +361,8 @@ from orv_tpu_torch.parallel import (
     make_optimizer,
     make_train_step,
 )
-from orv_tpu_torch.parallel.sp import LocalRing
-from orv_tpu_torch.parallel.train_step import global_norm, grad_params
+from orv_tpu_torch.parallel.sp import SOLO, LocalRing
+from orv_tpu_torch.parallel.train_step import global_norm, grad_params, state_tensors
 from orv_tpu_torch.pipelines import train as train_mod
 from orv_tpu_torch.pipelines import SamplerConfig, data_process, decode_latents, make_sampler
 from orv_tpu_torch.pipelines import encode_dataset as encode_mod
@@ -1414,8 +1433,8 @@ class TrainTimes:
             times.bytes["export"].append(times._timed("export", orig["export_pretrained"])(*args))
             return times.bytes["export"][-1]
 
-        def save(ckpt, step, state):
-            saved = times._timed("checkpoint", times.saved_save)(ckpt, step, state)
+        def save(ckpt, step, state, write=True):
+            saved = times._timed("checkpoint", times.saved_save)(ckpt, step, state, write)
             times.bytes["checkpoint"].append(ckpt.last_save_bytes if saved else 0)
             return saved
 
@@ -2105,9 +2124,10 @@ class SpTrainHooks:
         def export_pretrained(*args):
             self.calls["export"] += 1
 
-        def save(ckpt, step, state):
-            self.calls["checkpoint"] += 1
-            return True
+        def save(ckpt, step, state, write=True):
+            state_tensors(state)  # every rank gathers the whole tensors, as the save does
+            self.calls["checkpoint"] += int(write)
+            return write
 
         def to_device(batch, device):
             if self.replay is not None:
@@ -2141,7 +2161,7 @@ def sp_train_run(root: Path, out: str, comm=None, replay=None) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with SpTrainHooks(replay) as hooks:
-        state = train_mod.train(cfg, sp=comm)
+        state = train_mod.train(cfg, comm=comm)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     logs = root / out / "run" / "logs" / "metrics.jsonl"
@@ -2169,7 +2189,7 @@ def sp_eval_run(root: Path, out: str, comm=None) -> tuple:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    names = evaluate(cfg, sp=comm)
+    names = evaluate(cfg, comm=comm)
     torch.cuda.synchronize()
     return names, counts(), time.perf_counter() - t0
 
@@ -2353,6 +2373,307 @@ def sp_phase(root: Path) -> None:
     print(f"sp phase: {time.perf_counter() - t_phase:.1f} s (ranks {res[0]['s']:.1f} and "
           f"{res[1]['s']:.1f} s after their start; peak memory rank 0 "
           f"{res[0]['peak_gib']:.1f} GiB, rank 1 {res[1]['peak_gib']:.1f} GiB)", flush=True)
+
+
+# -- phase 5e: data and model parallelism, the ranks as processes on the one card ---------
+#
+# As phase 5d's: gloo between processes on cuda:0, the tensors staged through
+# host memory, a correctness harness, not a speed.
+
+MESH_RANKS = 4
+# the 2B recipe's width cut to 8 of its 30 layers, as phase 5d cuts it
+MESH_TRAIN_LAYERS = 8
+MESH_EVAL_LAYERS = 8
+MESH_TRAIN = (("dp2 x tp2", dict(dp=2, tp=2)),
+              ("fsdp2 x pp2", dict(dp=1, fsdp=2, pp=2, n_micro=2)),
+              ("pp2 x tp2", dict(dp=1, pp=2, tp=2)),
+              ("fsdp2 x sp2", dict(dp=1, fsdp=2, sp=2)))
+MESH_EVAL = (("bf16", False), ("W8A8", True))  # evaluate at dp2 x tp2
+
+
+def mesh_train_counts(mesh: dict):
+    """Launches of one rank's SP_TRAIN_STEPS micro-steps at `mesh`: a
+    pipeline stage runs its L/pp layers on each of its n_micro + pp - 1
+    ticks, bubbles included; sp rings each attention."""
+    L = MESH_TRAIN_LAYERS
+    if mesh.get("pp", 1) > 1:
+        pp = mesh["pp"]
+        c = train_micro_step_counts(L // pp * (mesh.get("n_micro", pp) + pp - 1))
+    elif mesh.get("sp", 1) > 1:
+        c = sp_train_counts(L, mesh["sp"])
+    else:
+        c = train_micro_step_counts(L)
+    return tuple(SP_TRAIN_STEPS * n for n in c)
+
+
+def mesh_eval_counts(quant: bool):
+    per_layer = [n // 30 for n in (Q8_FORWARD if quant else BF16_FORWARD)]
+    return tuple(SP_EVAL_STEPS * MESH_EVAL_LAYERS * n for n in per_layer)
+
+
+class GlobalDraws:
+    """`draws` for pipelines/train.py:train that gives a pipeline's data
+    shard its rows of the global batch's draws (the default ones, seeded
+    from (seed, step)), so that a pp run with data shards takes the
+    resident run's numbers; the global batch is the one `hooks` saw last."""
+
+    def __init__(self, hooks, seed: int = 42):
+        self.hooks, self.seeded = hooks, train_mod.seeded_draws(seed, "cuda")
+
+    def __call__(self, step, batch, shard=None):
+        if shard is None:
+            return self.seeded(step, batch)
+        whole = {k: torch.from_numpy(v).cuda() for k, v in self.hooks.batches[-1].items()}
+        k = batch["latents"].shape[0]
+        return self.seeded(step, whole).rows(slice(shard * k, (shard + 1) * k))
+
+
+def mesh_train_run(root: Path, out: str, mesh: dict, comm, replay=None) -> dict:
+    """pipelines/train.py:train on the 2B recipe cut to MESH_TRAIN_LAYERS
+    layers at `mesh` over `comm` (SOLO: resident); returns its launches,
+    seconds, writes, metrics (rank 0's), peak memory and the whole first
+    moments (flattened, on the host), and the hooks."""
+    cfg = train_config(root / "data", root / out, [
+        f"transformer.num_layers={MESH_TRAIN_LAYERS}", "transformer.recon_action=false",
+        *(f"train.mesh.{k}={v}" for k, v in mesh.items()),
+        f"train.max_train_steps={SP_TRAIN_STEPS}", "train.checkpointing_steps=1000",
+        "train.validation_steps=1000", "train.log_every=1", "train.lr_warmup_steps=0"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SpTrainHooks(replay) as hooks:
+        state = train_mod.train(cfg, comm=comm, draws=GlobalDraws(hooks))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    names = [n for n, _ in state.named_params()]
+    mu = dict(zip(names, state.opt_state.mu))
+    # every rank gathers the whole moments
+    mu = gather_state_dict(mu, state.mesh.placements, state.mesh.mesh, state.mesh.num_layers)
+    mu = torch.cat([mu[k].flatten().cpu() for k in sorted(mu)])
+    logs = root / out / "run" / "logs" / "metrics.jsonl"
+    metrics = [m for m in map(json.loads, logs.read_text().splitlines()) if "loss" in m] \
+        if logs.exists() else []
+    del state
+    return dict(launches=launches, s=secs, writes=dict(hooks.calls), metrics=metrics,
+                peak_gib=peak, mu=mu, hooks=hooks)
+
+
+def mesh_eval_run(root: Path, out: str, quant: bool, comm=None) -> tuple:
+    """pipelines/evaluate.py:evaluate at the flagship's width cut to
+    MESH_EVAL_LAYERS layers, SP_EVAL_STEPS DPM steps, a batch of the two
+    clips, latents only, at evaluation.mesh dp=2, tp=2 over `comm`
+    (resident without one); returns (names, launches, seconds, peak GiB)."""
+    cfg = load_config(
+        str(default_config_dir() / "base_eval.yaml"),
+        str(default_config_dir() / "eval" / "eval_traj_image_cond_2b_finetune.yaml"),
+        "bridgev2", overrides=[
+            f"dataset.data_root={root / 'serving'}", "dataset.sequence_length=48",
+            "transformer.pretrained_name_or_path=null", "transformer.visual_guidance=true",
+            f"transformer.num_layers={MESH_EVAL_LAYERS}",
+            f"evaluation.num_inference_steps={SP_EVAL_STEPS}", "evaluation.batch_size=2",
+            "evaluation.mode=traj-image-depth-label", f"evaluation.quant={str(quant).lower()}",
+            *(["evaluation.mesh.dp=2", "evaluation.mesh.tp=2"] if comm is not None else []),
+            f"evaluation.output_dir={root / out}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = evaluate(cfg, comm=comm)
+    torch.cuda.synchronize()
+    return names, counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_worker(rank: int, world: int, port: int, root: str) -> int:
+    """One rank of phase 5e, a process of its own on cuda:0 (module
+    docstring). Writes its results to root/mesh_rank{rank}.json."""
+    from orv_tpu_torch.parallel.sp import ProcessGroupRing
+
+    root = Path(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    os.environ["NO_INIT_VAL"] = "1"
+    comm = ProcessGroupRing.init_process_group("gloo", f"tcp://localhost:{port}", world, rank,
+                                               timeout=600.0)
+    t_start = time.perf_counter()
+    log = ShapeLog().__enter__()
+    res = dict(rank=rank, train={}, evaluate={})
+    ref = None
+    if rank == 0:  # the resident run whose batches every run takes
+        ref = mesh_train_run(root, "train_res", {}, SOLO)
+        res["train_resident"] = {k: v for k, v in ref.items() if k not in ("mu", "hooks")}
+    batches = comm.broadcast(ref["hooks"].batches if rank == 0 else None)
+    for name, mesh in MESH_TRAIN:
+        run = mesh_train_run(root, f"train_{name.replace(' ', '')}", mesh, comm, batches)
+        out = {k: v for k, v in run.items() if k not in ("mu", "hooks")}
+        out["batches"] = run["hooks"].bits
+        if rank == 0:
+            err, rel, rms = rms_errors(run["mu"], ref["mu"])
+            out.update(moment_rms_rel=rel, moment_max_rel=err / rms)
+        res["train"][name] = out
+        del run
+    for name, quant in MESH_EVAL:
+        names, launches, secs, peak = mesh_eval_run(root, f"eval_{name}", quant, comm)
+        res["evaluate"][name] = dict(names=names, launches=launches, s=secs, peak_gib=peak)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    if rank == 0:  # the resident evaluates, once the group is gone (it would split the work)
+        for name, quant in MESH_EVAL:
+            names, launches, secs, peak = mesh_eval_run(root, f"eval_res_{name}", quant)
+            res["evaluate_resident"] = res.get("evaluate_resident", {})
+            res["evaluate_resident"][name] = dict(names=names, launches=launches, s=secs)
+    log.__exit__()
+    res["shapes"] = [list(k) for k in log.keys]
+    res["s"] = time.perf_counter() - t_start
+    runs = [*res["train"].values(), *res["evaluate"].values(),
+            *([res["train_resident"]] if rank == 0 else [])]
+    res["peak_gib"] = max(r["peak_gib"] for r in runs)
+    (root / f"mesh_rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def _key(obj):
+    """A ShapeLog key back from JSON (its lists were tuples)."""
+    return tuple(_key(x) for x in obj) if isinstance(obj, list) else obj
+
+
+def write_second_clip(root: Path, frames: int = 49) -> None:
+    """A second serving episode (00001) beside write_serving_data's, its
+    trajectory and its moments (latents, image latents, depth and label)
+    drawn from another seed, so that evaluate's batch holds two clips whose
+    every conditioning input differs: a rank that took the other's row
+    shows."""
+    rng = np.random.default_rng(1)
+    ann = json.loads((root / "annotations" / "test" / "00000.json").read_text())
+    ann.update(episode_id="00001", state=rng.uniform(-0.5, 0.5, (frames, 7)).tolist(),
+               continuous_gripper_state=rng.uniform(0, 1, frames).tolist())
+    (root / "annotations" / "test" / "00001.json").write_text(json.dumps(ann))
+    emb = root / "embeddings_full" / "test"
+    F, C, H, W = LATENT
+    for kind, f in (("latents", F), ("image_latents", 1), ("depth_latents", F),
+                    ("label_latents", F)):
+        np.savez(emb / kind / f"00001_00_{frames:02d}.npz",
+                 rng.normal(size=(2 * C, f, H, W)).astype(np.float32))
+
+
+def mesh_phase(root: Path, shape_keys: set) -> None:
+    """Phase 5e (module docstring): MESH_RANKS rank processes on the card,
+    their results checked here; their kernels' shapes join `shape_keys`."""
+    t_phase = time.perf_counter()
+    n_slices = write_train_data(root / "data")
+    write_serving_data(root / "serving")
+    write_second_clip(root / "serving")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    code = (f"import sys; sys.path.insert(0, {str(Path(__file__).resolve().parent)!r}); "
+            "import chip_smoke; sys.exit(chip_smoke.mesh_worker(*map(int, sys.argv[1:4]), "
+            "sys.argv[4]))")
+    logs = [open(root / f"mesh_rank{r}.log", "w+") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(MESH_RANKS), str(port),
+                               str(root)], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(MESH_RANKS)]
+    deadline = time.monotonic() + 600.0
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        tail = f.read()[-3000:]
+        f.close()
+        if procs[r].returncode != 0:
+            print(f"mesh rank {r} failed (exit {procs[r].returncode}):\n{tail}", flush=True)
+    check(all(p.returncode == 0 for p in procs), "a mesh rank process failed")
+    res = [json.loads((root / f"mesh_rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+    for r in res:
+        shape_keys.update(_key(k) for k in r["shapes"])
+
+    ref = res[0]["train_resident"]
+    want_res = tuple(SP_TRAIN_STEPS * c for c in train_micro_step_counts(MESH_TRAIN_LAYERS))
+    ref_losses = [(m["loss"], m["grad_norm"]) for m in ref["metrics"]]
+    print(f"train resident ({TRAIN_RECIPE}, {MESH_TRAIN_LAYERS} of 30 layers, {n_slices} "
+          f"slices, B=4 x accumulation 2, {SP_TRAIN_STEPS} micro-steps, rank 0): "
+          f"{ref['s']:.1f} s, launches {tuple(ref['launches'])} (want {want_res}), (loss, grad "
+          f"norm) per micro-step {ref_losses}, peak {ref['peak_gib']:.1f} GiB", flush=True)
+    check(tuple(ref["launches"]) == want_res, "resident train launch counts")
+    check(len(ref_losses) == SP_TRAIN_STEPS and all(math.isfinite(a) and math.isfinite(b)
+                                                    for a, b in ref_losses),
+          "resident train metrics")
+    tally(ref["launches"])
+    for name, mesh in MESH_TRAIN:
+        tr = [r["train"][name] for r in res]
+        want = mesh_train_counts(mesh)
+        losses = [(m["loss"], m["grad_norm"]) for m in tr[0]["metrics"]]
+        peaks = ", ".join(f"{t['peak_gib']:.1f}" for t in tr)
+        print(f"train at {name} ({MESH_RANKS} rank processes on one card, the resident run's "
+              f"batches): {tr[0]['s']:.1f} s (rank 0), launches per rank "
+              f"{[tuple(t['launches']) for t in tr]} (want {want}); (loss, grad norm) per "
+              f"micro-step {losses}; first moments RMS error {tr[0]['moment_rms_rel']:.3g} of "
+              f"RMS(ref), max {tr[0]['moment_max_rel']:.3g}; peak memory per rank "
+              f"{peaks} GiB; writes per rank "
+              f"{[t['writes'] for t in tr]}", flush=True)
+        check(all(tuple(t["launches"]) == want for t in tr), f"{name} train launch counts")
+        check(all(t["batches"] == tr[0]["batches"] for t in tr)
+              and len(tr[0]["batches"]) == SP_TRAIN_STEPS,
+              f"{name}: the ranks took different batches")
+        check(tr[0]["writes"] == {"checkpoint": 1, "export": 1}
+              and all(t["writes"] == {"checkpoint": 0, "export": 0} for t in tr[1:]),
+              f"{name}: only rank 0 may write the checkpoint and the export")
+        check(len(losses) == SP_TRAIN_STEPS
+              and all(abs(a - c) <= SP_LOSS_REL * abs(c) and abs(b - d) <= SP_GRAD_REL * abs(d)
+                      for (a, b), (c, d) in zip(losses, ref_losses)),
+              f"{name} train's loss or grad norm disagrees with the resident run")
+        check(tr[0]["moment_rms_rel"] <= SP_GRAD_REL, f"{name} train's moments disagree")
+        for t in tr:
+            tally(t["launches"])
+
+    for name, quant in MESH_EVAL:
+        ev = [r["evaluate"][name] for r in res]
+        ev_ref = res[0]["evaluate_resident"][name]
+        want = mesh_eval_counts(quant)
+        files = sorted(p.name for p in (root / f"eval_{name}").iterdir())
+        peaks = ", ".join(f"{e['peak_gib']:.1f}" for e in ev)
+        print(f"evaluate at evaluation.mesh dp=2, tp=2, {name} ({MESH_EVAL_LAYERS} layers at "
+              f"the flagship's width, {SP_EVAL_STEPS} DPM steps, a batch of 2 clips): "
+              f"{ev[0]['s']:.1f} s (rank 0; resident {ev_ref['s']:.1f} s), launches per rank "
+              f"{[tuple(e['launches']) for e in ev]} (want {want}), peak memory per rank "
+              f"{peaks} GiB, files {files}",
+              flush=True)
+        check(all(tuple(e["launches"]) == want for e in ev), f"{name} mesh evaluate launch counts")
+        check(tuple(ev_ref["launches"]) == want, f"{name} resident evaluate launch counts")
+        check(all(e["names"] == ev_ref["names"] for e in ev) and len(ev_ref["names"]) == 2,
+              f"{name} mesh evaluate's clips")
+        check(files == ["00000_000_latents.npz", "00001_000_latents.npz", "manifest.json",
+                        "manifest_0.json"], f"{name} mesh evaluate wrote {files}")
+        for clip in ("00000_000", "00001_000"):
+            lat = np.load(root / f"eval_{name}" / f"{clip}_latents.npz")["arr_0"]
+            lat_ref = np.load(root / f"eval_res_{name}" / f"{clip}_latents.npz")["arr_0"]
+            check(lat.shape == lat_ref.shape and bool(np.isfinite(lat).all()),
+                  f"{name} mesh evaluate latents")
+            agree(torch.from_numpy(lat), torch.from_numpy(lat_ref),
+                  f"evaluate dp2 x tp2 {name} vs resident latents ({clip})",
+                  4e-2 if quant else 2e-2, 3e-3)
+        for e in ev:
+            tally(e["launches"])
+        tally(ev_ref["launches"])
+    secs = ", ".join(f"{r['s']:.1f}" for r in res)
+    peaks = ", ".join(f"{r['peak_gib']:.1f}" for r in res)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s (ranks {secs} s after their "
+          f"start; peak memory per rank {peaks} GiB)", flush=True)
 
 
 def generate(dit, vae, inp, name: str, forward_counts):
@@ -4198,6 +4519,16 @@ def main() -> int:
         sp_phase(sp_root)
     finally:
         shutil.rmtree(sp_root, ignore_errors=True)
+
+    # 5e. data and model parallelism: train at dp2 x tp2, fsdp2 x pp2, pp2 x tp2 and
+    # fsdp2 x sp2, evaluate at dp2 x tp2, the ranks as processes on the one card
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_root = Path(tempfile.mkdtemp(prefix="orv_mesh_"))
+    try:
+        mesh_phase(mesh_root, shape_log.keys)
+    finally:
+        shutil.rmtree(mesh_root, ignore_errors=True)
 
     # 6. the model surface at full width, the training state freed first
     gc.collect()

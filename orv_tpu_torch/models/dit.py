@@ -56,15 +56,28 @@ the blocks twice and every backward kernel once. `remat_policy="dots"`
 `addmm`, the linears) and recomputes the rest. The sampler's inference mode
 never remats.
 
+Data and model parallelism (`parallel/mesh.py`): `ControlDiT(tp=comm)`
+splits every block's attention heads and feed-forward columns over the
+communicator's ranks (`models/layers.py`), plumbed as `sp=` is;
+`layers=range(a, b)` builds only those blocks (a pipeline stage's: the
+other entries of `transformer_blocks` and `mv_blocks` are empty
+placeholders, so the held blocks keep their global names); and a
+`parallel/fsdp.py:Zero` set on the model gathers each block's fsdp shards
+for its forward (`_unit`). The forward is three parts, as the JAX model's
+`stage="pre"`, `_BlockCell` and `stage="post"` (orv_tpu/models/dit.py:382,
+:122, :274), which the pipeline runs apart: `embed` (the embeddings and the
+action conditioning), `run_blocks` (a range of block cells) and `head`
+(the final norm, the output adaLN, the projection and the unpatchify).
+
 Refused by name: `use_learned_positional_embeddings`, which the JAX config
-carries but none of its modules reads (ROADMAP.md C). Pipeline stages are
-left out.
+carries but none of its modules reads (ROADMAP.md C).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -132,6 +145,24 @@ _ATTN_IMPL = {False: "flash", True: "flash_q8"}  # the attention kernel each mod
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)  # the linears' products
 
 
+class Embedded(NamedTuple):
+    """What `ControlDiT.embed` hands to the blocks and the head: the video
+    and text tokens, the time embedding, the per-frame action embedding,
+    the training call's action mask and reconstruction, and the geometry
+    the head unpatchifies with (B counts every view as a sample)."""
+
+    hidden: torch.Tensor
+    enc: torch.Tensor
+    temb: torch.Tensor
+    action_emb: Optional[torch.Tensor]
+    is_action_mask: Optional[torch.Tensor]
+    actions_recon: Optional[torch.Tensor]
+    num_views: int
+    num_frames: int
+    height: int
+    width: int
+
+
 def _save_dots(ctx, op, *args, **kwargs):
     """`remat_policy="dots"`: keep the outputs of the 2-D matmuls the linears
     run (JAX's `dots_with_no_batch_dims_saveable`), recompute the rest."""
@@ -149,12 +180,15 @@ class ControlDiT(nn.Module):
     bf16 model into one in place. `attn_impl` must be the one `quant` picks:
     "flash" (bf16 kernel) without it, "flash_q8" (int8-QK^T kernel) with it.
     `sp`: a communicator whose ranks ring every block's joint attention
-    (None or size 1: the sequence stays resident). `remat`, `remat_policy`:
-    per-block recompute under grad (module docstring)."""
+    (None or size 1: the sequence stays resident). `tp`: a communicator
+    whose ranks split every block's heads and feed-forward columns.
+    `layers`: the block layers this model holds (default: all). `remat`,
+    `remat_policy`: per-block recompute under grad (module docstring)."""
 
     def __init__(self, config: DiTConfig, dtype=torch.bfloat16, param_dtype=torch.float32,
                  device: DeviceLike = None, quant: bool = False, attn_impl: str = "flash",
-                 sp=None, remat: bool = False, remat_policy: Optional[str] = None):
+                 sp=None, remat: bool = False, remat_policy: Optional[str] = None, tp=None,
+                 layers: Optional[Sequence[int]] = None):
         super().__init__()
         if remat_policy not in (None, "dots"):
             raise ValueError(f"remat_policy={remat_policy!r}: None (recompute everything) "
@@ -169,8 +203,11 @@ class ControlDiT(nn.Module):
         device = resolve_device(device)
         c = self.config = config
         self.dtype, self.param_dtype = dtype, param_dtype
-        self.quant, self.attn_impl, self.sp = quant, attn_impl, sp
+        self.quant, self.attn_impl, self.sp, self.tp = quant, attn_impl, sp, tp
         self.remat, self.remat_policy = remat, remat_policy
+        self.layers = range(c.num_layers) if layers is None else range(layers[0],
+                                                                        layers[-1] + 1)
+        self.zero = None  # parallel/fsdp.py:Zero, when the parameters are fsdp shards
         self._view_pos_tables = {}
         inner = c.inner_dim
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
@@ -187,11 +224,11 @@ class ControlDiT(nn.Module):
         if c.visual_guidance:
             self.initial_combine_linear = nn.Linear(inner * c.num_control_keys, inner,
                                                     device=device, dtype=param_dtype)
+        held = lambda make: nn.ModuleList([make(quant, device) if i in self.layers
+                                           else nn.Module() for i in range(c.num_layers)])
         if c.multiview:
-            self.mv_blocks = nn.ModuleList([
-                self.make_mv_block(quant, device) for _ in range(c.num_layers)])
-        self.transformer_blocks = nn.ModuleList([
-            self.make_block(quant, device) for _ in range(c.num_layers)])
+            self.mv_blocks = held(self.make_mv_block)
+        self.transformer_blocks = held(self.make_block)
         self.norm_final = LayerNorm(inner, c.norm_eps, device=device, param_dtype=param_dtype)
         self.norm_out = AdaLayerNormOut(c.time_embed_dim, inner, c.norm_eps, **kw)
         self.proj_out = nn.Linear(inner, c.out_channels * c.patch_size ** 2 * (c.patch_size_t or 1),
@@ -203,7 +240,7 @@ class ControlDiT(nn.Module):
         return DiTBlock(c.inner_dim, c.num_attention_heads, c.attention_head_dim,
                         c.time_embed_dim, c.modulate_encoder_hidden_states, c.attention_bias,
                         c.norm_eps, quant, sp=self.sp, dtype=self.dtype, device=device,
-                        param_dtype=self.param_dtype)
+                        param_dtype=self.param_dtype, tp=self.tp)
 
     def make_mv_block(self, quant: bool, device) -> MVBlock:
         """One cross-view block of this model's config and dtypes."""
@@ -211,15 +248,20 @@ class ControlDiT(nn.Module):
         return MVBlock(c.inner_dim, c.num_attention_heads, c.attention_head_dim,
                        c.time_embed_dim, c.modulate_encoder_hidden_states, c.attention_bias,
                        c.norm_eps, quant, dtype=self.dtype, device=device,
-                       param_dtype=self.param_dtype)
+                       param_dtype=self.param_dtype, tp=self.tp)
 
     def set_sp(self, sp) -> "ControlDiT":
         """Ring every block's joint attention over the communicator `sp` from
         now on (None: resident); the weights stay as they are."""
         self.sp = sp
-        for block in self.transformer_blocks:
-            block.attn1.sp = sp
+        for i in self.layers:
+            self.transformer_blocks[i].attn1.sp = sp
         return self
+
+    def _unit(self, key):
+        """The fsdp gather of one unit's parameters around its use: a block
+        layer (int), "pre" (the embeddings) or "post" (the head)."""
+        return contextlib.nullcontext() if self.zero is None else self.zero.gathered(key)
 
     def _embed_controls(self, depths: Optional[torch.Tensor], labels: Optional[torch.Tensor],
                         num_views: int = 1) -> Optional[torch.Tensor]:
@@ -269,11 +311,39 @@ class ControlDiT(nn.Module):
         `recon_action`. With actions it takes `action_mask_u`: the rows with
         u < 0.1 get the learned mask embedding (action CFG)."""
         c = self.config
-        V = num_views
-        if c.visual_guidance and controls_only:
-            return self._embed_controls(depths, labels, V)
         if controls_only:
-            return None
+            if not c.visual_guidance:
+                return None
+            with self._unit("pre"):
+                return self._embed_controls(depths, labels, num_views)
+        e = self.embed(hidden_states, encoder_hidden_states, timestep, actions, depths, labels,
+                       control_cache, deterministic, action_mask_u, num_views)
+        if (attn_cache is not None or collect_attn) and c.multiview:
+            raise NotImplementedError("PAB attention broadcast does not "
+                                      "cover the multiview MVBlock path")
+        hidden, enc, collected = self.run_blocks(
+            e.hidden, e.enc, e.temb, e.action_emb, image_rotary_emb, image_rotary_emb_view,
+            e.num_views, e.num_frames, self.layers, attn_cache, collect_attn)
+        out = self.head(hidden, e)
+        if collect_attn:
+            return (out, collected) if deterministic else (
+                out, e.is_action_mask, e.actions_recon, collected)
+        return out if deterministic else (out, e.is_action_mask, e.actions_recon)
+
+    def embed(self, hidden_states, encoder_hidden_states, timestep, actions=None, depths=None,
+              labels=None, control_cache=None, deterministic: bool = True,
+              action_mask_u=None, num_views: int = 1) -> Embedded:
+        """The part before the blocks (the JAX model's stage="pre"): the
+        time and patch embeddings, the multiview positions, the action
+        conditioning and the visual controls."""
+        with self._unit("pre"):
+            return self._embed(hidden_states, encoder_hidden_states, timestep, actions, depths,
+                               labels, control_cache, deterministic, action_mask_u, num_views)
+
+    def _embed(self, hidden_states, encoder_hidden_states, timestep, actions, depths, labels,
+               control_cache, deterministic, action_mask_u, num_views) -> Embedded:
+        c = self.config
+        V = num_views
         if V > 1:  # b (v f) -> (b v) f: every view a sample of its own
             hidden_states = hidden_states.reshape(
                 hidden_states.shape[0] * V, hidden_states.shape[1] // V, *hidden_states.shape[2:])
@@ -321,16 +391,20 @@ class ControlDiT(nn.Module):
                 tiled = hidden.repeat(1, 1, c.num_control_keys)
                 hidden = hidden + _linear(tiled + controls, self.initial_combine_linear,
                                           self.dtype)
+        return Embedded(hidden, enc, temb, action_emb, is_action_mask, actions_recon, V,
+                        num_frames, height, width)
 
-        # 5. blocks
-        if (attn_cache is not None or collect_attn) and c.multiview:
-            raise NotImplementedError("PAB attention broadcast does not "
-                                      "cover the multiview MVBlock path")
+    def run_blocks(self, hidden, enc, temb, action_emb, rope=None, rope_view=None,
+                   num_views: int = 1, num_frames: int = 1, layers: Sequence[int] = (),
+                   attn_cache=None, collect_attn: bool = False):
+        """Block cells `layers` in order (the JAX model's `_BlockCell`s, each
+        under remat when asked): returns (hidden, enc, the collected PAB
+        attention outputs)."""
         collected = []
         remat = self.remat and torch.is_grad_enabled()
-        for i in range(len(self.transformer_blocks)):
-            args = (i, hidden, enc, temb, action_emb, image_rotary_emb, image_rotary_emb_view, V,
-                    num_frames, None if attn_cache is None else attn_cache[i], collect_attn)
+        for i in layers:
+            args = (i, hidden, enc, temb, action_emb, rope, rope_view, num_views, num_frames,
+                    None if attn_cache is None else attn_cache[i], collect_attn)
             if remat:
                 out = torch.utils.checkpoint.checkpoint(
                     self._cell, *args, use_reentrant=False, context_fn=self._remat_context)
@@ -339,31 +413,35 @@ class ControlDiT(nn.Module):
             hidden, enc = out[:2]
             if collect_attn:
                 collected.append(out[2])
+        return hidden, enc, collected
 
-        # 6. final norm, AdaLN out, projection, unpatchify. The 5b family's
-        # joint_final_norm norms [text | video] together; the LayerNorm is
-        # per token, so that equals norming the video tokens alone.
-        hidden = self.norm_final(hidden)
-        hidden = self.norm_out(hidden, temb, action_emb)
-        hidden = _linear(hidden, self.proj_out, self.dtype)
+    def head(self, hidden, e: Embedded, enc=None) -> torch.Tensor:
+        """The part after the blocks (the JAX model's stage="post"): final
+        norm, AdaLN out, projection, unpatchify. The 5b family's
+        joint_final_norm norms [text | video] together; the LayerNorm is per
+        token, so that equals norming the video tokens alone, and `enc` is
+        not read."""
+        c = self.config
+        with self._unit("post"):
+            hidden = self.norm_final(hidden)
+            hidden = self.norm_out(hidden, e.temb, e.action_emb)
+            hidden = _linear(hidden, self.proj_out, self.dtype)
+        B, V, num_frames = hidden.shape[0], e.num_views, e.num_frames
         p, pt = c.patch_size, c.patch_size_t or 1
-        h, w = height // p, width // p
-        out = (hidden.reshape(B, num_frames // pt, h, w, c.out_channels, pt, p, p)
-               .permute(0, 1, 5, 4, 2, 6, 3, 7)
-               .reshape(B // V, V * num_frames, c.out_channels, height, width))
-        if collect_attn:
-            return (out, collected) if deterministic else (
-                out, is_action_mask, actions_recon, collected)
-        return out if deterministic else (out, is_action_mask, actions_recon)
+        h, w = e.height // p, e.width // p
+        return (hidden.reshape(B, num_frames // pt, h, w, c.out_channels, pt, p, p)
+                .permute(0, 1, 5, 4, 2, 6, 3, 7)
+                .reshape(B // V, V * num_frames, c.out_channels, e.height, e.width))
 
     def _cell(self, i: int, hidden, enc, temb, action_emb, rope, rope_view, V: int,
               num_frames: int, cached_attn, collect_attn: bool):
-        """One step of the block loop, the unit of remat: the MVBlock (of a
-        multiview model), then the DiTBlock."""
-        if self.config.multiview:
-            hidden = self.mv_blocks[i](hidden, enc, temb, rope_view, V, num_frames)
-        return self.transformer_blocks[i](hidden, enc, temb, action_emb, rope, cached_attn,
-                                          collect_attn)
+        """One step of the block loop, the unit of remat and of the fsdp
+        gather: the MVBlock (of a multiview model), then the DiTBlock."""
+        with self._unit(i):
+            if self.config.multiview:
+                hidden = self.mv_blocks[i](hidden, enc, temb, rope_view, V, num_frames)
+            return self.transformer_blocks[i](hidden, enc, temb, action_emb, rope, cached_attn,
+                                              collect_attn)
 
     def _remat_context(self):
         """The checkpoint's context: everything recomputed, or with

@@ -32,6 +32,29 @@ the CogVideoX 1.5 linear patch embed over `patch_size_t` frames
 (`PatchEmbed`, `ActionEmbed`), and PAB attention broadcast
 (`DiTBlock(cached_attn=..., return_attn=...)`, `AdaLNZero(gates_only=True)`).
 
+Tensor parallelism (`tp`, a communicator of the mesh's tp axis,
+`parallel/mesh.py`), Megatron's layout as the JAX package's
+`param_shardings` gives it: `JointAttention` holds heads/tp heads, its q,
+k and v projections the rank's columns (rows of the torch weight) and
+`to_out` the rank's input columns; `FeedForward` holds its hidden columns
+in `net.0.proj` and the same input columns of `net.2`. The biases stay
+whole, as the JAX plan keeps them: a column-parallel layer adds its slice
+of its bias, and a row-parallel one adds its bias once, after the sum.
+Every other layer runs whole on every rank. The row-parallel products are
+partial sums: each rank's is computed in f32 from the compute dtype's
+inputs, the sums reduced in f32 in rank order and rounded once, after the
+bias (`_row_parallel`); an `Int8Dense` reduces its exact int32
+accumulators instead, after quantizing each token by the absmax of its
+whole row (`all_reduce_max`), so its W8A8 output is the resident one bit
+for bit. The qk-LayerNorm works per head and needs no communication. The
+collectives carry `shard_map`'s transpose rules (`parallel/sp.py`): a
+whole tensor entering rank-partial code (the block's input to the
+column-parallel projections, a whole bias or the qk-norm's weights used on
+the rank's heads) is a `replicated_input`, whose cotangent is summed over
+the ranks; the row-parallel sum is `sum_partials`. Where tp does not
+divide the heads (or the hidden width) that attention (or feed-forward)
+stays whole on every rank, which computes the same function.
+
 Off the main path, as in the JAX package: `FloatGroupNorm`, `Fuser` and
 `ConditioningEmbedding`, which the reference defines and never calls.
 """
@@ -47,6 +70,7 @@ from orv_tpu_torch.ops.adaln import gated_residual, modulate_norm, modulate_norm
 from orv_tpu_torch.ops.attention import QK_NORM_LOGIT_BOUND, flash_attention, flash_attention_q8
 from orv_tpu_torch.ops.quant import quantize_tokens, refuse_grad
 from orv_tpu_torch.ops.ring_attention import joint_ring_attention, ring_attention
+from orv_tpu_torch.parallel.sp import all_reduce_max, replicated_input, sum_partials
 from orv_tpu_torch.utils.embeddings import apply_rotary_emb, get_3d_sincos_pos_embed
 
 
@@ -115,18 +139,30 @@ class Int8Dense(nn.Module):
         if prefix + "weight_q8" in state_dict:
             self.has_int8_weights = True
 
-    def forward(self, x):
+    def forward(self, x, bias=None, tp=None):
+        """`bias` stands in for the layer's own (a column-parallel layer's
+        slice). `tp`: this layer is row-parallel over that communicator
+        (module docstring): x holds the rank's input columns, each token is
+        quantized by the absmax of its whole row and the int32 products
+        are summed over the ranks before the epilogue."""
         refuse_grad("Int8Dense", x)
         if not self.has_int8_weights:
             raise RuntimeError("Int8Dense holds no int8 weights: load a quantized state dict "
                                "(models.quantize.quantize_linear_params) first")
-        xq, xscale = x if isinstance(x, tuple) else quantize_tokens(x)
+        if isinstance(x, tuple):
+            xq, xscale = x
+        else:
+            xq, xscale = quantize_tokens(x, None if tp is None else
+                                         lambda amax: all_reduce_max(tp, amax))
         lead = xq.shape[:-1]
-        y = int8_matmul(xq.reshape(-1, self.in_features), self.weight_q8).float()
-        y = y * xscale.reshape(-1, 1) * self.weight_scale
-        if self.bias is not None:
-            y = y + self.bias.float()
-        return y.to(self.dtype).reshape(*lead, self.out_features)
+        acc = int8_matmul(xq.reshape(-1, self.in_features), self.weight_q8)
+        if tp is not None:
+            acc = tp.all_reduce_sum(acc)
+        y = acc.float() * xscale.reshape(-1, 1) * self.weight_scale
+        bias = self.bias if bias is None else bias
+        if bias is not None:
+            y = y + bias.float()
+        return y.to(self.dtype).reshape(*lead, self.weight_q8.shape[0])
 
 
 def _dense(in_features: int, out_features: int, bias: bool, quant: bool, dtype, device,
@@ -141,6 +177,49 @@ def _apply(layer: nn.Module, x, dtype: torch.dtype) -> torch.Tensor:
     """`layer` on x in the compute dtype: an Int8Dense takes x (or its
     pre-quantized pair) as it is, an nn.Linear through `_linear`."""
     return layer(x) if isinstance(layer, Int8Dense) else _linear(x, layer, dtype)
+
+
+def _tp_dense(in_features: int, out_features: int, bias: bool, quant: bool, dtype, device,
+              param_dtype, n: int, column: bool) -> nn.Module:
+    """The rank's part of a tp-split layer (`_dense`) of whole size
+    [out, in]: column-parallel, the weight's out/n rows; row-parallel, its
+    in/n columns; the bias whole either way."""
+    if column:
+        layer = _dense(in_features, out_features // n, False, quant, dtype, device, param_dtype)
+        if bias:
+            layer.bias = nn.Parameter(torch.zeros(out_features, device=device, dtype=param_dtype))
+        return layer
+    return _dense(in_features // n, out_features, bias, quant, dtype, device, param_dtype)
+
+
+def _column_parallel(layer: nn.Module, x, tp, dtype: torch.dtype) -> torch.Tensor:
+    """A column-parallel layer on the whole input x: the rank's output
+    columns, with the rank's slice of the whole bias."""
+    bias = layer.bias
+    if bias is not None:
+        n = layer.weight_q8.shape[0] if isinstance(layer, Int8Dense) else layer.weight.shape[0]
+        bias = replicated_input(tp, bias).narrow(0, tp.rank * n, n)
+    if isinstance(layer, Int8Dense):
+        return layer(x, bias=bias)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), None if bias is None else bias.to(dtype))
+
+
+def _row_parallel(layer: nn.Module, x: torch.Tensor, tp, dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel layer on the rank's input columns x: the partial
+    products summed over the ranks in f32, the whole bias added once, one
+    rounding (module docstring)."""
+    if isinstance(layer, Int8Dense):
+        return layer(x, tp=tp)
+    y = F.linear(x.to(dtype).float(), layer.weight.to(dtype).float())
+    y = sum_partials(tp, y)
+    if layer.bias is not None:
+        y = y + layer.bias.to(dtype).float()
+    return y.to(dtype)
+
+
+def _active_tp(tp, n: int):
+    """`tp` when it has more than one rank and divides `n`, else None."""
+    return tp if tp is not None and tp.size > 1 and n % tp.size == 0 else None
 
 
 class LayerNorm(nn.Module):
@@ -282,23 +361,35 @@ class JointAttention(nn.Module):
     ranks, text replicated. The ring merges (out, lse) pairs, so it runs the
     bf16 flash kernel even with `quant` (`attention_with_lse` maps flash_q8
     to it). Everything outside the attention runs on the full sequence on
-    every rank."""
+    every rank.
+
+    `tp`, a communicator whose size divides `heads`: this rank's heads/tp
+    heads (module docstring); with a size that does not divide them the
+    attention stays whole."""
 
     def __init__(self, heads: int, head_dim: int, bias: bool = True, out_bias: bool = True,
                  quant: bool = False, qk_norm: bool = True, sp=None, dtype=torch.bfloat16,
-                 device=None, param_dtype=torch.float32):
+                 device=None, param_dtype=torch.float32, tp=None):
         super().__init__()
-        self.heads, self.head_dim, self.dtype = heads, head_dim, dtype
+        self.tp = _active_tp(tp, heads)
+        n = 1 if self.tp is None else self.tp.size
+        self.heads, self.head_dim, self.dtype = heads // n, head_dim, dtype
         self.quant, self.qk_norm, self.sp = quant, qk_norm, sp
         inner = heads * head_dim
         kw = dict(quant=quant, dtype=dtype, device=device, param_dtype=param_dtype)
-        self.to_q = _dense(inner, inner, bias, **kw)
-        self.to_k = _dense(inner, inner, bias, **kw)
-        self.to_v = _dense(inner, inner, bias, **kw)
+        if self.tp is None:
+            self.to_q = _dense(inner, inner, bias, **kw)
+            self.to_k = _dense(inner, inner, bias, **kw)
+            self.to_v = _dense(inner, inner, bias, **kw)
+        else:
+            self.to_q, self.to_k, self.to_v = (_tp_dense(inner, inner, bias, n=n, column=True,
+                                                         **kw) for _ in range(3))
         if qk_norm:
             self.norm_q = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
             self.norm_k = LayerNorm(head_dim, eps=1e-6, device=device, param_dtype=param_dtype)
-        self.to_out = nn.ModuleList([_dense(inner, inner, out_bias, **kw)])
+        out = (_dense(inner, inner, out_bias, **kw) if self.tp is None
+               else _tp_dense(inner, inner, out_bias, n=n, column=False, **kw))
+        self.to_out = nn.ModuleList([out])
 
     def forward(self, hidden, enc=None, rope=None):
         """hidden [B, S, D] (with `quant`, its (xq, xscale) pair or a float
@@ -314,11 +405,21 @@ class JointAttention(nn.Module):
         else:
             x = torch.cat([enc, hidden], dim=1)
         B, S, _ = (x[0] if isinstance(x, tuple) else x).shape
+        tp = self.tp
+        if tp is not None and not isinstance(x, tuple):
+            x = replicated_input(tp, x)
 
         def heads(layer, norm=None):
-            t = _apply(layer, x, self.dtype).reshape(B, S, self.heads, self.head_dim)
-            if norm is not None:
+            if tp is None:
+                t = _apply(layer, x, self.dtype)
+            else:
+                t = _column_parallel(layer, x, tp, self.dtype)
+            t = t.reshape(B, S, self.heads, self.head_dim)
+            if norm is not None and tp is None:
                 t = norm(t)
+            elif norm is not None:
+                t = _layer_norm(t, replicated_input(tp, norm.weight),
+                                replicated_input(tp, norm.bias), norm.eps)
             return t.transpose(1, 2).contiguous()  # [B, H, S, Dh]
 
         norm_q, norm_k = (self.norm_q, self.norm_k) if self.qk_norm else (None, None)
@@ -347,41 +448,62 @@ class JointAttention(nn.Module):
         else:
             out, _ = flash_attention(q, k, v, static_max=static_max)
         out = out.transpose(1, 2).reshape(B, S, self.heads * self.head_dim)
-        out = _apply(self.to_out[0], out, self.dtype)
+        if tp is None:
+            out = _apply(self.to_out[0], out, self.dtype)
+        else:
+            out = _row_parallel(self.to_out[0], out, tp, self.dtype)
         if enc is None:
             return out, None
         return out[:, text_len:], out[:, :text_len]
 
 
 class _GELUProj(nn.Module):
-    """diffusers `GELU(approximate="tanh")`: `proj` then tanh-GELU."""
+    """diffusers `GELU(approximate="tanh")`: `proj` then tanh-GELU (`tp`:
+    `proj` column-parallel)."""
 
-    def __init__(self, dim_in: int, dim_out: int, quant: bool, dtype, device, param_dtype):
+    def __init__(self, dim_in: int, dim_out: int, quant: bool, dtype, device, param_dtype,
+                 tp=None):
         super().__init__()
-        self.dtype = dtype
-        self.proj = _dense(dim_in, dim_out, True, quant, dtype, device, param_dtype)
+        self.dtype, self.tp = dtype, tp
+        if tp is None:
+            self.proj = _dense(dim_in, dim_out, True, quant, dtype, device, param_dtype)
+        else:
+            self.proj = _tp_dense(dim_in, dim_out, True, quant, dtype, device, param_dtype,
+                                  tp.size, column=True)
 
     def forward(self, x):
-        return F.gelu(_apply(self.proj, x, self.dtype), approximate="tanh")
+        if self.tp is None:
+            return F.gelu(_apply(self.proj, x, self.dtype), approximate="tanh")
+        if not isinstance(x, tuple):
+            x = replicated_input(self.tp, x)
+        return F.gelu(_column_parallel(self.proj, x, self.tp, self.dtype), approximate="tanh")
 
 
 class FeedForward(nn.Module):
     """tanh-GELU MLP, 4x expansion (keys ff.net.0.proj, ff.net.2; net.1 is
     the checkpoint's dropout slot). `quant=True`: both matmuls Int8Dense, and
-    x may arrive as an (xq, xscale) pair."""
+    x may arrive as an (xq, xscale) pair. `tp` (a size dividing the hidden
+    width): `net.0.proj` column-parallel and `net.2` row-parallel."""
 
     def __init__(self, dim: int, mult: int = 4, quant: bool = False, dtype=torch.bfloat16,
-                 device=None, param_dtype=torch.float32):
+                 device=None, param_dtype=torch.float32, tp=None):
         super().__init__()
         self.dtype = dtype
+        self.tp = _active_tp(tp, dim * mult)
+        out = (_dense(dim * mult, dim, True, quant, dtype, device, param_dtype)
+               if self.tp is None else
+               _tp_dense(dim * mult, dim, True, quant, dtype, device, param_dtype,
+                         self.tp.size, column=False))
         self.net = nn.ModuleList([
-            _GELUProj(dim, dim * mult, quant, dtype, device, param_dtype),
+            _GELUProj(dim, dim * mult, quant, dtype, device, param_dtype, self.tp),
             nn.Identity(),
-            _dense(dim * mult, dim, True, quant, dtype, device, param_dtype),
+            out,
         ])
 
     def forward(self, x):
-        return _apply(self.net[2], self.net[0](x), self.dtype)
+        if self.tp is None:
+            return _apply(self.net[2], self.net[0](x), self.dtype)
+        return _row_parallel(self.net[2], self.net[0](x), self.tp, self.dtype)
 
 
 class DiTBlock(nn.Module):
@@ -389,20 +511,21 @@ class DiTBlock(nn.Module):
     3-chunk: attention and FF see video tokens only. 6-chunk: text and video
     attend jointly and pass the FF jointly. `quant=True` is the W8A8 block
     (Int8Dense projections and FF, int8-emitting adaLN, int8-QK^T
-    attention). `qk_norm` and `sp` go to the `JointAttention`."""
+    attention). `qk_norm` and `sp` go to the `JointAttention`, `tp` to it
+    and to the `FeedForward`."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, time_embed_dim: int,
                  modulate_enc: bool = False, attention_bias: bool = True,
                  norm_eps: float = 1e-5, quant: bool = False, qk_norm: bool = True, sp=None,
-                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32):
+                 dtype=torch.bfloat16, device=None, param_dtype=torch.float32, tp=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.modulate_enc, self.quant = modulate_enc, quant
         self.norm1 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, quant, **kw)
         self.attn1 = JointAttention(heads, head_dim, attention_bias, True, quant, qk_norm, sp,
-                                    **kw)
+                                    tp=tp, **kw)
         self.norm2 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, quant, **kw)
-        self.ff = FeedForward(dim, quant=quant, **kw)
+        self.ff = FeedForward(dim, quant=quant, tp=tp, **kw)
 
     def forward(self, hidden, enc, temb, action_emb=None, rope=None, cached_attn=None,
                 return_attn: bool = False):
@@ -447,17 +570,19 @@ class MVBlock(nn.Module):
     bf16 tokens themselves and the attention runs the int8-QK^T kernel;
     `proj_out` stays a float linear. `cam_encoder` is a zero-init
     Linear(12, dim) the reference defines but never calls, kept for
-    checkpoint parity."""
+    checkpoint parity. `tp` splits its attention as the DiT block's (the
+    JAX plan matches the projections by name)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, time_embed_dim: int,
                  modulate_enc: bool = False, attention_bias: bool = True,
                  norm_eps: float = 1e-5, quant: bool = False, dtype=torch.bfloat16,
-                 device=None, param_dtype=torch.float32):
+                 device=None, param_dtype=torch.float32, tp=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.modulate_enc, self.dtype = modulate_enc, dtype
         self.norm1 = AdaLNZero(time_embed_dim, dim, modulate_enc, norm_eps, False, **kw)
-        self.attn1 = JointAttention(heads, head_dim, attention_bias, True, quant, True, **kw)
+        self.attn1 = JointAttention(heads, head_dim, attention_bias, True, quant, True, tp=tp,
+                                    **kw)
         self.proj_out = nn.Linear(dim, dim, device=device, dtype=param_dtype)
         self.cam_encoder = nn.Linear(12, dim, device=device, dtype=param_dtype)
         for p in (*self.proj_out.parameters(), *self.cam_encoder.parameters()):

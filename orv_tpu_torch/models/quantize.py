@@ -61,7 +61,8 @@ def quantize_model_(model):
     if hasattr(model, "mv_blocks"):
         stacks.append((model.mv_blocks, model.make_mv_block))
     for blocks, make in stacks:
-        for i, old in enumerate(blocks):
+        for i in model.layers:  # a pipeline stage holds some layers only
+            old = blocks[i]
             new = make(True, next(old.parameters()).device)
             new.load_state_dict(quantize_linear_params(old.state_dict()), strict=True)
             blocks[i] = new

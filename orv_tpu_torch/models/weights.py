@@ -26,6 +26,12 @@ Conventions:
     ConditioningEmbedding trees          from HWIO, GroupNorm `scale` ->
                                          `weight` (`aux_params_from_jax`)
 
+Under a mesh (`parallel/mesh.py`) `shard_state_dict` cuts a whole state
+(the port's, or a JAX tree's through `dit_params_from_jax`) to one rank's
+part, its pp stage's layers and its tp and fsdp pieces, and
+`gather_state_dict` gathers the ranks' parts back into whole tensors (for
+checkpoints and the export), every rank taking part.
+
 A diffusers folder (`config.json` plus `diffusion_pytorch_model.safetensors`,
 or shards listed in `diffusion_pytorch_model.safetensors.index.json`) reads
 through `load_diffusers_folder`, with the port's own safetensors reader:
@@ -43,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import struct
 from pathlib import Path
 from typing import Any, Dict, Iterator, Mapping, Tuple
@@ -494,3 +501,77 @@ def feature_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 inception_params_from_jax = i3d_params_from_jax = feature_params_from_jax
+
+
+# ---------------------------------------------------------------------------
+# a mesh rank's part of a state, and the whole state back
+# ---------------------------------------------------------------------------
+
+_LAYER_NAME = re.compile(r"^((?:.*/)?(?:transformer_blocks|mv_blocks))\.(\d+)\.(.+)$")
+
+
+def placement_splits(pl, axes) -> Dict[int, Tuple[str, ...]]:
+    """{torch dim: the mesh axes splitting it, outermost first} of a
+    placement, over `axes`."""
+    out: Dict[int, Tuple[str, ...]] = {}
+    if "tp" in axes and pl.tp_dim is not None:
+        out[pl.tp_dim] = ("tp",)
+    if "fsdp" in axes and pl.fsdp_dim is not None:
+        out[pl.fsdp_dim] = out.get(pl.fsdp_dim, ()) + ("fsdp",)
+    return out
+
+
+def shard_tensor(t: torch.Tensor, splits: Dict[int, Tuple[str, ...]], mesh) -> torch.Tensor:
+    """This rank's piece of the whole tensor `t`: each split dim cut in the
+    order of its axes (a dim split by tp and then fsdp holds tp's pieces,
+    each cut in fsdp pieces)."""
+    for dim, axes in splits.items():
+        for a in axes:
+            n = mesh.shape[a]
+            k = t.shape[dim] // n
+            t = t.narrow(dim, mesh.coords[a] * k, k)
+    return t
+
+
+def gather_tensor(t: torch.Tensor, splits: Dict[int, Tuple[str, ...]], mesh) -> torch.Tensor:
+    """The inverse of `shard_tensor`, a collective of the ranks of each
+    split axis: the innermost axis is gathered first."""
+    for dim, axes in splits.items():
+        for a in reversed(axes):
+            t = mesh.comm_of((a,)).all_gather_seq(t.contiguous(), dim)
+    return t
+
+
+def shard_state_dict(whole: Mapping[str, torch.Tensor], placements: Mapping[str, Any], mesh,
+                     axes=("pp", "tp", "fsdp")) -> Dict[str, torch.Tensor]:
+    """This rank's part of a whole state dict: the entries of `placements`
+    (a rank model's `mesh.Placement`s, by the entry's name; a name may carry
+    a group prefix such as "mu/"), those of a block layer only where the
+    rank's pp stage holds that layer, each cut over `axes` (copies)."""
+    return {name: shard_tensor(whole[name], placement_splits(pl, axes), mesh).clone()
+            for name, pl in placements.items()}
+
+
+def gather_state_dict(local: Mapping[str, torch.Tensor], placements: Mapping[str, Any], mesh,
+                      num_layers: int) -> Dict[str, torch.Tensor]:
+    """The whole tensors of the ranks' parts `local` (names as in
+    `shard_state_dict`), on every rank: each tensor gathered over fsdp and
+    tp within its stage, then each block tensor's layers over pp (every
+    stage stacks its layers of a name and the stacks are gathered in stage
+    order). Every rank of the mesh must call it with the same names."""
+    whole: Dict[str, torch.Tensor] = {}
+    stacks: Dict[str, Dict[int, torch.Tensor]] = {}
+    for name, t in local.items():
+        t = gather_tensor(t, placement_splits(placements[name], ("tp", "fsdp")), mesh)
+        m = _LAYER_NAME.match(name)
+        if m and mesh.shape["pp"] > 1:
+            stacks.setdefault(f"{m.group(1)}.*.{m.group(3)}", {})[int(m.group(2))] = t
+        else:
+            whole[name] = t
+    for key in sorted(stacks):
+        layers = stacks[key]
+        stacked = mesh.pp.all_gather_seq(torch.stack([layers[i] for i in sorted(layers)]), 0)
+        stem, rest = key.split(".*.")
+        for i in range(num_layers):
+            whole[f"{stem}.{i}.{rest}"] = stacked[i]
+    return whole

@@ -12,12 +12,14 @@ from __future__ import annotations
 import torch
 
 
-def quantize_tokens(x: torch.Tensor):
+def quantize_tokens(x: torch.Tensor, reduce_amax=None):
     """Returns (xq int8 [..., D], xscale f32 [...]) with
     amax = max(max|x|, 1e-6) in f32, xq = round_half_even(x * (127/amax))
-    and xscale = amax * (1/127)."""
+    and xscale = amax * (1/127). `reduce_amax` maps each token's max|x|
+    before the clamp (a row split over ranks: the max over the ranks)."""
     xf = x.float()
-    amax = xf.abs().amax(-1).clamp_min(1e-6)
+    amax = xf.abs().amax(-1)
+    amax = (amax if reduce_amax is None else reduce_amax(amax)).clamp_min(1e-6)
     q = torch.tensor(127.0) / amax  # a true division: torch's `127.0 / t` is t.reciprocal() * 127
     return torch.round(xf * q[..., None]).to(torch.int8), amax * (1.0 / 127.0)
 

@@ -123,7 +123,7 @@ def joint_ring_attention(q, k, v, text_len: int, comm, scale: Optional[float] = 
     out_t, out_v = _joint_ring_body(text(q), text(k), text(v), _chunk(q, text_len, comm),
                                     _chunk(k, text_len, comm), _chunk(v, text_len, comm),
                                     comm, float(scale), impl, static_max)
-    out = torch.cat([out_t, sp.all_gather_seq(comm, out_v, dim=2)], dim=2)
+    out = torch.cat([out_t, sp.all_gather(comm, out_v, dim=2)], dim=2)
     return sp.replicated_output(comm, out)
 
 
@@ -139,4 +139,4 @@ def ring_attention(q, k, v, comm, scale: Optional[float] = None, impl: str = "au
     q, k, v = (sp.replicated_input(comm, x) for x in (q, k, v))
     out = _ring_body(_chunk(q, 0, comm), _chunk(k, 0, comm), _chunk(v, 0, comm), comm,
                      float(scale), impl, static_max)
-    return sp.replicated_output(comm, sp.all_gather_seq(comm, out, dim=2))
+    return sp.replicated_output(comm, sp.all_gather(comm, out, dim=2))

@@ -19,6 +19,11 @@ the device, as JAX runs it, and never waits for the host:
     nw    = b3*nw + (d / d0) * dlr * num
     d'    = max(d, nw / sum|s|)
     p    += -wd*dlr*p - dlr*m / (sqrt(v) + d'*eps)
+
+Under a mesh (`parallel/fsdp.py:MeshLayout`) the numerator and `sum|s|`
+are global sums: each rank adds the leaves it counts (`MeshLayout.owned`:
+one replica of each) and the partial sums are added over every rank, so
+every rank takes the same d-estimate.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ class Prodigy:
         self.eps, self.d0, self.coef = eps, estim_lr0, estim_lr_coef
         self.wd, self.safeguard_warmup = weight_decay, safeguard_warmup
 
-    def init(self, params, names):
+    def init(self, params, names, mesh):
         zeros = lambda: {n: torch.zeros_like(p) for n, p in zip(names, params)}
         tensors = {"exp_avg": zeros(), "exp_avg_sq": zeros(), "grad_sum": zeros(),
                    "params0": {n: p.detach().clone() for n, p in zip(names, params)}}
@@ -55,20 +60,25 @@ class Prodigy:
                                                                "grad_sum", "params0"))))
         d = state.scalars["estim_lr"]
         f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=d.device)
+        mesh = state.mesh
+        counted = [mesh.owned(n) for n in t["exp_avg"]]
         k = f32(float(state.count))
         bc = (1 - f32(self.b2) ** k) ** 0.5 / (1 - f32(self.b1) ** k)
         dlr = d * bc
         num = f32(0.0)
-        for g, p, _, _, _, p0 in leaves:
-            num = num + torch.dot(g.reshape(-1), (p0 - p).reshape(-1))
+        for (g, p, _, _, _, p0), c in zip(leaves, counted):
+            if c:
+                num = num + torch.dot(g.reshape(-1), (p0 - p).reshape(-1))
         denom = f32(0.0)
         s_lr = d if self.safeguard_warmup else dlr
-        for g, _, m, v, s, _ in leaves:
+        for (g, _, m, v, s, _), c in zip(leaves, counted):
             dg = g.mul_(d)  # the clipped mean gradients are the rule's to overwrite
             m.mul_(self.b1).add_((1 - self.b1) * dg)
             v.mul_(self.b2).add_((1 - self.b2) * dg * dg)
             s.mul_(self.b3).add_(s_lr * dg / self.d0)
-            denom = denom + s.abs().sum()
+            if c:
+                denom = denom + s.abs().sum()
+        num, denom = mesh.global_sum(torch.stack([num, denom])).unbind(0)
         nw = self.b3 * state.scalars["numerator_weighted"] + (d / self.d0) * dlr * num
         d_new = torch.maximum(d, self.coef * nw / denom)
         for _, p, m, v, _, _ in leaves:

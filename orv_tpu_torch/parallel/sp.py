@@ -15,7 +15,14 @@ takes it as an argument. Its interface:
   all_reduce_max(t)         the elementwise max over ranks;
   all_gather_seq(t, dim)    the ranks' tensors concatenated along `dim`, in
                             rank order;
-  broadcast(obj, src=0)     rank `src`'s picklable object on every rank.
+  reduce_scatter_sum(t, dim) the sum over ranks, added in rank order, of
+                            this rank's slice along `dim` (the dim split in
+                            `size` equal slices, rank r's the r-th);
+  broadcast(obj, src=0)     rank `src`'s picklable object on every rank;
+  split(groups)             this rank's communicator among `groups`, a
+                            partition of the ranks into tuples that every
+                            rank passes alike (`parallel/mesh.py` splits the
+                            world into one communicator per mesh axis).
 
 Two implementations:
 
@@ -35,17 +42,30 @@ Two implementations:
   stream, so the host order the barrier gives is also the device order.
   An exception in any rank aborts the barrier, every other rank stops at
   its next collective, and `run` re-raises the first error: a failing rank
-  never leaves the others waiting.
+  never leaves the others waiting. `split` gives sub-rings over groups of
+  those threads, each with a barrier and slots of its own; an error aborts
+  them all.
+
+A group of one rank is `SOLO`, whose collectives return their input.
+gloo has no reduce-scatter of its own, so both implementations build it
+from the all-gather, summing in rank order.
 
 The differentiable collectives below (`rotate`, `all_reduce_sum`,
-`all_reduce_max`, `all_gather_seq`, `replicated_input`,
-`replicated_output`) carry the transpose rules that `shard_map` with
+`all_reduce_max`, `all_gather`, `reduce_scatter_sum`,
+`sum_partials`, `replicated_input`, `replicated_output`) carry the
+transpose rules that `shard_map` with
 `check_rep=False` applies in `orv_tpu/ops/ring_attention.py`: the rotation's
 backward is the inverse rotation, the sum's a sum, the max carries no
 gradient (JAX's `stop_gradient`, ring_attention.py:99-104), the gather's a
-reduce-scatter; at the boundary of a ring function, the cotangent of an
-output every rank holds whole is divided by the number of ranks and the
-cotangent of an input every rank holds whole is summed over the ranks. The
+reduce-scatter and the reduce-scatter's an all-gather; at the boundary of
+a ring function, the cotangent of an output every rank holds whole is
+divided by the number of ranks and the cotangent of an input every rank
+holds whole is summed over the ranks. `sum_partials` is a psum whose
+result every rank holds whole, the two rules folded into one: its backward
+sums the ranks' cotangents and divides by their number, which for the
+cotangent every rank holds alike is that cotangent itself, so it returns
+it without a collective. Tensor and pipeline parallelism
+(`models/layers.py`, `parallel/pp.py`) use these rules and no others. The
 sums go in rank order, so every rank ends a backward with the same bits.
 
 Autograd runs the backward of CUDA tensors on a worker thread of its own,
@@ -77,6 +97,42 @@ def _sum_in_rank_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def _rank_slice(t: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n)
+
+
+class _Solo:
+    """The communicator of a group of one rank: every collective returns
+    its input."""
+
+    rank, size = 0, 1
+
+    def rotate(self, tensors, shift: int = 1):
+        return list(tensors)
+
+    def all_reduce_sum(self, t):
+        return t
+
+    def all_reduce_max(self, t):
+        return t
+
+    def all_gather_seq(self, t, dim: int):
+        return t
+
+    def reduce_scatter_sum(self, t, dim: int):
+        return t
+
+    def broadcast(self, obj, src: int = 0):
+        return obj
+
+    def split(self, groups):
+        return self
+
+
+SOLO = _Solo()
+
+
 class LocalRing:
     """`n` ranks as threads of this process (see the module docstring).
     `timeout` (seconds) bounds every wait at a collective."""
@@ -89,6 +145,27 @@ class LocalRing:
         self._barrier = threading.Barrier(n, timeout=timeout)
         self._slots: List[object] = [None] * n
         self._local = threading.local()
+        self._subs: dict = {}  # groups -> {group: sub-ring}, shared by the rank threads
+        self._subs_lock = threading.Lock()
+
+    def _barriers(self):
+        yield self._barrier
+        for subs in self._subs.values():
+            for sub in subs.values():
+                if isinstance(sub, _SubRing):
+                    yield sub._barrier
+
+    def split(self, groups: Sequence[Sequence[int]]):
+        """This rank's sub-ring among `groups` (module docstring), or a group
+        of its own when no group names it: every rank thread that passes the
+        same groups gets the same sub-ring objects."""
+        key = tuple(tuple(g) for g in groups)
+        with self._subs_lock:
+            subs = self._subs.get(key)
+            if subs is None:
+                subs = self._subs[key] = {g: _SubRing(self, g) if len(g) > 1 else SOLO
+                                          for g in key}
+        return next((sub for g, sub in subs.items() if self.rank in g), SOLO)
 
     @property
     def rank(self) -> int:
@@ -102,8 +179,9 @@ class LocalRing:
         return the ranks' results in rank order. Each thread takes the
         caller's grad mode, inference mode and CUDA stream. If any rank
         raises, every rank is stopped and the first error is raised here."""
-        if self._barrier.broken:
-            self._barrier.reset()
+        for barrier in self._barriers():
+            if barrier.broken:
+                barrier.reset()
         grad, inference = torch.is_grad_enabled(), torch.is_inference_mode_enabled()
         stream = torch.cuda.current_stream() if torch.cuda.is_initialized() else None
         results: list = [None] * self.size
@@ -120,7 +198,8 @@ class LocalRing:
                     results[rank] = fn()
             except BaseException as e:  # noqa: BLE001 - re-raised by run
                 errors[rank] = e
-                self._barrier.abort()
+                for barrier in self._barriers():
+                    barrier.abort()
             finally:
                 self._local.rank = None
 
@@ -161,10 +240,35 @@ class LocalRing:
     def all_gather_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return torch.cat(self._exchange(t), dim=dim)
 
+    def reduce_scatter_sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        parts = self._exchange(t)
+        return _sum_in_rank_order([_rank_slice(p, dim, self.rank, self.size) for p in parts])
+
     def broadcast(self, obj, src: int = 0):
         """Rank `src`'s `obj`; the other ranks get a deep copy of it."""
         value = self._exchange(obj if self.rank == src else None)[src]
         return value if self.rank == src else copy.deepcopy(value)
+
+
+class _SubRing(LocalRing):
+    """The ranks `members` of a `LocalRing` (parent ranks, in this order):
+    a barrier and slots of their own; `run` stays the parent's."""
+
+    def __init__(self, parent: LocalRing, members: Sequence[int]):
+        self.parent, self.members = parent, tuple(members)
+        self.size, self.timeout = len(self.members), parent.timeout
+        self._barrier = threading.Barrier(self.size, timeout=parent.timeout)
+        self._slots = [None] * self.size
+
+    @property
+    def rank(self) -> int:
+        return self.members.index(self.parent.rank)
+
+    def run(self, fn):
+        raise RuntimeError("run the parent LocalRing: a sub-ring's ranks are its threads")
+
+    def split(self, groups):
+        raise RuntimeError("split the parent LocalRing")
 
 
 class ProcessGroupRing:
@@ -179,6 +283,7 @@ class ProcessGroupRing:
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self._via_host = dist.get_backend(group) == "gloo"
+        self._subs: dict = {}
 
     @staticmethod
     def init_process_group(backend: str, init_method: str, world_size: int, rank: int,
@@ -248,10 +353,32 @@ class ProcessGroupRing:
     def all_gather_seq(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return torch.cat(self._gather(t), dim=dim)
 
+    def reduce_scatter_sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return _sum_in_rank_order([_rank_slice(p, dim, self.rank, self.size)
+                                   for p in self._gather(t)])
+
     def broadcast(self, obj, src: int = 0):
         box = [obj if self.rank == src else None]
         dist.broadcast_object_list(box, src=self._peer(src), group=self.group)
         return box[0]
+
+    def split(self, groups: Sequence[Sequence[int]]):
+        """This rank's communicator among `groups` (ranks of the default
+        group): every process creates every group of more than one rank,
+        in the order given, as `torch.distributed.new_group` requires, so
+        every process must pass the same groups."""
+        if self.group is not None:
+            raise ValueError("split the ring over the default group")
+        key = tuple(tuple(g) for g in groups)
+        if key not in self._subs:
+            mine = SOLO
+            for g in key:
+                if len(g) > 1:
+                    pg = dist.new_group(list(g))  # every process creates every group
+                    if self.rank in g:
+                        mine = ProcessGroupRing(pg)
+            self._subs[key] = mine
+        return self._subs[key]
 
 
 def resolve_ranks(n: int, comm, what: str):
@@ -267,7 +394,7 @@ def resolve_ranks(n: int, comm, what: str):
     if world != n:
         raise ValueError(
             f"{what}={n} needs {n} ranks, and this process has {world}: pass a communicator "
-            f"of {n} ranks (sp=LocalRing({n}) inside its run, or a ProcessGroupRing), or start "
+            f"of {n} ranks (comm=LocalRing({n}) inside its run, or a ProcessGroupRing), or start "
             f"{n} processes under a torch.distributed group of world size {n} "
             f"(torchrun --nproc_per_node {n})")
     return ProcessGroupRing()
@@ -330,13 +457,33 @@ class _AllReduceSum(torch.autograd.Function):
 class _AllGatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, comm, t, dim):
-        ctx.comm, ctx.dim, ctx.n = comm, dim, t.shape[dim]
+        ctx.comm, ctx.dim = comm, dim
         return comm.all_gather_seq(t, dim)
 
     @staticmethod
     def backward(ctx, g):
-        total = ctx.comm.all_reduce_sum(g.contiguous())
-        return None, total.narrow(ctx.dim, ctx.comm.rank * ctx.n, ctx.n), None
+        return None, ctx.comm.reduce_scatter_sum(g.contiguous(), ctx.dim), None
+
+
+class _ReduceScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, t, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.reduce_scatter_sum(t.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm.all_gather_seq(g.contiguous(), ctx.dim), None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, t):
+        return comm.all_reduce_sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
 
 
 class _ReplicatedInput(torch.autograd.Function):
@@ -386,15 +533,37 @@ def all_reduce_max(comm, t: torch.Tensor) -> torch.Tensor:
     return t.detach() if comm.size == 1 else comm.all_reduce_max(t.detach())
 
 
-def all_gather_seq(comm, t: torch.Tensor, dim: int) -> torch.Tensor:
+def all_gather(comm, t: torch.Tensor, dim: int) -> torch.Tensor:
     """`comm.all_gather_seq`, differentiable: the backward is a
     reduce-scatter (this rank's slice of the cotangent, summed over the
-    ranks)."""
+    ranks in rank order)."""
     if comm.size == 1:
         return t
-    if not _check_backward(comm, [t], "all_gather_seq"):
+    if not _check_backward(comm, [t], "all_gather"):
         return comm.all_gather_seq(t, dim)
     return _AllGatherSeq.apply(comm, t, dim)
+
+
+def reduce_scatter_sum(comm, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`comm.reduce_scatter_sum`, differentiable: the backward all-gathers
+    the cotangent."""
+    if comm.size == 1:
+        return t
+    if not _check_backward(comm, [t], "reduce_scatter_sum"):
+        return comm.reduce_scatter_sum(t.contiguous(), dim)
+    return _ReduceScatterSum.apply(comm, t, dim)
+
+
+def sum_partials(comm, t: torch.Tensor) -> torch.Tensor:
+    """The sum over the ranks of their partial results `t`, which every
+    rank then holds whole (a psum at a replicated output, module
+    docstring): the forward adds in rank order, the backward returns the
+    cotangent as it is."""
+    if comm.size == 1:
+        return t
+    if not _check_backward(comm, [t], "sum_partials"):
+        return comm.all_reduce_sum(t)
+    return _SumPartials.apply(comm, t)
 
 
 def replicated_input(comm, t: torch.Tensor) -> torch.Tensor:

@@ -40,11 +40,32 @@ the rule's state and the accumulator are updated in place to save memory.
 parameters, the rule's tensors and scalars, the accumulator and the EMA)
 into named tensors and scalars and back, for `utils/checkpoint.py`.
 
-Under sequence parallelism (`ControlDiT(sp=...)`, `pipelines/train.py`'s
-`train.mesh.sp`) the step runs unchanged on every rank: the ring's
-collectives give every rank the same gradients, bit for bit, so the clip,
-the grad norm, the EMA and the update agree with no all-reduce here. Not
-ported: data and model parallelism (dp, fsdp, tp, pp; ROADMAP.md A8).
+Every state carries its parameters' `parallel/fsdp.py:MeshLayout`
+(`TrainState.mesh`): on one device, and under dp or sp alone, the
+trivial one of a model held whole (`MeshLayout.whole`), whose gathers are
+identities. Under sequence parallelism (`ControlDiT(sp=...)`,
+`pipelines/train.py`'s `train.mesh.sp`) the ring's collectives give every
+rank the same gradients, bit for bit, so the clip, the grad norm, the EMA
+and the update agree.
+
+On a mesh (`parallel/mesh.py`, `parallel/fsdp.py`) the step computes the
+single-device step's function,
+as the JAX package's `make_train_step(mesh=...)` does under GSPMD
+(orv_tpu/parallel/train_step.py:348-395): every rank holds the global
+batch and the global batch's `LossDraws` (the whole-batch image-dropout
+uniform one value for all) and takes its rows of both (`batch_sharding`);
+the loss is the global batch's, its per-row terms gathered over the data
+axes (dp, fsdp) in rank order (`diffusion_loss(data=...)`); each leaf's
+gradient is summed over those axes (`MeshLayout.reduce_grads`), fsdp's
+shards by their gather's reduce-scatter; tp, pp and sp replicas hold
+their whole gradients already. The global norms (the clip's over the
+trainable leaves, the logged `grad_norm` over all) sum each tensor's
+squares once, on the rank that holds its replica 0 of every axis it is
+replicated over, over every rank; CAME's factored means and rms and
+prodigy's d-estimate sums reduce over the axes that split their leaves.
+AdamW and the EMA are elementwise and need nothing. A state's checkpoint
+form gathers every shard back into whole tensors under the resident
+names (`state_tensors`), so a run saved at one mesh resumes at another.
 """
 
 from __future__ import annotations
@@ -55,8 +76,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 
 import torch
 
-from orv_tpu_torch.parallel.came import Came
+from orv_tpu_torch.parallel.came import Came, state_splits
+from orv_tpu_torch.parallel.fsdp import MeshLayout, named_leaves
+from orv_tpu_torch.parallel.mesh import batch_sharding
 from orv_tpu_torch.parallel.prodigy import Prodigy
+from orv_tpu_torch.parallel.sp import all_gather, replicated_output
 from orv_tpu_torch.pipelines.sample import sample_from_moments
 from orv_tpu_torch.schedulers.scheduling import (
     DiffusionSchedule,
@@ -139,6 +163,8 @@ class OptState:
     acc: Optional[List[torch.Tensor]] = None
     ema: Optional[List[torch.Tensor]] = None
     layout: Any = None
+    mesh: Any = None  # the parameters' `parallel/fsdp.py:MeshLayout`
+    names: Optional[List[str]] = None  # the step's parameter names, in order
 
     @property
     def mu(self) -> List[torch.Tensor]:
@@ -151,10 +177,18 @@ class OptState:
         return list(self.tensors["nu"].values())
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm), f32."""
+def global_norm(tensors: Sequence[torch.Tensor], names: Optional[Sequence[str]] = None,
+                mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm), f32.
+    Over the ranks of a mesh of more than one (`mesh`, a MeshLayout, and
+    the tensors' `names`): each rank's tensors that it counts
+    (`MeshLayout.owned`), summed over every rank."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if mesh is None or mesh.mesh.size == 1:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    owned = torch.tensor([mesh.owned(n) for n in names], device=norms[0].device)
+    sq = (torch.stack(norms).square() * owned).sum()
+    return mesh.global_sum(sq).sqrt()
 
 
 def _chunks(n: int, size: int = 32):
@@ -171,7 +205,7 @@ class Adam:
     def __init__(self, beta1: float, beta2: float, epsilon: float, weight_decay: float):
         self.b1, self.b2, self.eps, self.wd = beta1, beta2, epsilon, weight_decay
 
-    def init(self, params, names):
+    def init(self, params, names, mesh):
         return {"mu": {n: torch.zeros_like(p) for n, p in zip(names, params)},
                 "nu": {n: torch.zeros_like(p) for n, p in zip(names, params)}}, {}, None
 
@@ -224,22 +258,26 @@ class Optimizer:
         self.trainable_predicate = trainable_predicate
 
     def init(self, params: Sequence[torch.Tensor],
-             names: Optional[Sequence[str]] = None) -> OptState:
+             names: Optional[Sequence[str]] = None, mesh=None) -> OptState:
         """The state for `params` (every parameter the step differentiates),
         named by `names` (the model's parameter names; without them the
-        parameters are named by position and none is frozen)."""
+        parameters are named by position and none is frozen). `mesh`: the
+        parameters' MeshLayout (default: held whole on one rank)."""
         params = list(params)
         if names is None:
             if self.trainable_predicate is not None:
                 raise ValueError("a trainable_predicate needs the parameters' names")
             names = [str(i) for i in range(len(params))]
+        if mesh is None:
+            mesh = MeshLayout.whole({n: p.shape for n, p in zip(names, params)})
         pred = self.trainable_predicate
         mask = [True if pred is None else bool(pred(n)) for n in names]
         train = [(n, p) for n, p, m in zip(names, params, mask) if m]
-        tensors, scalars, layout = self.rule.init([p for _, p in train], [n for n, _ in train])
+        tensors, scalars, layout = self.rule.init([p for _, p in train], [n for n, _ in train],
+                                                  mesh)
         ema = None if self.ema_decay is None else [p.detach().clone() for p in params]
         return OptState(count=0, tensors=tensors, mask=mask, scalars=scalars, ema=ema,
-                        layout=layout)
+                        layout=layout, mesh=mesh, names=list(names))
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
@@ -259,7 +297,8 @@ class Optimizer:
 
         # clip_by_global_norm over the trainable leaves: t / norm * max_norm
         # when norm >= max_norm
-        norm = global_norm(u)
+        norm = global_norm(u, [n for n, m in zip(state.names or [], state.mask) if m],
+                           state.mesh)
         trigger = norm < self.max_grad_norm
         one = torch.ones_like(norm)
         torch._foreach_div_(u, torch.where(trigger, one, norm))
@@ -337,6 +376,15 @@ class LossDraws:
     depth_noise: Optional[torch.Tensor] = None
     label_noise: Optional[torch.Tensor] = None
 
+    def rows(self, sl: slice) -> "LossDraws":
+        """The draws of the batch's rows `sl` (a mesh rank's): every per-row
+        field sliced, the whole-batch dropout uniform kept."""
+        cut = lambda x: None if x is None else x[sl]
+        return LossDraws(lat_noise=cut(self.lat_noise), img_noise=cut(self.img_noise),
+                         noise=cut(self.noise), t=cut(self.t), drop_u=self.drop_u,
+                         mask_u=cut(self.mask_u), depth_noise=cut(self.depth_noise),
+                         label_noise=cut(self.label_noise))
+
     @classmethod
     def draw(cls, generator: Optional[torch.Generator], batch: Dict[str, torch.Tensor],
              num_train_timesteps: int = 1000, patch_size_t: Optional[int] = None) -> "LossDraws":
@@ -392,16 +440,19 @@ def _smooth_l1(x, y):
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
 
 
-def compute_action_loss(actions, recon, mask, weights=(0.4, 5.0, 1.0)):
+def compute_action_loss(actions, recon, mask, weights=(0.4, 5.0, 1.0), rows=None):
     """rot = 1 - mean cos(delta euler); pos and grip smooth-L1, grip through
     a sigmoid; each a mean over the batch entries `mask` selects (those whose
-    actions were not CFG-masked). Returns the three weighted terms."""
-    mask_f = mask.float()
+    actions were not CFG-masked). Returns the three weighted terms. `rows`
+    (a mesh rank's): gathers each per-row term over the data axes before
+    the batch mean, so the terms are the global batch's."""
+    rows = rows or (lambda x: x)
+    mask_f = rows(mask.float())
     denom = mask_f.sum().clamp_min(1.0)
     actions, recon = actions.float(), recon.float()
 
     def masked_mean(x):
-        per_b = x.mean(dim=tuple(range(1, x.dim())))
+        per_b = rows(x.mean(dim=tuple(range(1, x.dim()))))
         return (per_b * mask_f).sum() / denom
 
     rot = 1.0 - masked_mean(torch.cos(recon[..., 3:6] - actions[..., 3:6]))
@@ -421,6 +472,8 @@ def diffusion_loss(
     num_views: int = 1,
     image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     patch_size_t: Optional[int] = None,
+    data=None,
+    data_mean: str = "rows",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One loss evaluation of the ControlDiT `model`. batch keys ([B, ...],
     the reference collate's layouts): 'latents' (moments [B, 2C, F, H, W];
@@ -435,7 +488,19 @@ def diffusion_loss(
     a padded latent frame and the control latents alike, and the padded
     tail leaves the loss through `frame_mask` (merged with the batch's);
     single-view only, as in the JAX package. Returns (loss, metrics); the
-    metrics are detached."""
+    metrics are detached.
+
+    `data`: the communicator of a mesh's data axes (dp, fsdp), whose ranks
+    each pass their rows of the batch and of the draws. With `data_mean`
+    "rows" the loss is the global batch's, every per-row term gathered in
+    rank order (the resident mesh step's); with "shards", the mean of the
+    ranks' own losses (the pipeline step's pmean). Either way every rank
+    returns the same loss, a replicated output: its cotangent is divided
+    over the ranks (`parallel/sp.py`), so each rank's gradients are its
+    rows' share, to be summed over the data axes."""
+    multi = data is not None and data.size > 1
+    rows = (lambda x: all_gather(data, x.reshape(-1), 0)) if multi and data_mean == "rows" \
+        else None
     lat = sample_from_moments(batch["latents"], noise=draws.lat_noise) * vae_scaling_factor
     lat = lat.permute(0, 2, 1, 3, 4)  # [B, F, C, H, W]
     img = sample_from_moments(batch["image_latents"], noise=draws.img_noise) * vae_scaling_factor
@@ -489,15 +554,21 @@ def diffusion_loss(
         per_b = (sq * fm).reshape(B, -1).sum(1) / (fm.sum() * sq[0].numel() / F)
     else:
         per_b = sq.reshape(B, -1).mean(1)
-    loss = per_b.mean()
+    loss = (per_b if rows is None else rows(per_b)).mean()
 
-    metrics = {"diffusion_loss": loss.detach()}
+    terms = {"diffusion_loss": loss}
     if recon_action and actions is not None and actions_recon is not None:
-        rot, pos, grip = compute_action_loss(actions, actions_recon, ~is_action_mask)
+        rot, pos, grip = compute_action_loss(actions, actions_recon, ~is_action_mask,
+                                             rows=rows)
         loss = loss + rot + pos + grip
-        metrics.update(rot_loss=rot.detach(), pos_loss=pos.detach(), grip_loss=grip.detach())
-    metrics["loss"] = loss.detach()
-    return loss, metrics
+        terms.update(rot_loss=rot, pos_loss=pos, grip_loss=grip)
+    terms["loss"] = loss
+    if multi and data_mean == "shards":
+        names = list(terms)
+        stacked = all_gather(data, torch.stack([terms[k] for k in names])[None], 0)
+        terms = dict(zip(names, stacked.mean(0).unbind(0)))
+    loss = replicated_output(data, terms["loss"]) if multi else terms["loss"]
+    return loss, {k: v.detach() for k, v in terms.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -507,16 +578,31 @@ def diffusion_loss(
 @dataclasses.dataclass
 class TrainState:
     """The JAX package's TrainState(step, params, opt_state); the
-    parameters live in `model` and are updated in place."""
+    parameters live in `model` and are updated in place. `mesh` is the
+    model's MeshLayout (default: the model held whole on one rank) and the
+    step's parameters are the rank's leaves (`parallel/fsdp.py:named_leaves`:
+    its fsdp shards where it holds them)."""
 
     step: int
     model: torch.nn.Module
     opt_state: OptState
+    mesh: Any = None
+
+    def __post_init__(self):
+        if self.mesh is None:
+            self.mesh = MeshLayout.whole({k: v.shape for k, v in self.model.state_dict().items()})
 
     @classmethod
-    def create(cls, model: torch.nn.Module, tx: Optimizer) -> "TrainState":
-        names, params = zip(*named_grad_params(model))
-        return cls(step=0, model=model, opt_state=tx.init(params, names))
+    def create(cls, model: torch.nn.Module, tx: Optimizer, mesh=None) -> "TrainState":
+        state = cls(step=0, model=model, opt_state=None, mesh=mesh)
+        names, params = zip(*state.named_params())
+        state.opt_state = tx.init(params, names, state.mesh)
+        return state
+
+    def named_params(self) -> List[Tuple[str, torch.Tensor]]:
+        """(name, training leaf) of every parameter the step differentiates
+        (`parallel/fsdp.py:named_leaves`)."""
+        return named_leaves(self.model)
 
 
 def named_grad_params(model: torch.nn.Module) -> List[Tuple[str, torch.nn.Parameter]]:
@@ -531,7 +617,14 @@ def grad_params(model: torch.nn.Module) -> List[torch.nn.Parameter]:
     return [p for _, p in named_grad_params(model)]
 
 
-def make_train_step(tx: Optimizer, schedule: DiffusionSchedule, **loss_kwargs):
+def batch_rows(batch: Dict[str, torch.Tensor], sl: slice) -> Dict[str, torch.Tensor]:
+    """The rows `sl` of every per-row entry of `batch` (all but the
+    frame mask, which is per frame)."""
+    return {k: v if k == "frame_mask" else v[sl] for k, v in batch.items()}
+
+
+def make_train_step(tx: Optimizer, schedule: DiffusionSchedule, model_fn=None, data_mean=None,
+                    **loss_kwargs):
     """The training step: `step(state, batch, rng) -> (state, metrics)`.
 
     One call is one micro-step: the loss and the gradients of every
@@ -541,21 +634,35 @@ def make_train_step(tx: Optimizer, schedule: DiffusionSchedule, **loss_kwargs):
     one, as in JAX. metrics: the loss terms and `grad_norm`, the global norm
     of this micro-step's gradients over every parameter (frozen ones too, as
     JAX logs it), all detached device scalars. `loss_kwargs` go to
-    `diffusion_loss`."""
+    `diffusion_loss`.
+
+    The state's mesh (`TrainState.mesh`) decides the rows (module
+    docstring): `batch` and the draws are the global batch's, and the rank
+    takes its rows; with `data_mean="shards"` (`parallel/pp.py`) they are
+    the rank's own already. `model_fn(state)` gives the callable the loss
+    runs (default: the state's model)."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              rng: Union[torch.Generator, LossDraws, None]):
-        params = grad_params(state.model)
+        named = state.named_params()
+        names, params = [n for n, _ in named], [p for _, p in named]
         draws = rng if isinstance(rng, LossDraws) else LossDraws.draw(
             rng, batch, schedule.num_train_timesteps, loss_kwargs.get("patch_size_t"))
+        layout = state.mesh
+        kw = dict(loss_kwargs, data=layout.mesh.data, data_mean=data_mean or "rows")
+        if data_mean != "shards":
+            sl = batch_sharding(layout.mesh, draws.t.shape[0])
+            batch, draws = batch_rows(batch, sl), draws.rows(sl)
         for p in params:
             p.grad = None
-        loss, metrics = diffusion_loss(state.model, batch, schedule, draws, **loss_kwargs)
+        model = state.model if model_fn is None else model_fn(state)
+        loss, metrics = diffusion_loss(model, batch, schedule, draws, **kw)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         for p in params:
             p.grad = None
-        metrics["grad_norm"] = global_norm(grads)
+        layout.reduce_grads(names, grads)
+        metrics["grad_norm"] = global_norm(grads, names, layout)
         tx.update(grads, state.opt_state, params)
         state.step += 1
         return state, metrics
@@ -567,60 +674,94 @@ def make_train_step(tx: Optimizer, schedule: DiffusionSchedule, **loss_kwargs):
 # Flat form of a TrainState (the checkpoint's)
 # ---------------------------------------------------------------------------
 
-def _state_places(state: TrainState) -> Dict[str, torch.Tensor]:
-    """Every tensor of `state` by its checkpoint name (`state_tensors`)."""
-    named = named_grad_params(state.model)
+def _places(state: TrainState):
+    """{checkpoint name: (the rank's tensor, the placement of the parameter
+    it follows)} for the model's state dict and every parameter-named
+    optimizer tensor, and {name: (tensor, JAX-layout splits)} for the
+    rule's per-leaf tensors (CAME's) and its scalars."""
+    layout = state.mesh
     o = state.opt_state
-    places = {f"params/{k}": v for k, v in state.model.state_dict().items()}
-    trained = [n for (n, _), m in zip(named, o.mask) if m]
-    for group, names, values in (("acc", trained, o.acc), ("ema", [n for n, _ in named], o.ema)):
+    leaves = dict(state.named_params())
+    own = state.model.state_dict()
+    places = {f"params/{k}": (leaves.get(k, v), layout.placements[k]) for k, v in own.items()}
+    names = [n for n, _ in state.named_params()]
+    trained = [n for n, m in zip(names, o.mask) if m]
+    for group, ns, values in (("acc", trained, o.acc), ("ema", names, o.ema)):
         if values is not None:
-            places.update({f"{group}/{n}": v for n, v in zip(names, values)})
-    for group, leaves in o.tensors.items():
-        places.update({f"{group}/{leaf}": v for leaf, v in leaves.items()})
-    places.update({f"scalar/{k}": v for k, v in o.scalars.items()})
-    return places
+            places.update({f"{group}/{n}": (v, layout.placements[n]) for n, v in zip(ns, values)})
+    per_leaf = {}
+    for group, ts in o.tensors.items():
+        for key, v in ts.items():
+            if o.layout is None:  # the tensors follow their parameters (Adam's, prodigy's)
+                places[f"{group}/{key}"] = (v, layout.placements[key])
+            else:  # CAME's, in the layout of the JAX tree's leaves
+                per_leaf[f"{group}/{key}"] = (v, state_splits(o.layout, group, key))
+    per_leaf.update({f"scalar/{k}": (v, {}) for k, v in o.scalars.items()})
+    return places, per_leaf
 
 
 def state_tensors(state: TrainState) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
-    """`state` -> ({name: tensor}, scalars), no copies made. Names are
-    "params/<key>" for every entry of the model's state dict,
-    "<group>/<leaf>" for the optimizer rule's tensors (Adam's mu and nu by
-    parameter name, CAME's fields by leaf, prodigy's by parameter name; a
-    frozen parameter has none), "acc/<parameter>" for the trainable
-    parameters' accumulator between the micro-steps of an accumulation,
-    "ema/<parameter>" for every parameter's EMA with `ema_decay`, and
-    "scalar/<name>" for the rule's 0-d tensors (prodigy's estim_lr and
-    numerator_weighted); the scalars returned are step, count and
-    mini_step."""
+    """`state` -> ({name: tensor}, scalars): the whole tensors under the
+    resident names, gathered from the mesh's ranks (every rank must call
+    it; held whole, no copies are made). Names are "params/<key>" for every
+    entry of the model's state dict, "<group>/<leaf>" for the optimizer
+    rule's tensors (Adam's mu and nu by parameter name, CAME's fields by
+    leaf, prodigy's by parameter name; a frozen parameter has none),
+    "acc/<parameter>" for the trainable parameters' accumulator between the
+    micro-steps of an accumulation, "ema/<parameter>" for every parameter's
+    EMA with `ema_decay`, and "scalar/<name>" for the rule's 0-d tensors
+    (prodigy's estim_lr and numerator_weighted); the scalars returned are
+    step, count and mini_step."""
+    from orv_tpu_torch.models.weights import gather_state_dict, gather_tensor
+
     o = state.opt_state
-    tensors = {k: v.detach() for k, v in _state_places(state).items()}
-    return tensors, dict(step=int(state.step), count=int(o.count), mini_step=int(o.mini_step))
+    scalars = dict(step=int(state.step), count=int(o.count), mini_step=int(o.mini_step))
+    layout = state.mesh
+    places, per_leaf = _places(state)
+    with torch.no_grad():
+        whole = gather_state_dict({k: t.detach() for k, (t, _) in places.items()},
+                                  {k: pl for k, (_, pl) in places.items()}, layout.mesh,
+                                  layout.num_layers)
+        for k, (t, splits) in per_leaf.items():
+            whole[k] = gather_tensor(t.detach(), splits, layout.mesh)
+    return whole, scalars
 
 
 def load_state_tensors(state: TrainState, items: Iterable[Tuple[str, torch.Tensor]],
                        scalars: Dict[str, int]) -> TrainState:
-    """The inverse of `state_tensors`, in place: copy every (name, tensor)
-    of `items` (an iterable, so a reader can stream them) into `state`'s
-    tensors and set its scalars. The accumulator is rebuilt when
-    `mini_step` > 0. Raises on a name `state` has no place for, a shape
-    that differs or a name missing from `items`."""
+    """The inverse of `state_tensors`, in place: copy every (name, whole
+    tensor) of `items` (an iterable, so a reader can stream them) into
+    `state`'s tensors, each rank its part, and set its scalars. The
+    accumulator is rebuilt when `mini_step` > 0. Raises on a name `state`
+    has no place for (a block layer another pp stage holds is passed
+    over), a shape that differs or a name missing from `items`."""
+    from orv_tpu_torch.models.weights import placement_splits, shard_tensor
+
     o = state.opt_state
     mini_step = int(scalars["mini_step"])
-    trained = [p for p, m in zip(grad_params(state.model), o.mask) if m]
+    trained = [p for (_, p), m in zip(state.named_params(), o.mask) if m]
     o.acc = [torch.empty_like(p) for p in trained] if mini_step else None
-    dest = _state_places(state)
+    layout = state.mesh
+    places, per_leaf = _places(state)
+    dest = {k: (t, placement_splits(pl, ("tp", "fsdp"))) for k, (t, pl) in places.items()}
+    dest.update(per_leaf)
     seen = set()
     with torch.no_grad():
         for name, value in items:
             if name not in dest:
+                if _held_elsewhere(name, layout):
+                    continue
                 raise KeyError(f"checkpoint tensor {name!r} has no place in this train state "
                                "(another model, optimizer or trainable set, or an EMA the "
                                "optimizer does not keep)")
-            if tuple(value.shape) != tuple(dest[name].shape):
+            t, splits = dest[name]
+            whole = list(t.shape)
+            for d, axes in splits.items():
+                whole[d] *= math.prod(layout.mesh.shape[a] for a in axes)
+            if tuple(value.shape) != tuple(whole):
                 raise ValueError(f"checkpoint tensor {name!r} is {tuple(value.shape)}, the "
-                                 f"state's {tuple(dest[name].shape)}")
-            dest[name].copy_(value)
+                                 f"state's {tuple(whole)}")
+            t.copy_(shard_tensor(value.to(t.device), splits, layout.mesh))
             seen.add(name)
     missing = sorted(set(dest) - seen)
     if missing:
@@ -628,3 +769,14 @@ def load_state_tensors(state: TrainState, items: Iterable[Tuple[str, torch.Tenso
                        f"{missing[:5]}")
     state.step, o.count, o.mini_step = int(scalars["step"]), int(scalars["count"]), mini_step
     return state
+
+
+def _held_elsewhere(name: str, layout) -> bool:
+    """Whether checkpoint tensor `name` belongs to a block layer another pp
+    stage holds."""
+    import re
+
+    m = re.search(r"(?:transformer_blocks|mv_blocks)\.(\d+)\.", name)
+    if m is None or layout.mesh.shape["pp"] == 1:
+        return False
+    return not any(pl.layer == int(m.group(1)) for pl in layout.placements.values())

@@ -19,11 +19,24 @@ Sequence-parallel serving (`evaluation.mesh.sp = n`, the JAX package's
 `sp_mesh`): one model on each of n ranks, the sampler ringing every block's
 joint attention over them, the same draws on every rank (the default
 generator is seeded alike), and rank 0 alone writing; the work list is not
-split over those ranks. The ranks are the `sp` communicator passed in
-(`LocalRing(n)`, whose `run` calls `evaluate` on every rank) or the
+split over those ranks. The ranks are the communicator passed in as
+`comm` (`LocalRing(n)`, whose `run` calls `evaluate` on every rank) or the
 `torch.distributed` group of world size n (`torchrun --nproc_per_node n`).
-As in JAX, sp is exclusive with dp/fsdp/tp (a ValueError). Not ported yet,
-and refused: dp/fsdp/tp serving (ROADMAP.md A8).
+As in JAX, sp is exclusive with dp/fsdp/tp (a ValueError).
+
+Sharded serving (`evaluation.mesh` dp, fsdp, tp; the JAX package's
+`serve_mesh`, orv_tpu/pipelines/evaluate.py:207-232, :313-325): a mesh over
+the ranks (`comm`, or the torch.distributed group), or over its first
+dp x fsdp x tp ranks when it names fewer (the others return at once). Each
+rank builds the whole model, quantizes it with `evaluation.quant`, and
+keeps its part (`parallel/fsdp.py:build_rank_model`): tp splits the heads
+and feed-forward columns (the W8A8 row-parallel layers quantize each token
+by its whole row's absmax), fsdp shards the parameters and gathers each
+block's for its use. dp splits a batch's rows over the dp ranks when dp
+divides them (every rank drawing the whole batch's noise and keeping its
+rows), else the batch runs whole on every rank; the rows are gathered back
+for rank 0. Every rank walks the same work list, as JAX's one process does,
+and rank 0 alone writes.
 
 Usage:
   python -m orv_tpu_torch.pipelines.evaluate --dataset_type rt1 \\
@@ -48,7 +61,9 @@ from orv_tpu_torch.models import ControlDiT
 from orv_tpu_torch.models.quantize import quantize_model_
 from orv_tpu_torch.models.vae import CausalVAE, VAEConfig, decode_chunked, encode_auto
 from orv_tpu_torch.models.weights import ensure_mv_blocks, load_diffusers_folder
-from orv_tpu_torch.parallel.sp import ProcessGroupRing, resolve_ranks, seeded_init
+from orv_tpu_torch.parallel.fsdp import build_rank_model
+from orv_tpu_torch.parallel.mesh import MeshConfig, initialize_distributed, make_mesh
+from orv_tpu_torch.parallel.sp import SOLO, resolve_ranks, seeded_init
 from orv_tpu_torch.parallel.train_step import EvalDraws
 from orv_tpu_torch.pipelines.sample import (
     SamplerConfig, make_sampler, prepare_control_latents, prepare_image_latents,
@@ -150,20 +165,34 @@ def _encode_raw(batch: Dict[str, Any], vae: Optional[CausalVAE], dit_cfg,
     return batch
 
 
-def _check_supported(ev) -> int:
-    """Return `evaluation.mesh.sp`; raise on sp with dp/fsdp/tp (JAX's
-    ValueError, orv_tpu/pipelines/evaluate.py:153-155) and on dp/fsdp/tp,
-    naming the ROADMAP.md item."""
+def _check_supported(ev):
+    """`evaluation.mesh` as (sp, MeshConfig of dp, fsdp, tp or None when
+    none is above 1); sp with dp/fsdp/tp is JAX's ValueError
+    (orv_tpu/pipelines/evaluate.py:153-155)."""
     mesh = ev.get("mesh", {}) or {}
     sp = int(mesh.get("sp", 1))
     if sp > 1 and any(int(mesh.get(a, 1)) > 1 for a in ("dp", "fsdp", "tp")):
         raise ValueError("evaluation.mesh.sp is exclusive with dp/fsdp/tp")
-    wide = {a: int(n) for a, n in mesh.items() if a != "sp" and int(n) > 1}
-    if wide:
-        raise NotImplementedError(
-            f"evaluation.mesh {wide}: dp/fsdp/tp serving is not ported yet (ROADMAP.md A8); "
-            "run with those axes at 1 (evaluation.mesh.sp rings one model over its ranks)")
-    return sp
+    if not any(int(mesh.get(a, 1)) > 1 for a in ("dp", "fsdp", "tp")):
+        return sp, None
+    return sp, MeshConfig(dp=int(mesh.get("dp", -1)), fsdp=int(mesh.get("fsdp", 1)),
+                          tp=int(mesh.get("tp", 1)))
+
+
+def serving_mesh(config: MeshConfig, comm):
+    """The serving mesh over `comm` (or the torch.distributed group): over
+    its first dp x fsdp x tp ranks when the config names fewer than there
+    are (JAX builds it over the first devices); None on a rank outside it,
+    which builds the mesh's groups with the others all the same."""
+    from orv_tpu_torch.pipelines.train import world_mesh
+
+    if comm is None:
+        comm = initialize_distributed() if _dist()[0] > 1 else None
+    need = config.dp * config.fsdp * config.tp
+    if comm is not None and config.dp > 0 and need < comm.size:
+        mesh = make_mesh(config, comm, members=range(need))
+        return mesh if mesh.inside else None
+    return world_mesh(config, comm, "evaluation.mesh")
 
 
 def _dist():
@@ -173,13 +202,15 @@ def _dist():
     return 1, 0
 
 
-def build_serving_model(cfg: Config, device: DeviceLike = None, sp=None) -> ControlDiT:
+def build_serving_model(cfg: Config, device: DeviceLike = None, sp=None,
+                        mesh=None) -> ControlDiT:
     """The config's ControlDiT (`build_dit_config`) with f32 parameters and
     bf16 compute, loaded from `transformer.pretrained_name_or_path` (a
     diffusers folder) or, with none, a random init from `seed` (smoke mode);
     with `evaluation.quant` turned into the W8A8 model (int8 block linears,
     int8-QK^T attention) in place. `sp`: the communicator every block's
-    joint attention rings over (None: resident)."""
+    joint attention rings over (None: resident). `mesh`: a serving mesh,
+    of which this rank keeps its part (module docstring)."""
     dit_cfg = build_dit_config(cfg)
     device = resolve_device(device)
     with seeded_init(int(cfg.get("seed", 42)), device):
@@ -192,9 +223,23 @@ def build_serving_model(cfg: Config, device: DeviceLike = None, sp=None) -> Cont
         CONSOLE.log(f"loaded transformer from {pretrained}")
     else:
         CONSOLE.log("[yellow]no pretrained transformer — random init (smoke mode)")
-    if bool(cfg.evaluation.get("quant", False)):
+    quant = bool(cfg.evaluation.get("quant", False))
+    if quant:
         quantize_model_(model)
         CONSOLE.log("int8 serving: block linears quantized (W8A8)")
+    if mesh is not None and mesh.size > 1:
+        whole = model.state_dict()
+        seed = int(cfg.get("seed", 42))
+
+        def make_model(tp, layers):
+            with seeded_init(seed, device):
+                return ControlDiT(dit_cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                                  device=device, quant=quant,
+                                  attn_impl="flash_q8" if quant else "flash", tp=tp,
+                                  layers=layers)
+
+        model, _ = build_rank_model(make_model, whole, mesh, dit_cfg.num_layers)
+        CONSOLE.log(f"inference sharding: mesh {mesh.shape}")
     return model.eval()
 
 
@@ -257,7 +302,7 @@ def _denoise_inputs(batch, mode: str, dit_cfg, scaling: float, draws: DrawFn, de
 
 
 def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[CausalVAE] = None,
-             device: DeviceLike = None, draws: Optional[DrawFn] = None, sp=None):
+             device: DeviceLike = None, draws: Optional[DrawFn] = None, comm=None):
     """Generate every clip of the config's dataset (this rank's share), write
     `{episode}_{start:03d}_latents.npz`, and with a VAE the decoded `.mp4`
     and `.gif`, then `manifest.json`. `vae` may be passed directly (library
@@ -265,18 +310,29 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
     `draws(noise_shape, image_shape, depth_shape, label_shape)` supplies each
     denoise's EvalDraws; by default they come from one torch.Generator
     seeded with cfg.seed. Runs on `device`, CUDA unless "cpu" is asked.
-    With `evaluation.mesh.sp = n > 1`, call it on every rank: `sp` is the
+    With `evaluation.mesh.sp = n > 1`, call it on every rank: `comm` is the
     communicator of n ranks, or None for the torch.distributed group
-    (module docstring); every rank returns the clip names."""
+    (module docstring); every rank returns the clip names. With dp, fsdp or
+    tp above 1, call it on every rank: `comm` is the communicator of the
+    ranks, or None for the torch.distributed group; a rank outside a mesh
+    smaller than the ranks returns [] at once."""
     device = resolve_device(device)
     ev = cfg.evaluation
-    n_sp = _check_supported(ev)
-    comm = resolve_ranks(n_sp, sp, "evaluation.mesh.sp") if n_sp > 1 or sp is not None else None
-    writer = comm is None or comm.rank == 0
+    n_sp, mesh_cfg = _check_supported(ev)
+    mesh = None
+    if mesh_cfg is not None:
+        mesh = serving_mesh(mesh_cfg, comm)
+        if mesh is None:
+            return []
+        comm, writer = None, mesh.rank == 0
+    else:
+        comm = resolve_ranks(n_sp, comm, "evaluation.mesh.sp") if n_sp > 1 or comm is not None \
+            else None
+        writer = comm is None or comm.rank == 0
     out_dir = Path(ev.get("output_dir", "eval_outputs"))
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    model = build_serving_model(cfg, device, sp=comm)
+    model = build_serving_model(cfg, device, sp=comm, mesh=mesh)
     dit_cfg = model.config
 
     vae_path = cfg.get("vae", {}).get("pretrained_name_or_path")
@@ -287,7 +343,8 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
     cascaded = bool(ev.get("cascaded", False))
     dataset = build_dataset(cfg, split=cfg.dataset.get("split", "test"), cascaded=cascaded)
 
-    n_proc, pid = _dist() if comm is None else (1, 0)  # sp ranks share one work list
+    # sp and mesh ranks share one work list
+    n_proc, pid = _dist() if comm is None and mesh is None else (1, 0)
     indices = list(range(len(dataset)))[pid::n_proc]
     if max_batches is not None:
         indices = indices[: max_batches * int(ev.get("batch_size", 1))]
@@ -329,8 +386,19 @@ def evaluate(cfg: Config, max_batches: Optional[int] = None, vae: Optional[Causa
             d, image_latents, kwargs = _denoise_inputs(batch, mode, dit_cfg, scaling, draws,
                                                        device)
             prompt_embeds = torch.as_tensor(batch["prompt_embeds"]).to(device, torch.bfloat16)
-            latents = sampler(d.noise, image_latents, prompt_embeds, generator=d.generator,
-                              **kwargs)
+            dp = SOLO if mesh is None else mesh.dp
+            B = prompt_embeds.shape[0]
+            if dp.size > 1 and B % dp.size == 0:  # this dp rank's rows, gathered after
+                k = B // dp.size
+                latents = sampler(d.noise, image_latents, prompt_embeds, generator=d.generator,
+                                  rows=slice(dp.rank * k, (dp.rank + 1) * k), **kwargs)
+                latents = dp.all_gather_seq(latents.contiguous(), 0)
+            else:
+                if dp.size > 1:
+                    CONSOLE.log(f"[yellow]batch {B} not divisible by mesh dp={dp.size} — "
+                                "running this batch replicated")
+                latents = sampler(d.noise, image_latents, prompt_embeds, generator=d.generator,
+                                  **kwargs)
 
             for j, i in enumerate(idxs):
                 meta = batch["metainfos"][j]
@@ -491,7 +559,7 @@ def main(argv=None):
                 f"{default_config_dir()}/{{eval,experiments}}/{exp}.yaml"
             )
     cfg = load_config(args.base, exp, args.dataset_type, None, args.overrides)
-    ProcessGroupRing.from_env()  # under torchrun: the group of the ranks
+    initialize_distributed()  # under torchrun: the group of the ranks
     return evaluate(cfg, max_batches=args.max_batches, device=args.device)
 
 

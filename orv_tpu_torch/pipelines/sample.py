@@ -176,9 +176,13 @@ def make_sampler(
 ):
     """Returns `sample(latents, image_latents, prompt_embeds, generator=None,
     negative_prompt_embeds=None, actions=None, depths=None, labels=None,
-    image_rotary_emb=None, num_views=1)` that runs the full denoise on
-    `device` (CUDA unless `device="cpu"`) and returns clean latents
-    [B, V*F, C, H, W] f32. `generator` feeds the stochastic DPM noise."""
+    image_rotary_emb=None, num_views=1, rows=None)` that runs the full
+    denoise on `device` (CUDA unless `device="cpu"`) and returns clean
+    latents [B, V*F, C, H, W] f32. `generator` feeds the stochastic DPM
+    noise. `rows` (a data-parallel serving rank's rows of the batch): the
+    inputs are the whole batch's, the rank denoises `rows` of them, and
+    draws each step's noise for the whole batch and keeps its rows, so its
+    rows come out as the whole batch's run gives them."""
     if config.scheduler not in ("dpm", "ddim"):
         raise ValueError(f"unknown scheduler {config.scheduler}")
     device = resolve_device(device)
@@ -211,7 +215,15 @@ def make_sampler(
         labels: Optional[torch.Tensor] = None,
         image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         num_views: int = 1,
+        rows: Optional[slice] = None,
     ) -> torch.Tensor:
+        whole_shape = tuple(latents.shape)
+        if rows is not None:
+            cut = lambda x: None if x is None else x[rows]
+            latents, image_latents, prompt_embeds = cut(latents), cut(image_latents), \
+                cut(prompt_embeds)
+            negative_prompt_embeds, actions = cut(negative_prompt_embeds), cut(actions)
+            depths, labels = cut(depths), cut(labels)
         if full is not None and num_views > 1:
             raise NotImplementedError("PAB attention broadcast is "
                                       "single-view (MVBlock not covered)")
@@ -259,7 +271,9 @@ def make_sampler(
             if config.scheduler == "dpm":
                 noise = None
                 if config.stochastic_dpm:
-                    noise = torch.randn(lat.shape, generator=generator, device=device)
+                    noise = torch.randn(whole_shape, generator=generator, device=device)
+                    if rows is not None:
+                        noise = noise[rows]
                 lat, old = dpm_step_scan(schedule, v_pred, old, bool(have_old[i]), int(ts[i]),
                                          int(back[i]), int(prev[i]), lat, noise=noise)
             else:

@@ -29,22 +29,31 @@ batch's grid, and the 1.5 family's loss pads the frames to a multiple of
 adamw, came or prodigy. A stage-3 run starts from a stage-2 export whose
 `mv_blocks` are seeded (`ensure_mv_blocks`).
 
-Context parallelism (`train.mesh.sp = n`, the JAX package's `sp_mesh`):
-the DiT rings every block's joint attention over n ranks
-(`ControlDiT(sp=...)`), AD runs through the ring, and every rank ends each
-micro-step with the same gradients, bit for bit, so the clip, the logged
-grad norm, the EMA and the optimizer move every rank's parameters alike
-with no gradient all-reduce. The ranks are the `sp` communicator passed in
-(`LocalRing(n)`, whose `run` calls `train` on every rank) or the
-`torch.distributed` group of world size n that `main` starts under
-`torchrun --nproc_per_node n` (`ProcessGroupRing`). Every rank takes rank
-0's batches (the threaded loader's order is not fixed) and resumes from the
-same checkpoint; only rank 0 writes checkpoints, exports, validation videos
-and tracker lines. As in JAX, sp composes with dp/fsdp only: tp or pp > 1
-with sp is a ValueError.
+Data, model and context parallelism (`train.mesh`: dp, fsdp, tp, pp, sp,
+n_micro; `parallel/mesh.py`): the ranks are the communicator passed in
+(`comm`, e.g. `LocalRing(n)`, whose `run` calls `train` on every rank) or
+the `torch.distributed` group that `main` starts under `torchrun
+--nproc_per_node n` (`ProcessGroupRing`; gloo when the ranks share a
+card). The mesh lays them out row-major over (dp, fsdp, pp, tp, sp), and
+`dp: -1` takes the ranks the other axes leave. Every rank builds the whole
+model from the same seed (or folder) and keeps its part
+(`parallel/fsdp.py:build_rank_model`): its pp stage's blocks, its tp
+columns, its fsdp shards. Every rank takes rank 0's global batch (the
+threaded loader's order is not fixed): the resident mesh step
+(`make_train_step`) gives each (dp, fsdp) shard its rows of the batch and
+of the global draws, and computes the single-device step's function; with
+pp > 1 the pipeline step (`parallel/pp.py`) runs, each data shard on its
+rows with draws of its own (`draws(step, batch, shard=index)`, the JAX
+package's per-shard fold). The batch arithmetic is JAX's: `train_batch_size`
+is the global batch, and neither `scaled_lr` nor the step count takes a
+replica factor. Checkpoints, the export and the inline validation gather
+every shard back into whole tensors (every rank takes part); rank 0 writes
+them, and a run resumes from them at any mesh. Only rank 0 writes
+validation videos and tracker lines. sp rings every block's joint attention
+(`ControlDiT(sp=...)`) inside each (dp, fsdp) group; as in JAX, sp with tp
+or pp is a ValueError, and the pipeline's refusals are JAX's.
 
-Refused by name, with the ROADMAP.md item: dp, fsdp, tp or pp above 1 (A8;
-dp: -1 is 1) and `train.loader=grain` (A10).
+Refused by name, with the ROADMAP.md item: `train.loader=grain` (A10).
 """
 
 from __future__ import annotations
@@ -67,11 +76,14 @@ from orv_tpu_torch.configs import Config, default_config_dir, load_config
 from orv_tpu_torch.data import (BucketSampler, CascadedRobotDataset, DatasetConfig,
                                 MultiViewRobotDataset, RobotDataset, collate_control)
 from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
-from orv_tpu_torch.models.weights import dit_state_dict_from_diffusers
-from orv_tpu_torch.parallel.sp import ProcessGroupRing, resolve_ranks, seeded_init
-from orv_tpu_torch.parallel.train_step import (EvalDraws, LossDraws, TrainState, grad_params,
+from orv_tpu_torch.models.weights import dit_state_dict_from_diffusers, gather_state_dict
+from orv_tpu_torch.parallel.fsdp import MeshLayout, build_rank_model
+from orv_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, initialize_distributed, make_mesh
+from orv_tpu_torch.parallel.pp import check_pp_mesh, make_pp_train_step
+from orv_tpu_torch.parallel.sp import seeded_init
+from orv_tpu_torch.parallel.train_step import (EvalDraws, LossDraws, TrainState, batch_rows,
                                                make_lr_schedule, make_optimizer,
-                                               make_train_step, named_grad_params)
+                                               make_train_step)
 from orv_tpu_torch.schedulers import make_schedule
 from orv_tpu_torch.utils.checkpoint import TrainCheckpointer, export_pretrained, load_pretrained
 from orv_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -262,18 +274,31 @@ def init_params(cfg: Config, dit_cfg: DiTConfig, dtype=torch.bfloat16,
 
 
 @contextlib.contextmanager
-def _params_swapped(model: torch.nn.Module, tensors):
-    """Inside the block the model's parameters (`grad_params`) hold `tensors`
-    (no copy: their storage is swapped), then their own again."""
-    params = grad_params(model)
+def _params_swapped(state: TrainState, tensors):
+    """Inside the block the state's parameters hold `tensors` (no copy:
+    their storage is swapped), then their own again."""
+    params = [p for _, p in state.named_params()]
     own = [p.data for p in params]
     try:
         for p, t in zip(params, tensors):
             p.data = t
-        yield model
+        yield
     finally:
         for p, t in zip(params, own):
             p.data = t
+
+
+def whole_params(state: TrainState, ema: bool = False) -> Dict[str, torch.Tensor]:
+    """The model's whole state dict (with `ema`, the EMA in place of the
+    trained parameters), gathered from the mesh's ranks: every rank must
+    call it."""
+    layout = state.mesh
+    leaves = dict(state.named_params())
+    if ema:
+        leaves = dict(zip(leaves, state.opt_state.ema))
+    local = {k: leaves.get(k, v).detach() for k, v in state.model.state_dict().items()}
+    with torch.no_grad():
+        return gather_state_dict(local, layout.placements, layout.mesh, layout.num_layers)
 
 
 ValDrawFn = Callable[[int, tuple, Optional[tuple]], EvalDraws]
@@ -427,36 +452,59 @@ def mv_blocks_only(name: str) -> bool:
     return name.startswith("mv_blocks.")
 
 
-def _check_supported(cfg: Config) -> int:
-    """Refuse, naming the ROADMAP.md item, what the port's training lacks;
-    return `train.mesh.sp`. tp or pp with sp is JAX's ValueError
-    (orv_tpu/pipelines/train.py:373-375)."""
+def _check_supported(cfg: Config) -> MeshConfig:
+    """`train.mesh` as a MeshConfig; tp or pp with sp is JAX's ValueError
+    (orv_tpu/pipelines/train.py:373-375); refuse, naming the ROADMAP.md
+    item, what the port's training lacks."""
     tcfg = cfg.train
     mesh = dict(tcfg.get("mesh", {}) or {})
     sp = int(mesh.get("sp", 1))
     if sp > 1 and any(int(mesh.get(a, 1)) > 1 for a in ("tp", "pp")):
         raise ValueError("train.mesh.sp composes with dp/fsdp only (tp=pp=1)")
-    wide = {a: int(n) for a, n in mesh.items() if a not in ("n_micro", "sp") and int(n) > 1}
-    if wide:
-        raise NotImplementedError(
-            f"train.mesh {wide}: data and model parallelism are not ported yet (ROADMAP.md "
-            "A8, dp/fsdp/tp/pp); run with those axes at 1 (dp: -1 is 1), train.mesh.sp as "
-            "you like")
     if tcfg.get("loader") == "grain":
         raise NotImplementedError("train.loader=grain is not ported (ROADMAP.md A10); the "
                                   "default threaded loader runs")
-    return sp
+    return MeshConfig(dp=int(mesh.get("dp", -1)), fsdp=int(mesh.get("fsdp", 1)),
+                      tp=int(mesh.get("tp", 1)), pp=int(mesh.get("pp", 1)), sp=sp)
+
+
+def world_mesh(config: MeshConfig, comm, what: str):
+    """The mesh of `config` over the ranks: `comm` when given, else the
+    `torch.distributed` group when one is up, else this process alone.
+    Raises, naming the cause, when the ranks do not fill the mesh."""
+    import torch.distributed as dist
+
+    sizes = {a: getattr(config, a) for a in ("dp", "fsdp", "pp", "tp", "sp")}
+    need = int(np.prod([n for n in sizes.values() if n > 0]))
+    wide = " x ".join(f"{what}.{a}={n}" for a, n in sizes.items() if n > 1) or f"{what}.dp=1"
+    if comm is None and dist.is_available() and dist.is_initialized():
+        comm = initialize_distributed()
+    world = 1 if comm is None else comm.size
+    fits = world == need if config.dp > 0 else world % need == 0
+    if comm is not None and not fits:
+        raise ValueError(f"{wide} needs {need} ranks but the communicator passed has "
+                         f"{world} ranks")
+    if not fits:
+        raise ValueError(
+            f"{wide} needs {need} ranks, and this process has {world}: pass a communicator "
+            f"of {need} ranks (comm=LocalRing({need}) inside its run, or a ProcessGroupRing), "
+            f"or start {need} processes under a torch.distributed group of world size "
+            f"{need} (torchrun --nproc_per_node {need}); dp: -1 takes any multiple")
+    return make_mesh(config, comm)
 
 
 def seeded_draws(seed: int, device: DeviceLike, num_train_timesteps: int = 1000,
                  patch_size_t: Optional[int] = None) -> DrawFn:
     """The default `draws(step, batch)`: micro-step `step`'s LossDraws from
     a generator on `device` seeded from (seed, step) alone (the diffusion
-    noise over the frames the loss pads to a multiple of `patch_size_t`)."""
+    noise over the frames the loss pads to a multiple of `patch_size_t`);
+    a pipeline's data shard `shard` seeds from (seed, step, shard)."""
     device = resolve_device(device)
 
-    def draws(step: int, batch: Dict[str, torch.Tensor]) -> LossDraws:
-        s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    def draws(step: int, batch: Dict[str, torch.Tensor], shard: Optional[int] = None
+              ) -> LossDraws:
+        key = [seed, step] if shard is None else [seed, step, shard]
+        s = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
         return LossDraws.draw(torch.Generator(device).manual_seed(s), batch, num_train_timesteps,
                               patch_size_t)
 
@@ -477,25 +525,31 @@ def _rank0_batches(batches: Optional[Iterator[Dict]], comm) -> Iterator[Dict]:
 
 
 def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[DrawFn] = None,
-          val_draws: Optional[ValDrawFn] = None, sp=None) -> TrainState:
-    """Train the config's ControlDiT; return the final TrainState. `vae`
-    may be passed directly (library embedding, tests), else it loads from
-    `vae.pretrained_name_or_path`; it renders the validation videos.
-    `draws(step, batch)` gives micro-step `step`'s LossDraws (default in
-    the module docstring). Runs on `device`, CUDA unless "cpu" is asked.
-    With `train.mesh.sp = n > 1`, call it on every rank: `sp` is the
-    communicator of n ranks, or None for the torch.distributed group
-    (module docstring)."""
-    n_sp = _check_supported(cfg)
-    comm = resolve_ranks(n_sp, sp, "train.mesh.sp") if n_sp > 1 or sp is not None else None
-    writer = comm is None or comm.rank == 0
+          val_draws: Optional[ValDrawFn] = None, comm=None) -> TrainState:
+    """Train the config's ControlDiT; return the final TrainState (under a
+    mesh, this rank's). `vae` may be passed directly (library embedding,
+    tests), else it loads from `vae.pretrained_name_or_path`; it renders the
+    validation videos. `draws(step, batch)` gives micro-step `step`'s
+    LossDraws (default in the module docstring; a pipeline's data shard
+    calls `draws(step, batch, shard=index)` on its rows). Runs on `device`,
+    CUDA unless "cpu" is asked. Under `train.mesh` call it on every rank:
+    `comm` is the communicator of every rank, or None for the
+    torch.distributed group (module docstring)."""
+    mesh_cfg = _check_supported(cfg)
+    tcfg = cfg.train
+    mesh = world_mesh(mesh_cfg, comm, "train.mesh")
+    shape = mesh.shape
+    writer = mesh.rank == 0
     device = resolve_device(device)
     seed = int(cfg.get("seed", 42))
-    tcfg = cfg.train
     out_dir = Path(tcfg.get("output_path", "outputs")) / (tcfg.get("output_dir") or "run")
     out_dir.mkdir(parents=True, exist_ok=True)
 
     dit_cfg = build_dit_config(cfg)
+    if shape["pp"] > 1:
+        check_pp_mesh(shape, dit_cfg.num_layers)
+    if mesh.size > 1:
+        CONSOLE.log(f"mesh: {mesh.shape}")
     dtype = torch.bfloat16 if tcfg.get("mixed_precision", "bf16") == "bf16" else torch.float32
     # train.overfit: train on the small 'val' split, so the loss should collapse
     dataset = build_dataset(cfg, split="val" if tcfg.get("overfit") else "train")
@@ -504,18 +558,34 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
     if writer:
         loader = prefetch_batches(dataset, BucketSampler(dataset, batch_size=bs, seed=seed,
                                                          infinite=True))
-    batches = loader if comm is None else _rank0_batches(loader, comm)
+    batches = loader if mesh.size == 1 else _rank0_batches(loader, mesh.comm)
     tracker = None
     try:
         first = next(batches)
-        model = init_params(cfg, dit_cfg, dtype, device, sp=comm)
+        sp_comm = mesh.sp if shape["sp"] > 1 else None
+        model = init_params(cfg, dit_cfg, dtype, device, sp=sp_comm)
         CONSOLE.log(f"model params: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B")
+        # held whole (one rank, or dp and sp alone) or the rank's parts
+        layout = MeshLayout.whole({k: v.shape for k, v in model.state_dict().items()}, mesh,
+                                  dit_cfg.num_layers)
+        if layout.split:
+            whole = model.state_dict()
+
+            def make_model(tp, layers):
+                with seeded_init(seed, device):
+                    return ControlDiT(dit_cfg, dtype=dtype, param_dtype=torch.float32,
+                                      device=device, remat=model.remat,
+                                      remat_policy=model.remat_policy, sp=sp_comm, tp=tp,
+                                      layers=layers)
+
+            model, layout = build_rank_model(make_model, whole, mesh, dit_cfg.num_layers)
+            del whole
 
         total_steps = total_train_steps(tcfg, len(dataset), bs)
         multiview = bool(cfg.get("multiview"))
         tx = build_optimizer(tcfg, total_steps, bs, multiview)
         lr = tx.schedule
-        state = TrainState.create(model, tx)
+        state = TrainState.create(model, tx, layout)
 
         ckpt = TrainCheckpointer(str(out_dir / "checkpoints"),
                                  max_to_keep=int(tcfg.get("checkpoints_total_limit", 2)))
@@ -538,14 +608,21 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
             noised_image_dropout=float(tcfg.get("noised_image_dropout", 0.05)),
             recon_action=bool(cfg.get("recon_action", False)),
             image_rotary_emb=image_rotary_emb, patch_size_t=dit_cfg.patch_size_t)
+        pipelined = shape["pp"] > 1
+        n_micro = (tcfg.get("mesh", {}) or {}).get("n_micro")
+
+        def make_step(**kw):
+            if pipelined:
+                return make_pp_train_step(tx, schedule, mesh, dit_cfg.num_layers, n_micro, **kw)
+            return make_train_step(tx, schedule, **kw)
+
         # a step per view count: multiview batches are homogeneous in it, and
         # the frame padding is single-view
-        steps = {1: make_train_step(tx, schedule, **step_kwargs)}
+        steps = {1: make_step(**step_kwargs)}
 
         def step_for(nv: int):
             if nv not in steps:
-                steps[nv] = make_train_step(tx, schedule, **{
-                    **step_kwargs, "num_views": nv, "patch_size_t": None})
+                steps[nv] = make_step(**{**step_kwargs, "num_views": nv, "patch_size_t": None})
             return steps[nv]
 
         draws = draws or seeded_draws(seed, device, schedule.num_train_timesteps,
@@ -563,9 +640,21 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
         def validate(batch, step):
             # with train.ema_decay, validate the EMA weights, the ones a user serves
             ema = state.opt_state.ema
-            with _params_swapped(model, ema) if ema is not None else contextlib.nullcontext():
+            if layout.split:  # the whole weights, gathered; rank 0 denoises
+                whole = whole_params(state, ema=ema is not None)
+                if writer:
+                    with seeded_init(seed, device):
+                        full = ControlDiT(dit_cfg, dtype=dtype, device=device)
+                    full.load_state_dict(whole, strict=True)
+                    run_validation(cfg, full, batch, out_dir, step, tracker, vae, device,
+                                   val_draws)
+                return
+            with _params_swapped(state, ema) if ema is not None else contextlib.nullcontext():
                 run_validation(cfg, model, batch, out_dir, step, tracker, vae, device, val_draws,
                                write=writer)
+
+        def save(step):
+            ckpt.save(step, state, write=writer)  # every rank gathers, rank 0 writes
 
         val_every = int(tcfg.get("validation_steps", 2000))
         if not os.environ.get("NO_INIT_VAL"):
@@ -580,7 +669,12 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
         for step in range(start_step, total_steps):
             nv = int(batch.get("num_views", 1)) if multiview else 1
             b = to_device(batch, device)
-            state, metrics = step_for(nv)(state, b, draws(step, b))
+            if pipelined and mesh.data_size > 1:  # a data shard's rows and draws
+                b = batch_rows(b, batch_sharding(mesh, b["latents"].shape[0]))
+                d = draws(step, b, shard=mesh.data_index)
+            else:
+                d = draws(step, b)
+            state, metrics = step_for(nv)(state, b, d)
             if writer and ((step + 1) % log_every == 0 or step == start_step):
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = (time.time() - t_last) / (log_every if step > start_step else 1)
@@ -588,21 +682,20 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
                 CONSOLE.log(f"step {step + 1}/{total_steps} loss={m['loss']:.4f} "
                             f"gnorm={m.get('grad_norm', 0):.3f} lr={lr(step):.2e} {dt:.2f}s/it")
                 tracker.log({**m, "lr": lr(step), "s_per_it": dt}, step + 1)
-            if writer and (step + 1) % ckpt_every == 0:
-                ckpt.save(step + 1, state)
+            if (step + 1) % ckpt_every == 0:
+                save(step + 1)
             if (step + 1) % val_every == 0:
                 validate(batch, step + 1)
             batch = next(batches)
 
+        save(total_steps)
+        exports = {"checkpoint": whole_params(state)}
+        if state.opt_state.ema is not None:
+            exports["checkpoint_ema"] = whole_params(state, ema=True)
         if not writer:
             return state
-        ckpt.save(total_steps, state)
-        export_pretrained(str(out_dir / "checkpoint"), model.state_dict(), dit_cfg)
-        if state.opt_state.ema is not None:
-            names = [n for n, _ in named_grad_params(model)]
-            export_pretrained(str(out_dir / "checkpoint_ema"),
-                              {**model.state_dict(), **dict(zip(names, state.opt_state.ema))},
-                              dit_cfg)
+        for folder, sd in exports.items():
+            export_pretrained(str(out_dir / folder), sd, dit_cfg)
         CONSOLE.log(f"training done -> {out_dir}")
         return state
     finally:
@@ -635,7 +728,7 @@ def main(argv=None):
         str(default_config_dir() / "debug.yaml") if args.debug else None,
         args.overrides,
     )
-    ProcessGroupRing.from_env()  # under torchrun: the group of the sp ranks
+    initialize_distributed()  # under torchrun: the group of the mesh's ranks
     return train(cfg, device=args.device)
 
 

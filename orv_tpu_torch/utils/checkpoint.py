@@ -60,11 +60,13 @@ class TrainCheckpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState) -> bool:
-        latest = self.latest_step()
-        if latest is not None and step <= latest:
-            return False
+    def save(self, step: int, state: TrainState, write: bool = True) -> bool:
+        """Write `state`'s whole tensors (`state_tensors`). Under a mesh
+        every rank calls it and gathers, and the one with `write` writes."""
         tensors, scalars = state_tensors(state)
+        latest = self.latest_step()
+        if not write or (latest is not None and step <= latest):
+            return False
         tmp = self.directory / f"{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()

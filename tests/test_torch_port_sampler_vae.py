@@ -184,7 +184,8 @@ def test_port_imports_no_jax_and_no_orv_tpu():
     entry points in pipelines/ and utils/ among them, and the offline path's
     text encoder, feature extractors, data_process and encode_dataset) and
     chip_smoke import in a fresh process without pulling in jax, flax,
-    transformers or any module of the JAX package."""
+    transformers or any module of the JAX package; the mesh, its fsdp
+    shards and the pipeline (parallel/mesh.py, fsdp.py, pp.py) among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import orv_tpu_torch, chip_smoke\n"
@@ -195,7 +196,8 @@ def test_port_imports_no_jax_and_no_orv_tpu():
         "       or k == 'orv_tpu' or k.startswith('orv_tpu.')]\n"
         "assert not bad, bad\n"
         "for m in ('models.text_encoder', 'models.feature_extractors',\n"
-        "          'pipelines.data_process', 'pipelines.encode_dataset'):\n"
+        "          'pipelines.data_process', 'pipelines.encode_dataset',\n"
+        "          'parallel.mesh', 'parallel.pp', 'parallel.fsdp'):\n"
         "    assert 'orv_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('orv_tpu_torch')]))\n"
     )

@@ -325,14 +325,17 @@ def test_inference_main_smoke_mode(tmp_path):
 
 
 def test_refusals(setup, tmp_path):
-    """A dp/fsdp/tp mesh axis past 1 and a msgpack-only folder raise, naming
-    what to do; nothing is generated. (PAB runs since the model surface was
-    ported: tests/test_torch_port_model_surface_serving.py; sp serving
-    since context parallelism was: tests/test_torch_port_sp_train.py.)"""
+    """A dp/fsdp/tp mesh axis past 1 without the ranks it needs and a
+    msgpack-only folder raise, naming what to do; nothing is generated.
+    (PAB runs since the model surface was ported:
+    tests/test_torch_port_model_surface_serving.py; sp serving since context
+    parallelism was: tests/test_torch_port_sp_train.py; dp/fsdp/tp serving
+    since data and model parallelism were: tests/test_torch_port_mesh_entry.py.)"""
     s = setup
-    for extra, match in ((["evaluation.mesh.tp=2"], "A8"), (["evaluation.mesh.dp=2"], "A8")):
+    for extra, match in ((["evaluation.mesh.tp=2"], "evaluation.mesh.tp=2 needs 2 ranks"),
+                         (["evaluation.mesh.dp=2"], "evaluation.mesh.dp=2 needs 2 ranks")):
         _, tcfg = configs(s, COND, "refused", extra)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             tevaluate.evaluate(tcfg, device="cpu")
     jax_only = tmp_path / "jax_only"
     export_pretrained(str(jax_only), s["params"], JaxDiTConfig(**DIT))

@@ -289,9 +289,14 @@ def test_train_sp_matches_resident_and_ranks_agree(train_setup, tmp_path, monkey
     port's resident `train` on the same batches and draws gives the same
     losses, grad norms and parameters."""
     comm = LocalRing(2, timeout=TIMEOUT)
-    cfg = _train_cfg(train_setup, tmp_path / "sp", ["train.mesh.sp=2"])
+    # the clip of tests/test_torch_port_train_loop.py: without it, on one of
+    # the orders the loader can give ([episode 0, episode 2]) a few to_q
+    # gradients lie near Adam's eps and its first step turns the ring's other
+    # summation order into a fifth of an lr step (RMS 3.3e-7 over 1e-3 moved)
+    clip = ["train.optimizer.max_grad_norm=0.05"]
+    cfg = _train_cfg(train_setup, tmp_path / "sp", ["train.mesh.sp=2"] + clip)
     batches = _Batches(monkeypatch, comm)
-    states = comm.run(lambda: ttrain.train(cfg, device="cpu", sp=comm))
+    states = comm.run(lambda: ttrain.train(cfg, device="cpu", comm=comm))
     assert batches.seen[0] and len(batches.seen[0]) == 2
     for a, b in zip(batches.seen[0], batches.seen[1]):
         assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
@@ -311,7 +316,7 @@ def test_train_sp_matches_resident_and_ranks_agree(train_setup, tmp_path, monkey
 
     monkeypatch.setattr(ttrain, "to_device", batches.orig)
     resident = _Batches(monkeypatch, replay=batches.seen[0])
-    ref_cfg = _train_cfg(train_setup, tmp_path / "res")
+    ref_cfg = _train_cfg(train_setup, tmp_path / "res", clip)
     ref = ttrain.train(ref_cfg, device="cpu")
     assert len(resident.seen[0]) == 2
     ref_metrics = [json.loads(line) for line in
@@ -329,8 +334,9 @@ def test_train_sp_matches_resident_and_ranks_agree(train_setup, tmp_path, monkey
     diffs = {n: (a - b.detach()).flatten()
              for a, (n, b) in zip(params[0], ref.model.named_parameters())}
     d = torch.cat([e for n, e in diffs.items() if not n.endswith("norm_k.bias")])
-    assert d.pow(2).mean().sqrt().item() <= 1e-4 * moved  # measured 4.9e-5
-    assert d.abs().max().item() <= 5e-2 * moved  # measured 1.3e-2
+    # measured over the three orders: 8.7e-6 to 5.1e-5, and 2.1e-3 to 2.3e-2
+    assert d.pow(2).mean().sqrt().item() <= 1e-4 * moved
+    assert d.abs().max().item() <= 5e-2 * moved
     assert all(e.abs().max().item() <= 2 * moved for n, e in diffs.items()
                if n.endswith("norm_k.bias"))
 
@@ -346,11 +352,11 @@ def test_train_sp_resumes_every_rank_from_one_checkpoint(train_setup, tmp_path, 
         f"transformer.pretrained_name_or_path={train_setup['folder']}", "dataset.num_samples=1",
         "train.mesh.sp=2", "train.checkpointing_steps=1000", *extra])
     cut = cfg("cut", "train.max_train_steps=2")
-    comm.run(lambda: ttrain.train(cut, device="cpu", sp=comm))
+    comm.run(lambda: ttrain.train(cut, device="cpu", comm=comm))
     resumed = cfg("cut", "train.max_train_steps=3", "train.resume_from_checkpoint=true")
-    states = comm.run(lambda: ttrain.train(resumed, device="cpu", sp=comm))
+    states = comm.run(lambda: ttrain.train(resumed, device="cpu", comm=comm))
     whole = cfg("whole", "train.max_train_steps=3")
-    ref = comm.run(lambda: ttrain.train(whole, device="cpu", sp=comm))
+    ref = comm.run(lambda: ttrain.train(whole, device="cpu", comm=comm))
     assert all(s.step == 3 for s in states + ref)
     for s in states[1:] + ref:
         assert all(torch.equal(a, b) for a, b in zip(s.model.parameters(),
@@ -369,7 +375,7 @@ def test_evaluate_sp_matches_jax(serving_setup):
     jres = jevaluate.evaluate(jcfg, max_batches=1)
     comm = LocalRing(2, timeout=TIMEOUT)
     tres = comm.run(lambda: tevaluate.evaluate(tcfg, max_batches=1, device="cpu",
-                                               draws=jax_draws(), sp=comm))
+                                               draws=jax_draws(), comm=comm))
     assert tres[0] == tres[1] == jres
     names = compare_outputs(s, Path(jcfg.evaluation.output_dir),
                             Path(tcfg.evaluation.output_dir))
@@ -390,10 +396,47 @@ def test_train_sp_with_tp_or_pp_raises_jax_error(train_setup, tmp_path, axis):
 
 
 @pytest.mark.parametrize("axis", ["dp", "fsdp"])
-def test_train_sp_with_dp_or_fsdp_names_a8(train_setup, tmp_path, axis):
-    cfg = _train_cfg(train_setup, tmp_path, ["train.mesh.sp=2", f"train.mesh.{axis}=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        ttrain.train(cfg, device="cpu", sp=LocalRing(2))
+def test_train_sp_with_dp_or_fsdp_names_a8(train_setup, tmp_path, monkeypatch, axis):
+    """dp x sp and fsdp x sp (2 x 2 ranks, the ring inside each data group;
+    fsdp's shards gathered outside the ring) on `LocalRing(4)`, against the
+    port's resident `train` on the same batches and draws: each micro-step's
+    loss and grad norm to 1e-5 relative, the whole parameters after the
+    update as the sp run is held above; every rank's whole parameters the
+    same bits. (These meshes were refused naming ROADMAP.md A8 until data
+    and model parallelism were ported.)"""
+    monkeypatch.setenv("NO_INIT_VAL", "1")
+    comm = LocalRing(4, timeout=TIMEOUT)
+    # the clip of tests/test_torch_port_train_loop.py: gradients at f32
+    # rounding level fall far below Adam's eps, so its first step does not
+    # turn the two runs' different summation orders into whole lr steps
+    extra = ["train.train_batch_size=2", "train.max_train_steps=2",
+             "train.optimizer.max_grad_norm=0.05"]
+    cfg = _train_cfg(train_setup, tmp_path / "mesh", extra + [
+        "train.mesh.sp=2", f"train.mesh.{axis}=2", "train.mesh.dp=" + ("2" if axis == "dp"
+                                                                      else "1")])
+    batches = _Batches(monkeypatch, comm)
+    ranks = comm.run(lambda: ttrain.whole_params(ttrain.train(cfg, device="cpu", comm=comm)))
+    assert all(torch.equal(ranks[0][k], r[k]) for r in ranks[1:] for k in ranks[0])
+    assert len(batches.seen[0]) == 2 and all(len(batches.seen[r]) == 2 for r in range(4))
+    got = [m for m in map(json.loads, (tmp_path / "mesh" / "run" / "logs" / "metrics.jsonl")
+                          .read_text().splitlines()) if "loss" in m]
+    monkeypatch.setattr(ttrain, "to_device", batches.orig)
+    _Batches(monkeypatch, replay=batches.seen[0])
+    ref_cfg = _train_cfg(train_setup, tmp_path / "res", extra)
+    ref = ttrain.train(ref_cfg, device="cpu")
+    want = [m for m in map(json.loads, (tmp_path / "res" / "run" / "logs" / "metrics.jsonl")
+                           .read_text().splitlines()) if "loss" in m]
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+        np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=1e-5)
+    start = dict(ttrain.init_params(ref_cfg, ref.model.config, torch.float32,
+                                    "cpu").named_parameters())
+    moved = max((p.detach() - start[n]).abs().max().item() for n, p in ref.model.named_parameters())
+    diffs = {n: (ranks[0][n] - p.detach()).flatten() for n, p in ref.model.named_parameters()}
+    d = torch.cat([e for n, e in diffs.items() if not n.endswith("norm_k.bias")])
+    assert d.pow(2).mean().sqrt().item() <= 1e-4 * moved
+    assert d.abs().max().item() <= 5e-2 * moved
 
 
 def test_sp_without_enough_ranks_names_the_cause(train_setup, serving_setup, tmp_path):
@@ -403,10 +446,15 @@ def test_sp_without_enough_ranks_names_the_cause(train_setup, serving_setup, tmp
     cfg = _train_cfg(train_setup, tmp_path, ["train.mesh.sp=2"])
     with pytest.raises(ValueError, match="train.mesh.sp=2 needs 2 ranks, and this process has 1"):
         ttrain.train(cfg, device="cpu")
+    # a communicator of another size than the mesh names (dp: -1 would take
+    # any multiple of the other axes)
     with pytest.raises(ValueError, match="communicator passed has 4 ranks"):
-        ttrain.train(cfg, device="cpu", sp=LocalRing(4))
-    with pytest.raises(ValueError, match="train.mesh.sp=1 but the communicator passed has 2"):
-        ttrain.train(_train_cfg(train_setup, tmp_path), device="cpu", sp=LocalRing(2))
+        ttrain.train(_train_cfg(train_setup, tmp_path, ["train.mesh.sp=2", "train.mesh.dp=1"]),
+                     device="cpu", comm=LocalRing(4))
+    with pytest.raises(ValueError, match="train.mesh.dp=1 needs 1 ranks but the communicator "
+                                         "passed has 2"):
+        ttrain.train(_train_cfg(train_setup, tmp_path, ["train.mesh.dp=1"]), device="cpu",
+                     comm=LocalRing(2))
     _, tcfg = configs(serving_setup, COND, "few", ["evaluation.mesh.sp=2"])
     with pytest.raises(ValueError, match="evaluation.mesh.sp=2 needs 2 ranks"):
         tevaluate.evaluate(tcfg, device="cpu")
@@ -418,5 +466,5 @@ def test_evaluate_sp_with_tp_raises_jax_error(serving_setup):
     with pytest.raises(ValueError) as want:
         jevaluate.evaluate(jcfg, max_batches=1)
     with pytest.raises(ValueError) as got:
-        tevaluate.evaluate(tcfg, device="cpu", sp=LocalRing(2))
+        tevaluate.evaluate(tcfg, device="cpu", comm=LocalRing(2))
     assert str(got.value) == str(want.value)
