@@ -262,6 +262,19 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      per rank,
      the latents within 2e-2 (W8A8 4e-2) and 3e-3 of their range of rank
      0's resident evaluate's; each rank's peak memory and the phase's time;
+  5f. the grain loader without grain (the card's machine has none), phase
+     5e's state freed first: whether huggingface_hub imports there (its
+     version, or absent; no Hub call), then data/grain_loader.py's
+     make_grain_loader over phase 5's nine slices written again from its
+     seed, B=4 over 3 epochs (27 records, 6 batches, the third and fifth
+     across epochs) in this process and in 2 spawned workers: both bitwise
+     equal and in the order index_shuffle gives; then pipelines/train.py:
+     train with train.loader=grain and train.loader_workers=2 on the 2B
+     recipe cut to 4 of 30 layers at full width (30 heads x 64, D 1920),
+     2 micro-steps, no validation (checkpoint and export counted, not
+     written): it must train on the loader's first two batches, bitwise,
+     with finite losses and launches 2 x a 4-layer micro-step's; the
+     phase's seconds and the seconds until the workers' first record;
   6. the model surface at full width, the training state freed first: rows
      2, 3, 6, 8 and 9 against their plain versions at the surface's shapes
      (the MVBlock's attention [13,30,2478,64] and the 5b's [1,48,6826,64],
@@ -323,6 +336,7 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -342,6 +356,7 @@ import torch
 
 from orv_tpu_torch.configs import default_config_dir, load_config
 from orv_tpu_torch.data import BucketSampler
+from orv_tpu_torch.data.grain_loader import index_shuffle, make_grain_loader
 from orv_tpu_torch.models import (CausalVAE, ControlDiT, DiTConfig, VAEConfig, decode_chunked,
                                   encode_auto)
 from orv_tpu_torch.models.feature_extractors import I3D, ConvBN, InceptionV3Pool3
@@ -2676,6 +2691,99 @@ def mesh_phase(root: Path, shape_keys: set) -> None:
           f"start; peak memory per rank {peaks} GiB)", flush=True)
 
 
+# -- phase 5f: the grain loader's order, computed without grain -------------------------
+
+GRAIN_BATCH = 4  # the recipe's batch
+GRAIN_EPOCHS = 3  # 27 records of 9 slices: 6 batches, the third and fifth across epochs
+GRAIN_WORKERS = 2
+GRAIN_TRAIN_LAYERS = 4
+GRAIN_TRAIN_STEPS = 2  # micro-steps
+
+
+def grain_phase(root: Path) -> None:
+    """Phase 5f (module docstring): data/grain_loader.py on the card's
+    machine, which has no grain, then `train` with train.loader=grain."""
+    t_phase = time.perf_counter()
+    try:
+        import huggingface_hub
+        hub = f"huggingface_hub {huggingface_hub.__version__} imports"
+    except ImportError:
+        hub = "huggingface_hub absent"
+    print(f"grain phase: {hub} (no Hub call is made); grain "
+          f"{'imports' if importlib.util.find_spec('grain') else 'absent'}", flush=True)
+    n_slices = write_train_data(root / "data")  # phase 5's nine slices, from its seed
+    cfg = train_config(root / "data", root / "out", [
+        f"transformer.num_layers={GRAIN_TRAIN_LAYERS}", "train.loader=grain",
+        f"train.loader_workers={GRAIN_WORKERS}", f"train.max_train_steps={GRAIN_TRAIN_STEPS}",
+        "train.checkpointing_steps=1000", "train.validation_steps=1000", "train.log_every=1",
+        "train.lr_warmup_steps=0"])
+    seed, bs = int(cfg.get("seed", 42)), int(cfg.train.train_batch_size)
+    dataset = train_mod.build_dataset(cfg)
+    check(len(dataset) == n_slices == 9 and bs == GRAIN_BATCH,
+          f"the grain phase's dataset holds {len(dataset)} slices at batch {bs}")
+    runs = {}
+    for workers in (0, GRAIN_WORKERS):
+        t0 = time.perf_counter()
+        loader = make_grain_loader(dataset, bs, seed=seed, num_epochs=GRAIN_EPOCHS,
+                                   worker_count=workers)
+        runs[workers] = (list(loader), time.perf_counter() - t0, loader.worker_start_s)
+    order = [index_shuffle(k, n_slices - 1, (seed + e) % 2**32) for e in range(GRAIN_EPOCHS)
+             for k in range(n_slices)]
+    want = [(dataset.samples[i]["episode_id"], dataset.samples[i]["start_frame_idx"])
+            for i in order[:len(order) // bs * bs]]
+    arrays = lambda b: {k: v for k, v in b.items() if isinstance(v, np.ndarray)}
+    same = lambda a, b: list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+    for workers, (batches, secs, start_s) in runs.items():
+        got = [(m["episode_id"], m["start_frame_idx"]) for b in batches for m in b["metainfos"]]
+        print(f"grain loader, {workers} workers: {len(batches)} batches of {bs} over "
+              f"{GRAIN_EPOCHS} epochs in {secs:.2f} s"
+              + (f" (first record from the workers in {start_s:.2f} s)" if workers else "")
+              + f"; slices read, first epoch {order[:n_slices]}", flush=True)
+        check(len(batches) == len(order) // bs == 6, f"{len(batches)} grain batches, not 6")
+        check(got == want, f"the grain loader with {workers} workers read {got}, not the "
+                           f"index_shuffle order {want}")
+        check(all(same(arrays(a), arrays(b)) and list(a) == list(b)
+                  for a, b in zip(batches, runs[0][0])),
+              f"the grain loader's batches with {workers} workers differ from those with 0")
+    check(runs[GRAIN_WORKERS][2] is not None and runs[GRAIN_WORKERS][2] > 0,
+          "the grain loader's workers reported no time to their first record")
+
+    os.environ["NO_INIT_VAL"] = "1"
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SpTrainHooks() as hooks:
+            state = train_mod.train(cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        os.environ.pop("NO_INIT_VAL", None)
+    launches = counts()
+    tally(launches)
+    want_launches = tuple(GRAIN_TRAIN_STEPS * n
+                          for n in train_micro_step_counts(GRAIN_TRAIN_LAYERS))
+    logs = root / "out" / "run" / "logs" / "metrics.jsonl"
+    losses = [m["loss"] for m in map(json.loads, logs.read_text().splitlines()) if "loss" in m]
+    print(f"train with train.loader=grain, {GRAIN_WORKERS} loader workers "
+          f"({GRAIN_TRAIN_LAYERS} layers at the 2B recipe's width, B={bs}, "
+          f"{GRAIN_TRAIN_STEPS} micro-steps): {secs:.1f} s, losses {losses}, launches "
+          f"{launches} (want {want_launches})", flush=True)
+    check(state.step == GRAIN_TRAIN_STEPS, f"the grain run stopped at step {state.step}")
+    check(len(losses) == GRAIN_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"the grain run's losses {losses}")
+    check(launches == want_launches, f"grain train launch counts {launches} != {want_launches}")
+    check(len(hooks.batches) == GRAIN_TRAIN_STEPS
+          and all(same(a, arrays(b)) for a, b in zip(hooks.batches, runs[0][0])),
+          "train with train.loader=grain did not train on the loader's first batches")
+    del state
+    print(f"grain phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def generate(dit, vae, inp, name: str, forward_counts):
     """4 DPM steps through make_sampler and the chunked decode; checks the
     outputs and the launch counts. Returns s/step."""
@@ -4529,6 +4637,15 @@ def main() -> int:
         mesh_phase(mesh_root, shape_log.keys)
     finally:
         shutil.rmtree(mesh_root, ignore_errors=True)
+
+    # 5f. the grain loader's order without grain, with workers, and train through it
+    gc.collect()
+    torch.cuda.empty_cache()
+    grain_root = Path(tempfile.mkdtemp(prefix="orv_grain_"))
+    try:
+        grain_phase(grain_root)
+    finally:
+        shutil.rmtree(grain_root, ignore_errors=True)
 
     # 6. the model surface at full width, the training state freed first
     gc.collect()

@@ -7,8 +7,9 @@ Counterpart of `orv_tpu/pipelines/train.py`, on one GPU:
 
 Pipeline: layered config -> ControlDiT (a diffusers folder through the
 JAX package's init surgery, or a random init from `seed`) -> RobotDataset
-+ BucketSampler + threaded prefetch -> `make_train_step` (one call a
-micro-step; `max_train_steps` counts micro-steps, as in JAX) ->
++ BucketSampler + threaded prefetch (or `train.loader=grain`) ->
+`make_train_step` (one call a micro-step; `max_train_steps` counts
+micro-steps, as in JAX) ->
 step-indexed checkpoints with rotation and resume -> inline validation
 through the real sampler -> the diffusers export `checkpoint/` (and
 `checkpoint_ema/` with `train.ema_decay`).
@@ -53,7 +54,11 @@ validation videos and tracker lines. sp rings every block's joint attention
 (`ControlDiT(sp=...)`) inside each (dp, fsdp) group; as in JAX, sp with tp
 or pp is a ValueError, and the pipeline's refusals are JAX's.
 
-Refused by name, with the ROADMAP.md item: `train.loader=grain` (A10).
+`train.loader=grain` reads the batches in the order JAX's grain loader
+reads them (`data/grain_loader.py`, computed without grain), with
+`train.loader_workers` spawned reader processes; as in JAX it takes fixed
+(ref_num, n_view) configs only, and a resumed run restarts it from its
+first record (neither package checkpoints the loader).
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ import yaml
 from orv_tpu_torch.configs import Config, default_config_dir, load_config
 from orv_tpu_torch.data import (BucketSampler, CascadedRobotDataset, DatasetConfig,
                                 MultiViewRobotDataset, RobotDataset, collate_control)
+from orv_tpu_torch.data.grain_loader import make_grain_loader
 from orv_tpu_torch.models.dit import ControlDiT, DiTConfig
 from orv_tpu_torch.models.weights import dit_state_dict_from_diffusers, gather_state_dict
 from orv_tpu_torch.parallel.fsdp import MeshLayout, build_rank_model
@@ -454,16 +460,19 @@ def mv_blocks_only(name: str) -> bool:
 
 def _check_supported(cfg: Config) -> MeshConfig:
     """`train.mesh` as a MeshConfig; tp or pp with sp is JAX's ValueError
-    (orv_tpu/pipelines/train.py:373-375); refuse, naming the ROADMAP.md
-    item, what the port's training lacks."""
+    (orv_tpu/pipelines/train.py:373-375), and so is grain with a multiview
+    or several-`ref_num` config (orv_tpu/pipelines/train.py:418-420), here
+    before anything is written."""
     tcfg = cfg.train
     mesh = dict(tcfg.get("mesh", {}) or {})
     sp = int(mesh.get("sp", 1))
     if sp > 1 and any(int(mesh.get(a, 1)) > 1 for a in ("tp", "pp")):
         raise ValueError("train.mesh.sp composes with dp/fsdp only (tp=pp=1)")
-    if tcfg.get("loader") == "grain":
-        raise NotImplementedError("train.loader=grain is not ported (ROADMAP.md A10); the "
-                                  "default threaded loader runs")
+    if tcfg.get("loader") == "grain" and (
+            cfg.get("multiview")
+            or len(DatasetConfig(ref_num=cfg.get("num_observation", 1)).ref_num_choices()) > 1):
+        raise ValueError("train.loader=grain supports fixed (ref_num, "
+                         "n_view) configs; bucketed runs use the default loader")
     return MeshConfig(dp=int(mesh.get("dp", -1)), fsdp=int(mesh.get("fsdp", 1)),
                       tp=int(mesh.get("tp", 1)), pp=int(mesh.get("pp", 1)), sp=sp)
 
@@ -555,7 +564,10 @@ def train(cfg: Config, vae=None, device: DeviceLike = None, draws: Optional[Draw
     dataset = build_dataset(cfg, split="val" if tcfg.get("overfit") else "train")
     bs = int(tcfg.get("train_batch_size", 4))
     loader = None
-    if writer:
+    if writer and tcfg.get("loader") == "grain":
+        loader = make_grain_loader(dataset, bs, seed=seed,
+                                   worker_count=int(tcfg.get("loader_workers") or 0))
+    elif writer:
         loader = prefetch_batches(dataset, BucketSampler(dataset, batch_size=bs, seed=seed,
                                                          infinite=True))
     batches = loader if mesh.size == 1 else _rank0_batches(loader, mesh.comm)

@@ -182,22 +182,28 @@ def test_prepare_latents_match_jax():
 def test_port_imports_no_jax_and_no_orv_tpu():
     """Every orv_tpu_torch module (the serving subpackages data/ and the
     entry points in pipelines/ and utils/ among them, and the offline path's
-    text encoder, feature extractors, data_process and encode_dataset) and
-    chip_smoke import in a fresh process without pulling in jax, flax,
-    transformers or any module of the JAX package; the mesh, its fsdp
-    shards and the pipeline (parallel/mesh.py, fsdp.py, pp.py) among them."""
+    text encoder, feature extractors, data_process and encode_dataset),
+    chip_smoke and scripts/hf_model_torch.py import in a fresh process
+    without pulling in jax, flax, transformers, grain, huggingface_hub or
+    any module of the JAX package; the mesh, its fsdp shards and the
+    pipeline (parallel/mesh.py, fsdp.py, pp.py), the grain-free loader
+    (data/grain_loader.py) and the Hub helper (utils/hub.py) among them."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import orv_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(orv_tpu_torch.__path__, 'orv_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "spec = importlib.util.spec_from_file_location('hf_model_torch',\n"
+        "                                              'scripts/hf_model_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k.split('.')[0] in ('flax', 'transformers')\n"
+        "       or k.split('.')[0] in ('flax', 'transformers', 'grain', 'huggingface_hub')\n"
         "       or k == 'orv_tpu' or k.startswith('orv_tpu.')]\n"
         "assert not bad, bad\n"
         "for m in ('models.text_encoder', 'models.feature_extractors',\n"
         "          'pipelines.data_process', 'pipelines.encode_dataset',\n"
-        "          'parallel.mesh', 'parallel.pp', 'parallel.fsdp'):\n"
+        "          'parallel.mesh', 'parallel.pp', 'parallel.fsdp',\n"
+        "          'data.grain_loader', 'utils.hub'):\n"
         "    assert 'orv_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('orv_tpu_torch')]))\n"
     )

@@ -443,16 +443,19 @@ def test_checkpointer_rotates_skips_and_restores(tmp_path):
     (["train.mesh.fsdp=2"], "train.mesh.fsdp=2 needs 2 ranks, and this process has 1"),
     (["train.mesh.tp=2"], "train.mesh.tp=2 needs 2 ranks, and this process has 1"),
     (["train.mesh.pp=2"], "train.mesh.pp=2 needs 2 ranks, and this process has 1"),
-    (["train.loader=grain"], "ROADMAP.md A10"),
+    (["train.loader=grain", "runtime.num_observation=[1, 5, 9]"],
+     r"train.loader=grain supports fixed \(ref_num, n_view\) configs; bucketed runs use"),
+    (["train.loader=grain", "runtime.multiview=true"],
+     r"train.loader=grain supports fixed \(ref_num, n_view\) configs; bucketed runs use"),
 ])
 def test_unported_options_are_refused_by_name(setup, tmp_path, extra, item):
-    """grain is refused naming its ROADMAP.md item; a dp, fsdp, tp or pp mesh
-    (data and model parallelism run since they were ported:
-    tests/test_torch_port_mesh_entry.py) without a communicator or a
+    """grain with several ref_num choices or a multiview config raises JAX's
+    ValueError (tests/test_torch_port_grain_loader.py runs grain itself); a
+    dp, fsdp, tp or pp mesh (data and model parallelism run since they were
+    ported: tests/test_torch_port_mesh_entry.py) without a communicator or a
     torch.distributed group of its size names the ranks it needs."""
     cfg = load(tconfigs, PORT_CFG, setup["one"], tmp_path, extra)
-    error = NotImplementedError if "A10" in item else ValueError
-    with pytest.raises(error, match=item):
+    with pytest.raises(ValueError, match=item):
         ttrain.train(cfg, device="cpu")
     assert not (tmp_path / "run").exists()  # refused before anything is written
 
