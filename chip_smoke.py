@@ -138,12 +138,20 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      factory's kernels against their plain versions on the card (hard and
      dynamic voxelization bitwise on a full frame and 37 points fewer; the
      forward rasterizer on frame 0's gaussians at 240x320 and 237x317 to
-     1e-5; the backward on 3000 gaussians at 64x96 and 61x93 against
-     autograd through the plain version, to 1e-4 of each largest
-     gradient, and a second run bitwise equal to the first), each with
-     its device time (torch.profiler: the wrappers read a count back to
-     size their outputs, so they cannot be captured in a CUDA graph), the
-     plain version's and a bytes bound; the kernels' other entry points on
+     1e-5; the backward on 3000 gaussians at 64x96 and 61x93 and on frame
+     0's gaussians at 240x320 with seeded gradients against autograd
+     through the plain version, to 1e-4 of each largest gradient (frame
+     0's isotropic gaussians at the identity rotation have a zero rotation
+     gradient, the plain version's exactly: the kernel's is held to 1e-4 of
+     its terms' size, 4 |dL/ds| s), and a second run bitwise equal to the
+     first), each with its device time (torch.profiler, after a profiled
+     warm-up call: the wrappers read a count back to size their outputs,
+     so they cannot be captured in a CUDA graph; the backward at frame 0's
+     shape, where the factory launches it, and at 61x93), the plain
+     version's and a bytes bound, and a "split" line of the same calls'
+     device time by part (the scan, the grouping or binning, the per-tile
+     sort, the scatter or blend) and the host's wait in the count read
+     that sizes the outputs; the kernels' other entry points on
      episode 0 (dynamic voxelization of its 49 clouds, the depth loss's
      gradient through rasterize on its 49 frames: 49 launches each); last
      encode_split of one slice with depth and label latents from the
@@ -366,6 +374,7 @@ from orv_tpu_torch.models.text_encoder import T5Config, T5Encoder
 from orv_tpu_torch.models.weights import gather_state_dict, write_safetensors
 from orv_tpu_torch.ops import _build, adaln, attention
 from orv_tpu_torch.ops import gaussian_raster as raster_mod
+from orv_tpu_torch.ops import scan as scan_mod
 from orv_tpu_torch.ops import voxelize as voxelize_mod
 from orv_tpu_torch.ops.ring_attention import joint_ring_attention
 from orv_tpu_torch.parallel import (
@@ -538,19 +547,64 @@ def device_ms(fn, calls, n: int, what: str) -> float:
     return total / (3 * n)
 
 
-def profiled_ms(fn, calls, n: int) -> float:
-    """Sum of the device durations torch.profiler records over n calls
-    rotating over `calls`, over n."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+PROFILED = "chip_smoke profiled calls"  # the range profiled_events counts in
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fn(*calls[i % len(calls)])
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / n
+
+def profiled_events(fn, calls, n: int, warmup: int = 2, tries: int = 3) -> dict:
+    """{device kernel: us a call}, torch.profiler's device durations over n
+    calls rotating over `calls`. Summed over a whole session, the profiler
+    missed calls near its start (in the whole smoke, 1 of 5 and 1 of 10
+    factory calls, 8 of 10 of dynamic voxelization's 0.002 ms calls): so
+    `warmup` calls and 20 ms come first and 20 ms after, only kernels that start
+    inside a `record_function` range around the n calls count (2 ms inside
+    each end of it: device timestamps may lie a little off the host's), and
+    a session in which a kernel's count is not a multiple of n is run again,
+    up to `tries` times (a line says so if none is whole)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    best = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(warmup):
+                fn(*calls[i % len(calls)])
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            with record_function(PROFILED):
+                time.sleep(0.002)  # device timestamps may lie a little off the host's
+                for i in range(n):
+                    fn(*calls[i % len(calls)])
+                torch.cuda.synchronize()
+                time.sleep(0.002)
+            time.sleep(0.02)
+        events = prof.events()
+        window = [e.time_range for e in events
+                  if e.name == PROFILED and e.device_type != DeviceType.CUDA]
+        check(len(window) == 1, f"torch.profiler recorded {len(window)} ranges {PROFILED!r}")
+        t0, t1 = window[0].start, window[0].end
+        by, count = {}, {}
+        for e in events:
+            if (e.device_type != DeviceType.CUDA or e.name == PROFILED
+                    or getattr(e, "is_user_annotation", False)
+                    or not t0 <= e.time_range.start <= t1):
+                continue
+            name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", ""))[0]
+            name = name.split("::")[-1].replace("void ", "").strip()[:40]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / n
+            count[name] = count.get(name, 0) + 1
+        if by and all(c % n == 0 for c in count.values()):
+            return by
+        if sum(count.values()) > sum(best.get("count", {}).values()):
+            best = dict(by=by, count=count)
+    print(f"profiler: no whole trace of {n} calls in {tries} sessions (kernel counts "
+          f"{best.get('count')}): the times below are short", flush=True)
+    check(best.get("by"), "torch.profiler recorded no device time")
+    return best["by"]
+
+
+def profiled_ms(fn, calls, n: int, warmup: int = 2) -> float:
+    """Mean device time of a call by torch.profiler (`profiled_events`)."""
+    return sum(profiled_events(fn, calls, n, warmup).values()) / 1e3
 
 
 def call_ms(what: str, fn, args=(), n: int = 20) -> float:
@@ -3526,16 +3580,18 @@ def factory_kernel_checks(g, data: Path, t0: float):
     limits, and dynamic) on one full frame and at a ragged count; the
     forward rasterizer on frame 0's gaussians at the render's size and at a
     ragged one; the backward on a 3000-gaussian scene at 64 x 96 and 61 x 93
-    against autograd through the plain version, and its second run against
-    its first, bitwise. Then device times a frame
-    beside the plain versions' and a bytes bound. Returns the records."""
+    and on frame 0's gaussians at the render's size, against autograd
+    through the plain version, and its second run against its first,
+    bitwise. Then device times a frame beside the plain versions' and a
+    bytes bound, each call's split by part. Returns the records."""
     from orv_tpu_torch.pipelines import prepare_dataset as pd
 
     ep = data / "00000"
     pts = pd.depth_unproject_backend(str(ep))["points"][0]
     labels = np.load(ep / "labels" / "00000.npy")
+    # row-major, as points_to_voxels hands it over (the unprojected points are column-major)
     cloud = torch.tensor(np.concatenate([pts, labels[:, None].astype(np.float32)], 1),
-                         device="cuda")
+                         device="cuda").contiguous()
     vox_args = (pd.VOXEL_SIZE, pd.POINT_CLOUD_RANGE)
     for n in (len(cloud), len(cloud) - 37):
         c = cloud[:n].contiguous()
@@ -3568,30 +3624,53 @@ def factory_kernel_checks(g, data: Path, t0: float):
     fwd_err = err
     settings = raster_mod.view_settings(pose0, FACTORY_K, FACTORY_RENDER)
     args = (centers, rgb, opac, scales, rot, feat)
+    lengths = raster_mod._bin(settings, centers, scales, rot, opac)["ranges"].diff(1)[:, 0]
+    print(f"binning frame 0 at {FACTORY_RENDER[0]}x{FACTORY_RENDER[1]}: {int(lengths.sum())} keys "
+          f"over {len(lengths)} tiles, {float(lengths.float().mean()):.1f} a tile, the longest "
+          f"{int(lengths.max())} (the shared-memory sort holds {raster_mod.TILE_SORT_CAP})",
+          flush=True)
 
     bwd_errs = []
-    for hw in ((64, 96), (61, 93)):
-        s_small, arr = raster_scene(3000, *hw, seed=hw[1])
-        t = {k: torch.tensor(v, device="cuda") for k, v in arr.items()}
+    frame_scene = (settings, dict(means3d=centers, colors=rgb, opacities=opac, scales=scales,
+                                  rotations=rot, features=feat))
+    bwd_calls = {}
+    for hw in ((64, 96), (61, 93), FACTORY_RENDER):
+        if hw == FACTORY_RENDER:
+            s_bwd, t = frame_scene
+            what = f"frame 0's {n0} gaussians"
+        else:
+            s_bwd, arr = raster_scene(3000, *hw, seed=hw[1])
+            t = {k: torch.tensor(v, device="cuda") for k, v in arr.items()}
+            what = "3000 gaussians"
         grads = dict(grad_color=torch.randn(3, *hw, generator=g, device="cuda"),
                      grad_depth=torch.randn(*hw, generator=g, device="cuda"),
                      grad_alpha=torch.randn(*hw, generator=g, device="cuda"),
                      grad_feature=torch.randn(12, *hw, generator=g, device="cuda"))
         bargs = (t["means3d"], t["colors"], t["opacities"], t["scales"], t["rotations"])
-        got = raster_mod.rasterize_backward(s_small, *bargs, features=t["features"], **grads)
-        want = raster_mod.rasterize_backward_plain(s_small, *bargs, features=t["features"],
+        got = raster_mod.rasterize_backward(s_bwd, *bargs, features=t["features"], **grads)
+        want = raster_mod.rasterize_backward_plain(s_bwd, *bargs, features=t["features"],
                                                    **grads)
         rel = {k: max_err(got[k], want[k]) / max(want[k].abs().max().item(), 1e-30) for k in want}
-        again = raster_mod.rasterize_backward(s_small, *bargs, features=t["features"], **grads)
+        note = ""
+        if hw == FACTORY_RENDER:
+            # the factory's gaussians are isotropic at the identity rotation: their rotation
+            # gradient is zero, the plain version's exactly; the kernel's, rounding, is held to
+            # 1e-4 of the size of its terms, 4 |dL/ds| s (|dL/dq| ~ 2 |dL/dR| ~ 4 |dL/dM| s)
+            scale = 4 * (want["scales"].abs().amax(1) * t["scales"].abs().amax(1)).max().item()
+            rel["rotations"] = got["rotations"].abs().max().item() / scale
+            note = (f" (rotations: the plain version's largest "
+                    f"{want['rotations'].abs().max():.3g}, the kernel's against 4 |dL/ds| s = "
+                    f"{scale:.3g})")
+        again = raster_mod.rasterize_backward(s_bwd, *bargs, features=t["features"], **grads)
         bitwise = all(torch.equal(got[k], again[k]) for k in got)
-        print(f"kernel gaussian_raster backward, 3000 gaussians at {hw[0]}x{hw[1]}: error of "
+        print(f"kernel gaussian_raster backward, {what} at {hw[0]}x{hw[1]}: error of "
               f"the largest gradient {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} (tol "
-              f"1e-4); a second run bitwise equal: {bitwise}", flush=True)
+              f"1e-4){note}; a second run bitwise equal: {bitwise}", flush=True)
         check(max(rel.values()) <= 1e-4, f"the raster backward disagrees at {hw}")
         check(bitwise, f"the raster backward's second run at {hw} differs in its bits")
         bwd_errs.append(max(rel.values()))
-    bwd_call = (s_small, *bargs, grads["grad_color"], grads["grad_depth"], grads["grad_alpha"],
-                t["features"], grads["grad_feature"])
+        bwd_calls[hw] = (s_bwd, *bargs, grads["grad_color"], grads["grad_depth"],
+                         grads["grad_alpha"], t["features"], grads["grad_feature"])
 
     print(f"factory kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
     # device times a frame, beside the plain versions' and a bytes bound
@@ -3601,33 +3680,62 @@ def factory_kernel_checks(g, data: Path, t0: float):
     dyn_bytes = cloud.numel() * 4 + len(cloud) * 3 * 4
     n_g = len(centers)
     fwd_bytes = n_g * (3 + 3 + 1 + 3 + 4 + 12) * 4 + 17 * math.prod(FACTORY_RENDER) * 4 + n_g * 4
-    hw_b = (61, 93)
-    bwd_bytes = (3000 * (3 + 3 + 1 + 3 + 4 + 12) * 4 * 2 + 17 * math.prod(hw_b) * 4)
-    for name, src, line, fn, plain, call, nbytes_, err in (
+    # the gaussians read and their gradients written, the 17 gradient planes read
+    bwd_bytes = lambda n, hw: n * (3 + 3 + 1 + 3 + 4 + 12) * 4 * 2 + 17 * math.prod(hw) * 4
+    for name, src, line, fn, plain, call, nbytes_, err, host in (
             ("voxelize_hard", "voxelize.cu", "orv_tpu/ops/native/voxelize.cpp:94", hard,
              lambda c: voxelize_mod.voxelization_plain(c, *vox_args, 16, 2_000_000), (cloud,),
-             vox_bytes, 0.0),
+             vox_bytes, 0.0, "hard_voxelize"),
             ("voxelize_dynamic", "voxelize.cu", "orv_tpu/ops/native/voxelize.cpp:59",
              lambda c: voxelize_mod.voxelization(c, *vox_args, max_points=-1),
              lambda c: voxelize_mod.voxelization_plain(c, *vox_args, max_points=-1), (cloud,),
-             dyn_bytes, 0.0),
+             dyn_bytes, 0.0, None),
             ("gaussian_raster_fwd", "gaussian_raster.cu",
              "orv_tpu/ops/native/gaussian_raster.cpp:205",
              lambda *a: raster_mod.rasterize(settings, *a),
-             lambda *a: raster_mod.rasterize_plain(settings, *a), args, fwd_bytes, fwd_err),
+             lambda *a: raster_mod.rasterize_plain(settings, *a), args, fwd_bytes, fwd_err,
+             "rasterize"),
             ("gaussian_raster_bwd", "gaussian_raster.cu",
              "orv_tpu/ops/native/gaussian_raster.cpp:264",
-             raster_mod.rasterize_backward, raster_mod.rasterize_backward_plain, bwd_call,
-             bwd_bytes, max(bwd_errs))):
-        ms = profiled_ms(fn, [call], 10)
-        plain_ms = profiled_ms(plain, [call], 1)  # thousands of small kernels a call
-        print(f"split {name}: " + device_split(fn, call), flush=True)
+             raster_mod.rasterize_backward, raster_mod.rasterize_backward_plain,
+             bwd_calls[FACTORY_RENDER], bwd_bytes(n_g, FACTORY_RENDER), max(bwd_errs),
+             "rasterize")):
+        waits = list(_build.host_waits.get(host, [0, 0.0]))
+        kernels = profiled_events(fn, [call], 10)
+        ms = sum(kernels.values()) / 1e3
+        print(f"split {name}: " + factory_split(kernels, host, waits), flush=True)
+        # thousands of small kernels a call: one call, no warm-up (a lost first
+        # kernel is noise there, and the profiler's own work grows with the kernels)
+        plain_ms = profiled_ms(plain, [call], 1, warmup=0)
         bound, by = bound_ms(nbytes_)
         records.append(dict(name=name, route="cuda", source=f"orv_tpu_torch/ops/csrc/{src}",
                             replaces=line, launches=0, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None))
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
               f"({by}), library none (device time by torch.profiler)", flush=True)
+    # the device-wide scan alone, at a frame's points (the grouping scans its head flags)
+    flags = (torch.arange(len(cloud), device="cuda") % 3 == 0).int()
+    got, total = scan_mod.exclusive_scan(flags)
+    want, want_total = scan_mod.exclusive_scan_plain(flags)
+    check(torch.equal(got, want) and torch.equal(total, want_total),
+          "the device-wide scan disagrees with torch.cumsum")
+    ms = profiled_ms(scan_mod.exclusive_scan, [(flags,)], 10)
+    lib = profiled_ms(lambda x: torch.cumsum(x, 0, dtype=torch.int32), [(flags,)], 10)
+    print(f"time exclusive_scan of {len(flags)} int32: kernel {ms:.4f} ms "
+          f"({scan_mod.scan_blocks(len(flags))} blocks, bitwise equal to torch.cumsum), "
+          f"torch.cumsum {lib:.4f} ms, bound "
+          f"{bound_ms(len(flags) * 4 * 2)[0]:.4f} ms (bytes)", flush=True)
+    # the backward at the small scene's shape too (3000 gaussians, 61x93)
+    hw = (61, 93)
+    waits = list(_build.host_waits.get("rasterize", [0, 0.0]))
+    split = profiled_events(raster_mod.rasterize_backward, [bwd_calls[hw]], 10)
+    ms = sum(split.values()) / 1e3
+    bound, by = bound_ms(bwd_bytes(3000, hw))
+    records[-1].update(small_shape=[3000, *hw], small_ms=ms, small_bound_ms=bound)
+    print(f"split gaussian_raster_bwd at 3000 gaussians, {hw[0]}x{hw[1]}: "
+          + factory_split(split, "rasterize", waits), flush=True)
+    print(f"time gaussian_raster_bwd at 3000 gaussians, {hw[0]}x{hw[1]}: kernel {ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}) (device time by torch.profiler)", flush=True)
     return records
 
 
@@ -3648,27 +3756,40 @@ def spawned_workers_skip_this_script():
             main.__file__ = path
 
 
-def device_split(fn, call, n: int = 5, top: int = 6) -> str:
-    """A call's device time by kernel (torch.profiler, the mean of n calls),
-    the largest first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# the factory kernels' parts, by kernel name, for the split lines
+FACTORY_PARTS = (("cells", ("voxel_cells_kernel",)),
+                 ("scan", ("scan_reduce_kernel", "scan_apply_kernel")),
+                 ("grouping", ("voxel_insert_kernel", "voxel_fill_kernel")),
+                 ("scatter", ("voxel_scatter_kernel",)),
+                 ("preprocess", ("preprocess_kernel",)),
+                 ("binning", ("tile_fill_kernel",)),
+                 ("per-tile sort", ("tile_sort_kernel",)),
+                 ("blend", ("forward_kernel",)),
+                 ("backward blend", ("backward_kernel",)),
+                 ("backward sums", ("backward_sum_kernel", "backward_geom_kernel")))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn(*call)
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", ""))[0]
-            name = name.split("::")[-1].replace("void ", "").strip()[:40]
-            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / n
-    if not by:  # a diagnostic line, not a check: the times above are checked
-        return "torch.profiler recorded no device events for these calls"
-    parts = sorted(by.items(), key=lambda kv: -kv[1])[:top]
-    return (f"{sum(by.values()) / 1e3:.4f} ms a call in {len(by)} kinds: "
-            + ", ".join(f"{k} {v / 1e3:.4f}" for k, v in parts))
+
+def factory_split(by: dict, host, waits) -> str:
+    """A call's device time by part (`profiled_events`' {kernel: us}:
+    FACTORY_PARTS, memsets and any other kernel by name), and the host's
+    wait in the wrapper's count read since `waits` (`_build.host_waits[host]`
+    before the calls)."""
+    by = dict(by)
+    total = sum(by.values())
+    parts = []
+    for part, names in FACTORY_PARTS:
+        got = {k: by.pop(k) for k in names if k in by}
+        if got:
+            inner = ", ".join(f"{k} {v / 1e3:.4f}" for k, v in got.items())
+            parts.append(f"{part} {sum(got.values()) / 1e3:.4f} ({inner})")
+    parts += [f"{k} {v / 1e3:.4f}" for k, v in sorted(by.items(), key=lambda kv: -kv[1])]
+    line = f"{total / 1e3:.4f} ms a call: " + ", ".join(parts)
+    if host:
+        got = _build.host_waits.get(host, [0, 0.0])
+        reads, secs = got[0] - waits[0], got[1] - waits[1]
+        line += (f"; the host waits {secs / max(reads, 1) * 1e6:.1f} us a call in its count "
+                 f"read ({reads} reads)")
+    return line
 
 
 def factory_counts():

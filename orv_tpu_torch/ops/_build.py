@@ -35,6 +35,9 @@ _count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 _counted: Dict[str, object] = {}  # "module:qualname" -> every wrapper `count` has seen
+# a wrapper's reads of a device count that sizes its outputs: name -> [reads,
+# seconds the host waited in them (the stream's earlier work included)]
+host_waits: Dict[str, List[float]] = {}
 build_log = ""  # ptxas register/spill report of the last build
 build_seconds = 0.0
 
@@ -115,6 +118,18 @@ def count(wrapper) -> None:
     with _count_lock:
         wrapper.launches += 1
         _counted[f"{wrapper.__module__}:{wrapper.__qualname__}"] = wrapper
+
+
+def read_int(t, name: str) -> int:
+    """int(t.item()) of a one-element device tensor, its wait added to
+    `host_waits[name]`."""
+    t0 = time.perf_counter()
+    v = int(t.item())
+    with _count_lock:
+        w = host_waits.setdefault(name, [0, 0.0])
+        w[0] += 1
+        w[1] += time.perf_counter() - t0
+    return v
 
 
 def launch_counts() -> Dict[str, int]:

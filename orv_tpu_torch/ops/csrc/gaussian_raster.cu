@@ -16,29 +16,47 @@
 //   (a) preprocess_kernel, one thread a gaussian: gaussian_raster.cpp:87-176
 //       in f32 (near cull at tz < 0.2, EWA with the 1.3 tan-fov clamp and
 //       the 0.3 low-pass, det <= 0 cull, radius ceil(3 sqrt(lambda)), the
-//       pixel rectangle with C's (int) truncation of pix_x), and the number
-//       of 16x16 tiles it touches; a one-block scan gives each gaussian its
-//       first key slot;
-//   (b) emit_keys_kernel writes one (tile << 32 | depth bits) key a touched
-//       tile, in gaussian order; the wrapper sorts them stably (torch.sort),
-//       so equal depths keep gaussian-index order (the C++'s std::sort leaves
-//       them unspecified); tile_ranges_kernel finds each tile's run;
-//   (c) forward_kernel, one 256-thread block a tile, one thread a pixel:
-//       splats staged through shared memory in batches of 256, blended front
-//       to back exactly as :228-255 (skip power > 0 or alpha < 1/255, alpha
-//       = min(0.99, o exp(power)), stop after the splat that takes T below
-//       1e-4, background on color only); the block leaves when every pixel
-//       is done;
+//       pixel rectangle with C's (int) truncation of pix_x), the number of
+//       16x16 tiles it touches, and the tiles' key counts (one atomicAdd for
+//       the lanes of a warp that touch a tile); one device-wide scan (scan.cuh) of (tiles touched,
+//       tile count) pairs gives each gaussian its first key slot and each
+//       tile its range of the key list: a counting sort by tile, no library
+//       sort;
+//   (b) after one read of the key count to size the list, tile_fill_kernel
+//       writes each (depth bits, gaussian) key into its tiles' ranges
+//       (unordered: an atomicSub on the tile's count a warp), and
+//       tile_sort_kernel, one block a tile, sorts the tile's keys as 64-bit
+//       words in shared memory (bitonic): by depth, equal depths in
+//       gaussian-index order (the C++'s std::sort leaves them unspecified),
+//       the order the plain version's stable sort gives. A list longer than kSortCap keys is
+//       sorted in chunks of kSortCap, written back, and merged by rank (each
+//       key's place in its chunk plus its lower bound in every other chunk).
+//       The block also writes the tile's range and, for the backward, each
+//       key's sorted place by the slot its gaussian's keys take in gaussian
+//       order (slot_of);
+//   (c) forward_kernel, one 256-thread block a tile, one thread a pixel (a
+//       warp an 8x4 pixel block): each batch of 256 splats is staged in
+//       shared memory whole (position, conic, opacity, depth, colour, the 12
+//       features), so a pixel reads nothing of a splat from device memory;
+//       with it, the power below which opacity * exp(power) < 1/255 for sure
+//       (a 1% margin in the exponent) and that region's bounding box (1%
+//       and one pixel wider): each warp lists, by ballot, the batch's
+//       splats whose box meets its 8x4 pixels and walks only those, and a
+//       pixel whose power lies below skips the exp. Both skip only splats
+//       the C++ skips (power > 0 or alpha < 1/255), so the blended splats,
+//       and the arithmetic on them, are the C++'s
+//       (:228-255: alpha = min(0.99, o exp(power)), stop after the splat that
+//       takes T below 1e-4, background on color only); the block leaves when
+//       every pixel is done;
 //   (d) backward_kernel walks each pixel's splats twice (:308-384): once for
 //       the final transmittance and the total payload, once for each splat's
 //       gradients. Each splat's gradients are summed over the tile's pixels
 //       in a fixed order (a shuffle tree in each warp, then the warps in
 //       order through shared memory) into the splat's slot of the sorted key
 //       list, one slot a (tile, gaussian); backward_sum_kernel, one thread a
-//       gaussian, adds its slots in the order emit_keys_kernel wrote them
-//       (its tiles row by row), found through the inverse of the sort's
-//       permutation. No atomics: two runs give the same bits, as the C++'s
-//       serial scatter does (:264). backward_geom_kernel, one thread a
+//       gaussian, adds its slots in its tiles' order, row by row, found
+//       through the slot map of (b). No atomics: two runs give the same
+//       bits, as the C++'s serial scatter does (:264). backward_geom_kernel, one thread a
 //       gaussian, recomputes the preprocess and takes conic -> cov2D ->
 //       cov3D -> quaternion, scale and means (:390-537).
 // Built with -fmad=false (ops/_build.py:SOURCE_FLAGS) and expf, not __expf:
@@ -182,69 +200,195 @@ __device__ void preprocess_one(const float* __restrict__ means3d,
   g.qlen = qlen;
 }
 
+// Lane l's k-th tile of rect r (row by row), -1 past its count. The warp's
+// lanes that name the same tile act as one: the lowest adds their number
+// (a splat's neighbours in index order are mostly its neighbours on the
+// image, so a warp names a few tiles where it would add 32 times).
+__device__ __forceinline__ int rect_tile(int4 r, int cnt, int k, int tiles_x) {
+  if (k >= cnt) return -1;
+  const int w = r.y - r.x + 1;
+  return (r.z + k / w) * tiles_x + r.x + k % w;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // xy [n, 2], conic_op [n, 4] (conic, opacity), depth [n], rect [n, 4]
-// (tile x0, x1, y0, y1 inclusive), touched [n].
+// (tile x0, x1, y0, y1 inclusive), touched [n]; tile_count [tiles] (zero on
+// entry) counts each tile's keys. Every lane reaches the warp's tile counts.
 __global__ void __launch_bounds__(256)
 preprocess_kernel(const float* __restrict__ means3d, const float* __restrict__ scales,
                   const float* __restrict__ rotations, const float* __restrict__ opacities, int n,
                   Cam c, int* __restrict__ radii, float2* __restrict__ xy,
                   float4* __restrict__ conic_op, float* __restrict__ depth,
-                  int4* __restrict__ rect, int* __restrict__ touched) {
+                  int4* __restrict__ rect, int* __restrict__ touched,
+                  int* __restrict__ tile_count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Geo g;
-  preprocess_one(means3d, scales, rotations, i, c, g);
-  radii[i] = g.radius;
-  if (!g.valid) {
-    touched[i] = 0;
-    return;
+  int4 r = make_int4(0, 0, 0, 0);
+  int cnt = 0;
+  if (i < n) {
+    Geo g;
+    preprocess_one(means3d, scales, rotations, i, c, g);
+    radii[i] = g.radius;
+    if (g.valid) {
+      xy[i] = make_float2(g.px, g.py);
+      conic_op[i] = make_float4(g.conic[0], g.conic[1], g.conic[2], opacities[i]);
+      depth[i] = g.tz;
+      r = make_int4(g.x0 / kTile, (g.x1 - 1) / kTile, g.y0 / kTile, (g.y1 - 1) / kTile);
+      rect[i] = r;
+      cnt = (r.y - r.x + 1) * (r.w - r.z + 1);
+    }
+    touched[i] = cnt;
   }
-  xy[i] = make_float2(g.px, g.py);
-  conic_op[i] = make_float4(g.conic[0], g.conic[1], g.conic[2], opacities[i]);
-  depth[i] = g.tz;
-  const int4 r = make_int4(g.x0 / kTile, (g.x1 - 1) / kTile, g.y0 / kTile, (g.y1 - 1) / kTile);
-  rect[i] = r;
-  touched[i] = (r.y - r.x + 1) * (r.w - r.z + 1);
+  const int lane = threadIdx.x & 31, most = warp_max(cnt);
+  for (int k = 0; k < most; ++k) {
+    const int t = rect_tile(r, cnt, k, c.tiles_x);
+    const unsigned peers = __match_any_sync(0xffffffffu, t);
+    if (t >= 0 && lane == __ffs(peers) - 1) atomicAdd(&tile_count[t], __popc(peers));
+  }
 }
 
+// The scan's element k: (tiles gaussian k touches, keys of tile k).
+struct BinLoad {
+  const int* touched;
+  const int* tile_count;
+  int n, n_tiles;
+  __device__ __forceinline__ Int2 operator()(int k) const {
+    return {k < n ? touched[k] : 0, k < n_tiles ? tile_count[k] : 0};
+  }
+};
+
+// offsets[k]: gaussian k's first key slot; tile_start[k]: tile k's first key
+// (k <= n_tiles: tile_start[n_tiles] is the key count).
+struct BinStore {
+  int* offsets;
+  int* tile_start;
+  int n, n_tiles;
+  __device__ __forceinline__ void operator()(int k, Int2 excl, Int2) const {
+    if (k < n) offsets[k] = excl.x;
+    if (k <= n_tiles) tile_start[k] = excl.y;
+  }
+};
+
+// One (depth bits << 32 | gaussian) key a touched tile, into the tile's
+// range in no particular order (tile_count counts down to 0; the lanes of
+// a warp that name one tile take one atomicSub). Every lane reaches it.
 __global__ void __launch_bounds__(256)
-emit_keys_kernel(int n, const int* __restrict__ touched, const int* __restrict__ offsets,
-                 const int4* __restrict__ rect, const float* __restrict__ depth, int tiles_x,
-                 long long* __restrict__ keys, int* __restrict__ vals) {
+tile_fill_kernel(int n, const int* __restrict__ touched, const int4* __restrict__ rect,
+                 const float* __restrict__ depth, int tiles_x, const int* __restrict__ tile_start,
+                 int* __restrict__ tile_count, unsigned long long* __restrict__ list) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || touched[i] == 0) return;
-  int off = offsets[i];
-  const int4 r = rect[i];
-  const long long dbits = (long long)__float_as_uint(depth[i]);  // depth >= 0.2: ordered bits
-  for (int ty = r.z; ty <= r.w; ++ty)
-    for (int tx = r.x; tx <= r.y; ++tx) {
-      keys[off] = ((long long)(ty * tiles_x + tx) << 32) | dbits;
-      vals[off] = i;
-      ++off;
+  const int cnt = i < n ? touched[i] : 0;
+  const int4 r = cnt ? rect[i] : make_int4(0, 0, 0, 0);
+  // depth >= 0.2: its bits order as the floats do
+  const unsigned long long key =
+      cnt ? ((unsigned long long)__float_as_uint(depth[i]) << 32) | (unsigned)i : 0ull;
+  const int lane = threadIdx.x & 31, most = warp_max(cnt);
+  for (int k = 0; k < most; ++k) {
+    const int t = rect_tile(r, cnt, k, tiles_x);
+    const unsigned peers = __match_any_sync(0xffffffffu, t);
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if (t >= 0 && lane == leader) base = atomicSub(&tile_count[t], __popc(peers)) - __popc(peers);
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (t >= 0) list[tile_start[t] + base + __popc(peers & ((1u << lane) - 1))] = key;
+  }
+}
+
+constexpr int kSortThreads = 256;
+constexpr int kSortCap = 4096;  // keys a block sorts in shared memory (32 KB)
+
+// Ascending bitonic sort of s[0..cap), cap a power of two, by the block.
+// Thread p mod blockDim swaps pair p; at a distance j <= 32 the pairs
+// 32q..32q+31 hold keys 64q..64q+63 only, all of one warp's, so two such
+// steps in a row need only the warp's barrier.
+__device__ void bitonic_sort(unsigned long long* s, int cap) {
+  for (int k = 2; k <= cap; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = threadIdx.x; p < cap >> 1; p += blockDim.x) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+        const int l = i | j;
+        const unsigned long long a = s[i], b = s[l];
+        if ((a > b) == ((i & k) == 0)) {
+          s[i] = b;
+          s[l] = a;
+        }
+      }
+      const int next = j > 1 ? j >> 1 : k;  // the next step's distance
+      if (j <= 32 && next <= 32) __syncwarp();
+      else __syncthreads();
     }
 }
 
-__global__ void __launch_bounds__(256)
-clear_ranges_kernel(int n_tiles, int2* __restrict__ ranges) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n_tiles) ranges[t] = make_int2(0, 0);
+// The key at sorted place p of tile (tx, ty): its gaussian into point_list
+// and, for the backward, p into the slot its gaussian's keys take in
+// gaussian order (its tiles row by row).
+__device__ __forceinline__ void emit_key(int p, unsigned long long key, int tx, int ty,
+                                         const int* __restrict__ offsets,
+                                         const int4* __restrict__ rect,
+                                         int* __restrict__ point_list, int* __restrict__ slot_of) {
+  const int idx = (int)(unsigned)key;
+  point_list[p] = idx;
+  if (slot_of) {
+    const int4 r = rect[idx];
+    slot_of[offsets[idx] + (ty - r.z) * (r.y - r.x + 1) + (tx - r.x)] = p;
+  }
 }
 
-// skeys sorted, perm their positions before the sort: point_list[k] is the
-// gaussian of sorted key k, ranges[tile] its [start, end).
-__global__ void __launch_bounds__(256)
-tile_ranges_kernel(const long long* __restrict__ skeys, const long long* __restrict__ perm,
-                   const int* __restrict__ vals, int total, int2* __restrict__ ranges,
-                   int* __restrict__ point_list) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= total) return;
-  point_list[k] = vals[perm[k]];
-  const int tile = (int)(skeys[k] >> 32);
-  if (k == 0 || (int)(skeys[k - 1] >> 32) != tile) ranges[tile].x = k;
-  if (k == total - 1 || (int)(skeys[k + 1] >> 32) != tile) ranges[tile].y = k + 1;
+// One block a tile: its keys list[start, end) sorted (see (b) above);
+// ranges[tile] = (start, end). slot_of may be null (no backward).
+__global__ void __launch_bounds__(kSortThreads)
+tile_sort_kernel(const int* __restrict__ tile_start, unsigned long long* list, int tiles_x,
+                 const int* __restrict__ offsets, const int4* __restrict__ rect,
+                 int2* __restrict__ ranges, int* __restrict__ point_list,
+                 int* __restrict__ slot_of) {
+  __shared__ unsigned long long s[kSortCap];
+  const int t = blockIdx.x, tx = t % tiles_x, ty = t / tiles_x;
+  const int start = tile_start[t], len = tile_start[t + 1] - start;
+  if (threadIdx.x == 0) ranges[t] = make_int2(start, start + len);
+  const bool chunked = len > kSortCap;
+  for (int c0 = 0; c0 < len; c0 += kSortCap) {
+    const int clen = min(kSortCap, len - c0);
+    int cap = 1;
+    while (cap < clen) cap <<= 1;
+    __syncthreads();  // the previous chunk is out of s
+    for (int k = threadIdx.x; k < cap; k += blockDim.x)
+      s[k] = k < clen ? list[start + c0 + k] : ~0ull;
+    __syncthreads();
+    bitonic_sort(s, cap);
+    for (int k = threadIdx.x; k < clen; k += blockDim.x) {
+      if (chunked) list[start + c0 + k] = s[k];
+      else emit_key(start + k, s[k], tx, ty, offsets, rect, point_list, slot_of);
+    }
+  }
+  if (!chunked) return;
+  // a long list: each key's place is its place in its chunk plus, in every
+  // other chunk, the number of keys below it (keys are distinct)
+  __syncthreads();  // the sorted chunks in list, written by this block
+  const int n_chunks = (len + kSortCap - 1) / kSortCap;
+  for (int k = threadIdx.x; k < len; k += blockDim.x) {
+    const unsigned long long key = list[start + k];
+    const int c = k / kSortCap;
+    int pos = k - c * kSortCap;
+    for (int c2 = 0; c2 < n_chunks; ++c2) {
+      if (c2 == c) continue;
+      const unsigned long long* q = list + start + c2 * kSortCap;
+      int lo = 0, hi = min(kSortCap, len - c2 * kSortCap);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (q[mid] < key) lo = mid + 1;
+        else hi = mid;
+      }
+      pos += lo;
+    }
+    emit_key(start + pos, key, tx, ty, offsets, rect, point_list, slot_of);
+  }
 }
 
-// One batch of splats in shared memory.
+// One batch of splats in shared memory (the backward's).
 struct Batch {
   int id[kBlock];
   float2 xy[kBlock];
@@ -273,6 +417,72 @@ __device__ __forceinline__ float splat_power(float2 p, float4 co, float x, float
   return -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
 }
 
+// The forward's batch: all a pixel reads of a splat.
+struct BlendBatch {
+  float4 box[kBlock];    // x lo, x hi, y lo, y hi of the region a splat can reach
+  float4 pos[kBlock];    // pix_x, pix_y, the skip power, opacity
+  float4 conic[kBlock];  // conic (3), depth
+  float4 color[kBlock];  // rgb, unused
+  float4 feat[kBlock][kFeat / 4];
+};
+
+constexpr float kSkipMargin = 0.01f;  // of the skip power's exponent
+
+// Stages splat k of the tile's list into slot threadIdx.x. Where opacity o
+// is finite and >= 1/255, o * exp(power) < 1/255 for every power below
+// log((1/255) / o) - kSkipMargin: the skip power; the pixels with power at
+// least that lie in the ellipse d' C d <= -2 * skip power, whose bounding box
+// (1% and one pixel wider) is the splat's box. A finite o below 1/255 never
+// reaches 1/255 (an empty box); a NaN or infinite o is never skipped.
+__device__ __forceinline__ void load_blend(BlendBatch& sb, const int* __restrict__ point_list,
+                                           const float2* __restrict__ xy,
+                                           const float4* __restrict__ conic_op,
+                                           const float* __restrict__ depth,
+                                           const float* __restrict__ colors,
+                                           const float* __restrict__ features, bool feat_vec,
+                                           int k, int end) {
+  if (k >= end) return;
+  const int j = threadIdx.x;
+  const int id = point_list[k];
+  const float2 p = xy[id];
+  const float4 co = conic_op[id];
+  const float o = co.w;
+  const float kInf = __int_as_float(0x7f800000);
+  float skip = -kInf;
+  float4 box = make_float4(-kInf, kInf, -kInf, kInf);
+  if (isfinite(o)) {
+    if (o < 1.0f / 255.0f) {
+      skip = kInf;
+      box = make_float4(kInf, -kInf, kInf, -kInf);
+    } else {
+      skip = logf((1.0f / 255.0f) / o) - kSkipMargin;
+      const float det = co.x * co.z - co.y * co.y;
+      if (det > 0.0f) {
+        const float r2 = -2.0f * skip;
+        const float hx = 1.01f * sqrtf(r2 * co.z / det) + 1.0f;
+        const float hy = 1.01f * sqrtf(r2 * co.x / det) + 1.0f;
+        if (isfinite(hx) && isfinite(hy)) box = make_float4(p.x - hx, p.x + hx, p.y - hy, p.y + hy);
+      }
+    }
+  }
+  sb.box[j] = box;
+  sb.pos[j] = make_float4(p.x, p.y, skip, o);
+  sb.conic[j] = make_float4(co.x, co.y, co.z, depth[id]);
+  const float* col = colors + 3LL * id;
+  sb.color[j] = make_float4(col[0], col[1], col[2], 0.0f);
+  if (features) {
+    const float* f = features + (long long)kFeat * id;
+    if (feat_vec) {
+#pragma unroll
+      for (int q = 0; q < kFeat / 4; ++q) sb.feat[j][q] = reinterpret_cast<const float4*>(f)[q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < kFeat / 4; ++q)
+        sb.feat[j][q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kBlock)
 forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_list,
                const float2* __restrict__ xy, const float4* __restrict__ conic_op,
@@ -280,11 +490,18 @@ forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_li
                const float* __restrict__ features, Cam c, float* __restrict__ out_color,
                float* __restrict__ out_feature, float* __restrict__ out_depth,
                float* __restrict__ out_alpha) {
-  __shared__ Batch sb;
+  __shared__ BlendBatch sb;
+  __shared__ unsigned short meets[kBlock / 32][kBlock];  // a warp's splats of the batch
   const int tile = blockIdx.x;
-  const int x = (tile % c.tiles_x) * kTile + threadIdx.x % kTile;
-  const int y = (tile / c.tiles_x) * kTile + threadIdx.x / kTile;
+  // a warp an 8x4 block of the tile's pixels
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wx0 = (tile % c.tiles_x) * kTile + (warp & 1) * 8;
+  const int wy0 = (tile / c.tiles_x) * kTile + (warp >> 1) * 4;
+  const int x = wx0 + (lane & 7), y = wy0 + (lane >> 3);
+  const float fwx0 = (float)wx0, fwx1 = (float)(wx0 + 7), fwy0 = (float)wy0,
+              fwy1 = (float)(wy0 + 3);
   const bool inside = x < c.width && y < c.height;
+  const bool feat_vec = (reinterpret_cast<uintptr_t>(features) & 15) == 0;
   const int2 range = ranges[tile];
   bool done = !inside;
   float T = 1.0f, acc_c[3] = {0.0f, 0.0f, 0.0f}, acc_f[kFeat], acc_d = 0.0f;
@@ -293,28 +510,51 @@ forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_li
   const float fx = (float)x, fy = (float)y;
   for (int base = range.x; base < range.y; base += kBlock) {
     if (__syncthreads_count(done) == kBlock) break;
-    load_batch(sb, point_list, xy, conic_op, depth, base + threadIdx.x, range.y);
+    load_blend(sb, point_list, xy, conic_op, depth, colors, features, feat_vec,
+               base + threadIdx.x, range.y);
     __syncthreads();
     const int m = min(kBlock, range.y - base);
-    for (int j = 0; j < m && !done; ++j) {
-      const float4 co = sb.conic_op[j];
+    // the batch's splats whose box meets the warp's pixels, in list order
+    int nw = 0;
+    if (!__all_sync(0xffffffffu, done)) {
+      for (int c0 = 0; c0 < m; c0 += 32) {
+        const int j = c0 + lane;
+        bool hit = false;
+        if (j < m) {
+          const float4 b = sb.box[j];
+          hit = !(fwx1 < b.x || fwx0 > b.y || fwy1 < b.z || fwy0 > b.w);
+        }
+        const unsigned ball = __ballot_sync(0xffffffffu, hit);
+        if (hit) meets[warp][nw + __popc(ball & ((1u << lane) - 1))] = (unsigned short)j;
+        nw += __popc(ball);
+      }
+      __syncwarp();
+    }
+    for (int q = 0; q < nw && !done; ++q) {
+      const int j = meets[warp][q];
+      const float4 p = sb.pos[j];
+      const float4 co = sb.conic[j];
       float dx, dy;
-      const float power = splat_power(sb.xy[j], co, fx, fy, dx, dy);
-      if (power > 0.0f) continue;
-      const float alpha = fminf(0.99f, co.w * expf(power));
+      const float power = splat_power(make_float2(p.x, p.y), co, fx, fy, dx, dy);
+      if (power > 0.0f || power < p.z) continue;
+      const float alpha = fminf(0.99f, p.w * expf(power));
       if (alpha < 1.0f / 255.0f) continue;
       const float w = alpha * T;
-      const int id = sb.id[j];
-      const float* col = colors + 3LL * id;
-      acc_c[0] += w * col[0];
-      acc_c[1] += w * col[1];
-      acc_c[2] += w * col[2];
+      const float4 col = sb.color[j];
+      acc_c[0] += w * col.x;
+      acc_c[1] += w * col.y;
+      acc_c[2] += w * col.z;
       if (features) {
-        const float* f = features + (long long)kFeat * id;
 #pragma unroll
-        for (int k = 0; k < kFeat; ++k) acc_f[k] += w * f[k];
+        for (int k = 0; k < kFeat / 4; ++k) {
+          const float4 f = sb.feat[j][k];
+          acc_f[4 * k] += w * f.x;
+          acc_f[4 * k + 1] += w * f.y;
+          acc_f[4 * k + 2] += w * f.z;
+          acc_f[4 * k + 3] += w * f.w;
+        }
       }
-      acc_d += w * sb.depth[j];
+      acc_d += w * co.w;
       T *= (1.0f - alpha);
       if (T < 1e-4f) done = true;
     }
@@ -488,13 +728,6 @@ backward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_l
       __syncthreads();
     }
   }
-}
-
-// slot_of[perm[k]] = k: the sorted position of each key emit_keys_kernel wrote.
-__global__ void __launch_bounds__(256)
-invert_perm_kernel(const long long* __restrict__ perm, int total, int* __restrict__ slot_of) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < total) slot_of[perm[k]] = k;
 }
 
 // One thread a gaussian: its tiles' partial sums added in the order its keys
@@ -673,51 +906,52 @@ Cam make_cam(const float* params, int height, int width) {
 
 }  // namespace
 
-// (a) preprocess and the key offsets: params is host memory (38 floats);
-// radii, touched, offsets [n] int32; xy [n, 2], conic_op [n, 4], depth [n]
-// f32; rect [n, 4] int32; total [1] int32 (the key count).
+// (a) preprocess, the tiles' key counts and the scan: params is host memory
+// (38 floats); radii, touched, offsets [n] int32; xy [n, 2], conic_op [n,
+// 4], depth [n] f32; rect [n, 4] int32; tile_count [tiles], tile_start
+// [tiles + 1] int32; block_sums [scan_blocks(max(n, tiles + 1)), 2] int32;
+// total [2] int32 (the key count, twice).
 extern "C" int orv_raster_preprocess(const void* means3d, const void* scales,
                                      const void* rotations, const void* opacities, int n,
                                      const float* params, int height, int width, void* radii,
                                      void* xy, void* conic_op, void* depth, void* rect,
-                                     void* touched, void* offsets, void* total, void* stream) {
+                                     void* touched, void* offsets, void* tile_count,
+                                     void* tile_start, void* block_sums, void* total,
+                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Cam c = make_cam(params, height, width);
+  const int n_tiles = c.tiles_x * c.tiles_y;
+  cudaError_t err = cudaMemsetAsync(tile_count, 0, sizeof(int) * (size_t)n_tiles, s);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     preprocess_kernel<<<blocks_for(n), 256, 0, s>>>(
         (const float*)means3d, (const float*)scales, (const float*)rotations,
         (const float*)opacities, n, c, (int*)radii, (float2*)xy, (float4*)conic_op,
-        (float*)depth, (int4*)rect, (int*)touched);
+        (float*)depth, (int4*)rect, (int*)touched, (int*)tile_count);
   }
-  exclusive_scan_kernel<<<1, kScanThreads, 0, s>>>((const int*)touched, n, (int*)offsets,
-                                                   (int*)total);
+  device_scan<Int2>(BinLoad{(const int*)touched, (const int*)tile_count, n, n_tiles},
+                    BinStore{(int*)offsets, (int*)tile_start, n, n_tiles},
+                    n > n_tiles + 1 ? n : n_tiles + 1, (Int2*)block_sums, (Int2*)total, s);
   return (int)cudaGetLastError();
 }
 
-// (b) the keys of every touched tile: keys [total] int64, vals [total] int32.
-extern "C" int orv_raster_keys(int n, const void* touched, const void* offsets, const void* rect,
-                               const void* depth, int width, void* keys, void* vals,
-                               void* stream) {
-  if (n > 0) {
-    emit_keys_kernel<<<blocks_for(n), 256, 0, (cudaStream_t)stream>>>(
-        n, (const int*)touched, (const int*)offsets, (const int4*)rect, (const float*)depth,
-        (width + kTile - 1) / kTile, (long long*)keys, (int*)vals);
-  }
-  return (int)cudaGetLastError();
-}
-
-// (b) after the stable sort: ranges [tiles] int32 x 2 and point_list [total].
-extern "C" int orv_raster_ranges(const void* skeys, const void* perm, const void* vals, int total,
-                                 int height, int width, void* ranges, void* point_list,
-                                 void* stream) {
+// (b) the tiles' sorted key lists: list [keys] (the keys, in no order, then
+// scratch); ranges [tiles] int32 x 2, point_list [keys] int32 and, where not
+// null, slot_of [keys] int32 (the backward's slot map).
+extern "C" int orv_raster_bin(int n, const void* touched, const void* offsets, const void* rect,
+                              const void* depth, int height, int width, const void* tile_start,
+                              void* tile_count, void* list, void* ranges, void* point_list,
+                              void* slot_of, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int n_tiles = ((width + kTile - 1) / kTile) * ((height + kTile - 1) / kTile);
-  clear_ranges_kernel<<<blocks_for(n_tiles), 256, 0, s>>>(n_tiles, (int2*)ranges);
-  if (total > 0) {
-    tile_ranges_kernel<<<blocks_for(total), 256, 0, s>>>(
-        (const long long*)skeys, (const long long*)perm, (const int*)vals, total, (int2*)ranges,
-        (int*)point_list);
+  const int tiles_x = (width + kTile - 1) / kTile, tiles_y = (height + kTile - 1) / kTile;
+  if (n > 0) {
+    tile_fill_kernel<<<blocks_for(n), 256, 0, s>>>(
+        n, (const int*)touched, (const int4*)rect, (const float*)depth, tiles_x,
+        (const int*)tile_start, (int*)tile_count, (unsigned long long*)list);
   }
+  tile_sort_kernel<<<tiles_x * tiles_y, kSortThreads, 0, s>>>(
+      (const int*)tile_start, (unsigned long long*)list, tiles_x, (const int*)offsets,
+      (const int4*)rect, (int2*)ranges, (int*)point_list, (int*)slot_of);
   return (int)cudaGetLastError();
 }
 
@@ -737,10 +971,9 @@ extern "C" int orv_raster_forward(const void* ranges, const void* point_list, co
 
 // (d) the backward: accum [n, 6] scratch; g_colors, g_opacities,
 // g_means3d, g_scales, g_rotations written whole, g_features too where
-// features and grad_feature are given (else it is not touched). perm [total]
-// int64 is the key sort's permutation, touched and offsets [n] the
-// preprocess's, partial [total, 22] f32 zeroed by the caller and slot_of
-// [total] int32 scratch.
+// features and grad_feature are given (else it is not touched). touched and
+// offsets [n] are the preprocess's, slot_of [keys] the binning's, partial
+// [keys, 22] f32 zeroed by the caller.
 extern "C" int orv_raster_backward(const void* ranges, const void* point_list, const void* xy,
                                    const void* conic_op, const void* depth, const void* means3d,
                                    const void* scales, const void* rotations, const void* colors,
@@ -749,8 +982,8 @@ extern "C" int orv_raster_backward(const void* ranges, const void* point_list, c
                                    const void* grad_depth, const void* grad_alpha, void* accum,
                                    void* g_means3d, void* g_colors, void* g_features,
                                    void* g_opacities, void* g_scales, void* g_rotations,
-                                   const void* perm, const void* touched, const void* offsets,
-                                   int total, void* partial, void* slot_of, void* stream) {
+                                   const void* touched, const void* offsets, const void* slot_of,
+                                   void* partial, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Cam c = make_cam(params, height, width);
   const bool with_feat = features != nullptr && grad_feature != nullptr;
@@ -759,9 +992,6 @@ extern "C" int orv_raster_backward(const void* ranges, const void* point_list, c
       (const float*)depth, (const float*)colors, (const float*)features, c,
       (const float*)grad_color, (const float*)grad_feature, (const float*)grad_depth,
       (const float*)grad_alpha, (float*)partial);
-  if (total > 0)
-    invert_perm_kernel<<<blocks_for(total), 256, 0, s>>>((const long long*)perm, total,
-                                                        (int*)slot_of);
   if (n > 0) {
     backward_sum_kernel<<<blocks_for(n), 256, 0, s>>>(
         n, (const int*)touched, (const int*)offsets, (const int*)slot_of,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from orv_tpu_torch.ops import _build
+from orv_tpu_torch.ops.scan import scan_blocks
 
 NUM_FEATURE_CHANNELS = 12
 TILE = 16
@@ -174,6 +175,39 @@ def _geometry_plain(settings, means3d, scales, rotations):
                 px=pix_x, py=pix_y, depth=tz, conic=conic, rect=rect)
 
 
+def bin_plain(settings, means3d, scales, rotations):
+    """Plain version of the kernels' binning (`_bin`): {ranges [tiles, 2],
+    point_list [keys], touched [n], offsets [n], slot_of [keys]} int32. Each
+    valid gaussian emits one key a tile of its rectangle, row by row, in
+    gaussian order (offsets[i] on); a tile's list is its gaussians in depth
+    order, equal depths by index (the order `rasterize_plain` blends in);
+    slot_of maps each emitted key to its place in the lists."""
+    geo = _geometry_plain(settings, means3d, scales, rotations)
+    H, W = settings.image_height, settings.image_width
+    dev = means3d.device
+    n, tiles_x = means3d.shape[0], -(-W // TILE)
+    n_tiles = tiles_x * -(-H // TILE)
+    valid, rect = geo["valid"], geo["rect"].long()
+    width = rect[:, 1] - rect[:, 0] + 1
+    touched = torch.where(valid, width * (rect[:, 3] - rect[:, 2] + 1), torch.zeros_like(width))
+    offsets = torch.cumsum(touched, 0) - touched
+    m = int(touched.sum())
+    g = torch.repeat_interleave(torch.arange(n, device=dev), touched)
+    j = torch.arange(m, device=dev) - offsets[g]
+    tile = (rect[g, 2] + j // width[g]) * tiles_x + rect[g, 0] + j % width[g]
+    idx = torch.nonzero(valid).flatten()
+    order = idx[torch.sort(geo["depth"].detach()[idx], stable=True).indices]
+    rank = torch.empty(n, dtype=torch.long, device=dev)
+    rank[order] = torch.arange(len(order), device=dev)
+    perm = torch.argsort(tile * max(n, 1) + rank[g])  # distinct keys
+    slot_of = torch.empty(m, dtype=torch.long, device=dev)
+    slot_of[perm] = torch.arange(m, device=dev)
+    count = torch.bincount(tile, minlength=n_tiles)
+    start = torch.cumsum(count, 0) - count
+    return dict(ranges=torch.stack([start, start + count], 1).int(), point_list=g[perm].int(),
+                touched=touched.int(), offsets=offsets.int(), slot_of=slot_of.int())
+
+
 def _blend_tile_plain(xs, ys, px, py, conic, opac, depth, colors, features):
     """One tile's pixels (xs, ys [P] f32) over its splats in depth order:
     (acc color [P,3], acc feature [P,12] or None, acc depth [P], T [P]),
@@ -245,12 +279,12 @@ def rasterize_plain(settings, means3d, colors, opacities, scales, rotations, fea
 # ---------------------------------------------------------------------------
 
 _PRE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-             + [ctypes.c_void_p] * 9)
-_KEYS_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-_RANGES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+             + [ctypes.c_void_p] * 12)
+_BIN_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 7)
 _FWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5)
 _BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-             + [ctypes.c_void_p] * 14 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+             + [ctypes.c_void_p] * 16)
 _GRAD_SLOT = 3 + 1 + 6 + NUM_FEATURE_CHANNELS  # a (tile, gaussian) key's partial sums
 
 
@@ -259,11 +293,23 @@ def _host_params(settings):
     return arr, ctypes.addressof(arr)
 
 
-def _bin(settings, means3d, scales, rotations, opacities):
+# keys a block of tile_sort_kernel sorts in shared memory (csrc/gaussian_raster.cu: kSortCap)
+TILE_SORT_CAP = 4096
+
+
+def tile_sort_chunks(length: int) -> int:
+    """Chunks tile_sort_kernel sorts a tile's list of `length` keys in: one
+    (sorted in shared memory, written in place) up to TILE_SORT_CAP; past
+    it, sorted chunks of TILE_SORT_CAP keys merged by rank."""
+    return max(1, -(-length // TILE_SORT_CAP))
+
+
+def _bin(settings, means3d, scales, rotations, opacities, with_slots: bool = True):
     """(a) preprocess and (b) binning on the card: radii and the per-gaussian
     blend inputs, the tiles' ranges and the depth-ordered point list; for
-    the backward, each gaussian's key count and first key (`touched`,
-    `offsets`) and the sort's permutation."""
+    the backward (`with_slots`), each gaussian's key count and first key
+    (`touched`, `offsets`) and the sorted place of each of its keys
+    (`slot_of`)."""
     n = means3d.shape[0]
     H, W = settings.image_height, settings.image_width
     dev = means3d.device
@@ -273,30 +319,31 @@ def _bin(settings, means3d, scales, rotations, opacities):
     radii, touched, offsets = (torch.empty((n,), **i32) for _ in range(3))
     xy, conic_op, depth = (torch.empty((n, 2), **f32), torch.empty((n, 4), **f32),
                            torch.empty((n,), **f32))
-    rect, total = torch.empty((n, 4), **i32), torch.empty((1,), **i32)
+    rect = torch.empty((n, 4), **i32)
+    tile_count, tile_start = torch.empty((n_tiles,), **i32), torch.empty((n_tiles + 1,), **i32)
+    block_sums = torch.empty((max(scan_blocks(max(n, n_tiles + 1)), 1), 2), **i32)
+    total = torch.empty((2,), **i32)
     params, params_ptr = _host_params(settings)
     stream = torch.cuda.current_stream().cuda_stream
     err = _build.kernel("orv_raster_preprocess", _PRE_ARGS)(
         means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(), n,
         params_ptr, H, W, radii.data_ptr(), xy.data_ptr(), conic_op.data_ptr(),
         depth.data_ptr(), rect.data_ptr(), touched.data_ptr(), offsets.data_ptr(),
-        total.data_ptr(), stream)
+        tile_count.data_ptr(), tile_start.data_ptr(), block_sums.data_ptr(), total.data_ptr(),
+        stream)
     _build.check(err, "raster preprocess")
-    m = int(total.item())
-    keys, vals = torch.empty((m,), dtype=torch.int64, device=dev), torch.empty((m,), **i32)
-    err = _build.kernel("orv_raster_keys", _KEYS_ARGS)(
-        n, touched.data_ptr(), offsets.data_ptr(), rect.data_ptr(), depth.data_ptr(), W,
-        keys.data_ptr(), vals.data_ptr(), stream)
-    _build.check(err, "raster keys")
-    skeys, perm = torch.sort(keys, stable=True)  # (tile, depth), ties in gaussian order
+    m = _build.read_int(total[0], "rasterize")
+    keys = torch.empty((m,), dtype=torch.int64, device=dev)
     ranges, point_list = torch.empty((n_tiles, 2), **i32), torch.empty((m,), **i32)
-    err = _build.kernel("orv_raster_ranges", _RANGES_ARGS)(
-        skeys.data_ptr(), perm.data_ptr(), vals.data_ptr(), m, H, W, ranges.data_ptr(),
-        point_list.data_ptr(), stream)
-    _build.check(err, "raster ranges")
+    slot_of = torch.empty((m,), **i32) if with_slots else None
+    err = _build.kernel("orv_raster_bin", _BIN_ARGS)(
+        n, touched.data_ptr(), offsets.data_ptr(), rect.data_ptr(), depth.data_ptr(), H, W,
+        tile_start.data_ptr(), tile_count.data_ptr(), keys.data_ptr(), ranges.data_ptr(),
+        point_list.data_ptr(), None if slot_of is None else slot_of.data_ptr(), stream)
+    _build.check(err, "raster bin")
     del params
     return dict(radii=radii, xy=xy, conic_op=conic_op, depth=depth, ranges=ranges,
-                point_list=point_list, touched=touched, offsets=offsets, perm=perm)
+                point_list=point_list, touched=touched, offsets=offsets, slot_of=slot_of)
 
 
 def _forward_kernel(settings, binned, colors, features):
@@ -332,11 +379,10 @@ def _backward_kernel(settings, binned, means3d, colors, opacities, scales, rotat
     dev = means3d.device
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    keys = binned["perm"].shape[0]
+    keys = binned["point_list"].shape[0]
     accum, g_colors, g_feats, g_opac = e(n, 6), e(n, 3), z(n, NUM_FEATURE_CHANNELS), e(n)
     g_means, g_scales, g_rots = e(n, 3), e(n, 3), e(n, 4)
     partial = z(keys, _GRAD_SLOT)
-    slot_of = torch.empty((keys,), dtype=torch.int32, device=dev)
     grads = [None if g is None else g.float().contiguous()
              for g in (grad_color, grad_feature, grad_depth, grad_alpha)]
     for g, shape in zip(grads, ((3, H, W), (NUM_FEATURE_CHANNELS, H, W), (H, W), (H, W))):
@@ -355,9 +401,9 @@ def _backward_kernel(settings, binned, means3d, colors, opacities, scales, rotat
         features.data_ptr() if with_feat else None, n, params_ptr, H, W, gc.data_ptr(),
         gf.data_ptr() if with_feat else None, gd.data_ptr(), ga.data_ptr(), accum.data_ptr(),
         g_means.data_ptr(), g_colors.data_ptr(), g_feats.data_ptr(), g_opac.data_ptr(),
-        g_scales.data_ptr(), g_rots.data_ptr(), binned["perm"].data_ptr(),
-        binned["touched"].data_ptr(), binned["offsets"].data_ptr(), keys, partial.data_ptr(),
-        slot_of.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        g_scales.data_ptr(), g_rots.data_ptr(), binned["touched"].data_ptr(),
+        binned["offsets"].data_ptr(), binned["slot_of"].data_ptr(), partial.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     _build.check(err, "raster backward")
     _build.count(rasterize_backward)
     del params
@@ -372,7 +418,8 @@ class RasterizeFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means3d, colors, opacities, scales, rotations, features, settings):
-        binned = _bin(settings, means3d, scales, rotations, opacities)
+        binned = _bin(settings, means3d, scales, rotations, opacities,
+                      with_slots=any(ctx.needs_input_grad[:6]))
         color, feature, depth, alpha = _forward_kernel(settings, binned, colors, features)
         ctx.settings, ctx.binned, ctx.with_features = settings, binned, features is not None
         ctx.save_for_backward(means3d, colors, opacities, scales, rotations, features)

@@ -831,3 +831,184 @@ def test_cuda_local_ring_refuses_a_backward(cuda):
     with torch.no_grad():
         outs = comm.run(lambda: joint_ring_attention(q, k, v, 8, comm))
     assert torch.equal(outs[0], outs[1])
+
+
+# -- the factory kernels' device-wide scan, grouping and binning -------------------------
+#
+# The scan (csrc/scan.cuh, 2048 elements a block) against torch.cumsum,
+# bitwise, at tile edges and past a thousand blocks; hard voxelization at
+# the factory's shape and with one voxel of more than 10,000 points (the
+# scatter's long-bucket path), bitwise; the rasterizer's binning (per-tile
+# lists by depth, ties by index, and the backward's slot map) against
+# `bin_plain`, bitwise, on seeded scenes, on voxel centres with exact depth
+# ties, and on a tile whose list is longer than the shared-memory sort
+# holds (sorted in chunks, merged by rank), with the forward and the
+# backward there against their plain versions.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 2047, 2048, 2049, 4097, 153_600,
+                               (1 << 20) + 3])
+def test_cuda_exclusive_scan_matches_cumsum(cuda, n):
+    from orv_tpu_torch.ops import scan
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(0, 9, (n,), generator=g, device=cuda, dtype=torch.int32)
+    before = scan.exclusive_scan.launches
+    out, total = scan.exclusive_scan(x)
+    assert scan.exclusive_scan.launches == before + 1
+    want, want_total = scan.exclusive_scan_plain(x)
+    assert torch.equal(out, want) and torch.equal(total, want_total)
+    # an offset view (no 16-byte loads) and a run of zeros then ones
+    if n > 5:
+        out, total = scan.exclusive_scan(x[1:])
+        want, want_total = scan.exclusive_scan_plain(x[1:])
+        assert torch.equal(out, want) and torch.equal(total, want_total)
+        y = (torch.arange(n, device=cuda) >= n // 2).int()
+        assert torch.equal(scan.exclusive_scan(y)[0], scan.exclusive_scan_plain(y)[0])
+
+
+def _factory_cloud(device):
+    """Frame 0 of the factory's first episode (chip_smoke's scene), unprojected
+    at 320x480 with its labels: [153600, 4]."""
+    import numpy as np
+
+    import chip_smoke
+
+    pose = chip_smoke.factory_pose(0, 0)
+    K = chip_smoke.FACTORY_K
+    depth, label = chip_smoke.factory_cast(pose, K, chip_smoke.FACTORY_HW)
+    v, u = np.mgrid[0:depth.shape[0], 0:depth.shape[1]]
+    z = depth.reshape(-1)
+    cam = np.stack([(u.reshape(-1) - K[0, 2]) / K[0, 0] * z,
+                    (v.reshape(-1) - K[1, 2]) / K[1, 1] * z, z, np.ones_like(z)], 1)
+    world = (pose @ cam.T).T[:, :3]
+    return torch.tensor(np.concatenate([world, label.reshape(-1, 1)], 1), dtype=torch.float32,
+                        device=device)
+
+
+@pytest.mark.cuda
+def test_cuda_hard_voxelization_at_the_factory_shape(cuda):
+    from orv_tpu_torch.ops import voxelize
+    from orv_tpu_torch.pipelines import prepare_dataset as pd
+
+    cloud = _factory_cloud(cuda)
+    assert cloud.shape == (153_600, 4)
+    for max_voxels in (2_000_000, 30_000):
+        got = voxelize.hard_voxelize(cloud, pd.VOXEL_SIZE, pd.POINT_CLOUD_RANGE, 16, max_voxels)
+        want = voxelize.voxelization_plain(cloud, pd.VOXEL_SIZE, pd.POINT_CLOUD_RANGE, 16,
+                                           max_voxels)
+        assert len(want[1]) > 20_000
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_points", [16, 35])
+def test_cuda_hard_voxelization_of_a_dense_cluster(cuda, max_points):
+    """12,000 points in one 1 mm voxel among 5,000 scattered ones, shuffled:
+    the scatter's long bucket keeps its first max_points in input order."""
+    from orv_tpu_torch.ops import voxelize
+
+    g = torch.Generator(device=cuda).manual_seed(max_points)
+    n = 17_000
+    pts = torch.rand(n, 5, generator=g, device=cuda) * 0.1
+    pts[:12_000, :3] = 0.0503 + torch.rand(12_000, 3, generator=g, device=cuda) * 0.0009
+    pts = pts[torch.randperm(n, generator=g, device=cuda)].contiguous()
+    vs, cr = (0.001, 0.001, 0.001), (0.0, 0.0, 0.0, 0.1, 0.1, 0.1)
+    got = voxelize.hard_voxelize(pts, vs, cr, max_points, 20_000)
+    want = voxelize.voxelization_plain(pts, vs, cr, max_points, 20_000)
+    assert int(want[2].max()) == max_points and len(want[1]) > 4000
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def _check_binning(settings, t):
+    from orv_tpu_torch.ops import gaussian_raster as gr
+
+    args = (t["means3d"], t["scales"], t["rotations"])
+    binned = gr._bin(settings, *args, t["opacities"].reshape(-1))
+    want = gr.bin_plain(settings, *args)
+    for k in ("ranges", "point_list", "touched", "offsets", "slot_of"):
+        assert torch.equal(binned[k], want[k]), k
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,H,W", [(300, 37, 53), (3000, 64, 96), (20000, 240, 320)])
+def test_cuda_rasterize_binning_matches_plain(cuda, n, H, W):
+    settings, t = _scene_tensors(cuda, n, H, W, seed=n + 7)
+    _check_binning(settings, t)
+
+
+@pytest.mark.cuda
+def test_cuda_rasterize_binning_on_voxel_centres_with_depth_ties(cuda):
+    """The depth-tie scene of test_torch_port_native_ops.py: a slab of 1 mm
+    voxels in two layers seen straight down, every layer's centres at one
+    depth: ties come out in index order, as the plain version blends them."""
+    import numpy as np
+
+    from orv_tpu_torch.ops import gaussian_raster as gr
+    from orv_tpu_torch.pipelines import prepare_dataset as tpd
+
+    y, x = np.mgrid[150:250, 150:250]
+    coors = np.concatenate([np.stack([np.full(x.size, z), y.ravel(), x.ravel()], 1)
+                            for z in (200, 201)]).astype(np.int32)
+    labels = (1 + (coors[:, 2] >= 200) + 2 * (coors[:, 1] >= 200)).astype(np.int32)
+    centers, feat, rot, scales, opac = tpd.occupancy_to_gaussians(coors, labels, device=cuda)
+    pose = np.eye(4)
+    pose[:3, :3] = np.diag([1.0, -1.0, -1.0])
+    pose[2, 3] = 0.5
+    K = np.array([[300.0, 0, 48], [0, 300.0, 32], [0, 0, 1]])
+    settings = gr.view_settings(pose, K, (64, 96))
+    t = dict(means3d=centers, scales=scales, rotations=rot, opacities=opac)
+    want = _check_binning(settings, t)
+    assert (want["ranges"][:, 1] - want["ranges"][:, 0]).max() > 100
+    rgb = torch.zeros_like(centers)
+    got = gr.rasterize(settings, centers, rgb, opac, scales, rot, feat)
+    plain = gr.rasterize_plain(settings, centers, rgb, opac, scales, rot, feat)
+    assert torch.equal(got[2], plain[2])
+    for a, b in zip(got[:2] + got[3:], plain[:2] + plain[3:]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_rasterize_on_a_tile_past_the_shared_memory_sort(cuda):
+    """10,000 splats before a 16 x 16 image: one tile whose list is longer
+    than TILE_SORT_CAP (sorted in three chunks and merged by rank). The
+    binning bitwise, the forward to 1e-5, the backward to 1e-4 of each
+    largest gradient and bitwise on a second run."""
+    import numpy as np
+
+    from orv_tpu_torch.ops import gaussian_raster as gr
+
+    rng = np.random.default_rng(5)
+    n = 10_000
+    z = 0.5 + 0.01 * rng.integers(0, 100, n)  # exact depth ties
+    cam = np.stack([rng.uniform(-0.3, 0.3, n) * z, rng.uniform(-0.3, 0.3, n) * z, z], 1)
+    settings = gr.view_settings(np.eye(4), np.array([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]]),
+                                (16, 16), bg_color=(0.1, 0.2, 0.3))
+    arrays = dict(means3d=cam, colors=rng.uniform(0, 1, (n, 3)),
+                  opacities=rng.uniform(0.05, 0.5, n),
+                  scales=rng.uniform(0.002, 0.02, (n, 3)) * z[:, None],
+                  rotations=rng.normal(size=(n, 4)), features=rng.uniform(0, 1, (n, 12)))
+    t = {k: torch.tensor(v, dtype=torch.float32, device=cuda) for k, v in arrays.items()}
+    want = _check_binning(settings, t)
+    length = int(want["ranges"][0, 1] - want["ranges"][0, 0])
+    assert gr.tile_sort_chunks(length) >= 2, length
+    args = (t["means3d"], t["colors"], t["opacities"], t["scales"], t["rotations"], t["features"])
+    got, plain = gr.rasterize(settings, *args), gr.rasterize_plain(settings, *args)
+    assert torch.equal(got[2], plain[2])
+    for a, b in zip(got[:2] + got[3:], plain[:2] + plain[3:]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    grads = dict(grad_color=torch.randn(3, 16, 16, generator=g, device=cuda),
+                 grad_depth=torch.randn(16, 16, generator=g, device=cuda),
+                 grad_alpha=torch.randn(16, 16, generator=g, device=cuda),
+                 grad_feature=torch.randn(12, 16, 16, generator=g, device=cuda))
+    first = gr.rasterize_backward(settings, *args[:5], features=t["features"], **grads)
+    second = gr.rasterize_backward(settings, *args[:5], features=t["features"], **grads)
+    want = gr.rasterize_backward_plain(settings, *args[:5], features=t["features"], **grads)
+    for k in want:
+        assert torch.equal(first[k], second[k]), k
+        scale = want[k].abs().max().item()
+        assert (first[k] - want[k]).abs().max().item() <= 1e-4 * max(scale, 1e-30), k
