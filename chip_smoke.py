@@ -3574,6 +3574,82 @@ def write_factory_episodes(root: Path) -> list:
     return shares
 
 
+# f32 operations of one blended (pixel, splat) pair in the kernels' code
+# (csrc/gaussian_raster.cu): forward_kernel's blend (the power 11, the
+# tests 4, alpha 2, the weight 1, colour 6, 12 features 24, depth 2, T 2),
+# backward_kernel's (the power, tests and alpha 16, T before and the weight
+# 3, the payload 31, the payload gradients 16, d alpha 8, the clamp test 2,
+# the local gradients 21, the carried payload 2) and its sum over the
+# pixels (22 values added); an expf counted as 8 (its MUFU.EX2 issues at
+# 1/8 of the f32 rate). The preprocess, the slot sums and the geometry
+# chain (a few hundred a gaussian) are left out.
+RASTER_FWD_PAIR_OPS = 52 + 8
+RASTER_BWD_PAIR_OPS = 121 + 8
+# the kernels of gaussian_raster.cu whose ptxas lines phase 4d prints
+RASTER_KERNEL = re.compile(r"((?:forward|backward|backward_sum)_kernel)(ILb([01])E)?")
+
+
+def raster_build_report() -> None:
+    """The rasterizer's blend kernels by ptxas (registers, static shared
+    memory, spills) and the backward's residency on this card (blocks a
+    multiprocessor, dynamic shared memory)."""
+    source, kernel = None, None
+    for line in _build.build_log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif source == "gaussian_raster.cu" and "entry function" in line:
+            m = RASTER_KERNEL.search(line)
+            kernel = None if m is None else m.group(1) + (
+                "" if m.group(3) is None else f"<{'true' if m.group(3) == '1' else 'false'}>")
+        elif source == "gaussian_raster.cu" and kernel and re.search(r"registers|spill", line):
+            print(f"ptxas gaussian_raster.cu {kernel}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+    if not _build.build_log:
+        print("ptxas gaussian_raster.cu: no build log (the library was built before)", flush=True)
+    for feats in (True, False):
+        blocks, smem = raster_mod.backward_occupancy(feats)
+        print(f"occupancy backward_kernel<{str(feats).lower()}>: {blocks} blocks of 256 threads "
+              f"a multiprocessor, {smem} bytes of dynamic shared memory a block", flush=True)
+        check(blocks >= 2, f"the raster backward holds {blocks} block(s) a multiprocessor")
+
+
+def check_raster_state(s, t, grads, got, what: str) -> dict:
+    """The forward under autograd: its outputs the no-grad forward's bits;
+    its saved state (each pixel's final T and last blended splat) against
+    `forward_state_plain` (T to 1e-6, the last splat equal off the pixels
+    whose running T passes within 1e-5 of 1e-4); autograd's backward from
+    it bitwise equal to the standalone backward's `got`. Returns the plain
+    state (its pairs count the bound's operations)."""
+    names = ("means3d", "colors", "opacities", "scales", "rotations", "features")
+    leaves = [t[k].clone().requires_grad_(True) for k in names]
+    out = raster_mod.rasterize(s, *leaves)
+    with torch.no_grad():
+        bare = raster_mod.rasterize(s, *(t[k] for k in names))
+    same_out = all(torch.equal(a.detach(), b) for a, b in zip(out, bare))
+    state = out[0].grad_fn.state
+    want = raster_mod.forward_state_plain(s, t["means3d"], t["opacities"], t["scales"],
+                                          t["rotations"])
+    t_err = max_err(state["T"], want["T"])
+    off = ~want["marginal"]
+    moved = int((state["last"] != want["last"]).sum())
+    moved_off = int((state["last"] != want["last"])[off].sum())
+    color, feature, _, depth, alpha = out
+    loss = ((color * grads["grad_color"]).sum() + (depth * grads["grad_depth"]).sum()
+            + (alpha * grads["grad_alpha"]).sum() + (feature * grads["grad_feature"]).sum())
+    auto = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    bitwise = all(torch.equal(auto[k], got[k]) for k in names)
+    print(f"kernel gaussian_raster state, {what}: the forward's outputs under autograd bitwise "
+          f"equal to no-grad {same_out}; final T max_abs_err {t_err:.3g} (tol 1e-6); last "
+          f"splat differs on {moved} pixels, {moved_off} off the {int(want['marginal'].sum())} "
+          f"marginal ones (tol 0); {int(want['pairs'].sum())} blended pairs, "
+          f"{int(want['clamped'].sum())} at the 0.99 clamp, {int((want['T'] < 1e-4).sum())} "
+          f"pixels stopped; autograd's backward bitwise equal to the standalone {bitwise}",
+          flush=True)
+    check(same_out and t_err <= 1e-6 and moved_off == 0 and bitwise,
+          f"the rasterizer's saved state or its autograd backward at {what}")
+    return want
+
+
 def factory_kernel_checks(g, data: Path, t0: float):
     """The factory's kernels against their plain versions on the card, on the
     factory's own data: voxelization bitwise (hard, at points_to_voxels'
@@ -3629,8 +3705,10 @@ def factory_kernel_checks(g, data: Path, t0: float):
           f"over {len(lengths)} tiles, {float(lengths.float().mean()):.1f} a tile, the longest "
           f"{int(lengths.max())} (the shared-memory sort holds {raster_mod.TILE_SORT_CAP})",
           flush=True)
+    raster_build_report()
 
     bwd_errs = []
+    pairs = {}
     frame_scene = (settings, dict(means3d=centers, colors=rgb, opacities=opac, scales=scales,
                                   rotations=rot, features=feat))
     bwd_calls = {}
@@ -3668,6 +3746,8 @@ def factory_kernel_checks(g, data: Path, t0: float):
               f"1e-4){note}; a second run bitwise equal: {bitwise}", flush=True)
         check(max(rel.values()) <= 1e-4, f"the raster backward disagrees at {hw}")
         check(bitwise, f"the raster backward's second run at {hw} differs in its bits")
+        pairs[hw] = int(check_raster_state(s_bwd, t, grads, got, f"{what} at {hw[0]}x{hw[1]}")
+                        ["pairs"].sum())
         bwd_errs.append(max(rel.values()))
         bwd_calls[hw] = (s_bwd, *bargs, grads["grad_color"], grads["grad_depth"],
                          grads["grad_alpha"], t["features"], grads["grad_feature"])
@@ -3682,24 +3762,27 @@ def factory_kernel_checks(g, data: Path, t0: float):
     fwd_bytes = n_g * (3 + 3 + 1 + 3 + 4 + 12) * 4 + 17 * math.prod(FACTORY_RENDER) * 4 + n_g * 4
     # the gaussians read and their gradients written, the 17 gradient planes read
     bwd_bytes = lambda n, hw: n * (3 + 3 + 1 + 3 + 4 + 12) * 4 * 2 + 17 * math.prod(hw) * 4
-    for name, src, line, fn, plain, call, nbytes_, err, host in (
+    # the blend's operations: frame 0's blended (pixel, splat) pairs
+    fwd_ops = pairs[FACTORY_RENDER] * RASTER_FWD_PAIR_OPS
+    bwd_ops = lambda hw: pairs[hw] * RASTER_BWD_PAIR_OPS
+    for name, src, line, fn, plain, call, nbytes_, ops, err, host in (
             ("voxelize_hard", "voxelize.cu", "orv_tpu/ops/native/voxelize.cpp:94", hard,
              lambda c: voxelize_mod.voxelization_plain(c, *vox_args, 16, 2_000_000), (cloud,),
-             vox_bytes, 0.0, "hard_voxelize"),
+             vox_bytes, 0, 0.0, "hard_voxelize"),
             ("voxelize_dynamic", "voxelize.cu", "orv_tpu/ops/native/voxelize.cpp:59",
              lambda c: voxelize_mod.voxelization(c, *vox_args, max_points=-1),
              lambda c: voxelize_mod.voxelization_plain(c, *vox_args, max_points=-1), (cloud,),
-             dyn_bytes, 0.0, None),
+             dyn_bytes, 0, 0.0, None),
             ("gaussian_raster_fwd", "gaussian_raster.cu",
              "orv_tpu/ops/native/gaussian_raster.cpp:205",
              lambda *a: raster_mod.rasterize(settings, *a),
-             lambda *a: raster_mod.rasterize_plain(settings, *a), args, fwd_bytes, fwd_err,
-             "rasterize"),
+             lambda *a: raster_mod.rasterize_plain(settings, *a), args, fwd_bytes, fwd_ops,
+             fwd_err, "rasterize"),
             ("gaussian_raster_bwd", "gaussian_raster.cu",
              "orv_tpu/ops/native/gaussian_raster.cpp:264",
              raster_mod.rasterize_backward, raster_mod.rasterize_backward_plain,
-             bwd_calls[FACTORY_RENDER], bwd_bytes(n_g, FACTORY_RENDER), max(bwd_errs),
-             "rasterize")):
+             bwd_calls[FACTORY_RENDER], bwd_bytes(n_g, FACTORY_RENDER), bwd_ops(FACTORY_RENDER),
+             max(bwd_errs), "rasterize")):
         waits = list(_build.host_waits.get(host, [0, 0.0]))
         kernels = profiled_events(fn, [call], 10)
         ms = sum(kernels.values()) / 1e3
@@ -3707,12 +3790,13 @@ def factory_kernel_checks(g, data: Path, t0: float):
         # thousands of small kernels a call: one call, no warm-up (a lost first
         # kernel is noise there, and the profiler's own work grows with the kernels)
         plain_ms = profiled_ms(plain, [call], 1, warmup=0)
-        bound, by = bound_ms(nbytes_)
+        bound, by = bound_ms(nbytes_, f32=ops)
         records.append(dict(name=name, route="cuda", source=f"orv_tpu_torch/ops/csrc/{src}",
                             replaces=line, launches=0, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None))
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}), library none (device time by torch.profiler)", flush=True)
+              f"({by}: {nbytes_} bytes at 3.35 TB/s, {ops} f32 operations at 67 TFLOP/s), "
+              f"library none (device time by torch.profiler)", flush=True)
     # the device-wide scan alone, at a frame's points (the grouping scans its head flags)
     flags = (torch.arange(len(cloud), device="cuda") % 3 == 0).int()
     got, total = scan_mod.exclusive_scan(flags)
@@ -3730,7 +3814,7 @@ def factory_kernel_checks(g, data: Path, t0: float):
     waits = list(_build.host_waits.get("rasterize", [0, 0.0]))
     split = profiled_events(raster_mod.rasterize_backward, [bwd_calls[hw]], 10)
     ms = sum(split.values()) / 1e3
-    bound, by = bound_ms(bwd_bytes(3000, hw))
+    bound, by = bound_ms(bwd_bytes(3000, hw), f32=bwd_ops(hw))
     records[-1].update(small_shape=[3000, *hw], small_ms=ms, small_bound_ms=bound)
     print(f"split gaussian_raster_bwd at 3000 gaussians, {hw[0]}x{hw[1]}: "
           + factory_split(split, "rasterize", waits), flush=True)
@@ -3764,8 +3848,8 @@ FACTORY_PARTS = (("cells", ("voxel_cells_kernel",)),
                  ("preprocess", ("preprocess_kernel",)),
                  ("binning", ("tile_fill_kernel",)),
                  ("per-tile sort", ("tile_sort_kernel",)),
-                 ("blend", ("forward_kernel",)),
-                 ("backward blend", ("backward_kernel",)),
+                 ("blend", ("forward_kernel",)),  # in a backward: its state
+                 ("backward pass", ("backward_kernel",)),
                  ("backward sums", ("backward_sum_kernel", "backward_geom_kernel")))
 
 

@@ -11,8 +11,11 @@
 //
 // Bound on the H100: bytes at the factory's sizes (a few tens of thousands
 // of splats of a few pixels each: the gaussians read once, the 17 output
-// planes written once); the blend's exp and multiply-adds are small beside
-// them. Design, in the C++'s order of operations:
+// planes written once); the blend's f32 operations (about 60 a blended
+// (pixel, splat) pair forward, 130 backward, an exp counted as 8:
+// chip_smoke.py RASTER_FWD_PAIR_OPS) come to a quarter (forward) and a
+// third (backward) of the bytes' time at frame 0. Design, in the C++'s
+// order of operations:
 //   (a) preprocess_kernel, one thread a gaussian: gaussian_raster.cpp:87-176
 //       in f32 (near cull at tz < 0.2, EWA with the 1.3 tan-fov clamp and
 //       the 0.3 low-pass, det <= 0 cull, radius ceil(3 sqrt(lambda)), the
@@ -47,16 +50,22 @@
 //       and the arithmetic on them, are the C++'s
 //       (:228-255: alpha = min(0.99, o exp(power)), stop after the splat that
 //       takes T below 1e-4, background on color only); the block leaves when
-//       every pixel is done;
-//   (d) backward_kernel walks each pixel's splats twice (:308-384): once for
-//       the final transmittance and the total payload, once for each splat's
-//       gradients. Each splat's gradients are summed over the tile's pixels
-//       in a fixed order (a shuffle tree in each warp, then the warps in
-//       order through shared memory) into the splat's slot of the sorted key
-//       list, one slot a (tile, gaussian); backward_sum_kernel, one thread a
-//       gaussian, adds its slots in its tiles' order, row by row, found
-//       through the slot map of (b). No atomics: two runs give the same
-//       bits, as the C++'s serial scatter does (:264). backward_geom_kernel, one thread a
+//       every pixel is done. Under autograd it also writes each pixel's
+//       final transmittance and the list position of its last blended
+//       splat, the backward's state;
+//   (d) backward_kernel, one block a tile, a warp an 8x4 pixel block as in
+//       (c): one pass a pixel (:308-384) back to front from the forward's
+//       state, the transmittance before a splat recovered as the one after
+//       it over 1 - alpha and the payload behind it carried; the splats
+//       staged and culled as in (c). Each splat's gradients are summed
+//       over a warp's lanes by a transpose-reduce (31 shuffles for its 22
+//       values), then over the warps that hit it in warp order, once a round
+//       of kBwdBatch splats, into the splat's slot of the sorted key list,
+//       one slot a (tile, gaussian), every slot written;
+//       backward_sum_kernel, one warp a gaussian (a lane a value), adds its
+//       slots in its tiles' order, row by row, found through the slot map
+//       of (b). No atomics: two runs give the same bits, as the C++'s
+//       serial scatter does (:264). backward_geom_kernel, one thread a
 //       gaussian, recomputes the preprocess and takes conic -> cov2D ->
 //       cov3D -> quaternion, scale and means (:390-537).
 // Built with -fmad=false (ops/_build.py:SOURCE_FLAGS) and expf, not __expf:
@@ -388,27 +397,6 @@ tile_sort_kernel(const int* __restrict__ tile_start, unsigned long long* list, i
   }
 }
 
-// One batch of splats in shared memory (the backward's).
-struct Batch {
-  int id[kBlock];
-  float2 xy[kBlock];
-  float4 conic_op[kBlock];
-  float depth[kBlock];
-};
-
-__device__ __forceinline__ void load_batch(Batch& sb, const int* __restrict__ point_list,
-                                           const float2* __restrict__ xy,
-                                           const float4* __restrict__ conic_op,
-                                           const float* __restrict__ depth, int k, int end) {
-  if (k < end) {
-    const int id = point_list[k];
-    sb.id[threadIdx.x] = id;
-    sb.xy[threadIdx.x] = xy[id];
-    sb.conic_op[threadIdx.x] = conic_op[id];
-    sb.depth[threadIdx.x] = depth[id];
-  }
-}
-
 // power of a splat at pixel (x, y), in the C++'s order (:229-231)
 __device__ __forceinline__ float splat_power(float2 p, float4 co, float x, float y, float& dx,
                                              float& dy) {
@@ -417,24 +405,27 @@ __device__ __forceinline__ float splat_power(float2 p, float4 co, float x, float
   return -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
 }
 
-// The forward's batch: all a pixel reads of a splat.
+// A batch of kN splats in shared memory: all a pixel reads of a splat.
+template <int kN>
 struct BlendBatch {
-  float4 box[kBlock];    // x lo, x hi, y lo, y hi of the region a splat can reach
-  float4 pos[kBlock];    // pix_x, pix_y, the skip power, opacity
-  float4 conic[kBlock];  // conic (3), depth
-  float4 color[kBlock];  // rgb, unused
-  float4 feat[kBlock][kFeat / 4];
+  float4 box[kN];    // x lo, x hi, y lo, y hi of the region a splat can reach
+  float4 pos[kN];    // pix_x, pix_y, the skip power, opacity
+  float4 conic[kN];  // conic (3), depth
+  float4 color[kN];  // rgb, unused
+  float4 feat[kN][kFeat / 4];
 };
 
 constexpr float kSkipMargin = 0.01f;  // of the skip power's exponent
 
-// Stages splat k of the tile's list into slot threadIdx.x. Where opacity o
+// Stages splat k of the tile's list into slot j. Where opacity o
 // is finite and >= 1/255, o * exp(power) < 1/255 for every power below
 // log((1/255) / o) - kSkipMargin: the skip power; the pixels with power at
 // least that lie in the ellipse d' C d <= -2 * skip power, whose bounding box
 // (1% and one pixel wider) is the splat's box. A finite o below 1/255 never
 // reaches 1/255 (an empty box); a NaN or infinite o is never skipped.
-__device__ __forceinline__ void load_blend(BlendBatch& sb, const int* __restrict__ point_list,
+template <int kN>
+__device__ __forceinline__ void load_blend(BlendBatch<kN>& sb, int j,
+                                           const int* __restrict__ point_list,
                                            const float2* __restrict__ xy,
                                            const float4* __restrict__ conic_op,
                                            const float* __restrict__ depth,
@@ -442,7 +433,6 @@ __device__ __forceinline__ void load_blend(BlendBatch& sb, const int* __restrict
                                            const float* __restrict__ features, bool feat_vec,
                                            int k, int end) {
   if (k >= end) return;
-  const int j = threadIdx.x;
   const int id = point_list[k];
   const float2 p = xy[id];
   const float4 co = conic_op[id];
@@ -483,14 +473,16 @@ __device__ __forceinline__ void load_blend(BlendBatch& sb, const int* __restrict
   }
 }
 
+// out_T and out_last (the backward's state) may be null: not written.
 __global__ void __launch_bounds__(kBlock)
 forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_list,
                const float2* __restrict__ xy, const float4* __restrict__ conic_op,
                const float* __restrict__ depth, const float* __restrict__ colors,
                const float* __restrict__ features, Cam c, float* __restrict__ out_color,
                float* __restrict__ out_feature, float* __restrict__ out_depth,
-               float* __restrict__ out_alpha) {
-  __shared__ BlendBatch sb;
+               float* __restrict__ out_alpha, float* __restrict__ out_T,
+               int* __restrict__ out_last) {
+  __shared__ BlendBatch<kBlock> sb;
   __shared__ unsigned short meets[kBlock / 32][kBlock];  // a warp's splats of the batch
   const int tile = blockIdx.x;
   // a warp an 8x4 block of the tile's pixels
@@ -504,13 +496,14 @@ forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_li
   const bool feat_vec = (reinterpret_cast<uintptr_t>(features) & 15) == 0;
   const int2 range = ranges[tile];
   bool done = !inside;
+  int last = -1;  // list position of the last splat blended
   float T = 1.0f, acc_c[3] = {0.0f, 0.0f, 0.0f}, acc_f[kFeat], acc_d = 0.0f;
 #pragma unroll
   for (int k = 0; k < kFeat; ++k) acc_f[k] = 0.0f;
   const float fx = (float)x, fy = (float)y;
   for (int base = range.x; base < range.y; base += kBlock) {
     if (__syncthreads_count(done) == kBlock) break;
-    load_blend(sb, point_list, xy, conic_op, depth, colors, features, feat_vec,
+    load_blend(sb, threadIdx.x, point_list, xy, conic_op, depth, colors, features, feat_vec,
                base + threadIdx.x, range.y);
     __syncthreads();
     const int m = min(kBlock, range.y - base);
@@ -556,11 +549,16 @@ forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_li
       }
       acc_d += w * co.w;
       T *= (1.0f - alpha);
+      last = base + j;
       if (T < 1e-4f) done = true;
     }
   }
   if (!inside) return;
   const long long hw = (long long)c.height * c.width, pix = (long long)y * c.width + x;
+  if (out_T) {
+    out_T[pix] = T;
+    out_last[pix] = last;
+  }
   for (int k = 0; k < 3; ++k) out_color[k * hw + pix] = acc_c[k] + T * c.bg[k];
   if (features)
     for (int k = 0; k < kFeat; ++k) out_feature[k * hw + pix] = acc_f[k];
@@ -569,192 +567,240 @@ forward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_li
 }
 
 // A splat's gradients from one pixel, or from one tile: d color (3), d
-// opacity, d pix_x, d pix_y, d tz, d conic (3), d feature (kFeat).
+// opacity, d pix_x, d pix_y, d tz, d conic (3), d feature (kFeat); without
+// features the first kGeomGrad of them.
 constexpr int kGrad = 3 + 1 + 6 + kFeat;
 constexpr int kGeomGrad = 3 + 1 + 6;  // the entries before the features
-constexpr int kRound = 32;  // splats summed over the block per round
 constexpr int kWarps = kBlock / 32;
+constexpr int kBwdBatch = 128;  // splats the backward stages a round
 
-// partial [keys, kGrad]: a slot per sorted key, zero on entry; a tile writes
-// the slots of the splats its pixels reach.
-__global__ void __launch_bounds__(kBlock)
+// One step of transpose_sum: lanes with bit kO set keep v[kO..2 kO), the
+// others v[0..kO), each adding its partner's (lane ^ kO) copy, into
+// v[0..kO). kO is a constant so that every index is one: an index the
+// compiler cannot resolve would put v in local memory.
+template <int kO, int kV>
+__device__ __forceinline__ void transpose_step(float (&v)[kV], int lane) {
+  const bool upper = (lane & kO) != 0;
+#pragma unroll
+  for (int i = 0; i < kO; ++i) {
+    const float lo = v[i], hi = v[i + kO];
+    v[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, kO);
+  }
+}
+
+// The sum over the warp's lanes of v[0..kV) (kV = 16 or 32), lane l left
+// with the sum of value l % kV: a butterfly that halves the values a lane
+// holds at each step (kV - 1 shuffles; for kV = 16 one more adds the two
+// half-warps). A fixed tree: the same bits every run.
+template <int kV>
+__device__ __forceinline__ float transpose_sum(float (&v)[kV], int lane) {
+  if constexpr (kV == 32) transpose_step<16>(v, lane);
+  transpose_step<8>(v, lane);
+  transpose_step<4>(v, lane);
+  transpose_step<2>(v, lane);
+  transpose_step<1>(v, lane);
+  float s = v[0];
+  if constexpr (kV == 16) s += __shfl_xor_sync(0xffffffffu, s, 16);
+  return s;
+}
+
+template <int kG>
+struct BackwardShared {
+  BlendBatch<kBwdBatch> sb;
+  float wsum[kWarps][kBwdBatch][kG];         // a warp's sum of a splat it hit
+  unsigned char meets[kWarps][kBwdBatch];    // a warp's splats of the batch, in list order
+  unsigned char hit[kWarps][kBwdBatch];      // whether the warp wrote wsum of a splat
+  int last[kWarps];                          // a warp's last splat
+};
+
+template <bool kWithFeat>
+constexpr size_t backward_smem() {
+  return sizeof(BackwardShared<kWithFeat ? kGrad : kGeomGrad>);
+}
+
+// One 256-thread block a tile, a warp an 8x4 pixel block, as the forward.
+// Each pixel walks its splats back to front, from the last the forward
+// blended (last_of, list positions; -1 for none) to the first, from the
+// forward's final transmittance (final_T): the transmittance before a splat
+// is the one after it over 1 - alpha (alpha <= 0.99), and the payload of
+// the splats behind it is carried (the C++ takes total - prefix: the last
+// bits differ, within the tolerance). The splats are staged kBwdBatch a
+// round, as the forward stages them, with its box and skip power; a warp
+// walks the round's splats whose box meets its pixels, at or before its
+// last splat, and skips what the C++ skips (power > 0, alpha < 1/255).
+// A warp that hits a splat sums its gradients over its lanes
+// (transpose_sum) into wsum; once a round the block adds the warps that hit
+// each splat, in warp order, into the splat's slot of the sorted key list
+// (partial [keys, kG]): every slot of the tile is written, zeros where no
+// pixel blends the splat. No atomics: two runs give the same bits.
+template <bool kWithFeat>
+__global__ void __launch_bounds__(kBlock, 2)  // two blocks a multiprocessor at least
 backward_kernel(const int2* __restrict__ ranges, const int* __restrict__ point_list,
                 const float2* __restrict__ xy, const float4* __restrict__ conic_op,
                 const float* __restrict__ depth, const float* __restrict__ colors,
                 const float* __restrict__ features, Cam c, const float* __restrict__ grad_color,
                 const float* __restrict__ grad_feature, const float* __restrict__ grad_depth,
-                const float* __restrict__ grad_alpha, float* __restrict__ partial) {
-  __shared__ Batch sb;
-  __shared__ float wsum[kWarps][kRound][kGrad];
+                const float* __restrict__ grad_alpha, const float* __restrict__ final_T,
+                const int* __restrict__ last_of, float* __restrict__ partial) {
+  constexpr int kG = kWithFeat ? kGrad : kGeomGrad;
+  constexpr int kV = kWithFeat ? 32 : 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  BackwardShared<kG>& s = *reinterpret_cast<BackwardShared<kG>*>(smem);
   const int tile = blockIdx.x;
-  const int x = (tile % c.tiles_x) * kTile + threadIdx.x % kTile;
-  const int y = (tile / c.tiles_x) * kTile + threadIdx.x / kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wx0 = (tile % c.tiles_x) * kTile + (warp & 1) * 8;
+  const int wy0 = (tile / c.tiles_x) * kTile + (warp >> 1) * 4;
+  const int x = wx0 + (lane & 7), y = wy0 + (lane >> 3);
+  const float fwx0 = (float)wx0, fwx1 = (float)(wx0 + 7), fwy0 = (float)wy0,
+              fwy1 = (float)(wy0 + 3);
   const bool inside = x < c.width && y < c.height;
+  const bool feat_vec = (reinterpret_cast<uintptr_t>(features) & 15) == 0;
   const int2 range = ranges[tile];
   const long long hw = (long long)c.height * c.width, pix = (long long)y * c.width + x;
-  const bool with_feat = features != nullptr && grad_feature != nullptr;
-  float dC[3] = {0.0f, 0.0f, 0.0f}, dF[kFeat], dD = 0.0f, dA = 0.0f;
+  float dC[3] = {0.0f, 0.0f, 0.0f}, dF[kFeat], dD = 0.0f, dA = 0.0f, T_final = 1.0f;
 #pragma unroll
   for (int k = 0; k < kFeat; ++k) dF[k] = 0.0f;
+  int last = -1;
   if (inside) {
     for (int k = 0; k < 3; ++k) dC[k] = grad_color[k * hw + pix];
-    if (with_feat)
+    if constexpr (kWithFeat)
       for (int k = 0; k < kFeat; ++k) dF[k] = grad_feature[k * hw + pix];
     dD = grad_depth[pix];
     dA = grad_alpha[pix];
+    T_final = final_T[pix];
+    last = last_of[pix];
   }
-  const float fx = (float)x, fy = (float)y;
-
-  // pass A: the forward's transmittance, the total payload and the last
-  // splat (list position) this pixel blends
-  bool done = !inside;
-  float T = 1.0f, total = 0.0f;
-  int last = range.x - 1;
-  for (int base = range.x; base < range.y; base += kBlock) {
-    if (__syncthreads_count(done) == kBlock) break;
-    load_batch(sb, point_list, xy, conic_op, depth, base + threadIdx.x, range.y);
-    __syncthreads();
-    const int m = min(kBlock, range.y - base);
-    for (int j = 0; j < m && !done; ++j) {
-      const float4 co = sb.conic_op[j];
-      float dx, dy;
-      const float power = splat_power(sb.xy[j], co, fx, fy, dx, dy);
-      if (power > 0.0f) continue;
-      const float alpha = fminf(0.99f, co.w * expf(power));
-      if (alpha < 1.0f / 255.0f) continue;
-      const float w = alpha * T;
-      const int id = sb.id[j];
-      const float* col = colors + 3LL * id;
-      float payload = col[0] * dC[0] + col[1] * dC[1] + col[2] * dC[2] + sb.depth[j] * dD;
-      if (with_feat) {
-        const float* f = features + (long long)kFeat * id;
-        for (int k = 0; k < kFeat; ++k) payload += f[k] * dF[k];
-      }
-      total += w * payload;
-      last = base + j;
-      T *= (1.0f - alpha);
-      if (T < 1e-4f) done = true;
-    }
-  }
-  const float T_final = T;
   const float bg_dot = c.bg[0] * dC[0] + c.bg[1] * dC[1] + c.bg[2] * dC[2];
+  const float fx = (float)x, fy = (float)y;
+  const int warp_last = warp_max(last);
+  if (lane == 0) s.last[warp] = warp_last;
+  __syncthreads();
+  int block_last = s.last[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) block_last = max(block_last, s.last[w]);
+  const int top = block_last < range.x ? -1 : (block_last - range.x) / kBwdBatch;
+  // no pixel reaches the slots past the top round
+  for (long long e = (long long)(range.x + (top + 1) * kBwdBatch) * kG + threadIdx.x;
+       e < (long long)range.y * kG; e += kBlock)
+    partial[e] = 0.0f;
 
-  // pass B: front to back again, each blended splat's gradients
-  int block_last = last;
-  {
-    __shared__ int red[kBlock / 32];
-    for (int o = 16; o > 0; o >>= 1) block_last = max(block_last, __shfl_xor_sync(~0u, block_last, o));
+  float T_run = T_final, suffix = 0.0f;
+  for (int b = top; b >= 0; --b) {
+    const int base = range.x + b * kBwdBatch;
+    const int m = min(kBwdBatch, range.y - base);
+    __syncthreads();  // the last round's sums are read
+    if (threadIdx.x < kBwdBatch)
+      load_blend(s.sb, threadIdx.x, point_list, xy, conic_op, depth, colors,
+                 kWithFeat ? features : nullptr, feat_vec, base + threadIdx.x, range.y);
+    for (int j = lane; j < kBwdBatch; j += 32) s.hit[warp][j] = 0;
     __syncthreads();
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = block_last;
-    __syncthreads();
-    block_last = red[0];
-    for (int w = 1; w < kBlock / 32; ++w) block_last = max(block_last, red[w]);
-  }
-  // the block walks every splat up to block_last together (a pixel past its
-  // own last splat adds zeros), kRound splats a round: each warp's sum of
-  // a splat goes to wsum, then the block adds the warps in order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_grad = with_feat ? kGrad : kGeomGrad;  // the features' sums stay zero
-  float T_run = 1.0f, prefix = 0.0f;
-  for (int base = range.x; base <= block_last; base += kBlock) {
-    __syncthreads();
-    load_batch(sb, point_list, xy, conic_op, depth, base + threadIdx.x, range.y);
-    __syncthreads();
-    const int m = min(kBlock, block_last + 1 - base);
-    for (int j0 = 0; j0 < m; j0 += kRound) {
-      const int mr = min(kRound, m - j0);
-      for (int r = 0; r < mr; ++r) {
-        const int j = j0 + r;
-        float gr[kGrad];
+    const int mw = min(m, warp_last - base + 1);
+    int nw = 0;
+    for (int c0 = 0; c0 < mw; c0 += 32) {
+      const int j = c0 + lane;
+      bool meet = false;
+      if (j < mw) {
+        const float4 bx = s.sb.box[j];
+        meet = !(fwx1 < bx.x || fwx0 > bx.y || fwy1 < bx.z || fwy0 > bx.w);
+      }
+      const unsigned ball = __ballot_sync(0xffffffffu, meet);
+      if (meet) s.meets[warp][nw + __popc(ball & ((1u << lane) - 1))] = (unsigned char)j;
+      nw += __popc(ball);
+    }
+    __syncwarp();
+    for (int q = nw - 1; q >= 0; --q) {
+      const int j = s.meets[warp][q];
+      float v[kV];
 #pragma unroll
-        for (int q = 0; q < kGrad; ++q) gr[q] = 0.0f;
-        bool hit = false;
-        if (base + j <= last) {
-          const float4 co = sb.conic_op[j];
-          float dx, dy;
-          const float power = splat_power(sb.xy[j], co, fx, fy, dx, dy);
+      for (int i = 0; i < kV; ++i) v[i] = 0.0f;
+      bool hit = false;
+      if (base + j <= last) {
+        const float4 p = s.sb.pos[j];
+        const float4 co = s.sb.conic[j];
+        float dx, dy;
+        const float power = splat_power(make_float2(p.x, p.y), co, fx, fy, dx, dy);
+        if (!(power > 0.0f || power < p.z)) {
           const float G = expf(power);
-          const float alpha = fminf(0.99f, co.w * G);
-          if (power <= 0.0f && alpha >= 1.0f / 255.0f) {
+          const float alpha = fminf(0.99f, p.w * G);
+          if (alpha >= 1.0f / 255.0f) {
             hit = true;
-            const float w = alpha * T_run;
-            const int id = sb.id[j];
-            const float* col = colors + 3LL * id;
-            float payload = col[0] * dC[0] + col[1] * dC[1] + col[2] * dC[2] + sb.depth[j] * dD;
-            if (with_feat) {
-              const float* f = features + (long long)kFeat * id;
-              for (int k = 0; k < kFeat; ++k) payload += f[k] * dF[k];
-            }
-            prefix += w * payload;
-            const float suffix = total - prefix;
-            for (int k = 0; k < 3; ++k) gr[k] = w * dC[k];
-            if (with_feat)
-              for (int k = 0; k < kFeat; ++k) gr[kGeomGrad + k] = w * dF[k];
-            gr[6] = w * dD;  // the expected-depth payload
-            const float one_m = fmaxf(1.0f - alpha, 1e-6f);
-            const float d_alpha =
-                T_run * payload - (suffix + T_final * bg_dot) / one_m + (T_final / one_m) * dA;
-            if (co.w * G < 0.99f) {  // alpha = min(0.99, o G): the clamp kills local gradients
-              gr[3] = d_alpha * G;
-              const float d_power = d_alpha * co.w * G;
-              gr[7] = d_power * (-0.5f * dx * dx);
-              gr[8] = d_power * (-dx * dy);
-              gr[9] = d_power * (-0.5f * dy * dy);
-              gr[4] = d_power * (-(co.x * dx + co.y * dy));
-              gr[5] = d_power * (-(co.z * dy + co.y * dx));
-            }
-            T_run *= (1.0f - alpha);
-          }
-        }
-        if (__any_sync(~0u, hit)) {
+            const float one_m = 1.0f - alpha;  // >= 0.01: the C++'s max(1 - alpha, 1e-6)
+            const float T = T_run / one_m;     // before this splat
+            const float w = alpha * T;
+            const float4 col = s.sb.color[j];
+            float payload = col.x * dC[0] + col.y * dC[1] + col.z * dC[2] + co.w * dD;
+            v[0] = w * dC[0];
+            v[1] = w * dC[1];
+            v[2] = w * dC[2];
+            v[6] = w * dD;  // the expected-depth payload
+            if constexpr (kWithFeat) {
 #pragma unroll
-          for (int q = 0; q < kGrad; ++q) {
-            if (q >= n_grad) break;
-            float x = gr[q];
-            for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(~0u, x, o);
-            if (lane == 0) wsum[warp][r][q] = x;
+              for (int k4 = 0; k4 < kFeat / 4; ++k4) {
+                const float4 f = s.sb.feat[j][k4];
+                const float fk[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  payload += fk[i] * dF[4 * k4 + i];
+                  v[kGeomGrad + 4 * k4 + i] = w * dF[4 * k4 + i];
+                }
+              }
+            }
+            const float d_alpha =
+                T * payload - (suffix + T_final * bg_dot) / one_m + (T_final / one_m) * dA;
+            if (p.w * G < 0.99f) {  // alpha = min(0.99, o G): the clamp kills local gradients
+              v[3] = d_alpha * G;
+              const float d_power = d_alpha * p.w * G;
+              v[7] = d_power * (-0.5f * dx * dx);
+              v[8] = d_power * (-dx * dy);
+              v[9] = d_power * (-0.5f * dy * dy);
+              v[4] = d_power * (-(co.x * dx + co.y * dy));
+              v[5] = d_power * (-(co.z * dy + co.y * dx));
+            }
+            suffix += w * payload;
+            T_run = T;
           }
-        } else if (lane == 0) {
-          for (int q = 0; q < n_grad; ++q) wsum[warp][r][q] = 0.0f;
         }
       }
-      __syncthreads();
-      for (int e = threadIdx.x; e < mr * n_grad; e += kBlock) {
-        const int r = e / n_grad, q = e % n_grad;
-        float x = wsum[0][r][q];
-        for (int w = 1; w < kWarps; ++w) x += wsum[w][r][q];
-        partial[(long long)(base + j0 + r) * kGrad + q] = x;
+      if (__any_sync(0xffffffffu, hit)) {
+        const float sum = transpose_sum<kV>(v, lane);
+        if (lane < kG) s.wsum[warp][j][lane] = sum;
+        if (lane == 0) s.hit[warp][j] = 1;
       }
-      __syncthreads();
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < m * kG; e += kBlock) {
+      const int j = e / kG, q = e - j * kG;
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        if (s.hit[w][j]) sum += s.wsum[w][j][q];
+      partial[(long long)base * kG + e] = sum;
     }
   }
 }
 
-// One thread a gaussian: its tiles' partial sums added in the order its keys
-// were written (offsets[i] on, touched[i] of them). accum [n, 6]: d pix_x,
-// d pix_y, d tz, d conic (3); g_colors [n, 3], g_opacities [n], g_features
-// [n, kFeat] (null: not written); every one written whole.
+// One warp a gaussian, lane q its value q: its tiles' partial sums added in
+// the order its keys were written (offsets[i] on, touched[i] of them), each
+// slot's row read whole by the warp. accum [n, 6]: d pix_x, d pix_y, d tz,
+// d conic (3); g_colors [n, 3], g_opacities [n], g_features [n, kFeat]
+// (kWithFeat only); every one written whole.
+template <bool kWithFeat>
 __global__ void __launch_bounds__(256)
 backward_sum_kernel(int n, const int* __restrict__ touched, const int* __restrict__ offsets,
                     const int* __restrict__ slot_of, const float* __restrict__ partial,
                     float* __restrict__ accum, float* __restrict__ g_colors,
                     float* __restrict__ g_opacities, float* __restrict__ g_features) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float sum[kGrad];
-#pragma unroll
-  for (int q = 0; q < kGrad; ++q) sum[q] = 0.0f;
+  constexpr int kG = kWithFeat ? kGrad : kGeomGrad;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int q = threadIdx.x & 31;
+  if (i >= n || q >= kG) return;
   const int first = offsets[i], count = touched[i];
-  for (int u = first; u < first + count; ++u) {
-    const float* p = partial + (long long)slot_of[u] * kGrad;
-#pragma unroll
-    for (int q = 0; q < kGrad; ++q) sum[q] += p[q];
-  }
-  for (int k = 0; k < 3; ++k) g_colors[3LL * i + k] = sum[k];
-  g_opacities[i] = sum[3];
-  for (int k = 0; k < 6; ++k) accum[6LL * i + k] = sum[4 + k];
-  if (g_features)
-    for (int k = 0; k < kFeat; ++k) g_features[(long long)kFeat * i + k] = sum[kGeomGrad + k];
+  float sum = 0.0f;
+  for (int u = first; u < first + count; ++u) sum += partial[(long long)slot_of[u] * kG + q];
+  if (q < 3) g_colors[3 * i + q] = sum;
+  else if (q == 3) g_opacities[i] = sum;
+  else if (q < kGeomGrad) accum[6 * i + q - 4] = sum;
+  else g_features[kFeat * i + q - kGeomGrad] = sum;
 }
 
 // The geometry chain of one gaussian (gaussian_raster.cpp:390-537).
@@ -955,51 +1001,106 @@ extern "C" int orv_raster_bin(int n, const void* touched, const void* offsets, c
   return (int)cudaGetLastError();
 }
 
-// (c) the blend: features and out_feature may be null.
+// (c) the blend: features and out_feature may be null; out_T [H, W] f32 and
+// out_last [H, W] int32, the backward's state (each pixel's final
+// transmittance and the list position of the last splat it blends, -1 for
+// none), may be null: not written.
 extern "C" int orv_raster_forward(const void* ranges, const void* point_list, const void* xy,
                                   const void* conic_op, const void* depth, const void* colors,
                                   const void* features, const float* params, int height,
                                   int width, void* out_color, void* out_feature, void* out_depth,
-                                  void* out_alpha, void* stream) {
+                                  void* out_alpha, void* out_T, void* out_last, void* stream) {
   const Cam c = make_cam(params, height, width);
   forward_kernel<<<c.tiles_x * c.tiles_y, kBlock, 0, (cudaStream_t)stream>>>(
       (const int2*)ranges, (const int*)point_list, (const float2*)xy, (const float4*)conic_op,
       (const float*)depth, (const float*)colors, (const float*)features, c, (float*)out_color,
-      (float*)out_feature, (float*)out_depth, (float*)out_alpha);
+      (float*)out_feature, (float*)out_depth, (float*)out_alpha, (float*)out_T,
+      (int*)out_last);
   return (int)cudaGetLastError();
 }
 
-// (d) the backward: accum [n, 6] scratch; g_colors, g_opacities,
-// g_means3d, g_scales, g_rotations written whole, g_features too where
-// features and grad_feature are given (else it is not touched). touched and
-// offsets [n] are the preprocess's, slot_of [keys] the binning's, partial
-// [keys, 22] f32 zeroed by the caller.
+namespace {
+
+template <bool kWithFeat>
+cudaError_t launch_backward(const Cam& c, int n, const void* ranges, const void* point_list,
+                            const void* xy, const void* conic_op, const void* depth,
+                            const void* means3d, const void* scales, const void* rotations,
+                            const void* colors, const void* features, const void* grad_color,
+                            const void* grad_feature, const void* grad_depth,
+                            const void* grad_alpha, const void* final_T, const void* last_of,
+                            void* accum, void* g_means3d, void* g_colors, void* g_features,
+                            void* g_opacities, void* g_scales, void* g_rotations,
+                            const void* touched, const void* offsets, const void* slot_of,
+                            void* partial, cudaStream_t s) {
+  constexpr size_t smem = backward_smem<kWithFeat>();
+  static bool sized = false;  // the shared-memory limit raised once a process
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        backward_kernel<kWithFeat>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  backward_kernel<kWithFeat><<<c.tiles_x * c.tiles_y, kBlock, smem, s>>>(
+      (const int2*)ranges, (const int*)point_list, (const float2*)xy, (const float4*)conic_op,
+      (const float*)depth, (const float*)colors, (const float*)features, c,
+      (const float*)grad_color, (const float*)grad_feature, (const float*)grad_depth,
+      (const float*)grad_alpha, (const float*)final_T, (const int*)last_of, (float*)partial);
+  if (n > 0) {
+    backward_sum_kernel<kWithFeat><<<blocks_for(32LL * n), 256, 0, s>>>(
+        n, (const int*)touched, (const int*)offsets, (const int*)slot_of,
+        (const float*)partial, (float*)accum, (float*)g_colors, (float*)g_opacities,
+        (float*)g_features);
+    backward_geom_kernel<<<blocks_for(n), 256, 0, s>>>(
+        (const float*)means3d, (const float*)scales, (const float*)rotations, n, c,
+        (const float*)accum, (float*)g_means3d, (float*)g_scales, (float*)g_rotations);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// (d) the backward: final_T [H, W] and last_of [H, W], the forward's state
+// (orv_raster_forward's out_T and out_last); accum [n, 6] scratch; g_colors,
+// g_opacities, g_means3d, g_scales, g_rotations written whole, g_features
+// too where features and grad_feature are given (else it is not touched).
+// touched and offsets [n] are the preprocess's, slot_of [keys] the
+// binning's; partial [keys, 22] f32 ([keys, 10] without features) scratch,
+// written whole.
 extern "C" int orv_raster_backward(const void* ranges, const void* point_list, const void* xy,
                                    const void* conic_op, const void* depth, const void* means3d,
                                    const void* scales, const void* rotations, const void* colors,
                                    const void* features, int n, const float* params, int height,
                                    int width, const void* grad_color, const void* grad_feature,
-                                   const void* grad_depth, const void* grad_alpha, void* accum,
+                                   const void* grad_depth, const void* grad_alpha,
+                                   const void* final_T, const void* last_of, void* accum,
                                    void* g_means3d, void* g_colors, void* g_features,
                                    void* g_opacities, void* g_scales, void* g_rotations,
                                    const void* touched, const void* offsets, const void* slot_of,
                                    void* partial, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   const Cam c = make_cam(params, height, width);
   const bool with_feat = features != nullptr && grad_feature != nullptr;
-  backward_kernel<<<c.tiles_x * c.tiles_y, kBlock, 0, s>>>(
-      (const int2*)ranges, (const int*)point_list, (const float2*)xy, (const float4*)conic_op,
-      (const float*)depth, (const float*)colors, (const float*)features, c,
-      (const float*)grad_color, (const float*)grad_feature, (const float*)grad_depth,
-      (const float*)grad_alpha, (float*)partial);
-  if (n > 0) {
-    backward_sum_kernel<<<blocks_for(n), 256, 0, s>>>(
-        n, (const int*)touched, (const int*)offsets, (const int*)slot_of,
-        (const float*)partial, (float*)accum, (float*)g_colors, (float*)g_opacities,
-        with_feat ? (float*)g_features : nullptr);
-    backward_geom_kernel<<<blocks_for(n), 256, 0, s>>>(
-        (const float*)means3d, (const float*)scales, (const float*)rotations, n, c,
-        (const float*)accum, (float*)g_means3d, (float*)g_scales, (float*)g_rotations);
-  }
-  return (int)cudaGetLastError();
+  return (int)(with_feat ? launch_backward<true> : launch_backward<false>)(
+      c, n, ranges, point_list, xy, conic_op, depth, means3d, scales, rotations, colors,
+      features, grad_color, grad_feature, grad_depth, grad_alpha, final_T, last_of, accum,
+      g_means3d, g_colors, g_features, g_opacities, g_scales, g_rotations, touched, offsets,
+      slot_of, partial, (cudaStream_t)stream);
+}
+
+// The backward kernel's residency: blocks[0] its blocks a multiprocessor
+// can hold, blocks[1] its dynamic shared memory in bytes (with features
+// where with_feat, else without).
+extern "C" int orv_raster_backward_occupancy(int with_feat, void* blocks) {
+  int* out = (int*)blocks;
+  const int smem = (int)(with_feat ? backward_smem<true>() : backward_smem<false>());
+  cudaError_t err = with_feat
+      ? cudaFuncSetAttribute(backward_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+      : cudaFuncSetAttribute(backward_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  err = with_feat ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], backward_kernel<true>,
+                                                                  kBlock, smem)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], backward_kernel<false>,
+                                                                  kBlock, smem);
+  out[1] = smem;
+  return (int)err;
 }

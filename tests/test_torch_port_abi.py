@@ -26,7 +26,8 @@ ENTRY_POINTS = ("orv_flash_attn_static_max", "orv_flash_attn_online", "orv_flash
                 "orv_gated_residual_bwd", "orv_modulate_norm_bwd_limits",
                 "orv_gated_residual_bwd_limits", "orv_exclusive_scan", "orv_voxel_cells",
                 "orv_voxel_group", "orv_voxel_scatter", "orv_raster_preprocess",
-                "orv_raster_bin", "orv_raster_forward", "orv_raster_backward")
+                "orv_raster_bin", "orv_raster_forward", "orv_raster_backward",
+                "orv_raster_backward_occupancy")
 _DECL = re.compile(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(orv_\w+)\s*\(([^)]*)\)', re.S)
 
 

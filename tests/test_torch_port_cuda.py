@@ -815,6 +815,61 @@ def test_cuda_rasterize_backward_repeats_its_bits(cuda, n, H, W, features):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,H,W", [(300, 37, 53), (3000, 61, 93), (20000, 240, 320)])
+def test_cuda_rasterize_saves_the_backward_state(cuda, n, H, W):
+    """The forward under autograd saves each pixel's final transmittance and
+    the list position of its last blended splat: against
+    `forward_state_plain`, T to 1e-6 and the position equal off the pixels
+    whose running T passes within 1e-5 of 1e-4 (rounding can move the stop
+    there); its outputs are the no-grad forward's bits."""
+    from orv_tpu_torch.ops import gaussian_raster as gr
+
+    settings, t = _scene_tensors(cuda, n, H, W, seed=n + 11)
+    names = ("means3d", "colors", "opacities", "scales", "rotations", "features")
+    leaves = [t[k].clone().requires_grad_(True) for k in names]
+    out = gr.rasterize(settings, *leaves)
+    with torch.no_grad():
+        bare = gr.rasterize(settings, *(t[k] for k in names))
+    for a, b in zip(out, bare):
+        assert torch.equal(a.detach(), b)
+    state = out[0].grad_fn.state
+    want = gr.forward_state_plain(settings, t["means3d"], t["opacities"], t["scales"],
+                                  t["rotations"])
+    torch.testing.assert_close(state["T"], want["T"], atol=1e-6, rtol=0)
+    off = ~want["marginal"]
+    assert torch.equal(state["last"][off], want["last"][off])
+    assert int(want["marginal"].sum()) <= H * W // 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,H,W,features", [(300, 37, 53, False), (3000, 61, 93, True),
+                                            (20000, 240, 320, True)])
+def test_cuda_rasterize_autograd_backward_equals_the_standalone_bitwise(cuda, n, H, W, features):
+    """Autograd's backward through `rasterize` (from the state its forward
+    saved) gives the bits of the standalone `rasterize_backward` (which
+    computes the state by the same blend)."""
+    from orv_tpu_torch.ops import gaussian_raster as gr
+
+    settings, t = _scene_tensors(cuda, n, H, W, seed=n + 13, features=features)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    grads = dict(grad_color=torch.randn(3, H, W, generator=g, device=cuda),
+                 grad_depth=torch.randn(H, W, generator=g, device=cuda),
+                 grad_alpha=torch.randn(H, W, generator=g, device=cuda),
+                 grad_feature=torch.randn(12, H, W, generator=g, device=cuda))
+    names = ("means3d", "colors", "opacities", "scales", "rotations")
+    args = [t[k] for k in names]
+    want = gr.rasterize_backward(settings, *args, features=t["features"], **grads)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    feat = None if t["features"] is None else t["features"].clone().requires_grad_(True)
+    color, feature, _, depth, alpha = gr.rasterize(settings, *leaves, feat)
+    loss = ((color * grads["grad_color"]).sum() + (depth * grads["grad_depth"]).sum()
+            + (alpha * grads["grad_alpha"]).sum() + (feature * grads["grad_feature"]).sum())
+    got = torch.autograd.grad(loss, leaves + ([feat] if features else []))
+    for k, grad in zip(names + ("features",), got):
+        assert torch.equal(grad, want[k]), k
+
+
+@pytest.mark.cuda
 def test_cuda_local_ring_refuses_a_backward(cuda):
     """Autograd runs CUDA backward nodes on its own device thread, where a
     LocalRing rank is unknown: the ring refuses to record a backward on CUDA

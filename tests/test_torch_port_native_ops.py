@@ -154,6 +154,86 @@ def test_port_rasterize_backward_matches_the_cpp_backward(n, H, W, seed, feature
         torch.testing.assert_close(leaf.grad, got[k], atol=0, rtol=0)
 
 
+def _state_scene(which: str):
+    """(settings, arrays): "sparse", the 300-gaussian 64 x 96 scene; "dense",
+    2000 gaussians at 37 x 53 (ragged tiles), every fifth at opacity 1, so
+    that pixels stop at T < 1e-4 and blended splats sit at the 0.99 clamp."""
+    if which == "sparse":
+        return chip_smoke.raster_scene(*SCENES[0])
+    settings, a = chip_smoke.raster_scene(2000, 37, 53, 3)
+    a["opacities"][::5] = 1.0
+    return settings, a
+
+
+@pytest.mark.parametrize("which", ["sparse", "dense"])
+def test_port_forward_state_follows_the_cpp_forward(which):
+    """The backward's state from the plain blend: 1 - T is the C++'s alpha
+    (1e-5, as the forward's tolerance); a pixel blends no splat (last -1)
+    exactly where the C++'s alpha is 0; the splat at `last` lies in the
+    pixel's tile list and blends the pixel."""
+    settings, a = _state_scene(which)
+    H, W = settings.image_height, settings.image_width
+    want = jraster.rasterize(_jax_settings(settings), a["means3d"], a["colors"],
+                             a["opacities"], a["scales"], a["rotations"], None)
+    t = {k: torch.tensor(v) for k, v in a.items()}
+    state = traster.forward_state_plain(settings, t["means3d"], t["opacities"], t["scales"],
+                                        t["rotations"])
+    np.testing.assert_allclose(1.0 - state["T"].numpy(), want[4], atol=1e-5, rtol=0)
+    last = state["last"].numpy()
+    np.testing.assert_array_equal(last < 0, want[4] == 0)
+    np.testing.assert_array_equal(state["pairs"].numpy() > 0, last >= 0)
+    binned = traster.bin_plain(settings, t["means3d"], t["scales"], t["rotations"])
+    geo = traster._geometry_plain(settings, t["means3d"], t["scales"], t["rotations"])
+    y, x = np.nonzero(last >= 0)
+    tile = (y // traster.TILE) * -(-W // traster.TILE) + x // traster.TILE
+    ranges = binned["ranges"].numpy()
+    k = last[y, x]
+    assert ((ranges[tile, 0] <= k) & (k < ranges[tile, 1])).all()
+    g = binned["point_list"].numpy()[k]
+    dx = geo["px"].numpy()[g] - x.astype(np.float32)
+    dy = geo["py"].numpy()[g] - y.astype(np.float32)
+    c = geo["conic"].numpy()[g]
+    power = np.float32(-0.5) * (c[:, 0] * dx * dx + c[:, 2] * dy * dy) - c[:, 1] * dx * dy
+    alpha = np.minimum(np.float32(0.99), a["opacities"][g] * np.exp(power))
+    assert (power <= 0).all() and (alpha >= np.float32(1.0) / np.float32(255.0)).all()
+    if which == "dense":
+        assert (state["T"] < 1e-4).sum() > 100 and state["clamped"].sum() > 0
+
+
+@pytest.mark.parametrize("features", [True, False])
+@pytest.mark.parametrize("which", ["sparse", "dense"])
+def test_port_backward_kernel_order_matches_the_cpp_backward(which, features):
+    """The backward kernel's order in plain PyTorch
+    (`rasterize_backward_emulated`: back to front from the forward's state,
+    warp sums added in warp order, each gaussian's slots in key order)
+    against the C++'s derivation and against autograd through
+    `rasterize_plain`, each gradient to 1e-4 of its largest magnitude; the
+    dense scene has stopped pixels, clamped alphas and ragged tiles."""
+    settings, a = _state_scene(which)
+    H, W = settings.image_height, settings.image_width
+    rng = np.random.default_rng(H + W)
+    gc = rng.normal(size=(3, H, W)).astype(np.float32)
+    gd = rng.normal(size=(H, W)).astype(np.float32)
+    ga = rng.normal(size=(H, W)).astype(np.float32)
+    gf = rng.normal(size=(12, H, W)).astype(np.float32)
+    feats = a["features"] if features else None
+    want = jraster.rasterize_backward(_jax_settings(settings), a["means3d"], a["colors"],
+                                      a["opacities"], a["scales"], a["rotations"], gc, gd, ga,
+                                      feats, gf if features else None)
+    t = {k: torch.tensor(v) for k, v in a.items()}
+    args = (t["means3d"], t["colors"], t["opacities"], t["scales"], t["rotations"])
+    grads = (torch.tensor(gc), torch.tensor(gd), torch.tensor(ga))
+    tf, tgf = (t["features"], torch.tensor(gf)) if features else (None, None)
+    got = traster.rasterize_backward_emulated(settings, *args, *grads, tf, tgf)
+    plain = traster.rasterize_backward_plain(settings, *args, *grads, tf, tgf)
+    for k, w in want.items():
+        for ref in (w, plain[k].numpy()):
+            scale = max(float(np.abs(ref).max()), 1e-30)
+            assert float(np.abs(got[k].numpy() - ref).max()) <= 1e-4 * scale, k
+    if not features:
+        assert not got["features"].any()
+
+
 def test_port_rasterize_on_voxel_centres_with_depth_ties():
     """A tabletop slab of 1 mm voxels in four labelled quadrants, seen
     straight down: each layer's centres share one depth exactly. Where the
