@@ -325,12 +325,22 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      turns (PAB, exact, exact, PAB) so that the first calls fall on both;
      the PAB latents must lie 2e-3 to 2.5e-2 of the range from the exact
      sampler's (measured 6.9e-3 bf16, 8.1e-3 W8A8);
+  6a. the synthetic PAB quality harness (scripts/pab_quality_synthetic_torch.py)
+     on the card at a short budget: its `run` overfits the 4-layer model
+     (2 heads of 64, bf16 compute, f32 parameters) for 20 train steps and
+     renders 2 clips of 6 DPM steps, exact and PAB (pab_skip 2, window
+     0.1-0.85), in both sampler groups: every report field there and
+     finite, `safe` the +6 dB rule, launches exactly 20 micro-steps' plus
+     the renders' full and reuse forwards'; then an overfit of the same
+     budget whose logged loss falls (the second half's mean under the first
+     step's), and a PAB sampler with an empty window (pab_start == pab_end)
+     bitwise the exact sampler; one line with the phase's seconds;
   6b. every shape at which the DiT layers called a forward kernel (rows 2,
      3, 6, 8, 9) or the kernels' autograd Functions a backward (rows 4-5, 7,
-     10) in phases 3 to 6 (`ShapeLog`), held against its plain version
+     10) in phases 3 to 6a (`ShapeLog`), held against its plain version
      unless phase 2, 5c or 6 checked it already;
   7. the card's name and power limit, the kernels' JSON line (launches: the
-     sum over every main-path run of phases 3 to 6, the comparisons with
+     sum over every main-path run of phases 3 to 6a, the comparisons with
      plain versions left out; every kernel must have run; each record also
      lists its times at phase 6's shapes under "surface_shapes" and at phase
      5c's under "surface_train_shapes"; the factory's four records last, with
@@ -4563,6 +4573,87 @@ def surface_phase(g, root: Path):
     return new_shapes
 
 
+# -- phase 6a: the synthetic PAB quality harness on the card ---------------------------
+
+# a short budget of scripts/pab_quality_synthetic_torch.py: train steps, DPM steps, clips,
+# and its one cell (pab_skip, window)
+HARNESS_STEPS, HARNESS_SAMPLE_STEPS, HARNESS_CLIPS = 20, 6, 2
+HARNESS_SKIP, HARNESS_WINDOW = 2, (0.1, 0.85)
+
+
+def load_script(name: str):
+    """A module of scripts/ beside this file, loaded from its path."""
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def pab_quality_phase() -> None:
+    """Phase 6a: the synthetic PAB quality harness's `run` on the card at a
+    short budget, its one cell in both sampler groups: every report field
+    there and finite, the launches of rows 2, 4-7, 9 and 10 exactly the
+    overfit's micro-steps plus the renders' full and reuse forwards, the
+    overfit's logged loss falling; then, on the model that `run` trained, a
+    PAB sampler with an empty window (pab_start == pab_end) bitwise the
+    exact one."""
+    from orv_tpu_torch.pipelines.sample import pab_full_flags
+
+    t_phase = time.perf_counter()
+    harness = load_script("pab_quality_synthetic_torch")
+    cuda = torch.device("cuda")
+    cfg, _ = harness.model_setup(cuda)
+    built = []  # what `run`'s one overfit returns: (model, clip, img_lat, enc, losses)
+    build = harness.build_overfit_model
+    harness.build_overfit_model = lambda *a, **k: built.append(build(*a, **k)) or built[-1]
+    reset_counts()
+    report = harness.run(HARNESS_STEPS, HARNESS_SAMPLE_STEPS, HARNESS_CLIPS,
+                         skips=(HARNESS_SKIP,), windows=(HARNESS_WINDOW,), device=cuda)
+    torch.cuda.synchronize()
+    got = counts()
+    tally(got)
+    L = cfg.num_layers
+    n_full = int(pab_full_flags(HARNESS_SAMPLE_STEPS, HARNESS_SKIP, *HARNESS_WINDOW).sum())
+    full = HARNESS_SAMPLE_STEPS + n_full  # forwards a clip a group: the exact render's, PAB's
+    reuse = HARNESS_SAMPLE_STEPS - n_full
+    forward = tuple(2 * HARNESS_CLIPS * (full * f + reuse * r) * L // FLAGSHIP.num_layers
+                    for f, r in zip(BF16_FORWARD, PAB_REUSE))
+    want = tuple(HARNESS_STEPS * n + f for n, f in zip(train_micro_step_counts(L), forward))
+    print(f"pab quality harness: launches {got} (want {want})", flush=True)
+    check(got == want, f"pab quality harness launch counts {got}, not {want}")
+    check((report["device"], report["compute_dtype"], report["attention_head_dim"])
+          == ("cuda", "bfloat16", 64) and bool(report["card"]),
+          f"pab quality harness report names {report['device']}, {report['compute_dtype']}, "
+          f"{report['attention_head_dim']}, {report['card']}")
+    numbers = [report["final_train_loss"], report["recon_psnr_exact"]]
+    for group in ("stochastic_dpm", "deterministic"):
+        numbers.append(report[group]["recon_psnr_exact"])
+        (cell,) = report[group]["cells"]
+        check(cell["pab_skip"] == HARNESS_SKIP and cell["window"] == list(HARNESS_WINDOW)
+              and cell["safe"] == (cell["pab_vs_exact_psnr"]
+                                   >= report[group]["recon_psnr_exact"] + 6.0),
+              f"pab quality harness cell {cell}")
+        numbers += [cell[k] for k in ("recon_psnr_pab", "pab_vs_exact_psnr", "frechet_rp")]
+    check(all(math.isfinite(x) for x in numbers), f"pab quality harness report {report}")
+
+    (model, _, img_lat, enc, losses), = built
+    late = float(np.mean(losses[len(losses) // 2:]))
+    check(late < losses[0], f"the overfit's loss does not fall: {losses}")
+    exact, empty = (harness.render(model, make_schedule(), SamplerConfig(
+        num_inference_steps=HARNESS_SAMPLE_STEPS, **kw), img_lat, enc, 1)[0]
+        for kw in ({}, dict(pab_skip=HARNESS_SKIP, pab_start=0.5, pab_end=0.5)))
+    check(np.array_equal(exact, empty), "a PAB sampler with an empty window differs from the "
+                                        "exact sampler on the card")
+    print(f"pab quality harness ({HARNESS_STEPS} train steps, {HARNESS_SAMPLE_STEPS} DPM steps, "
+          f"{HARNESS_CLIPS} clips, bf16, heads of 64): final loss "
+          f"{report['final_train_loss']:.4f}, overfit loss {losses[0]:.4f} -> mean {late:.4f} "
+          f"over the second half; deterministic recon PSNR "
+          f"{report['deterministic']['recon_psnr_exact']:.2f} dB, PAB vs exact "
+          f"{report['deterministic']['cells'][0]['pab_vs_exact_psnr']:.2f} dB; empty window "
+          f"bitwise the exact sampler; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def ring_phase(g, dit, inp, x, t, v_resident) -> None:
     """Phase 3b: the ring through LocalRing(SP), every rank a thread on the
     one card."""
@@ -4860,6 +4951,11 @@ def main() -> int:
         surface_shapes = surface_phase(g, surface_root)
     finally:
         shutil.rmtree(surface_root, ignore_errors=True)
+
+    # 6a. the synthetic PAB quality harness at a short budget
+    gc.collect()
+    torch.cuda.empty_cache()
+    pab_quality_phase()
     launches = tuple(TOTAL_LAUNCHES)
 
     # 6b. every forward kernel against its plain version at the main path's shapes

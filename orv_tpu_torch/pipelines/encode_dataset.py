@@ -17,8 +17,10 @@ Usage:
       [--ref_nums 1,5] [--encode_conds] [--max_samples N] [--device cpu]
 
 Without `--vae_path` the VAE is random (from a seed), as in the JAX
-package. With several ranks (`torch.distributed` initialized) each takes
-every world_size-th sample from its rank on.
+package. Under `torchrun --nproc_per_node N` (`scripts/encode_dataset_dist_torch.sh`)
+`main` starts the group of the N ranks, each on a card of its own where there
+are N, and each takes every N-th sample from its rank on; rank 0 writes the
+empty prompt.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from orv_tpu_torch.configs import default_config_dir, load_config
 from orv_tpu_torch.data import DatasetConfig, RobotDataset
 from orv_tpu_torch.models.vae import CausalVAE, VAEConfig, encode_auto
+from orv_tpu_torch.parallel.mesh import initialize_distributed
 from orv_tpu_torch.utils.device import DeviceLike, resolve_device
 from orv_tpu_torch.utils.logging import CONSOLE
 
@@ -209,6 +212,7 @@ def main(argv=None):
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
     cfg = load_config(args.base, None, args.dataset_type, None, args.overrides)
+    initialize_distributed()  # under torchrun: the group of the ranks, this rank's card
     device = resolve_device(args.device)
 
     if args.vae_path and Path(args.vae_path).exists():
@@ -225,7 +229,8 @@ def main(argv=None):
                  encode_conds=args.encode_conds or None, device=device)
     out_root = (Path(cfg.dataset.data_root)
                 / cfg.dataset.get("embeddings_folder", "embeddings_full") / args.split)
-    encode_empty_prompt(cfg, out_root, device=device)
+    if _rank()[0] == 0:
+        encode_empty_prompt(cfg, out_root, device=device)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@ from orv_tpu_torch.schedulers.scheduling import (
     DiffusionSchedule,
     add_noise,
     ddim_step,
+    dpm_step,
     dpm_step_scan,
     get_inference_timesteps,
     get_velocity,
@@ -14,6 +15,7 @@ __all__ = [
     "DiffusionSchedule",
     "add_noise",
     "ddim_step",
+    "dpm_step",
     "dpm_step_scan",
     "get_inference_timesteps",
     "get_velocity",

@@ -198,6 +198,29 @@ def _dpm_mult(h, r, alpha_prod_t, alpha_prod_t_prev):
     return mult1, mult2, 1.0 + 1.0 / (2.0 * r), 1.0 / (2.0 * r)
 
 
+def dpm_step(
+    schedule: DiffusionSchedule,
+    model_output: torch.Tensor,
+    old_pred_original_sample: Optional[torch.Tensor],
+    timestep: Timestep,
+    back_timestep: Optional[Timestep],
+    prev_timestep: Timestep,
+    sample: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SDE-DPM-solver++(2M) update; returns (x_prev, pred_x0).
+
+    `old_pred_original_sample` is threaded between steps as the reference
+    denoise loop does: None (the first step) takes the first-order update
+    and leaves `back_timestep` unread; otherwise the 2M correction, which
+    falls back to first order on the terminal step (prev_timestep < 0,
+    h == inf). `noise` adds the stochastic term; None is the ODE limit.
+    The step is `dpm_step_scan` with `have_old` read off the first input."""
+    have_old = old_pred_original_sample is not None
+    return dpm_step_scan(schedule, model_output, old_pred_original_sample, have_old, timestep,
+                         back_timestep if have_old else timestep, prev_timestep, sample, noise)
+
+
 def dpm_step_scan(
     schedule: DiffusionSchedule,
     model_output: torch.Tensor,

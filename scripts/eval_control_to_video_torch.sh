@@ -1,0 +1,5 @@
+#!/usr/bin/env bash
+# The PyTorch port's eval_control_to_video.sh (orv_tpu_torch, on the CUDA card).
+set -euo pipefail
+DATASET_TYPE=${DATASET_TYPE:-bridgev2}
+python -m orv_tpu_torch.pipelines.evaluate --dataset_type "$DATASET_TYPE" "$@"

@@ -17,8 +17,13 @@ modules and no cache is used.
 
 `no_persistent_jax_cache` turns the cache off for a module and restores it
 after; every port test file that runs JAX imports it (autouse).
+
+The file also holds the port's scripts under scripts/ apart from the JAX
+package: they import neither jax nor orv_tpu.
 """
 
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -72,3 +77,23 @@ def test_every_port_test_file_that_runs_jax_takes_the_fixture():
         if path != Path(__file__).resolve() and ("\nimport jax" in text
                                                  or "\nfrom orv_tpu." in text):
             assert "import no_persistent_jax_cache" in text, path.name
+
+
+def test_port_scripts_import_no_jax_and_no_orv_tpu():
+    """The port's scripts stand apart from the JAX package:
+    scripts/pab_quality_synthetic_torch.py runs a short harness in a fresh
+    process without pulling in jax or any module of orv_tpu (the `_torch`
+    launchers are read in test_torch_port_launchers.py)."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import pab_quality_synthetic_torch as h\n"
+        "r = h.run(train_steps=2, sample_steps=2, n_clips=2, skips=(2,),\n"
+        "          windows=((0.1, 0.85),), device='cpu')\n"
+        "assert r['device'] == 'cpu' and 'orv_tpu_torch.pipelines.sample' in sys.modules\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orv_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=TESTS.parent, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

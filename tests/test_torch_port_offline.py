@@ -11,6 +11,9 @@ differs).
 """
 
 import json
+import os
+import re
+import subprocess
 from pathlib import Path
 
 import jax
@@ -22,6 +25,9 @@ import torch
 from orv_tpu.pipelines import encode_dataset as jenc
 from orv_tpu_torch.pipelines import encode_dataset as tenc
 from test_torch_port_isolation import no_persistent_jax_cache  # noqa: F401 (autouse)
+from test_torch_port_ring import _free_port
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _rel(got, want):
@@ -218,6 +224,32 @@ def test_encode_main_runs_on_the_cpu(encoded, monkeypatch):
                            "prompt_embeds/empty.npz"]
     assert np.load(out / "latents" / "00000_00_09_0.npz")["arr_0"].shape == (32, 3, 4, 6)
     assert np.load(out / "prompt_embeds" / "empty.npz")["arr_0"].shape == (8, 32)
+
+
+def test_encode_dist_launcher_splits_by_rank(encoded):
+    """`scripts/encode_dataset_dist_torch.sh` with NPROC_PER_NODE=2 on the
+    CPU: `main` starts torchrun's two ranks as one gloo group, each rank
+    encodes half the samples, and together they write every latent that one
+    process writes, and one empty prompt."""
+    from test_torch_port_train_entry import overrides
+
+    root = encoded["root_t"]
+    env = dict(os.environ, NPROC_PER_NODE="2", PET_MASTER_PORT=str(_free_port()),
+               PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run(
+        ["bash", "scripts/encode_dataset_dist_torch.sh", "--device", "cpu",
+         *overrides(root, encoded["tmp"] / "unused", ["dataset.embeddings_folder=emb_dist"])],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    log = run.stdout + run.stderr
+    assert run.returncode == 0, log[-4000:]
+    full = {Path(p).name for p in encoded["written"] if Path(p).parent.name == "latents"}
+    out = root / "emb_dist" / "train"
+    assert {p.name for p in (out / "latents").iterdir()} == full
+    assert {p.name for p in (out / "image_latents").iterdir()} == full
+    assert (out / "prompt_embeds" / "empty.npz").exists()
+    per_rank = [int(n) for n in re.findall(r"done: (\d+) encoded", log)]
+    n_samples = len({n.rsplit("_", 1)[0] for n in full})
+    assert sorted(per_rank) == [n_samples // 2, n_samples - n_samples // 2], log[-4000:]
 
 
 def test_port_trains_on_what_it_encoded(encoded, monkeypatch):

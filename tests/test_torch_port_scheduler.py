@@ -86,3 +86,39 @@ def test_ddim_step_matches_jax():
         out = tsched.ddim_step(tsc, torch.from_numpy(v), int(ts[i]), int(prev[i]),
                                torch.from_numpy(x))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("with_noise", [False, True])
+@pytest.mark.parametrize("case", ["first_order", "multistep", "terminal"])
+def test_dpm_step_matches_jax(case, with_noise):
+    """The one-step update on a 4-step table: step 0 with no old prediction
+    (first order, no back timestep), step 2 with one (the 2M correction),
+    and step 3, whose prev timestep -1 gives h = inf and the first-order
+    fallback; the same numpy inputs and noise go to both packages (f32, to
+    1e-6 on O(1) values). It is also `dpm_step_scan` bit for bit, with
+    `have_old` false for the first step and true otherwise."""
+    js, tsc = jsched.make_schedule(), tsched.make_schedule()
+    ts, prev, back = _step_tables(4)
+    i = {"first_order": 0, "multistep": 2, "terminal": 3}[case]
+    rng = np.random.default_rng(i)
+    shape = (2, 3, 4, 5)
+    x, v, old, noise = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    old = None if case == "first_order" else old
+    noise = noise if with_noise else None
+    t_back = None if old is None else int(back[i])
+    jx = lambda a: None if a is None else jnp.asarray(a)
+    tt = lambda a: None if a is None else torch.tensor(a)
+    ref = jsched.dpm_step(js, jx(v), jx(old), jnp.asarray(ts[i]), jx(t_back),
+                          jnp.asarray(prev[i]), jx(x), noise=jx(noise))
+    got = tsched.dpm_step(tsc, tt(v), tt(old), int(ts[i]), t_back, int(prev[i]), tt(x),
+                          noise=tt(noise))
+    for g, r, what in zip(got, ref, ("x_prev", "pred_x0")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6, rtol=0,
+                                   err_msg=f"{case} {what}")
+    scan = tsched.dpm_step_scan(tsc, tt(v), torch.zeros(shape) if old is None else tt(old),
+                                old is not None, int(ts[i]), int(back[i]), int(prev[i]), tt(x),
+                                noise=tt(noise))
+    for g, s in zip(got, scan):
+        assert torch.equal(g, s)
+    if case == "terminal":  # abar_prev == 1: the step lands on pred_x0 (and its noise term is 0)
+        np.testing.assert_allclose(got[0].numpy(), got[1].numpy(), atol=1e-6, rtol=0)
