@@ -12,6 +12,12 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      two adaLN forwards of adaln_fwd_sm90.cuh, the two adaLN backwards of
      adaln_bwd_sm90.cuh) again, by kernel, with any ptxas notice about a
      wgmma pipeline; a spill in any instance or such a notice fails the run;
+     then those of the general kernels (flash_attn_general.cu,
+     flash_attn_general_bwd.cu, adaln_general.cu, gated_residual.cu: f32 and
+     bf16, the attention head-dim capacities 16 to 128, both forward modes),
+     where a spill fails the run in an instance the main path launches
+     (attention in f32 at capacities 16 and 64 and in bf16 at 16, every
+     adaLN and gated-residual instance);
   2. hold each of the ten kernels against its plain PyTorch version on the
      card, at the flagship or training shapes and at small ragged ones (the
      adaLN forwards also at the text stream's [1,226,1920], the training
@@ -42,7 +48,21 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      and 1950 x 226 calls (online), the int8 forward's TOP/s, share of
      its bound and time over SDPA's at the flagship, and the backward
      kernels' TFLOP/s and shares of their bounds at the training shape
-     with their sum over SDPA's flash backward;
+     with their sum over SDPA's flash backward; then the general kernels
+     (`general_kernel_checks`), each call routed to them and to no Hopper
+     kernel, against their plain versions (f32 within 1e-4 of each output's
+     range, lse within 1e-4; bf16 at the Hopper kernels' tolerances): the
+     forward in both modes at the training shape [1,30,3226,64] in f32, at
+     the ring's 226 x 1950 and 1950 x 226, at head dims 16, 32 and 128 on
+     ragged shapes in f32 and at 16 and 128 in bf16; the backward with and
+     without dlse (a second run bitwise equal, the dlse fault rejected) at
+     the same kinds of shapes; the adaLN forward and backward and the gated
+     residual forward and backward in f32 at [5,600,1920], [1,226,1920],
+     [2,37,32] and [4,600,3072], the adaLN pair in bf16 at D 32; the forward,
+     dq, dk/dv and the four adaLN entry points timed at the training shapes
+     beside their plain versions, SDPA on f32 q, k, v (forward) and its
+     memory-efficient backward (dq + dk/dv), addcmul (gated residual) and
+     ATen's LayerNorm backward at the R = 1 form in f32 (adaLN backward);
   3. a tiny ControlDiT, bf16 and W8A8 (quant=True, attn_impl="flash_q8"), and
      a small VAE decode on the card against the same weights on the CPU
      (plain versions, f32); one train step of a tiny recon_action ControlDiT
@@ -50,7 +70,14 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      versions) from the same weights and draws, with visual guidance and
      depth and label moments in the batch: loss and grad norm must agree,
      and every parameter that gets a gradient on the CPU must get a nonzero
-     one on the card; the resume round trip of pipelines/train.py:train at
+     one on the card; pipelines/train.py:train with
+     train.mixed_precision=no on the 2B recipe at full width cut to 2
+     layers (8 x 16 latents, 386 joint tokens, B=1 x 2, 4 micro-steps) on
+     the card, every DiT launch a general kernel's, and on the CPU (plain
+     versions) from one initial folder, the card's batches replayed and
+     the CPU's draws: each micro-step's loss within 1e-5 relative and grad
+     norm within 1e-4 (`f32_train_check`); the resume round trip of
+     pipelines/train.py:train at
      a tiny config on the card (runs cut before micro-step 2 and 3, each
      resumed from its latest checkpoint to 4, bitwise equal to an unbroken
      run of 4); then one bf16 ControlDiT forward at the
@@ -183,6 +210,15 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      (TrainTimes wraps the three) and peak memory, then times one more
      optimizer step by hand on the loader's first batch, split into
      forward, backward and optimizer;
+  5b. f32 training, phase 5's checkpoints deleted:
+     pipelines/train.py:train with train.mixed_precision=no on the same
+     recipe at full width and depth (30 x 30 x 64, 3226 joint tokens),
+     seeded random weights, B=1 x accumulation 2, 2 micro-steps, no
+     validation, the final checkpoint and export counted, not written:
+     launches exactly 2 x (30 / 30 / 30 / 60 / 60 / 120 / 119) of the
+     general forward / dq / dk-dv / modulate_norm / its backward /
+     gated_residual / its backward and none of a Hopper kernel; s per
+     optimizer step (the tracker's s_per_it), peak memory, the losses;
   5c. the model surface's training side at full width, phase 5's state
      freed and its checkpoints deleted, each run through
      pipelines/train.py:train with launch counts from zero and a line of
@@ -327,21 +363,27 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      sampler's (measured 6.9e-3 bf16, 8.1e-3 W8A8);
   6a. the synthetic PAB quality harness (scripts/pab_quality_synthetic_torch.py)
      on the card at a short budget: its `run` overfits the 4-layer model
-     (2 heads of 64, bf16 compute, f32 parameters) for 20 train steps and
+     at the JAX harness's config (f32, 2 heads of 16, rows 32 wide: the
+     general kernels) for 20 train steps and
      renders 2 clips of 6 DPM steps, exact and PAB (pab_skip 2, window
      0.1-0.85), in both sampler groups: every report field there and
      finite, `safe` the +6 dB rule, launches exactly 20 micro-steps' plus
-     the renders' full and reuse forwards'; then an overfit of the same
+     the renders' full and reuse forwards' in the general kernels' counts,
+     none in a Hopper kernel's; then an overfit of the same
      budget whose logged loss falls (the second half's mean under the first
      step's), and a PAB sampler with an empty window (pab_start == pab_end)
      bitwise the exact sampler; one line with the phase's seconds;
   6b. every shape at which the DiT layers called a forward kernel (rows 2,
      3, 6, 8, 9) or the kernels' autograd Functions a backward (rows 4-5, 7,
      10) in phases 3 to 6a (`ShapeLog`), held against its plain version
-     unless phase 2, 5c or 6 checked it already;
+     unless phase 2, 5c or 6 checked it already; a call the general kernels
+     took is keyed by its dtype and full shape and held by the general
+     checks;
   7. the card's name and power limit, the kernels' JSON line (launches: the
      sum over every main-path run of phases 3 to 6a, the comparisons with
-     plain versions left out; every kernel must have run; each record also
+     plain versions left out; every kernel must have run, the seven general
+     entry points' records after the ten Hopper ones, their launches from
+     phases 5b and 6a; each record also
      lists its times at phase 6's shapes under "surface_shapes" and at phase
      5c's under "surface_train_shapes"; the factory's four records last, with
      phase 4d's launches), and last
@@ -1113,13 +1155,15 @@ def bwd_rate(recs, heads: int, s: int) -> None:
           flush=True)
 
 
-def mn_bwd_inputs(g, R, S, D):
-    """(x, dout, scale, ns) of the adaLN backward: scale a row-strided bf16
-    chunk and ns f32, as in the f32-parameter training model."""
-    x = (2 * torch.randn(R, S, D, device="cuda", generator=g) + 0.3).bfloat16()
-    do = torch.randn(R, S, D, device="cuda", generator=g).bfloat16()
-    _, scale, _ = (0.3 * torch.randn(R, 3 * D, device="cuda", generator=g)).bfloat16(
-    ).chunk(3, dim=-1)
+def mn_bwd_inputs(g, R, S, D, dtype=torch.bfloat16):
+    """(x, dout, scale, ns) of the adaLN backward: x, dout and scale (a
+    row-strided chunk) in `dtype` and ns f32, as in the f32-parameter
+    training model (whose modulation is bf16 under mixed precision, f32
+    without)."""
+    x = (2 * torch.randn(R, S, D, device="cuda", generator=g) + 0.3).to(dtype)
+    do = torch.randn(R, S, D, device="cuda", generator=g).to(dtype)
+    _, scale, _ = (0.3 * torch.randn(R, 3 * D, device="cuda", generator=g)).to(dtype).chunk(
+        3, dim=-1)
     return x, do, scale, 1 + 0.1 * torch.randn(D, device="cuda", generator=g)
 
 
@@ -1131,14 +1175,14 @@ def layer_norm_bwd(x, do, w, b, mean, rstd):
                                                      [True, True, True])
 
 
-def mn_bwd_library_ms(g, S, D, eps: float = 1e-5):
+def mn_bwd_library_ms(g, S, D, eps: float = 1e-5, dtype=torch.bfloat16):
     """The adaLN backward's yardstick at its R = 1 form [1, S, D]: with w =
     ns * (1 + scale[0]) one [D] vector, ATen's LayerNorm backward returns
-    (dx, B, A) from the same bytes (w in x's dtype, bf16: ATen's backward
-    takes no f32 weight with bf16 x). Prints its time beside the kernel's at
-    the same inputs (device_ms) and how far its outputs lie from the
-    kernel's; returns (library ms, kernel ms)."""
-    x, do, scale, ns = mn_bwd_inputs(g, 1, S, D)
+    (dx, B, A) from the same bytes (w in x's dtype: ATen's backward takes no
+    f32 weight with bf16 x). Prints its time beside the kernel's at the same
+    inputs (device_ms) and how far its outputs lie from the kernel's;
+    returns (library ms, kernel ms)."""
+    x, do, scale, ns = mn_bwd_inputs(g, 1, S, D, dtype)
     w = (ns * (1.0 + scale.float()[0])).to(x.dtype)
     _, mean, rstd = torch.native_layer_norm(x.float(), [D], None, None, eps)
     got = adaln.modulate_norm_bwd(x, do, scale, ns)
@@ -1147,7 +1191,7 @@ def mn_bwd_library_ms(g, S, D, eps: float = 1e-5):
     errs = [rms_errors(a, b)[1] for a, b in zip((got[0], got[2][0], got[1][0]), lib)]
     lib_ms = call_ms("aten native_layer_norm_backward", layer_norm_bwd, args, 50)
     ms = call_ms("modulate_norm_bwd R = 1", adaln.modulate_norm_bwd, (x, do, scale, ns), 50)
-    print(f"library modulate_norm_bwd [1, {S}, {D}] (R = 1: w one vector): aten "
+    print(f"library modulate_norm_bwd {dtype} [1, {S}, {D}] (R = 1: w one vector): aten "
           f"native_layer_norm_backward {lib_ms:.4f} ms, kernel {ms:.4f} ms; rel RMS of the "
           f"kernel's dx / B / A from aten's {errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g}",
           flush=True)
@@ -1255,8 +1299,341 @@ def time_int8_prep(g, prep_k_ms: float) -> None:
         f"{w} {ms:.4f} ms x{n}" for w, ms, n in parts) + f"; total {total:.2f} ms", flush=True)
 
 
+# -- the general kernels: f32 or bf16 attention at head dims 8..128, adaLN at any D % 8 ------
+
+# the general route's entry points, in the order of their launch counts
+GENERAL = (attention.flash_attention_general_kernel, attention.flash_attention_general_bwd_dq,
+           attention.flash_attention_general_bwd_dkv, adaln.modulate_norm_general,
+           adaln.modulate_norm_bwd_general, adaln.gated_residual_general,
+           adaln.gated_residual_bwd_general)
+GENERAL_LAUNCHES = [0] * len(GENERAL)  # the kernels line's, summed over every main-path run
+GENERAL_SOURCES = ("flash_attn_general.cu", "flash_attn_general_bwd.cu", "adaln_general.cu",
+                   "gated_residual.cu")
+# a general kernel's name, element type and head-dim capacity in its mangled symbol
+GENERAL_NAME = re.compile(r"((?:flash_general_\w+?|mn_general_\w+?|gr_general_\w+?|"
+                          r"general_chunk_sums|gated_residual)_kernel)"
+                          r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?)?")
+
+
+def as_general(c):
+    """Launch counts in KERNELS order (a bf16 run's) as the general route's
+    in GENERAL order: the forward takes both softmax modes; W8A8 has none."""
+    check(c[3] == c[4] == 0, f"W8A8 launches {c[3:5]} have no general counterpart")
+    return (c[0] + c[9], c[5], c[6], c[1], c[7], c[2], c[8])
+
+
+def general_counts():
+    return tuple(k.launches for k in GENERAL)
+
+
+def tally_general(launches) -> None:
+    for i, n in enumerate(launches):
+        GENERAL_LAUNCHES[i] += n
+
+
+def general_build_report() -> None:
+    """The ptxas report of the general kernels (registers, spills, stack
+    frame), one line an instance: element type f (f32) or bf16, the
+    attention kernels' head-dim capacity and the forward's mode (online or
+    static max). A spill fails the run in an
+    instance the main path launches: attention in f32 at capacities 16 and
+    64 and in bf16 at 16, every adaLN and gated-residual instance."""
+    if not _build.build_log:
+        print("general kernels: no build log (the library was built before)", flush=True)
+        return
+    source, kernel, faults = None, None, []
+    for line in _build.build_log.splitlines():
+        if line.startswith("== "):
+            source, kernel = line[3:].strip(), None
+        elif source not in GENERAL_SOURCES:
+            continue
+        elif "entry function" in line:
+            m = GENERAL_NAME.search(line)
+            kernel = (m.group(1), "f" if m.group(2) == "f" else "bf16" if m.group(2) else "",
+                      m.group(3), m.group(4)) if m else ("?", "", None, None)
+        elif kernel and re.search(r"registers|spill", line):
+            name, t, cap, online = kernel
+            mode = {"1": ", online", "0": ", static max"}.get(online, "")
+            what = f"{source} {name}<{t}{', ' + cap if cap else ''}{mode}>"
+            print(f"ptxas {what}: {line.strip()}", flush=True)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            launched = not name.startswith("flash_general") or (t, cap) in (
+                ("f", "16"), ("f", "64"), ("bf16", "16"))
+            if spills and any(map(int, spills.groups())) and launched:
+                faults.append(f"{what}: {line.strip()}")
+    check(not faults, f"a general kernel the main path launches spilled: {faults}")
+
+
+def within_range(got, want, rel: float = 1e-4):
+    """(max abs error, the range of want, whether the error is within rel of
+    that range): the f32 general kernels' tolerance."""
+    err, w = max_err(got, want), want.float()
+    span = (w.max() - w.min()).item()
+    return err, span, err <= rel * span
+
+
+def routed(before, want_general) -> None:
+    """The calls since `before` (general_counts(), counts()) launched the
+    general kernels `want_general` times each and no Hopper kernel."""
+    got = tuple(a - b for a, b in zip(general_counts(), before[0]))
+    hopper = tuple(a - b for a, b in zip(counts(), before[1]))
+    check(got == tuple(want_general) and not any(hopper),
+          f"general launches {got} (want {tuple(want_general)}), Hopper launches {hopper}")
+
+
+def attn_bytes(BH, sq, skv, dh, el) -> int:
+    return BH * (2 * sq + 2 * skv) * dh * el + BH * sq * 4
+
+
+def check_general_attention(g, shape, skv, static_max, dtype, timed: bool = False):
+    """The general forward (`flash_attention` on f32, or bf16 at a head dim
+    other than 64) against its plain version over q [B, H, Sq, Dh] (shape)
+    and skv keys: f32 out within 1e-4 of its range and lse within 1e-4;
+    bf16 out within 1e-2 and lse 1e-3. Timed: its record, beside the plain
+    version and SDPA on the same q, k, v."""
+    B, H, sq, dh = shape
+    q = torch.randn(B, H, sq, dh, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(B, H, skv, dh, device="cuda", generator=g).to(dtype) for _ in range(2))
+    before = (general_counts(), counts())
+    out, lse = attention.flash_attention(q, k, v, static_max=static_max)
+    routed(before, (1, 0, 0, 0, 0, 0, 0))
+    ref, ref_lse = plain_by_batch(attention.flash_attention_plain, q, k, v, static_max=static_max)
+    CHECKED.add(("general", "flash_attention", tuple(shape), skv, static_max, str(dtype)))
+    lse_err = max_err(lse, ref_lse)
+    if dtype == torch.float32:
+        err, span, ok = within_range(out, ref)
+        tol = f"tol 1e-4 of its range {span:.3g}"
+        ok = ok and lse_err <= 1e-4
+    else:
+        err, tol = max_err(out, ref), "tol 1e-2"
+        ok = err <= 1e-2 and lse_err <= 1e-3
+    mode = "online" if static_max is None else "static max"
+    print(f"kernel flash_attn_general {mode} {dtype} {list(q.shape)} x kv {skv}: max_abs_err out "
+          f"{err:.3g} ({tol}), lse {lse_err:.3g}", flush=True)
+    check(ok, f"the general forward disagrees at {shape} x {skv} {dtype} {mode}")
+    if not timed:
+        return None
+    BH, el = B * H, q.element_size()
+    bms, by = bound_ms(attn_bytes(BH, sq, skv, dh, el), f32=4.0 * sq * skv * dh * BH)
+    fn = lambda *a: attention.flash_attention(*a, static_max=static_max)
+    return dict(name="flash_attn_general", route="cuda",
+                source="orv_tpu_torch/ops/csrc/flash_attn_general.cu",
+                replaces="orv_tpu/ops/attention.py:124", replaces_also="orv_tpu/ops/attention.py:62",
+                shape=f"{dtype} {list(q.shape)} x {skv}, {mode}", max_abs_err=err,
+                ms=call_ms("flash_attn_general", fn, (q, k, v), 10),
+                plain_ms=call_ms("flash_attention_plain", lambda *a: plain_by_batch(
+                    attention.flash_attention_plain, *a, static_max=static_max), (q, k, v), 3),
+                bound_ms=bms, bound_by=by,
+                library_ms=call_ms("SDPA", torch.nn.functional.scaled_dot_product_attention,
+                                   (q, k, v), 10))
+
+
+def check_general_attention_bwd(g, shape, skv, with_dlse: bool, dtype, timed: bool = False):
+    """The general backward (dq, dk/dv) against its plain version: f32 each
+    output within 1e-4 of its range, bf16 `rms_agree`; a second run the same
+    bits; with dlse, the run that ignores it (a planted fault) must fail.
+    Timed: records for both kernels beside the whole plain backward and
+    SDPA's backward on f32 q, k, v (its memory-efficient kernel: the flash
+    one takes no f32)."""
+    B, H, sq, dh = shape
+    q, do = (torch.randn(B, H, sq, dh, device="cuda", generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, H, skv, dh, device="cuda", generator=g).to(dtype) for _ in range(2))
+    out, lse = attention.flash_attention(q, k, v, static_max=24.0)
+    dlse = torch.randn(B, H, sq, device="cuda", generator=g) if with_dlse else None
+    before = (general_counts(), counts())
+    got = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    routed(before, (0, 1, 1, 0, 0, 0, 0))
+    want = plain_bwd_by_batch(q, k, v, out, lse, do, dlse)
+    again = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    CHECKED.add(("general", "flash_attention_bwd", tuple(shape), skv, str(dtype)))
+    what = f"{dtype} {list(q.shape)} x kv {skv}{' with dlse' if with_dlse else ''}"
+    agree_ = (lambda a, b: within_range(a, b)[2]) if dtype == torch.float32 else rms_agree
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err, span, _ = within_range(a, b)
+        errs[name] = err
+        print(f"kernel flash_attn_general_bwd {name} {what}: max_abs_err {err:.3g} (range "
+              f"{span:.3g}; tol {'1e-4 of it' if dtype == torch.float32 else 'rms_agree'})",
+              flush=True)
+        check(agree_(a, b), f"the general backward's {name} disagrees at {what}")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"  second run bitwise equal: {same}", flush=True)
+    check(same, f"two runs of the general backward differ at {what}")
+    if with_dlse:
+        bad = attention.flash_attention_bwd(q, k, v, out, lse, do)
+        rejected = [not agree_(a, b) for a, b in zip(bad, want)]
+        print(f"  planted fault (dlse ignored): rejected {rejected}", flush=True)
+        check(rejected[0] and rejected[1], f"the general backward check passes a planted fault "
+                                           f"at {what}")
+    if not timed:
+        return []
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    BH, el = B * H, q.element_size()
+
+    def sdpa_call():  # a forward on the capture stream, whose backward the graph takes
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        capture_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(capture_stream()), sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            o_lib = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        return o_lib, leaves, do.clone()
+
+    calls = [sdpa_call() for _ in range(n_copies(2 * attn_bytes(BH, sq, skv, dh, el)))]
+    torch.cuda.synchronize()
+    lib_ms = device_ms(lambda o, leaves, d: torch.autograd.grad(o, leaves, d, retain_graph=True),
+                       calls, 10, "SDPA memory-efficient backward (f32)")
+    del calls
+    plain_ms = call_ms("flash_attention_bwd_plain", plain_bwd_by_batch, (q, k, v, out, lse, do),
+                       3)
+    scale = dh ** -0.5
+    _, delta = attention.flash_attention_general_bwd_dq(q, k, v, out, lse, do, scale)
+    recs = []
+    tensor = BH * sq * dh * el
+    for name, fn, args, n_products, replaces, err in (
+            ("flash_attn_general_bwd_dq", attention.flash_attention_general_bwd_dq,
+             (q, k, v, out, lse, do, scale), 3, ":389", errs["dq"]),
+            ("flash_attn_general_bwd_dkv", attention.flash_attention_general_bwd_dkv,
+             (q, k, v, do, lse, delta, scale), 4, ":432", max(errs["dk"], errs["dv"]))):
+        bms, by = bound_ms(6 * tensor + 2 * BH * sq * 4, f32=n_products * 2.0 * sq * skv * dh * BH)
+        recs.append(dict(name=name, route="cuda",
+                         source="orv_tpu_torch/ops/csrc/flash_attn_general_bwd.cu",
+                         replaces="orv_tpu/ops/attention.py" + replaces,
+                         shape=f"{dtype} {list(q.shape)} x {skv}", max_abs_err=err,
+                         ms=call_ms(name, fn, args, 10), plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=lib_ms))
+    return recs
+
+
+def general_adaln_inputs(g, R, S, D, dtype):
+    """x, dout, y [R, S, D] in `dtype`; scale, shift and gate as the
+    modulation linear leaves them (row-strided chunks of [R, 3D], f32 in the
+    f32 model); ns and nb f32."""
+    x = (2 * torch.randn(R, S, D, device="cuda", generator=g) + 0.3).to(dtype)
+    do, y = (torch.randn(R, S, D, device="cuda", generator=g).to(dtype) for _ in range(2))
+    shift, scale, gate = (0.3 * torch.randn(R, 3 * D, device="cuda", generator=g)).to(
+        dtype).chunk(3, dim=-1)
+    ns = 1 + 0.1 * torch.randn(D, device="cuda", generator=g)
+    nb = 0.1 * torch.randn(D, device="cuda", generator=g)
+    return x, do, y, scale, shift, gate, ns, nb
+
+
+def check_general_adaln(g, R, S, D, dtype, timed: bool = False):
+    """The general adaLN forward and backward, and (f32) the gated
+    residual's f32 instance and general backward, against their plain
+    versions at [R, S, D]: f32 outputs and sums within 1e-4 of their range
+    (the gated residual's outputs exactly: the same two roundings), bf16 as
+    the Hopper kernels'; each backward twice, bitwise. Timed: four records
+    beside their plain versions, `addcmul` and ATen's LayerNorm backward at
+    the R = 1 form."""
+    x, do, y, scale, shift, gate, ns, nb = general_adaln_inputs(g, R, S, D, dtype)
+    f32 = dtype == torch.float32
+    before = (general_counts(), counts())
+    out = adaln.modulate_norm(x, scale, shift, ns, nb)
+    got = adaln.modulate_norm_bwd(x, do, scale, ns)
+    again = adaln.modulate_norm_bwd(x, do, scale, ns)
+    routed(before, (0, 0, 0, 1, 2, 0, 0))
+    ref = adaln.modulate_norm_plain(x, scale, shift, ns, nb)
+    want = adaln.modulate_norm_bwd_plain(x, do, scale, ns)
+    CHECKED.add(("general", "modulate_norm", (R, S, D), str(dtype)))
+    CHECKED.add(("general", "modulate_norm_bwd", (R, S, D), str(dtype)))
+    errs = [within_range(a, b) for a, b in zip((out,) + got, (ref,) + want)]
+    ok = [e[2] for e in errs] if f32 else [within(out, ref, 2e-2, 1e-2), rms_agree(
+        got[0], want[0])] + [e[2] for e in errs[2:]]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"kernel modulate_norm_general {dtype} [{R}, {S}, {D}]: max_abs_err out "
+          f"{errs[0][0]:.3g}, dx {errs[1][0]:.3g}, A {errs[2][0]:.3g}, B {errs[3][0]:.3g} (f32: "
+          f"tol 1e-4 of their ranges {errs[0][1]:.3g} / {errs[1][1]:.3g} / {errs[2][1]:.3g} / "
+          f"{errs[3][1]:.3g}); backward's second run bitwise equal: {same}", flush=True)
+    check(all(ok) and same, f"the general adaLN disagrees at {(R, S, D)} {dtype}")
+    records = []
+    if f32:  # a bf16 gated residual is the Hopper kernel's
+        before = (general_counts(), counts())
+        res = adaln.gated_residual(x, y, gate)
+        dy, dgate = adaln.gated_residual_bwd(do, y, gate)
+        again = adaln.gated_residual_bwd(do, y, gate)
+        routed(before, (0, 0, 0, 0, 0, 1, 2))
+        ref_dy, ref_dgate = adaln.gated_residual_bwd_plain(do, y, gate)
+        CHECKED.add(("general", "gated_residual", (R, S, D), str(dtype)))
+        CHECKED.add(("general", "gated_residual_bwd", (R, S, D), str(dtype)))
+        res_err = max_err(res, adaln.gated_residual_plain(x, y, gate))
+        dy_err, (dg_err, span, dg_ok) = max_err(dy, ref_dy), within_range(dgate, ref_dgate)
+        same = torch.equal(again[0], dy) and torch.equal(again[1], dgate)
+        print(f"kernel gated_residual_general {dtype} [{R}, {S}, {D}]: out max_abs_err "
+              f"{res_err:.3g} (tol 0), dy {dy_err:.3g} (tol 0), dgate {dg_err:.3g} (tol 1e-4 of "
+              f"{span:.3g}); backward's second run bitwise equal: {same}", flush=True)
+        check(res_err == 0.0 and dy_err == 0.0 and dg_ok and same,
+              f"the general gated residual disagrees at {(R, S, D)} or differs on a repeat")
+    if not timed:
+        return records
+    el, n, rows = x.element_size(), R * S * D, R * D
+    lib_ms, r1_ms = mn_bwd_library_ms(g, R * S, D, dtype=dtype)
+    src = "orv_tpu_torch/ops/csrc/"
+    for name, fn, args, bts, ops, source, replaces, err, plain, lib in (
+            ("modulate_norm_general", adaln.modulate_norm, (x, scale, shift, ns, nb),
+             2 * n * el + 2 * rows * el + 2 * D * 4, 10.0 * n, "adaln_general.cu", ":52",
+             errs[0][0], adaln.modulate_norm_plain, None),
+            ("modulate_norm_bwd_general", adaln.modulate_norm_bwd, (x, do, scale, ns),
+             3 * n * el + rows * el + D * 4 + 2 * rows * 4, 16.0 * n, "adaln_general.cu", ":105",
+             errs[1][0], adaln.modulate_norm_bwd_plain, lib_ms),
+            ("gated_residual_general", adaln.gated_residual, (x, y, gate),
+             3 * n * el + rows * el, 2.0 * n, "gated_residual.cu", ":248", res_err,
+             adaln.gated_residual_plain, "addcmul"),
+            ("gated_residual_bwd_general", adaln.gated_residual_bwd, (do, y, gate),
+             3 * n * el + rows * el + rows * 4, 3.0 * n, "adaln_general.cu", ":298",
+             max(dy_err, dg_err), adaln.gated_residual_bwd_plain, None)):
+        bms, by = bound_ms(bts, f32=ops)
+        rec = dict(name=name, route="cuda", source=src + source,
+                   replaces="orv_tpu/ops/adaln.py" + replaces, shape=f"{dtype} [{R},{S},{D}]",
+                   max_abs_err=err, ms=call_ms(name, fn, args, 50),
+                   plain_ms=call_ms(name + " plain", plain, args, 10), bound_ms=bms, bound_by=by,
+                   library_ms=(call_ms("addcmul", addcmul, args, 50) if lib == "addcmul"
+                               else lib))
+        if name == "modulate_norm_bwd_general":
+            rec["library_note"] = (f"aten native_layer_norm_backward at the R = 1 form "
+                                   f"[1,{R * S},{D}] in f32; the kernel there: {r1_ms:.4f} ms")
+        records.append(rec)
+    return records
+
+
+def general_kernel_checks(g):
+    """Phase 2's general part: every general instance the main path or a
+    user's f32 model reaches against its plain version (module docstring),
+    the training shapes timed. Returns the seven records, in GENERAL order."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for static_max in (24.0, None):
+        check_general_attention(g, (1, 30, 3226, 64), 3226, static_max, f32)
+        for dh in (16, 32, 128):
+            check_general_attention(g, (2, 3, 77, dh), 130, static_max, f32)
+            check_general_attention(g, (2, 3, 130, dh), 77, static_max, f32)
+        for dh in (16, 128):
+            check_general_attention(g, (2, 3, 130, dh), 77, static_max, bf16)
+    for sq, skv in ((226, 1950), (1950, 226)):  # the ring's calls
+        check_general_attention(g, (1, 30, sq, 64), skv, None, f32)
+    fwd = check_general_attention(g, (1, 30, 3226, 64), 3226, 24.0, f32, timed=True)
+    online_ms = call_ms("flash_attn_general online", lambda *a: attention.flash_attention(*a),
+                        tuple(torch.randn(1, 30, 3226, 64, device="cuda", generator=g)
+                              for _ in range(3)), 10)
+    print(f"time flash_attn_general f32 online [1,30,3226,64]: {online_ms:.4f} ms (static max "
+          f"{fwd['ms']:.4f})", flush=True)
+    for dh, sq, skv in ((16, 77, 130), (32, 130, 77), (128, 300, 300)):
+        for with_dlse in (False, True):
+            check_general_attention_bwd(g, (1, 2, sq, dh), skv, with_dlse, f32)
+    for dh in (16, 128):
+        check_general_attention_bwd(g, (1, 2, 130, dh), 77, True, bf16)
+    for sq, skv in ((226, 1950), (1950, 226)):
+        check_general_attention_bwd(g, (1, 30, sq, 64), skv, True, f32)
+    check_general_attention_bwd(g, (1, 30, 3226, 64), 3226, True, f32)
+    bwd = check_general_attention_bwd(g, (1, 30, 3226, 64), 3226, False, f32, timed=True)
+    for R, S, D in ((1, 226, 1920), (2, 37, 32), (4, 600, 3072)):
+        check_general_adaln(g, R, S, D, f32)
+    check_general_adaln(g, 2, 37, 32, bf16)
+    adaln_recs = check_general_adaln(g, 5, 600, 1920, f32, timed=True)
+    torch.cuda.empty_cache()
+    return [fwd] + bwd + adaln_recs
+
+
 def reset_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + GENERAL:
         k.launches = 0
 
 
@@ -1676,6 +2053,153 @@ def train_phase(root: Path) -> None:
           f"backward {parts[0][1]:.1f} / {parts[1][1]:.1f}, grad norm + optimizer: accumulate "
           f"{parts[0][2]:.1f}, apply {parts[1][2]:.1f}; peak memory of the training phase "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+
+
+# -- f32 training through the entry point (train.mixed_precision=no): the general kernels --
+
+F32_CHECK_LAYERS = 2  # the card-against-CPU check: the 2B recipe's width at 2 layers
+F32_CHECK_STEPS = 4  # micro-steps: B=1 x the recipe's accumulation 2, two updates
+F32_TRAIN_STEPS = 2  # the full-width run: B=1 x accumulation 2, one update
+F32_SMALL_LATENT = ["dataset.sample_size=[8, 16]", "dataset.video_size=[64, 128]"]
+
+
+def f32_metrics(run: Path):
+    """(losses, grad norms, s_per_it) of each logged micro-step of a run."""
+    logs = [m for m in map(json.loads, (run / "logs" / "metrics.jsonl").read_text().splitlines())
+            if "loss" in m]
+    return ([m["loss"] for m in logs], [m["grad_norm"] for m in logs],
+            [m["s_per_it"] for m in logs])
+
+
+def f32_train_check(root: Path = None) -> None:
+    """pipelines/train.py:train with train.mixed_precision=no on the 2B
+    recipe at full width (30 heads x 64, D 1920) cut to F32_CHECK_LAYERS
+    layers, over 9 slices of 17 frames at 8 x 16 latents (386 joint tokens),
+    B=1 x the recipe's accumulation 2, F32_CHECK_STEPS micro-steps, no
+    validation: on the card, where every DiT kernel launch must be a general
+    instance, and on the CPU (plain versions), from one initial folder the
+    CPU wrote, the card run's batches replayed and every micro-step's draws
+    made on the CPU. Each micro-step's loss agrees to 1e-5 relative and its
+    grad norm to 1e-4."""
+    own = root is None
+    root = Path(tempfile.mkdtemp(prefix="orv_f32_check_")) if own else root
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False  # f32 against f32, as main() sets
+        torch.backends.cudnn.allow_tf32 = False
+        write_train_data(root / "data", latent_hw=(8, 16))
+        extra = [f"transformer.num_layers={F32_CHECK_LAYERS}", "train.mixed_precision=no",
+                 "train.train_batch_size=1",
+                 f"train.max_train_steps={F32_CHECK_STEPS}", "train.checkpointing_steps=1000",
+                 "train.validation_steps=1000", "train.log_every=1", "train.lr_warmup_steps=0",
+                 *F32_SMALL_LATENT]
+        cfg = train_config(root / "data", root / "init", extra)
+        dit_cfg = build_dit_config(cfg)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(5)
+            init = ControlDiT(dit_cfg, dtype=torch.float32, device="cpu")
+        from orv_tpu_torch.utils.checkpoint import export_pretrained
+
+        export_pretrained(str(root / "init"), init.state_dict(), dit_cfg)
+        del init
+
+        def cpu_draws(step, batch):
+            gen = torch.Generator().manual_seed(1000 + step)
+            cpu = {k: v.cpu() for k, v in batch.items()}
+            return _to(LossDraws.draw(gen, cpu), batch["latents"].device)
+
+        runs, replay = {}, None
+        for device in ("cuda", "cpu"):
+            out = root / device
+            run_cfg = train_config(root / "data", out, [
+                *extra, f"transformer.pretrained_name_or_path={root / 'init'}"])
+            os.environ["NO_INIT_VAL"] = "1"
+            reset_counts()
+            try:
+                with SpTrainHooks(replay) as hooks:
+                    state = train_mod.train(run_cfg, device=device, draws=cpu_draws)
+            finally:
+                os.environ.pop("NO_INIT_VAL", None)
+            replay = hooks.batches
+            runs[device] = f32_metrics(out / "run") + ((general_counts(), counts()),)
+            check(next(state.model.parameters()).dtype == torch.float32,
+                  "train.mixed_precision=no built a model that is not f32")
+            del state
+        (l_gpu, n_gpu, _, (gen, hop)), (l_cpu, n_cpu, _, _) = runs["cuda"], runs["cpu"]
+        want = tuple(F32_CHECK_STEPS * n for n in as_general(
+            train_micro_step_counts(F32_CHECK_LAYERS)))
+        rel_l = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        rel_n = max(abs(a - b) / abs(b) for a, b in zip(n_gpu, n_cpu))
+        print(f"f32 train ({F32_CHECK_LAYERS} layers at full width, {F32_CHECK_STEPS} "
+              f"micro-steps), card vs CPU: losses {', '.join(f'{x:.7g}' for x in l_gpu)} vs "
+              f"{', '.join(f'{x:.7g}' for x in l_cpu)} (largest rel diff {rel_l:.3g}, tol 1e-5); "
+              f"grad norms {', '.join(f'{x:.7g}' for x in n_gpu)} vs "
+              f"{', '.join(f'{x:.7g}' for x in n_cpu)} (largest rel diff {rel_n:.3g}, tol 1e-4); "
+              f"general launches {gen} (want {want}), Hopper {hop}", flush=True)
+        check(len(l_gpu) == len(l_cpu) == F32_CHECK_STEPS, "an f32 micro-step was not logged")
+        check(gen == want and not any(hop), f"f32 train launched general {gen} (want {want}) "
+                                            f"and Hopper {hop}")
+        check(rel_l <= 1e-5 and rel_n <= 1e-4, "the f32 train disagrees with the CPU")
+    finally:
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def f32_train_phase(root: Path) -> None:
+    """Phase 5b: pipelines/train.py:train with train.mixed_precision=no on
+    the 2B recipe at full width and depth (30 layers x 30 heads x 64, D
+    1920, 3226 joint tokens), seeded random weights, B=1 x the recipe's
+    accumulation 2, F32_TRAIN_STEPS micro-steps, no validation; the final
+    checkpoint and export counted, not written (`SpTrainHooks`). Every DiT
+    kernel launch must be a general instance: per micro-step flash fwd / dq
+    / dk-dv / modulate_norm / its backward / gated_residual / its backward =
+    30 / 30 / 30 / 60 / 60 / 120 / 119, no Hopper kernel. Prints s per
+    optimizer step (the tracker's s_per_it), peak memory, the launches and
+    the losses."""
+    t_phase = time.perf_counter()
+    cfg = train_config(root / "data", root / "f32", [
+        "train.mixed_precision=no", "train.train_batch_size=1",
+        f"train.max_train_steps={F32_TRAIN_STEPS}", "train.checkpointing_steps=1000",
+        "train.validation_steps=1000", "train.log_every=1"])
+    accum = int(cfg.train.gradient_accumulation_steps)
+    check(build_dit_config(cfg) == RECIPE_2B, f"the recipe builds {build_dit_config(cfg)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    os.environ["NO_INIT_VAL"] = "1"
+    t0 = time.perf_counter()
+    try:
+        with SpTrainHooks() as hooks:
+            state = train_mod.train(cfg)
+    finally:
+        os.environ.pop("NO_INIT_VAL", None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen, hop = general_counts(), counts()
+    tally_general(gen)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, norms, micro = f32_metrics(root / "f32" / "run")
+    per_step = [sum(micro[i:i + accum]) for i in range(0, len(micro), accum)]
+    per_micro = as_general(TRAIN_MICRO_STEP)
+    want = tuple(F32_TRAIN_STEPS * n for n in per_micro)
+    dtype = next(state.model.parameters()).dtype
+    print(f"f32 train (train.mixed_precision=no) through the entry point, {TRAIN_RECIPE} at full "
+          f"width, B=1 x accumulation {accum}, {F32_TRAIN_STEPS} micro-steps: {wall:.1f} s; "
+          f"s/optimizer step from the tracker's s_per_it "
+          f"{', '.join(f'{x:.4f}' for x in per_step)} (micro-steps "
+          f"{', '.join(f'{x:.4f}' for x in micro)}); peak memory {peak:.1f} GiB; parameters "
+          f"{dtype}", flush=True)
+    print(f"f32 train launches flash fwd / dq / dk-dv / modulate_norm / its backward / "
+          f"gated_residual / its backward (general) {gen} = {F32_TRAIN_STEPS} x {per_micro}; "
+          f"Hopper kernels {hop}; loss per micro-step {', '.join(f'{x:.6g}' for x in losses)}, "
+          f"grad norm {', '.join(f'{x:.6g}' for x in norms)}; checkpoint saves "
+          f"{hooks.calls['checkpoint']} and exports {hooks.calls['export']} counted, not "
+          f"written; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(dtype == torch.float32, f"train.mixed_precision=no trained {dtype} parameters")
+    check(gen == want and not any(hop), f"f32 train launches general {gen} (want {want}), "
+                                        f"Hopper {hop}")
+    check(len(losses) == F32_TRAIN_STEPS and all(map(math.isfinite, losses + norms)),
+          "an f32 micro-step is missing or its loss or grad norm is not finite")
 
 
 # -- phase 5c: the model surface's training side at full width ---------------------------
@@ -4313,8 +4837,30 @@ class ShapeLog:
         self.real_bwd = {cls: cls.backward for cls in self.BWD}
 
     @staticmethod
+    def general_key(name, x, k=None, static_max=None):
+        """The key of a call that goes to a general kernel (`plan`: f32, or
+        bf16 where the Hopper kernels stop), else None: the name, the full
+        shape (attention's with its head dim), attention's Skv (and the
+        forward's bound) and the dtype."""
+        if not x.is_cuda or name.endswith("_q8"):
+            return None
+        if name.startswith("flash_attention"):
+            if attention.plan(x, k) != "general":
+                return None
+            tail = (static_max,) if name == "flash_attention" else ()
+            return ("general", name, tuple(x.shape), k.shape[2], *tail, str(x.dtype))
+        plan = (adaln.plan_modulate_norm(x) if name.startswith("modulate_norm")
+                else adaln.plan_gated_residual(x, backward=name.endswith("_bwd")))
+        return ("general", name, tuple(x.shape), str(x.dtype)) if plan == "general" else None
+
+    @staticmethod
     def key(name, args, kwargs):
         x = args[0]
+        general = ShapeLog.general_key(name, x, *(args[1:2] if name.startswith("flash") else ()),
+                                       **({"static_max": kwargs.get("static_max")}
+                                          if name == "flash_attention" else {}))
+        if general is not None:
+            return general
         if name == "flash_attention":
             return name, tuple(x.shape[:3]), args[1].shape[2], kwargs.get("static_max")
         if name in ("flash_attention_q8", "flash_attention_bwd"):
@@ -4332,7 +4878,7 @@ class ShapeLog:
 
         def logged_bwd(name, real):
             def backward(ctx, dout):  # ctx.saved_tensors may be read once only (remat)
-                self.keys.add((name, tuple(dout.shape)))
+                self.keys.add(self.general_key(name, dout) or (name, tuple(dout.shape)))
                 return real(ctx, dout)
             return staticmethod(backward)
         for (m, n), real in self.real.items():
@@ -4357,7 +4903,15 @@ def check_logged_shapes(g, keys) -> None:
           f"checked in phase 2, 5c or 6, {len(todo)} checked now", flush=True)
     for key in todo:
         name, shape = key[0], key[1]
-        if name == "flash_attention":
+        if name == "general":
+            name, shape, dtype = key[1], key[2], getattr(torch, key[-1].split(".")[-1])
+            if name == "flash_attention":
+                check_general_attention(g, shape, key[3], key[4], dtype)
+            elif name == "flash_attention_bwd":
+                check_general_attention_bwd(g, shape, key[3], False, dtype)
+            else:
+                check_general_adaln(g, *shape, dtype)
+        elif name == "flash_attention":
             check(key[2:] == (shape[2], 24.0), f"no plain-version check for {key}")
             check_attention(g, shape, timed=False)
         elif name == "flash_attention_bwd":
@@ -4593,9 +5147,10 @@ def load_script(name: str):
 def pab_quality_phase() -> None:
     """Phase 6a: the synthetic PAB quality harness's `run` on the card at a
     short budget, its one cell in both sampler groups: every report field
-    there and finite, the launches of rows 2, 4-7, 9 and 10 exactly the
-    overfit's micro-steps plus the renders' full and reuse forwards, the
-    overfit's logged loss falling; then, on the model that `run` trained, a
+    there and finite, at the JAX harness's config (f32, 2 heads of 16, rows
+    32 wide): the general kernels' launches exactly the overfit's
+    micro-steps plus the renders' full and reuse forwards, no Hopper
+    kernel's; the overfit's logged loss falling; then, on the model that `run` trained, a
     PAB sampler with an empty window (pab_start == pab_end) bitwise the
     exact one."""
     from orv_tpu_torch.pipelines.sample import pab_full_flags
@@ -4611,19 +5166,22 @@ def pab_quality_phase() -> None:
     report = harness.run(HARNESS_STEPS, HARNESS_SAMPLE_STEPS, HARNESS_CLIPS,
                          skips=(HARNESS_SKIP,), windows=(HARNESS_WINDOW,), device=cuda)
     torch.cuda.synchronize()
-    got = counts()
-    tally(got)
+    hopper, got = counts(), general_counts()
+    tally_general(got)
     L = cfg.num_layers
     n_full = int(pab_full_flags(HARNESS_SAMPLE_STEPS, HARNESS_SKIP, *HARNESS_WINDOW).sum())
     full = HARNESS_SAMPLE_STEPS + n_full  # forwards a clip a group: the exact render's, PAB's
     reuse = HARNESS_SAMPLE_STEPS - n_full
     forward = tuple(2 * HARNESS_CLIPS * (full * f + reuse * r) * L // FLAGSHIP.num_layers
                     for f, r in zip(BF16_FORWARD, PAB_REUSE))
-    want = tuple(HARNESS_STEPS * n + f for n, f in zip(train_micro_step_counts(L), forward))
-    print(f"pab quality harness: launches {got} (want {want})", flush=True)
-    check(got == want, f"pab quality harness launch counts {got}, not {want}")
+    want = as_general(tuple(HARNESS_STEPS * n + f
+                            for n, f in zip(train_micro_step_counts(L), forward)))
+    print(f"pab quality harness: general launches {got} (want {want}), Hopper {hopper}",
+          flush=True)
+    check(got == want and not any(hopper), f"pab quality harness launch counts {got} (want "
+                                           f"{want}), Hopper {hopper}")
     check((report["device"], report["compute_dtype"], report["attention_head_dim"])
-          == ("cuda", "bfloat16", 64) and bool(report["card"]),
+          == ("cuda", "float32", 16) and bool(report["card"]),
           f"pab quality harness report names {report['device']}, {report['compute_dtype']}, "
           f"{report['attention_head_dim']}, {report['card']}")
     numbers = [report["final_train_loss"], report["recon_psnr_exact"]]
@@ -4646,7 +5204,7 @@ def pab_quality_phase() -> None:
     check(np.array_equal(exact, empty), "a PAB sampler with an empty window differs from the "
                                         "exact sampler on the card")
     print(f"pab quality harness ({HARNESS_STEPS} train steps, {HARNESS_SAMPLE_STEPS} DPM steps, "
-          f"{HARNESS_CLIPS} clips, bf16, heads of 64): final loss "
+          f"{HARNESS_CLIPS} clips, f32, heads of 16): final loss "
           f"{report['final_train_loss']:.4f}, overfit loss {losses[0]:.4f} -> mean {late:.4f} "
           f"over the second half; deterministic recon PSNR "
           f"{report['deterministic']['recon_psnr_exact']:.2f} dB, PAB vs exact "
@@ -4739,9 +5297,11 @@ def main() -> int:
     source = None
     for line in _build.build_log.splitlines():  # the Hopper kernels' lines come below
         source = line[3:].strip() if line.startswith("== ") else source
-        if source not in HOPPER_SOURCES and re.search(r"registers|spill|^==", line):
+        if (source not in HOPPER_SOURCES + GENERAL_SOURCES
+                and re.search(r"registers|spill|^==", line)):
             print("  " + line.strip(), flush=True)
     hopper_build_report()
+    general_build_report()
 
     # 2. every kernel against its plain version
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -4810,10 +5370,17 @@ def main() -> int:
     q8_rate(q8_record, 30, 8026)
     bwd_rate(bwd_records, 30, 3226)
     torch.cuda.empty_cache()
+    # the general kernels: f32, and head dims and widths the Hopper kernels do not take
+    general_records = general_kernel_checks(g)
+    for r in general_records:
+        print(f"time {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.1%} of it, library {r['library_ms']} ms", flush=True)
 
     # 3. the small models against the CPU, then the flagship DiT forward
     tiny_reference_checks()
     tiny_train_check()
+    f32_train_check()
     resume_root = Path(tempfile.mkdtemp(prefix="orv_resume_"))
     try:
         tiny_resume_check(resume_root)
@@ -4910,6 +5477,9 @@ def main() -> int:
         shutil.rmtree(train_root / "out" / "run" / "checkpoints")
         gc.collect()
         torch.cuda.empty_cache()
+        f32_train_phase(train_root)  # 5b: train.mixed_precision=no, the general kernels
+        gc.collect()
+        torch.cuda.empty_cache()
         train_shapes = surface_train_phase(g, train_root, train_root / "out" / "run" / "checkpoint")
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
@@ -4964,6 +5534,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_logged_shapes(g, shape_log.keys)
     check(all(launches), f"a kernel was never launched on the main path: {launches}")
+    check(all(GENERAL_LAUNCHES), f"a general kernel was never launched on the main path: "
+                                 f"{GENERAL_LAUNCHES}")
 
     # 7. card, kernels line, result line
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4975,10 +5547,12 @@ def main() -> int:
         r["launches"] = n
         r["surface_shapes"] = surface_shapes.get(r["name"], [])
         r["surface_train_shapes"] = train_shapes.get(r["name"], [])
+    for r, n in zip(general_records, GENERAL_LAUNCHES):
+        r["launches"] = n
     for r, n in zip(factory_records, FACTORY_LAUNCHES):
         r["launches"] = n
     check(all(FACTORY_LAUNCHES), f"a factory kernel was never launched: {FACTORY_LAUNCHES}")
-    print(json.dumps({"kernels": records + factory_records}), flush=True)
+    print(json.dumps({"kernels": records + general_records + factory_records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,16 @@ backward is a kernel of its own (`_mn_bwd_kernel`, adaln.py:105, in
 algebra after the adaLN backward kernel runs in plain PyTorch, as the JAX
 package leaves it to XLA (adaln.py:176-184). `modulate_norm_q8` is
 inference only and raises under grad mode when an input requires grad.
+
+The Hopper kernels take bf16 x: the adaLN pair at D % 128 == 0 up to 4096,
+the gated residual at D % 8 == 0 (its backward up to 16384). The general
+kernels take the rest of what the JAX kernels take, f32 or bf16 at any
+D % 8 == 0: `modulate_norm_general`, `modulate_norm_bwd_general` and
+`gated_residual_bwd_general` (csrc/adaln_general.cu) and
+`gated_residual_general` (the f32 instance of csrc/gated_residual.cu).
+`plan_modulate_norm` and `plan_gated_residual` choose, from x's dtype and
+shape before any launch; what neither takes raises. The int8-emitting
+forward stays bf16.
 """
 
 from __future__ import annotations
@@ -73,6 +83,12 @@ def _check_rows(name, x, *rows):
             or x.data_ptr() % 16):
         raise ValueError(f"{name} kernel takes a contiguous, 16-byte aligned bf16 [R,S,D] x; "
                          f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    _check_vectors(name, x, *rows)
+
+
+def _check_vectors(name, x, *rows):
+    """rows: [R, D]-shaped tensors (bf16 or f32, last dim contiguous) on the
+    device of x [R, S, D]."""
     R, _, D = x.shape
     for t in rows:
         if (t.device != x.device or t.dtype not in _PARAM_DTYPES or tuple(t.shape) != (R, D)
@@ -99,20 +115,135 @@ def _check_modulate(name, x, scale, shift, norm_scale, norm_bias):
     D = x.shape[2]
     if D % 128 != 0 or D > MAX_D:
         raise ValueError(f"{name} kernel takes D % 128 == 0 and D <= {MAX_D}; got D={D}")
+    _check_params(name, x, scale, shift, norm_scale, norm_bias)
+
+
+def _check_params(name, x, scale, shift, norm_scale, norm_bias):
+    """Raise unless scale and shift share a dtype and a row stride and the
+    norm params are contiguous [D] bf16/f32 vectors of one dtype on x's
+    device."""
     if scale.stride(0) != shift.stride(0) or scale.dtype != shift.dtype:
         raise ValueError(f"{name} kernel takes scale and shift of one dtype and stride")
     for t in (norm_scale, norm_bias):
         if (t.device != x.device or t.dtype != norm_scale.dtype or t.dtype not in _PARAM_DTYPES
-                or tuple(t.shape) != (D,) or not t.is_contiguous()):
+                or tuple(t.shape) != (x.shape[2],) or not t.is_contiguous()):
             raise ValueError(f"{name} kernel takes contiguous [D] bf16/f32 norm params; "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+# the general kernels (csrc/adaln_general.cu, gated_residual.cu's f32
+# instance) take any D % GENERAL_D_MULTIPLE == 0; their sums over S add
+# partials of GENERAL_CHUNK_ROWS rows in chunk order (part of the shape
+# limits: ceil(S / GENERAL_CHUNK_ROWS) and R up to 65535 a launch)
+GENERAL_D_MULTIPLE = 8
+GENERAL_CHUNK_ROWS = 32
+GENERAL_MAX_GRID = 65535
+
+
+def _general_takes(x) -> bool:
+    return (x.dim() == 3 and x.shape[2] % GENERAL_D_MULTIPLE == 0 and x.shape[2] > 0
+            and x.shape[0] <= GENERAL_MAX_GRID
+            and -(-x.shape[1] // GENERAL_CHUNK_ROWS) <= GENERAL_MAX_GRID)
+
+
+def plan_modulate_norm(x) -> str:
+    """The kernel that takes `modulate_norm` (and its backward) of x
+    [R, S, D] on the card, from x's dtype and shape alone, before any
+    launch: "hopper" (adaln_fwd_sm90.cuh / adaln_bwd_sm90.cuh: bf16 with
+    D % 128 == 0 up to MAX_D), "general" (csrc/adaln_general.cu: f32 or bf16
+    with D % 8 == 0), or a ValueError naming both limits."""
+    D = x.shape[-1]
+    if x.dtype == torch.bfloat16 and x.dim() == 3 and D % 128 == 0 and 0 < D <= MAX_D:
+        return "hopper"
+    if x.dtype in _PARAM_DTYPES and _general_takes(x):
+        return "general"
+    raise ValueError(
+        f"modulate_norm on the card takes bf16 x [R,S,D] with D % 128 == 0 and D <= {MAX_D} "
+        f"(the Hopper kernels) or f32 or bf16 x with D % {GENERAL_D_MULTIPLE} == 0 (the "
+        f"general kernels); got {x.dtype} {tuple(x.shape)}")
+
+
+def plan_gated_residual(x, backward: bool = False) -> str:
+    """The kernel that takes `gated_residual` (or, with `backward`,
+    `gated_residual_bwd`) of x [R, S, D] on the card, from x's dtype and
+    shape alone: "hopper" (bf16 with D % 8 == 0; the backward's up to
+    GR_BWD_MAX_D), "general" (the f32 instance of csrc/gated_residual.cu;
+    the backward csrc/adaln_general.cu, f32 or bf16 with D % 8 == 0), or a
+    ValueError naming both limits."""
+    D = x.shape[-1]
+    widest = GR_BWD_MAX_D if backward else None
+    if (x.dtype == torch.bfloat16 and x.dim() == 3 and D % 8 == 0 and D > 0
+            and (widest is None or D <= widest)):
+        return "hopper"
+    general = _PARAM_DTYPES if backward else (torch.float32,)
+    if x.dtype in general and _general_takes(x):
+        return "general"
+    name = "gated_residual_bwd" if backward else "gated_residual"
+    hopper = f"D % 8 == 0 and D <= {GR_BWD_MAX_D}" if backward else "D % 8 == 0"
+    kinds = "f32 or bf16" if backward else "f32"
+    raise ValueError(
+        f"{name} on the card takes bf16 [R,S,D] with {hopper} (the Hopper kernel) or {kinds} "
+        f"with D % {GENERAL_D_MULTIPLE} == 0 (the general kernel); got {x.dtype} "
+        f"{tuple(x.shape)}")
+
+
+def _check_general_x(name, x, *others):
+    """Raise unless x [R, S, D] with R, S >= 1 and `others` (tensors like x)
+    are contiguous, 16-byte aligned, of x's dtype and shape on x's device."""
+    if x.dim() != 3 or min(x.shape) < 1:
+        raise ValueError(f"{name} general kernel takes [R,S,D] with R, S, D >= 1; got "
+                         f"{tuple(x.shape)}")
+    for t in (x, *others):
+        if (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} general kernel takes contiguous, 16-byte aligned "
+                             f"{x.dtype} {tuple(x.shape)} operands on {x.device}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"contiguous={t.is_contiguous()}")
+
+
+def _check_general_modulate(name, x, scale, shift, norm_scale, norm_bias, *others):
+    """Raise unless the general adaLN kernels take these operands."""
+    _check_general_x(name, x, *others)
+    _check_vectors(name, x, scale, shift)
+    _check_params(name, x, scale, shift, norm_scale, norm_bias)
+
+
+_MN_GENERAL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
+
+
+def modulate_norm_general(x, scale, shift, norm_scale, norm_bias, eps: float):
+    """One launch of the general adaLN forward (csrc/adaln_general.cu) on
+    checked CUDA operands, x f32 or bf16 (counted in
+    `modulate_norm_general.launches`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"modulate_norm_general launches a CUDA kernel; x is on {x.device}")
+    R, S, D = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_modulate_norm_general", _MN_GENERAL_ARGS)(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), scale.stride(0),
+            norm_scale.data_ptr(), norm_bias.data_ptr(), out.data_ptr(), R, S, D, float(eps),
+            int(scale.dtype == torch.bfloat16), int(norm_scale.dtype == torch.bfloat16),
+            int(x.dtype == torch.float32), stream)
+    _build.check(err, "modulate_norm_general")
+    _build.count(modulate_norm_general)
+    return out
+
+
+modulate_norm_general.launches = 0
+
+
 def _modulate_norm_forward(x, scale, shift, norm_scale, norm_bias, eps: float):
-    """`modulate_norm_plain` on the CPU, the kernel on CUDA (counted in
-    `modulate_norm.launches`)."""
+    """`modulate_norm_plain` on the CPU; on CUDA the kernel `plan_modulate_norm`
+    picks (the Hopper one counted in `modulate_norm.launches`)."""
     if x.device.type == "cpu":
         return modulate_norm_plain(x, scale, shift, norm_scale, norm_bias, eps)
+    if plan_modulate_norm(x) == "general":
+        return modulate_norm_general(x, scale, shift, norm_scale, norm_bias, eps)
     R, S, D = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -154,12 +285,16 @@ def modulate_norm(x, scale, shift, norm_scale, norm_bias, eps: float = 1e-5):
     differentiable in all five tensors through the fused backward.
 
     CPU tensors run `modulate_norm_plain` (and `modulate_norm_bwd_plain`
-    backward). On CUDA, x must be contiguous bf16 with D % 128 == 0 and
-    D <= 4096; anything else raises."""
+    backward). On CUDA, `plan_modulate_norm` picks the Hopper kernels
+    (contiguous bf16 x with D % 128 == 0 and D <= 4096) or the general ones
+    (f32 or bf16 with D % 8 == 0); anything else raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"modulate_norm: unsupported device {x.device}")
     if x.device.type == "cuda":
-        _check_modulate("modulate_norm", x, scale, shift, norm_scale, norm_bias)
+        if plan_modulate_norm(x) == "hopper":
+            _check_modulate("modulate_norm", x, scale, shift, norm_scale, norm_bias)
+        else:
+            _check_general_modulate("modulate_norm", x, scale, shift, norm_scale, norm_bias)
     return _ModulateNorm.apply(x, scale, shift, norm_scale, norm_bias, float(eps))
 
 
@@ -203,11 +338,35 @@ _GR_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
+def gated_residual_general(x, y, gate):
+    """One launch of the gated residual's f32 instance (csrc/gated_residual.cu,
+    `orv_gated_residual_f32`) on checked CUDA operands (counted in
+    `gated_residual_general.launches`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"gated_residual_general launches a CUDA kernel; x is on {x.device}")
+    R, S, D = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_gated_residual_f32", _GR_ARGS)(
+            x.data_ptr(), y.data_ptr(), gate.data_ptr(), gate.stride(0), out.data_ptr(),
+            R, S, D, int(gate.dtype == torch.bfloat16), stream)
+    _build.check(err, "gated_residual_general")
+    _build.count(gated_residual_general)
+    return out
+
+
+gated_residual_general.launches = 0
+
+
 def _gated_residual_forward(x, y, gate):
-    """`gated_residual_plain` on the CPU, the kernel on CUDA (counted in
+    """`gated_residual_plain` on the CPU; on CUDA the kernel
+    `plan_gated_residual` picks (the Hopper one counted in
     `gated_residual.launches`)."""
     if x.device.type == "cpu":
         return gated_residual_plain(x, y, gate)
+    if plan_gated_residual(x) == "general":
+        return gated_residual_general(x, y, gate)
     R, S, D = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -253,12 +412,17 @@ def gated_residual(x, y, gate):
     differentiable in all three through the fused backward.
 
     CPU tensors run `gated_residual_plain` (and `gated_residual_bwd_plain`
-    backward). On CUDA, x and y must be contiguous bf16 of one shape with
-    D % 8 == 0; anything else raises."""
+    backward). On CUDA, x and y must be contiguous, of one shape and dtype,
+    with D % 8 == 0: bf16 goes to the Hopper kernel, f32 to its f32 instance
+    (`plan_gated_residual`); anything else raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gated_residual: unsupported device {x.device}")
     if x.device.type == "cuda":
-        _check_gated("gated_residual", x, y, gate)
+        if plan_gated_residual(x) == "hopper":
+            _check_gated("gated_residual", x, y, gate)
+        else:
+            _check_general_x("gated_residual", x, y)
+            _check_vectors("gated_residual", x, gate)
     return _GatedResidual.apply(x, y, gate)
 
 
@@ -349,15 +513,20 @@ def modulate_norm_bwd(x, dout, scale, norm_scale, eps: float = 1e-5):
     """(dx, A, B) of the adaLN backward, as `modulate_norm_bwd_plain`.
 
     CPU tensors run `modulate_norm_bwd_plain`. On CUDA, x and dout must be
-    contiguous bf16 [R, S, D] with R, S >= 1, D % 128 == 0 and D <= 4096, scale
-    [R, D] with a contiguous last dim and norm_scale [D] contiguous; anything
-    else raises. One launch (counted in `modulate_norm_bwd.launches`) runs
-    the row pass and the fixed-order sum over S, so A and B are the same
-    from run to run."""
+    contiguous [R, S, D] of one dtype with R, S >= 1, scale [R, D] with a
+    contiguous last dim and norm_scale [D] contiguous: bf16 with D % 128 == 0
+    and D <= 4096 goes to the Hopper kernel, one launch (counted in
+    `modulate_norm_bwd.launches`) of the row pass and the fixed-order sum
+    over S; f32 or bf16 with D % 8 == 0 to `modulate_norm_bwd_general`;
+    anything else raises. A and B are the same from run to run."""
     if x.device.type == "cpu":
         return modulate_norm_bwd_plain(x, dout, scale, norm_scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"modulate_norm_bwd: unsupported device {x.device}")
+    if plan_modulate_norm(x) == "general":
+        _check_general_modulate("modulate_norm_bwd", x, scale, scale, norm_scale, norm_scale,
+                                dout)
+        return modulate_norm_bwd_general(x, dout, scale, norm_scale, eps)
     _check_modulate_bwd(x, dout, scale, norm_scale)
     R, S, D = x.shape
     rows, grid, n_part = bwd_plan(R, S, *_bwd_limits(
@@ -379,6 +548,42 @@ def modulate_norm_bwd(x, dout, scale, norm_scale, eps: float = 1e-5):
 
 
 modulate_norm_bwd.launches = 0
+
+
+_MNB_GENERAL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p])
+
+
+def modulate_norm_bwd_general(x, dout, scale, norm_scale, eps: float = 1e-5):
+    """(dx, A, B) of the adaLN backward by the general kernels
+    (csrc/adaln_general.cu) on checked CUDA operands, x f32 or bf16: the row
+    pass, the column sums of GENERAL_CHUNK_ROWS-row chunks and their sum in
+    chunk order, one call (counted once in
+    `modulate_norm_bwd_general.launches`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"modulate_norm_bwd_general launches CUDA kernels; x is on "
+                         f"{x.device}")
+    R, S, D = x.shape
+    n_chunks = -(-S // GENERAL_CHUNK_ROWS)
+    dx = torch.empty_like(x)
+    stat = torch.empty((R * S, 2), dtype=torch.float32, device=x.device)
+    part = torch.empty((R, n_chunks, 2, D), dtype=torch.float32, device=x.device)
+    ab = torch.empty((R, 2, D), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_modulate_norm_bwd_general", _MNB_GENERAL_ARGS)(
+            x.data_ptr(), dout.data_ptr(), scale.data_ptr(), scale.stride(0),
+            norm_scale.data_ptr(), dx.data_ptr(), stat.data_ptr(), part.data_ptr(),
+            ab.data_ptr(), R, S, D, GENERAL_CHUNK_ROWS, float(eps),
+            int(scale.dtype == torch.bfloat16), int(norm_scale.dtype == torch.bfloat16),
+            int(x.dtype == torch.float32), stream)
+    _build.check(err, "modulate_norm_bwd_general")
+    _build.count(modulate_norm_bwd_general)
+    return dx, ab[:, 0], ab[:, 1]
+
+
+modulate_norm_bwd_general.launches = 0
 
 
 def gated_residual_bwd_plain(dout, y, gate):
@@ -407,14 +612,20 @@ def gated_residual_bwd(dout, y, gate):
     """(dy, dgate f32) of the gated residual, as `gated_residual_bwd_plain`.
 
     CPU tensors run `gated_residual_bwd_plain`. On CUDA, dout and y must be
-    contiguous bf16 of one shape [R, S, D] with R, S >= 1, D % 8 == 0 and
-    D <= 16384, and gate [R, D] with a contiguous last dim; anything else
-    raises. One launch (counted in `gated_residual_bwd.launches`) runs the
-    row pass and the fixed-order sum over S."""
+    contiguous, of one shape [R, S, D] and dtype with R, S >= 1 and D % 8 ==
+    0, and gate [R, D] with a contiguous last dim: bf16 with D <= 16384 goes
+    to the Hopper kernel, one launch (counted in
+    `gated_residual_bwd.launches`) of the row pass and the fixed-order sum
+    over S; f32, or wider bf16, to `gated_residual_bwd_general`; anything
+    else raises."""
     if dout.device.type == "cpu":
         return gated_residual_bwd_plain(dout, y, gate)
     if dout.device.type != "cuda":
         raise ValueError(f"gated_residual_bwd: unsupported device {dout.device}")
+    if plan_gated_residual(dout, backward=True) == "general":
+        _check_general_x("gated_residual_bwd", dout, y)
+        _check_vectors("gated_residual_bwd", dout, gate)
+        return gated_residual_bwd_general(dout, y, gate)
     _check_gated_bwd(dout, y, gate)
     R, S, D = y.shape
     rows, grid, n_part = bwd_plan(R, S, *_bwd_limits(
@@ -435,3 +646,34 @@ def gated_residual_bwd(dout, y, gate):
 
 
 gated_residual_bwd.launches = 0
+
+
+_GRB_GENERAL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 3
+                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def gated_residual_bwd_general(dout, y, gate):
+    """(dy, dgate f32) of the gated residual by the general kernels
+    (csrc/adaln_general.cu) on checked CUDA operands, f32 or bf16: dy and the
+    column sums of GENERAL_CHUNK_ROWS-row chunks, then their sum in chunk
+    order, one call (counted once in `gated_residual_bwd_general.launches`)."""
+    if dout.device.type != "cuda":
+        raise ValueError(f"gated_residual_bwd_general launches CUDA kernels; dout is on "
+                         f"{dout.device}")
+    R, S, D = y.shape
+    dy = torch.empty_like(y)
+    part = torch.empty((R, -(-S // GENERAL_CHUNK_ROWS), D), dtype=torch.float32,
+                       device=y.device)
+    dgate = torch.empty((R, D), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_gated_residual_bwd_general", _GRB_GENERAL_ARGS)(
+            dout.data_ptr(), y.data_ptr(), gate.data_ptr(), gate.stride(0), dy.data_ptr(),
+            part.data_ptr(), dgate.data_ptr(), R, S, D, GENERAL_CHUNK_ROWS,
+            int(gate.dtype == torch.bfloat16), int(y.dtype == torch.float32), stream)
+    _build.check(err, "gated_residual_bwd_general")
+    _build.count(gated_residual_bwd_general)
+    return dy, dgate
+
+
+gated_residual_bwd_general.launches = 0

@@ -32,6 +32,15 @@ Counterpart of `orv_tpu/ops/attention.py`. Layout at the public functions is
   inference-only kernel has no lse and no backward: it raises under grad
   mode when an input requires grad.
 
+The Hopper kernels above take bf16 at head dim 64. Every other operand the
+JAX kernels take (f32, as an f32 model under train.mixed_precision=no gives
+them, or a head dim that is a multiple of 8 up to 128) goes to the general
+kernels: `flash_attention_general_kernel` (csrc/flash_attn_general.cu, both
+softmax modes) and `flash_attention_general_bwd_dq` / `_dkv`
+(csrc/flash_attn_general_bwd.cu), f32 FMAs on the CUDA cores, no TF32.
+`plan(q, k)` chooses, from the operands' dtype and shape before any launch;
+what neither takes raises. The int8 forward stays bf16 at head dim 64.
+
 `mha_reference`, `attention` and `attention_with_lse` are the JAX package's
 dispatchers (attention.py:49, :663, :678); `impl="auto"` is "flash" on a
 CUDA tensor and "xla" (the plain reference) on a CPU one.
@@ -110,6 +119,80 @@ def _check_qkv(name, q, k, v):
                          f"do not match q {tuple(q.shape)}")
 
 
+# head dims the general kernels take (csrc/flash_attn_general*.cu): multiples
+# of 8 up to GENERAL_MAX_DH, at most GENERAL_MAX_BH (batch x heads) a launch
+GENERAL_MAX_DH = 128
+GENERAL_MAX_BH = 65535
+_GENERAL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def plan(q, k) -> str:
+    """The attention kernel that takes q [B, H, Sq, Dh] and k on the card,
+    from their dtypes and shapes alone, before any launch: "hopper" (the TMA
+    + wgmma kernels: bf16 at head dim 64), "general" (csrc/flash_attn_general
+    *.cu: f32 or bf16 at a head dim that is a multiple of 8 up to 128), or a
+    ValueError naming both limits."""
+    dh, bh = q.shape[-1], math.prod(q.shape[:-2])
+    if q.dtype == torch.bfloat16 and k.dtype == q.dtype and dh == 64:
+        return "hopper"
+    if (q.dtype in _GENERAL_DTYPES and k.dtype == q.dtype and dh % 8 == 0
+            and 8 <= dh <= GENERAL_MAX_DH and bh <= GENERAL_MAX_BH):
+        return "general"
+    raise ValueError(
+        f"flash attention on the card takes bf16 q and k at head dim 64 (the Hopper kernels) "
+        f"or f32 or bf16 q and k of one dtype at a head dim that is a multiple of 8 up to "
+        f"{GENERAL_MAX_DH}, with B x H <= {GENERAL_MAX_BH} (the general kernels); got q "
+        f"{q.dtype} {tuple(q.shape)} and k {k.dtype}")
+
+
+def _check_general_qkv(name, q, k, v):
+    """Raise unless the general attention kernels take q, k, v (`plan` gave
+    "general")."""
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if (t.device != q.device or t.dtype != q.dtype or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} general kernel takes contiguous, 16-byte aligned tensors "
+                             f"of q's dtype {q.dtype} on one device; {n} is {t.dtype} on "
+                             f"{t.device}, contiguous={t.is_contiguous()}")
+    if q.dim() != 4 or min(q.shape[2], k.shape[2]) < 1:
+        raise ValueError(f"{name} general kernel takes [B,H,S,Dh] with S >= 1; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    B, H, _, D = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[-1] != D:
+        raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+
+
+_GENERAL_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def flash_attention_general_kernel(q, k, v, scale: float, static_max: Optional[float]):
+    """One launch of the general forward (csrc/flash_attn_general.cu) on
+    checked CUDA q [B,H,Sq,Dh] and k, v [B,H,Skv,Dh], f32 or bf16: the online
+    softmax for `static_max=None`, else the static-max one. Returns (out,
+    lse). Counted in `flash_attention_general_kernel.launches`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_general_kernel launches a CUDA kernel; q is on "
+                         f"{q.device}")
+    B, H, S, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_flash_attn_general", _GENERAL_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B * H, S, k.shape[2], D, float(scale),
+            0.0 if static_max is None else float(static_max), int(static_max is None),
+            int(q.dtype == torch.float32), stream)
+    _build.check(err, "flash_attention_general_kernel")
+    _build.count(flash_attention_general_kernel)
+    return out, lse
+
+
+flash_attention_general_kernel.launches = 0
+
+
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _ONLINE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -135,11 +218,14 @@ flash_attention_online_kernel.launches = 0
 
 
 def _flash_forward(q, k, v, scale: float, static_max: Optional[float]):
-    """(out, lse): `flash_attention_plain` on the CPU; on CUDA the online
-    kernel for `static_max=None`, else the static-max kernel (counted in
-    `flash_attention.launches`)."""
+    """(out, lse): `flash_attention_plain` on the CPU; on CUDA, where `plan`
+    gives "general", the general kernel in either mode, else the online
+    Hopper kernel for `static_max=None` and the static-max one otherwise
+    (counted in `flash_attention.launches`)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, static_max)
+    if plan(q, k) == "general":
+        return flash_attention_general_kernel(q, k, v, scale, static_max)
     if static_max is None:
         return flash_attention_online_kernel(q, k, v, scale)
     B, H, S, D = q.shape
@@ -187,14 +273,18 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
     only right where the logits stay below it.
 
     CPU tensors run `flash_attention_plain` (and `flash_attention_bwd_plain`
-    backward). CUDA tensors must be bf16, contiguous, with D == 64; anything
-    else raises."""
+    backward). CUDA tensors go, by `plan`, to the Hopper kernels (bf16 at
+    D == 64) or to the general ones (f32 or bf16 at D % 8 == 0 up to 128),
+    contiguous; anything else raises."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.device.type == "cuda":
-        _check_qkv("flash_attention", q, k, v)
+        if plan(q, k) == "hopper":
+            _check_qkv("flash_attention", q, k, v)
+        else:
+            _check_general_qkv("flash_attention", q, k, v)
     return _FlashAttention.apply(q, k, v, float(scale),
                                  None if static_max is None else float(static_max))
 
@@ -270,10 +360,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale: Optional[float] = 
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_bwd(q, k, v, out, lse, dout, dlse):
-    """Raise unless the backward kernels take these operands."""
-    _check_qkv("flash_attention_bwd", q, k, v)
-    _check_qkv("flash_attention_bwd", q, out, dout)
+def _check_bwd(q, k, v, out, lse, dout, dlse, check_qkv=_check_qkv):
+    """Raise unless the backward kernels take these operands: `check_qkv`
+    is the Hopper kernels' check of q, k, v (and out, dout), or the general
+    kernels'."""
+    check_qkv("flash_attention_bwd", q, k, v)
+    check_qkv("flash_attention_bwd", q, out, dout)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} / dout "
                          f"{tuple(dout.shape)} do not match q {tuple(q.shape)}")
@@ -313,21 +405,27 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, scale: float, dlse=None):
 flash_attention_bwd_dq.launches = 0
 
 
+def _check_delta(name, q, delta):
+    """Raise before any build or launch unless delta is a contiguous f32
+    [B, H, Sq] on q's device, and unless that device is CUDA."""
+    if (not isinstance(delta, torch.Tensor) or delta.device != q.device
+            or delta.dtype != torch.float32 or delta.shape != q.shape[:3]
+            or not delta.is_contiguous()):
+        got = (f"{delta.dtype} {tuple(delta.shape)} on {delta.device}"
+               if isinstance(delta, torch.Tensor) else type(delta).__name__)
+        raise ValueError(f"{name} takes the dq kernel's delta: a contiguous "
+                         f"f32 tensor of shape {tuple(q.shape[:3])} on {q.device}; got {got}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} launches a CUDA kernel; q is on {q.device}")
+
+
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
     """(dk, dv) of the flash backward: one launch of the dk/dv kernel on
     checked CUDA operands and the dq kernel's delta (counted in
     `flash_attention_bwd_dkv.launches`). Raises before any build or launch
     unless delta is a contiguous f32 [B, H, Sq] on q's device, and unless
     that device is CUDA."""
-    if (not isinstance(delta, torch.Tensor) or delta.device != q.device
-            or delta.dtype != torch.float32 or delta.shape != q.shape[:3]
-            or not delta.is_contiguous()):
-        got = (f"{delta.dtype} {tuple(delta.shape)} on {delta.device}"
-               if isinstance(delta, torch.Tensor) else type(delta).__name__)
-        raise ValueError(f"flash_attention_bwd_dkv takes the dq kernel's delta: a contiguous "
-                         f"f32 tensor of shape {tuple(q.shape[:3])} on {q.device}; got {got}")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dkv launches a CUDA kernel; q is on {q.device}")
+    _check_delta("flash_attention_bwd_dkv", q, delta)
     B, H, S, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -344,19 +442,78 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
 flash_attention_bwd_dkv.launches = 0
 
 
+_GENERAL_DQ_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+                    + [ctypes.c_void_p])
+_GENERAL_DKV_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+                     + [ctypes.c_void_p])
+
+
+def flash_attention_general_bwd_dq(q, k, v, out, lse, dout, scale: float, dlse=None):
+    """dq of the general backward (csrc/flash_attn_general_bwd.cu) and delta
+    = rowsum(f32(out * dout)) - dlse (f32 [B, H, Sq]) for its dk/dv kernel:
+    one launch on checked CUDA operands (counted in
+    `flash_attention_general_bwd_dq.launches`)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_general_bwd_dq launches a CUDA kernel; q is on "
+                         f"{q.device}")
+    B, H, S, D = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_flash_attn_general_bwd_dq", _GENERAL_DQ_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), _ptr(dlse), dq.data_ptr(), delta.data_ptr(), B * H, S, k.shape[2],
+            D, float(scale), int(q.dtype == torch.float32), stream)
+    _build.check(err, "flash_attention_general_bwd_dq")
+    _build.count(flash_attention_general_bwd_dq)
+    return dq, delta
+
+
+flash_attention_general_bwd_dq.launches = 0
+
+
+def flash_attention_general_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
+    """(dk, dv) of the general backward: one launch of its dk/dv kernel on
+    checked CUDA operands and the dq kernel's delta (counted in
+    `flash_attention_general_bwd_dkv.launches`). Raises before any launch
+    unless delta is a contiguous f32 [B, H, Sq] on q's CUDA device."""
+    _check_delta("flash_attention_general_bwd_dkv", q, delta)
+    B, H, S, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _build.kernel("orv_flash_attn_general_bwd_dkv", _GENERAL_DKV_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, S, k.shape[2], D,
+            float(scale), int(q.dtype == torch.float32), stream)
+    _build.check(err, "flash_attention_general_bwd_dkv")
+    _build.count(flash_attention_general_bwd_dkv)
+    return dk, dv
+
+
+flash_attention_general_bwd_dkv.launches = 0
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None,
                         dlse: Optional[torch.Tensor] = None):
     """The flash backward (`_bwd_impl`, attention.py:492): (dq, dk, dv).
 
     CPU tensors run `flash_attention_bwd_plain`. CUDA tensors launch the dq
-    and dk/dv kernels: q, k, v, out, dout contiguous bf16 [B, H, S, 64], lse
-    (and dlse, if given) contiguous f32 [B, H, S]; anything else raises."""
+    and dk/dv kernels `plan` picks: the Hopper ones for contiguous bf16
+    [B, H, S, 64], the general ones for f32 or bf16 at D % 8 == 0 up to 128;
+    lse (and dlse, if given) contiguous f32 [B, H, S]; anything else raises."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, dlse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if plan(q, k) == "general":
+        _check_bwd(q, k, v, out, lse, dout, dlse, _check_general_qkv)
+        dq, delta = flash_attention_general_bwd_dq(q, k, v, out, lse, dout, scale, dlse)
+        dk, dv = flash_attention_general_bwd_dkv(q, k, v, dout, lse, delta, scale)
+        return dq, dk, dv
     _check_bwd(q, k, v, out, lse, dout, dlse)
     dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, scale, dlse)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale)

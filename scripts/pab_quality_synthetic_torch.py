@@ -16,13 +16,13 @@ broadcast, and report per (pab_skip, window) cell, over n_clips noise seeds:
 A cell is SAFE when pab_vs_exact_psnr >= recon_psnr_exact + 6 dB.
 
 The device follows the port's rule (`utils/device.py:resolve_device`): the
-CUDA card unless `device="cpu"` is asked for. On the CPU the model is the JAX
-script's, in f32 (two 16-wide heads); the port's CUDA kernels take bf16
-activations with 64-wide heads, so on the card the model has two 64-wide heads
-and computes in bf16 with f32 parameters. Every step runs the kernels there;
-nothing falls back to the CPU. The report names the device, the compute
-dtype, the head width and the card (its name and power limit, as nvidia-smi
-prints them).
+CUDA card unless `device="cpu"` is asked for. On both the model is the JAX
+script's, in f32 (two 16-wide heads, rows 32 wide); on the card every step
+runs the general kernels (ops/csrc/flash_attn_general*.cu,
+ops/csrc/adaln_general.cu and gated_residual.cu's f32 instance), which take f32
+at any head dim that is a multiple of 8; nothing falls back to the CPU. The
+report names the device, the compute dtype, the head width and the card (its
+name and power limit, as nvidia-smi prints them).
 
 Usage: python scripts/pab_quality_synthetic_torch.py [--train-steps 600]
            [--sample-steps 50] [--n-clips 8] [--out report.json]
@@ -65,19 +65,19 @@ def _make_clip(F=3, C=16, H=8, W=16):
 
 def model_setup(device):
     """(DiTConfig, compute dtype) of the overfit model on `device`: the JAX
-    script's config in f32 on the CPU, 64-wide heads in bf16 on the card."""
+    script's config (scripts/pab_quality_synthetic.py:75-80) in f32, on the
+    CPU and on the card alike."""
     import torch
 
     from orv_tpu_torch.models import DiTConfig
 
-    cpu = device.type == "cpu"
     cfg = DiTConfig(
-        num_attention_heads=2, attention_head_dim=16 if cpu else 64, num_layers=4,
+        num_attention_heads=2, attention_head_dim=16, num_layers=4,
         in_channels=32, out_channels=16, text_embed_dim=32, time_embed_dim=64,
         max_text_seq_length=8, sample_width=16, sample_height=8,
         modulate_encoder_hidden_states=True,
     )
-    return cfg, torch.float32 if cpu else torch.bfloat16
+    return cfg, torch.float32
 
 
 def build_overfit_model(train_steps: int = 600, lr: float = 2e-3, seed: int = 0, device=None,

@@ -62,8 +62,15 @@ def test_cuda_flash_attention_matches_plain(cuda, shape):
     ref, ref_lse = attention.flash_attention_plain(q, k, v, static_max=24.0)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
-    with pytest.raises(ValueError):
-        attention.flash_attention(q.float(), k.float(), v.float(), static_max=24.0)
+    # f32 goes to the general kernel before any launch; a head dim that no
+    # kernel takes raises
+    general = attention.flash_attention_general_kernel.launches
+    attention.flash_attention(q.float(), k.float(), v.float(), static_max=24.0)
+    assert attention.flash_attention.launches == before + 1
+    assert attention.flash_attention_general_kernel.launches == general + 1
+    with pytest.raises(ValueError, match="head dim 64 .* multiple of 8 up to 128"):
+        attention.flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                                  v[..., :12].contiguous(), static_max=24.0)
 
 
 @pytest.mark.cuda
@@ -269,20 +276,38 @@ def test_cuda_adaln_forwards_across_row_groups(cuda, R, norm_f32):
 
 @pytest.mark.cuda
 def test_cuda_adaln_width_limits(cuda):
-    """The forwards and the backward take D up to 4096 in multiples of 128;
-    the gated-residual backward D up to 16384 in multiples of 8."""
+    """The Hopper forwards and backward take D up to 4096 in multiples of
+    128, the gated-residual backward D up to 16384 in multiples of 8; past
+    those the bf16 adaLN forward and both backwards go to the general
+    kernels (any D % 8 == 0), chosen before any launch; the int8-emitting
+    forward has no general kernel and raises."""
     g = torch.Generator(device=cuda).manual_seed(40)
     for D in (4224, 200):
         args = _adaln_args(cuda, g, 2, 9, D, norm_f32=False)
-        with pytest.raises(ValueError, match="D % 128 == 0 and D <= 4096"):
-            adaln.modulate_norm(*args)
+        before = (adaln.modulate_norm.launches, adaln.modulate_norm_general.launches,
+                  adaln.modulate_norm_bwd.launches, adaln.modulate_norm_bwd_general.launches)
+        torch.testing.assert_close(adaln.modulate_norm(*args).float(),
+                                   adaln.modulate_norm_plain(*args).float(), atol=2e-2, rtol=1e-2)
         with pytest.raises(ValueError, match="D % 128 == 0 and D <= 4096"):
             adaln.modulate_norm_q8(*args)
-        with pytest.raises(ValueError, match="modulate_norm_bwd kernel takes .* D <= 4096"):
-            adaln.modulate_norm_bwd(args[0], args[0].clone(), args[1], args[3])
+        got = adaln.modulate_norm_bwd(args[0], args[0].clone(), args[1], args[3])
+        want = adaln.modulate_norm_bwd_plain(args[0], args[0].clone(), args[1], args[3])
+        assert _agree(got[0], want[0]) and _agree(got[1], want[1], rms_rel=1e-4)
+        assert (adaln.modulate_norm.launches, adaln.modulate_norm_general.launches,
+                adaln.modulate_norm_bwd.launches, adaln.modulate_norm_bwd_general.launches) == (
+            before[0], before[1] + 1, before[2], before[3] + 1)
     _check_gated_residual_bwd(*_gated_bwd_args(cuda, g, 2, 5, 16384))
-    with pytest.raises(ValueError, match="gated_residual_bwd kernel takes .* D <= 16384"):
-        adaln.gated_residual_bwd(*_gated_bwd_args(cuda, g, 2, 5, 16392))
+    before = (adaln.gated_residual_bwd.launches, adaln.gated_residual_bwd_general.launches)
+    do, y, gate = _gated_bwd_args(cuda, g, 2, 5, 16392)
+    dy, dgate = adaln.gated_residual_bwd(do, y, gate)
+    ref_dy, ref_dgate = adaln.gated_residual_bwd_plain(do, y, gate)
+    torch.testing.assert_close(dy, ref_dy, atol=0, rtol=0)
+    assert _agree(dgate, ref_dgate, rms_rel=1e-4)
+    assert (adaln.gated_residual_bwd.launches, adaln.gated_residual_bwd_general.launches) == (
+        before[0], before[1] + 1)
+    with pytest.raises(ValueError, match="D % 8 == 0 and D <= 16384 .* general kernel"):
+        adaln.gated_residual_bwd(do[..., :-4].contiguous(), y[..., :-4].contiguous(),
+                                 gate[:, :-4])
 
 
 def _q8_attention_agrees(out, ref):
@@ -655,6 +680,197 @@ def test_cuda_adaln_backwards_across_row_groups(cuda, R):
     for S in (600, 226):
         _check_modulate_norm_bwd(*_mn_bwd_args(cuda, g, R, S, 1920))
         _check_gated_residual_bwd(*_gated_bwd_args(cuda, g, R, S, 1920))
+
+
+# -- the general kernels: f32 or bf16 attention at head dims 8..128 (multiples of
+# 8), the adaLN pair and the gated residual at any D % 8 == 0 ----------------------
+#
+# f32 outputs against the plain versions to 1e-4 of each output's range (the
+# same f32 arithmetic summed in another order; no TF32 anywhere), lse to 1e-4;
+# bf16 at the Hopper kernels' tolerances. Each call launches the general
+# kernel once and no Hopper kernel; two runs of each backward give the same
+# bits.
+
+def _within_range(got, want, rel: float = 1e-4) -> bool:
+    w = want.float()
+    return bool((got.float() - w).abs().max() <= rel * (w.max() - w.min()))
+
+
+def _attn_counts():
+    return (attention.flash_attention_general_kernel.launches,
+            attention.flash_attention_general_bwd_dq.launches,
+            attention.flash_attention_general_bwd_dkv.launches,
+            attention.flash_attention.launches, attention.flash_attention_online_kernel.launches,
+            attention.flash_attention_bwd_dq.launches, attention.flash_attention_bwd_dkv.launches)
+
+
+_GENERAL_ATTN = [(torch.float32, 8), (torch.float32, 16), (torch.float32, 32),
+                 (torch.float32, 40), (torch.float32, 64), (torch.float32, 128),
+                 (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_max", [24.0, None])
+@pytest.mark.parametrize("dtype,dh", _GENERAL_ATTN)
+@pytest.mark.parametrize("sq,skv", [(1, 1), (77, 130), (130, 77), (300, 300)])
+def test_cuda_general_flash_forward_matches_plain(cuda, sq, skv, dtype, dh, static_max):
+    """Both modes at every head-dim capacity (16, 32, 64, 128) and between
+    them (8, 40), Sq != Skv and ragged against the 64-row and 64- or 32-key
+    tiles."""
+    g = torch.Generator(device=cuda).manual_seed(sq + 3 * skv + dh)
+    q = (2 * torch.randn(2, 3, sq, dh, device=cuda, generator=g)).to(dtype)
+    k, v = (torch.randn(2, 3, skv, dh, device=cuda, generator=g).to(dtype) for _ in range(2))
+    before = _attn_counts()
+    out, lse = attention.flash_attention(q, k, v, static_max=static_max)
+    assert _attn_counts() == (before[0] + 1,) + before[1:]
+    ref, ref_lse = attention.flash_attention_plain(q, k, v, static_max=static_max)
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == q.shape[:3]
+    if dtype == torch.float32:
+        assert _within_range(out, ref)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 16), (torch.float32, 32),
+                                      (torch.float32, 40), (torch.float32, 64),
+                                      (torch.float32, 128), (torch.bfloat16, 16),
+                                      (torch.bfloat16, 128)])
+@pytest.mark.parametrize("sq,skv", [(77, 130), (130, 77), (300, 300)])
+def test_cuda_general_flash_backward_matches_plain(cuda, sq, skv, dtype, dh, with_dlse):
+    g = torch.Generator(device=cuda).manual_seed(sq + 5 * skv + dh)
+    q, do = (torch.randn(1, 2, sq, dh, device=cuda, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(1, 2, skv, dh, device=cuda, generator=g).to(dtype) for _ in range(2))
+    dlse = torch.randn(1, 2, sq, device=cuda, generator=g) if with_dlse else None
+    out, lse = attention.flash_attention(q, k, v)
+    before = _attn_counts()
+    got = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    assert _attn_counts() == (before[0], before[1] + 1, before[2] + 1) + before[3:]
+    want = attention.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse=dlse)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _within_range(a, b) if dtype == torch.float32 else _agree(a, b), name
+    again = attention.flash_attention_bwd(q, k, v, out, lse, do, dlse=dlse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 64])
+def test_cuda_general_flash_keeps_heads_apart_through_autograd(cuda, dh):
+    """f32 leaves under autograd: the forward, dq and dk/dv general kernels
+    launch once each and no Hopper kernel; head h's k and v scaled by 10^h,
+    q by 10^-h and dO by 10^h, each head's output and gradients against
+    autograd through the plain version on the CPU in its own units."""
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    B, H, sq, skv = 2, 3, 129, 65
+    tens = 10.0 ** torch.arange(B * H, device=cuda, dtype=torch.float32).reshape(B, H, 1, 1)
+    rand = lambda s: torch.randn(B, H, s, dh, device=cuda, generator=g)
+    q = rand(sq) / tens
+    k, v = rand(skv) * tens, rand(skv) * tens
+    do = rand(sq) * tens
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = _attn_counts()
+    out, _ = attention.flash_attention(*leaves, static_max=24.0)
+    (out * do).sum().backward()
+    assert _attn_counts() == (before[0] + 1, before[1] + 1, before[2] + 1) + before[3:]
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    ref, _ = attention.flash_attention(*cpu, static_max=24.0)
+    (ref * do.cpu()).sum().backward()
+    for b in range(B):
+        for h in range(H):
+            assert _within_range(out[b, h].detach().cpu(), ref[b, h].detach()), (b, h)
+            for leaf, c in zip(leaves, cpu):
+                assert _within_range(leaf.grad[b, h].cpu(), c.grad[b, h]), (b, h)
+
+
+def _adaln_counts():
+    return (adaln.modulate_norm_general.launches, adaln.modulate_norm_bwd_general.launches,
+            adaln.gated_residual_general.launches, adaln.gated_residual_bwd_general.launches,
+            adaln.modulate_norm.launches, adaln.modulate_norm_bwd.launches,
+            adaln.gated_residual.launches, adaln.gated_residual_bwd.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 8), (torch.float32, 32), (torch.float32, 40),
+                                     (torch.float32, 1920), (torch.float32, 3072),
+                                     (torch.float32, 4104), (torch.bfloat16, 32),
+                                     (torch.bfloat16, 40), (torch.bfloat16, 4224)])
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 37), (5, 65)])
+def test_cuda_general_adaln_matches_plain(cuda, R, S, dtype, D):
+    """The general adaLN forward and backward (f32 at any D % 8, bf16 where
+    the Hopper kernels stop), and the gated residual's f32 instance and
+    general backward, each one launch against its plain version; S across
+    the 32-row chunks of the sums over S; the backwards twice, bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(R * S + D)
+    x = (2 * torch.randn(R, S, D, device=cuda, generator=g) + 0.3).to(dtype)
+    do, y = (torch.randn(R, S, D, device=cuda, generator=g).to(dtype) for _ in range(2))
+    shift, scale, gate = (0.3 * torch.randn(R, 3 * D, device=cuda, generator=g)).to(dtype).chunk(
+        3, dim=-1)
+    ns = 1 + 0.1 * torch.randn(D, device=cuda, generator=g)
+    nb = 0.1 * torch.randn(D, device=cuda, generator=g)
+    f32 = dtype == torch.float32
+
+    before = _adaln_counts()
+    out = adaln.modulate_norm(x, scale, shift, ns, nb)
+    ref = adaln.modulate_norm_plain(x, scale, shift, ns, nb)
+    assert out.dtype == dtype
+    assert (_within_range(out, ref) if f32
+            else torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=1e-2))
+    got = adaln.modulate_norm_bwd(x, do, scale, ns)
+    want = adaln.modulate_norm_bwd_plain(x, do, scale, ns)
+    assert got[0].dtype == dtype and got[1].shape == got[2].shape == (R, D)
+    assert _within_range(got[0], want[0]) if f32 else _agree(got[0], want[0])
+    assert _within_range(got[1], want[1]) and _within_range(got[2], want[2])
+    again = adaln.modulate_norm_bwd(x, do, scale, ns)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _adaln_counts()[:2] == (before[0] + 1, before[1] + 2)
+    if f32:  # bf16 gated residuals are the Hopper kernels'
+        res = adaln.gated_residual(x, y, gate)
+        torch.testing.assert_close(res, adaln.gated_residual_plain(x, y, gate), atol=0, rtol=0)
+        dy, dgate = adaln.gated_residual_bwd(do, y, gate)
+        ref_dy, ref_dgate = adaln.gated_residual_bwd_plain(do, y, gate)
+        torch.testing.assert_close(dy, ref_dy, atol=0, rtol=0)
+        assert dgate.dtype == torch.float32 and _within_range(dgate, ref_dgate)
+        again = adaln.gated_residual_bwd(do, y, gate)
+        assert torch.equal(again[0], dy) and torch.equal(again[1], dgate)
+        assert _adaln_counts()[2:4] == (before[2] + 1, before[3] + 2)
+    assert _adaln_counts()[4:] == before[4:]
+
+
+@pytest.mark.cuda
+def test_cuda_general_adaln_autograd_matches_cpu(cuda):
+    """f32 leaves at D 40 under autograd: every gradient of modulate_norm
+    and of the gated residual against autograd through the plain versions on
+    the CPU, to 1e-4 of its range."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    R, S, D = 3, 70, 40
+    x, do, y = (torch.randn(R, S, D, device=cuda, generator=g) for _ in range(3))
+    shift, scale, gate = (0.3 * torch.randn(R, 3 * D, device=cuda, generator=g)).chunk(3, -1)
+    ns = 1 + 0.1 * torch.randn(D, device=cuda, generator=g)
+    nb = 0.1 * torch.randn(D, device=cuda, generator=g)
+    for fn, args in ((adaln.modulate_norm, (x, scale, shift, ns, nb)),
+                     (adaln.gated_residual, (x, y, gate))):
+        leaves = [t.clone().requires_grad_() for t in args]
+        (fn(*leaves) * do).sum().backward()
+        cpu = [t.detach().cpu().requires_grad_() for t in args]
+        (fn(*cpu) * do.cpu()).sum().backward()
+        for leaf, c in zip(leaves, cpu):
+            assert _within_range(leaf.grad.cpu(), c.grad), fn.__name__
+
+
+@pytest.mark.cuda
+def test_cuda_f32_train_matches_cpu(cuda):
+    """chip_smoke.f32_train_check: pipelines/train.py:train with
+    train.mixed_precision=no at 2 layers, on the card through the general
+    kernels only and on the CPU through the plain versions, from the same
+    weights and draws: each micro-step's loss to 1e-5 relative, its grad
+    norm to 1e-4."""
+    import chip_smoke
+
+    chip_smoke.f32_train_check()
 
 
 @pytest.mark.cuda
