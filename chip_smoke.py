@@ -16,8 +16,9 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      flash_attn_general_bwd.cu, adaln_general.cu, gated_residual.cu: f32 and
      bf16, the attention head-dim capacities 16 to 128, both forward modes),
      where a spill fails the run in an instance the main path launches
-     (attention in f32 at capacities 16 and 64 and in bf16 at 16, every
-     adaLN and gated-residual instance);
+     (attention in f32 at capacities 16 and 64 and in bf16 at 16, the
+     backward's also in f32 at 32 and 128 and in bf16 at 128, every adaLN
+     and gated-residual instance);
   2. hold each of the ten kernels against its plain PyTorch version on the
      card, at the flagship or training shapes and at small ragged ones (the
      adaLN forwards also at the text stream's [1,226,1920], the training
@@ -56,13 +57,16 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      the ring's 226 x 1950 and 1950 x 226, at head dims 16, 32 and 128 on
      ragged shapes in f32 and at 16 and 128 in bf16; the backward with and
      without dlse (a second run bitwise equal, the dlse fault rejected) at
-     the same kinds of shapes; the adaLN forward and backward and the gated
-     residual forward and backward in f32 at [5,600,1920], [1,226,1920],
+     the same kinds of shapes and at 65 x 129, one past a 64-row tile and a
+     128-key block (head dims 64 and 128); the adaLN forward and backward
+     and the gated residual forward and backward in f32 at [5,600,1920], [1,226,1920],
      [2,37,32] and [4,600,3072], the adaLN pair in bf16 at D 32; the forward,
      dq, dk/dv and the four adaLN entry points timed at the training shapes
      beside their plain versions, SDPA on f32 q, k, v (forward) and its
      memory-efficient backward (dq + dk/dv), addcmul (gated residual) and
      ATen's LayerNorm backward at the R = 1 form in f32 (adaLN backward);
+     dq's and dk/dv's `time` lines add their bound, SDPA's backward and the
+     launched instance's registers, local and shared memory and ptxas line;
   3. a tiny ControlDiT, bf16 and W8A8 (quant=True, attn_impl="flash_q8"), and
      a small VAE decode on the card against the same weights on the CPU
      (plain versions, f32); one train step of a tiny recon_action ControlDiT
@@ -1337,7 +1341,8 @@ def general_build_report() -> None:
     attention kernels' head-dim capacity and the forward's mode (online or
     static max). A spill fails the run in an
     instance the main path launches: attention in f32 at capacities 16 and
-    64 and in bf16 at 16, every adaLN and gated-residual instance."""
+    64 and in bf16 at 16, the backward's dq and dk/dv also in f32 at 32 and
+    128 and in bf16 at 128, every adaLN and gated-residual instance."""
     if not _build.build_log:
         print("general kernels: no build log (the library was built before)", flush=True)
         return
@@ -1358,10 +1363,35 @@ def general_build_report() -> None:
             print(f"ptxas {what}: {line.strip()}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             launched = not name.startswith("flash_general") or (t, cap) in (
-                ("f", "16"), ("f", "64"), ("bf16", "16"))
+                ("f", "16"), ("f", "64"), ("bf16", "16")) or (
+                name.startswith("flash_general_d") and (t, cap) in (
+                    ("f", "32"), ("f", "128"), ("bf16", "128")))
             if spills and any(map(int, spills.groups())) and launched:
                 faults.append(f"{what}: {line.strip()}")
     check(not faults, f"a general kernel the main path launches spilled: {faults}")
+
+
+def general_bwd_report(name: str, dtype, dh: int) -> str:
+    """The launched instance of the general backward's dq or dk/dv kernel at
+    head dim dh: registers, local memory and dynamic shared memory from the
+    card (`attention.general_bwd_instance`), and its ptxas line (registers,
+    spills) from this process's build log."""
+    kernel = "flash_general_dkv_kernel" if name.endswith("dkv") else "flash_general_dq_kernel"
+    info = attention.general_bwd_instance(dh, dtype, name.endswith("dkv"))
+    cap = next(c for c in (16, 32, 64, 128) if dh <= c)
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    source, found, lines = None, False, []
+    for line in _build.build_log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif source == "flash_attn_general_bwd.cu" and "entry function" in line:
+            found = f"{kernel}I{t}Li{cap}E" in line
+        elif found and re.search(r"registers|spill", line):
+            lines.append(line.split(":", 1)[-1].strip() if "ptxas" in line else line.strip())
+    return (f"{kernel}<{'f32' if dtype == torch.float32 else 'bf16'}, {cap}>: "
+            f"{info['registers']} registers, {info['local_bytes']} bytes local memory a thread, "
+            f"{info['shared_bytes']} bytes dynamic shared memory a block; ptxas: "
+            + ("; ".join(lines) if lines else "no build log (the library was built before)"))
 
 
 def within_range(got, want, rel: float = 1e-4):
@@ -1501,6 +1531,10 @@ def check_general_attention_bwd(g, shape, skv, with_dlse: bool, dtype, timed: bo
                          shape=f"{dtype} {list(q.shape)} x {skv}", max_abs_err=err,
                          ms=call_ms(name, fn, args, 10), plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, library_ms=lib_ms))
+        print(f"time {name} {dtype} {list(q.shape)} x {skv}: {recs[-1]['ms']:.4f} ms, bound "
+              f"{bms:.4f} ({by}, {100 * bms / recs[-1]['ms']:.1f}% of it), SDPA's memory-"
+              f"efficient backward (dq + dk + dv) {lib_ms:.4f}; "
+              f"{general_bwd_report(name, dtype, dh)}", flush=True)
     return recs
 
 
@@ -1620,6 +1654,9 @@ def general_kernel_checks(g):
             check_general_attention_bwd(g, (1, 2, sq, dh), skv, with_dlse, f32)
     for dh in (16, 128):
         check_general_attention_bwd(g, (1, 2, 130, dh), 77, True, bf16)
+    # one past a 64-row tile and a 128-key block, at the 128-row blocks' capacity 64 and at 128
+    check_general_attention_bwd(g, (1, 2, 65, 64), 129, False, f32)
+    check_general_attention_bwd(g, (1, 2, 65, 128), 129, True, f32)
     for sq, skv in ((226, 1950), (1950, 226)):
         check_general_attention_bwd(g, (1, 30, sq, 64), skv, True, f32)
     check_general_attention_bwd(g, (1, 30, 3226, 64), 3226, True, f32)

@@ -495,6 +495,21 @@ def flash_attention_general_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
 flash_attention_general_bwd_dkv.launches = 0
 
 
+_GENERAL_BWD_INFO_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def general_bwd_instance(dh: int, dtype: torch.dtype, dkv: bool) -> dict:
+    """The instance of the general backward's dq (or, with dkv, dk/dv)
+    kernel that a launch at head dim dh in dtype takes, on the current
+    card: its registers and local memory (spills and stack, bytes) a
+    thread, by cudaFuncGetAttributes, and its dynamic shared memory a block
+    (bytes)."""
+    out = torch.zeros(3, dtype=torch.int32)
+    _build.check(_build.kernel("orv_flash_attn_general_bwd_info", _GENERAL_BWD_INFO_ARGS)(
+        dh, int(dtype == torch.float32), int(dkv), out.data_ptr()), "general backward instance")
+    return dict(registers=int(out[0]), local_bytes=int(out[1]), shared_bytes=int(out[2]))
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None,
                         dlse: Optional[torch.Tensor] = None):
     """The flash backward (`_bwd_impl`, attention.py:492): (dq, dk, dv).

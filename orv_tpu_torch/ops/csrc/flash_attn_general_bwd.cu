@@ -11,14 +11,63 @@
 // the lse cotangent); dp = f32(dout . v); ds = p * (dp - delta) * scale; dq
 // and dk take ds rounded to T, dv the f32 p.
 //
-// Bound on the H100: operations, f32 FMAs on the CUDA cores (no TF32): dq
-// 6 Sq Skv Dh and dk/dv 8 Sq Skv Dh a head at 67 TFLOP/s. Design: the
-// forward's (general.cuh, a quad of threads a row, float4 chunks 16 c + 4 j
-// of the row's dims in registers, the other side's tiles in f32 shared
-// memory). The dq kernel walks key tiles for 64 query rows a block and also
-// writes each row's delta; the dk/dv kernel walks query tiles (q, dout, lse,
-// delta) for 64 key rows a block. Each output element is summed by one
-// thread in a fixed order: no atomics, the same bits from run to run.
+// Bound on the H100: operations, f32 FMAs on the CUDA cores (no TF32, which
+// would miss the f32 tolerance): dq 6 Sq Skv Dh and dk/dv 8 Sq Skv Dh a head
+// at 67 TFLOP/s.
+//
+// Design: register tiling, as an SGEMM. What limits an f32 product on the
+// CUDA cores besides the FMAs is shared memory: a multiprocessor delivers one
+// 4-byte word a lane per cycle to 32 lanes (a 16-byte read of a warp takes
+// four such cycles, one a quarter-warp, broadcast or not) against 128 FMAs,
+// so every float a lane reads must feed 4 of its FMAs: a lane's tile of a
+// product must be 8 x 8 (8 + 8 floats read a step, 64 FMAs). A block of 256
+// threads owns R rows (keys for dk/dv, queries for dq; R = 128, or 64 at head
+// dims above 64) in shared memory in f32 and walks 64-row tiles of the other
+// side (Q, dO, lse and delta for dk/dv; K and V for dq), double-buffered: f32
+// tiles land by 16-byte cp.async, zero-filled past the rows and dims that
+// exist, while the block computes the tile before; bf16 tiles are widened to
+// f32 by the threads on the way in. A tile is three steps:
+// - the scores: threads 0-127 compute S = (own rows) . (tile rows) over the
+//   64-row tile, threads 128-255 dP, a lane an 8 x 8 tile of one of them (8 x
+//   4 at R = 64): own rows a + R/8 i, tile rows b + 64/MJ j, lane % 8 picking
+//   a and lane / 8 b, so that a quarter-warp reads 8 consecutive own rows
+//   (distinct bank groups: rows are padded to Dh + 4 floats) and one tile row
+//   (a broadcast). Each element is summed by its lane over every dim in
+//   order of d: 64 independent accumulators, no shuffle;
+// - p and ds: a lane of the S half and its partner in the dP half (the same
+//   elements) each finish half of their elements (the S lane rows i < 4, the
+//   dP lane rows i >= 4): each first hands the other the scores it lacks
+//   through the elements' places in a [tile row][own row] tile (rows padded
+//   to R + 8 floats, so that a warp's 32 stores fall on 32 banks), then, past
+//   a barrier, stores p = exp(s scale - lse) (0 past the tile's rows) and
+//   ds = p (dp - delta) scale rounded to T (dk/dv: p and ds tiles; dq: ds
+//   alone, one tile), so that all 256 threads share the exponentials;
+// - the gradients: dV += P^T dO on threads 0-127 and dK += dS^T Q on 128-255
+//   (dk/dv), or dQ += dS K on all 256, each half over 32 of the tile's keys
+//   (dq). A lane owns 8 consecutive own rows x 8 dims (float4 chunks 4 e and
+//   4 e + Dh/2; fewer dims at Dh < 64) in registers for the whole walk, the
+//   tile's rows in order; a quarter-warp reads one row of p or ds (a
+//   broadcast) and 8 consecutive chunks of the tile row. The two halves of dQ
+//   are added in order at the end.
+// The dims past Dh up to the capacity are zeros in every tile, so the sums
+// run over the capacity with no runtime bound. Each output element is summed
+// in a fixed order (dq: two fixed halves added in a fixed order): no atomics,
+// the same bits from run to run. delta is summed as before (a quad of threads
+// a row, float4 chunks 16 c + 4 j, two shuffles).
+//
+// Shared memory a block (f32; rows of Dh + 4 floats, the p and ds tiles 64 x
+// (R + 8)):
+//
+//   cap. | R   | dk/dv: K, V + stages x (Q, dO, lse, delta) + P, dS | dq: Q, dO + 2 x (K, V) + P/dS + lse, delta
+//   16   | 128 | 20,480 + 2 x 10,752 +  69,632 = 111,616 (2 stages) | 20,480 + 2 x 10,240 + 34,816 + 1,024 =  76,800
+//   32   | 128 | 36,864 + 2 x 18,944 +  69,632 = 144,384 (2 stages) | 36,864 + 2 x 18,432 + 34,816 + 1,024 = 109,568
+//   64   | 128 | 69,632 + 2 x 35,328 +  69,632 = 209,920 (2 stages) | 69,632 + 2 x 34,816 + 34,816 + 1,024 = 175,104
+//   128  | 64  | 67,584 + 1 x 68,096 +  36,864 = 172,544 (1 stage)  | 67,584 + 2 x 67,584 + 18,432 +   512 = 221,696
+//
+// in bytes, of Hopper's 232,448 a block: dk/dv at capacity 128 takes one
+// stage (two would need 240,640), its next tile copied after the last read
+// of the one before. One block a multiprocessor: a lane's 128 sums and their
+// operands take 196-254 registers (ptxas, no spills).
 
 #include "general.cuh"
 
@@ -26,227 +75,462 @@ namespace {
 
 using general::Elem;
 
-constexpr int kRows = 64;            // rows a block: queries (dq) or keys (dk/dv)
-constexpr int kThreads = 4 * kRows;  // a quad of threads a row
+constexpr int kThreads = 256;
+constexpr int kHalf = kThreads / 2;  // the threads of one product
+constexpr int kTile = 64;            // rows of the other side a tile
+constexpr int kPad = 4;              // floats padding a Q, K, V or dO row
 constexpr float kLog2e = 1.4426950408889634f;
 
-// rows of the other side's shared-memory tiles: 32 KB of two f32 tiles
-template <int kDh>
-__host__ __device__ constexpr int tile_rows() {
-  return kDh <= 64 ? 64 : 32;
+// 2^x by the multiprocessor's exponential unit alone (ex2.approx, 2 ulp, as
+// exp2f's), results below 2^-126 flushed to 0: exp2f spends three more
+// instructions a call on them, 7% of dq's time at the training shape
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// The tiling of one capacity: R owned rows, their 8 x kMJ score tile and
+// 8 x kMD gradient tile a lane.
+template <int kDh>
+struct Shape {
+  static constexpr int R = kDh <= 64 ? 128 : 64;
+  static constexpr int S = kDh + kPad;   // stride of a Q, K, V or dO row
+  static constexpr int PS = R + 8;       // stride of a p or ds row
+  static constexpr int kMJ = R * kTile / (8 * kHalf);  // tile rows of a lane's scores
+  static constexpr int kMD = R * kDh / (8 * kHalf);    // dims of a lane's gradients
+  static constexpr int kE = kDh / kMD;                 // lanes across the dims
+  static constexpr int kDkvStages = kDh <= 64 ? 2 : 1;
+  static constexpr int kDkvFloats = 2 * R * S + kDkvStages * 2 * kTile * (S + 1) + 2 * kTile * PS;
+  static constexpr int kDqFloats = 2 * R * S + 2 * 2 * kTile * S + kTile * PS + 2 * R;
+  static_assert(kMD == 2 || kMD == 4 || kMD == 8, "a lane's dims: a float2 or float4 chunks");
+  static_assert(kE % 8 == 0 && R / 8 * kE == kHalf && R / 8 * (kTile / kMJ) == kHalf,
+                "a product's lanes cover its tile once");
+};
+
+static_assert(Shape<64>::kDkvFloats * 4 == 209920 && Shape<128>::kDkvFloats * 4 == 172544,
+              "the header's table");
+static_assert(Shape<64>::kDqFloats * 4 == 175104 && Shape<128>::kDqFloats * 4 == 221696,
+              "the header's table");
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [0, kN) x dims [0, kDh) of a [rows, dh] array from src into dst (f32,
+// rows of Shape<kDh>::S floats), zeros past its n rows and dh dims: f32 by
+// cp.async (the caller commits), bf16 widened by the threads.
+template <typename T, int kDh, int kN>
+__device__ __forceinline__ void stage(float* dst, const T* src, int n, int dh) {
+  constexpr int kChunks = kDh / 4, S = Shape<kDh>::S;
+  static_assert(kN * kChunks % kThreads == 0, "whole rounds of the block's threads");
+#pragma unroll
+  for (int round = 0; round < kN * kChunks / kThreads; ++round) {
+    const int i = round * kThreads + threadIdx.x;
+    const int r = i / kChunks, d = (i % kChunks) * 4;
+    const bool ok = r < n && d < dh;
+    const T* from = ok ? src + (long)r * dh + d : src;
+    float* to = dst + r * S + d;
+    if constexpr (sizeof(T) == 4)
+      cp_async16(to, from, ok ? 16 : 0);
+    else
+      *reinterpret_cast<float4*>(to) = ok ? Elem<T>::ld4(from) : general::zero4();
+  }
+}
+
+// kTile f32 values (lse or delta of the tile's rows) into dst, zeros past n,
+// by cp.async: value i by the thread `thread` == i
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int n, int thread) {
+  if (thread >= 0 && thread < kTile)
+    cp_async4(dst + thread, thread < n ? src + thread : src, thread < n ? 4 : 0);
+}
+
+// The scores: acc[i][j] += a[kAStep i] . b[kBStep j] (rows of S floats), each
+// summed over the capacity's dims in order of d.
+template <int kDh, int kMJ, int kAStep, int kBStep>
+__device__ __forceinline__ void scores(float (&acc)[8][kMJ], const float* a, const float* b) {
+  constexpr int S = Shape<kDh>::S;
+#pragma unroll 4
+  for (int d = 0; d < kDh; d += 4) {
+    float4 x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = *reinterpret_cast<const float4*>(a + i * kAStep * S + d);
+#pragma unroll
+    for (int j = 0; j < kMJ; ++j) {  // d, d + 1, d + 2, d + 3 in turn, 8 sums apart
+      const float4 y = *reinterpret_cast<const float4*>(b + j * kBStep * S + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].x, y.x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].y, y.y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].z, y.z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].w, y.w, acc[i][j]);
+    }
+  }
+}
+
+// A lane's kMD dims of a row from p: float4 chunks p[kE 4 c .. kE 4 c + 3]
+// (kMD >= 4), else a float2.
+template <int kMD, int kE>
+__device__ __forceinline__ void load_dims(const float* p, float (&x)[kMD]) {
+  if constexpr (kMD >= 4) {
+#pragma unroll
+    for (int c = 0; c < kMD / 4; ++c) {
+      const float4 y = *reinterpret_cast<const float4*>(p + kE * 4 * c);
+      x[4 * c] = y.x;
+      x[4 * c + 1] = y.y;
+      x[4 * c + 2] = y.z;
+      x[4 * c + 3] = y.w;
+    }
+  } else {
+    const float2 y = *reinterpret_cast<const float2*>(p);
+    x[0] = y.x;
+    x[1] = y.y;
+  }
+}
+
+// The gradients: acc[i][m] += sum over rows c in [0, kN), in order, of
+// a[c PS + i] * b[c S + dim m].
+template <int kDh, int kN>
+__device__ __forceinline__ void products(float (&acc)[8][Shape<kDh>::kMD], const float* a,
+                                         const float* b) {
+  using Sh = Shape<kDh>;
+  constexpr int kMD = Sh::kMD;
+#pragma unroll 4
+  for (int c = 0; c < kN; ++c) {
+    const float4 x0 = *reinterpret_cast<const float4*>(a + c * Sh::PS);
+    const float4 x1 = *reinterpret_cast<const float4*>(a + c * Sh::PS + 4);
+    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    float y[kMD];
+    load_dims<kMD, Sh::kE>(b + c * Sh::S, y);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int m = 0; m < kMD; ++m) acc[i][m] = fmaf(x[i], y[m], acc[i][m]);
+  }
+}
+
+// A lane's 8 rows x kMD dims of acc into out ([rows, dh], row stride dh):
+// rows g0 + i < n, the dims below dh.
 template <typename T, int kDh>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[8][Shape<kDh>::kMD], int g0,
+                                           int dd0, int n, int dh) {
+  constexpr int kMD = Shape<kDh>::kMD, kE = Shape<kDh>::kE;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (g0 + i >= n) continue;
+    T* row = out + (long)(g0 + i) * dh + dd0;
+    if constexpr (kMD >= 4) {
+#pragma unroll
+      for (int c = 0; c < kMD / 4; ++c)
+        if (dd0 + kE * 4 * c < dh)
+          Elem<T>::st4(row + kE * 4 * c, make_float4(acc[i][4 * c], acc[i][4 * c + 1],
+                                                     acc[i][4 * c + 2], acc[i][4 * c + 3]));
+    } else if (dd0 < dh) {
+      Elem<T>::st(row, acc[i][0]);
+      Elem<T>::st(row + 1, acc[i][1]);
+    }
+  }
+}
+
+// A lane's places in its product's 128 threads: the scores' own rows a + R/8 i
+// and tile rows b + kTile/kMJ j; the gradients' own rows 8 g .. 8 g + 7 and
+// dims from dd0.
+template <int kDh>
+struct Places {
+  int a, b, g, dd0;
+  __device__ __forceinline__ explicit Places(int t) {
+    using Sh = Shape<kDh>;
+    const int w = (t % kHalf) / 32, lane = t % 32;
+    a = (w % (Sh::R / 64)) * 8 + lane % 8;
+    b = (w / (Sh::R / 64)) * 4 + lane / 8;
+    const int e = (w % (Sh::kE / 8)) * 8 + lane % 8;
+    g = (w / (Sh::kE / 8)) * 4 + lane / 8;
+    dd0 = e * (Sh::kMD >= 4 ? 4 : Sh::kMD);
+  }
+};
+
+template <typename T, int kDh>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_general_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ out,
                         const T* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ dlse, T* __restrict__ dq,
                         float* __restrict__ delta, int sq, int skv, int dh, float scale) {
-  constexpr int kKeys = tile_rows<kDh>();
-  constexpr int kC = kDh / 16;
-  __shared__ __align__(16) float ks[kKeys * kDh];
-  __shared__ __align__(16) float vs[kKeys * kDh];
+  using Sh = Shape<kDh>;
+  constexpr int R = Sh::R, S = Sh::S, PS = Sh::PS, kMJ = Sh::kMJ;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [R][S]
+  float* dos = qs + R * S;           // [R][S]
+  float* ks = dos + R * S;           // [2][kTile][S]
+  float* vs = ks + 2 * kTile * S;    // [2][kTile][S]
+  float* pds = vs + 2 * kTile * S;   // [kTile][PS]: p, then ds in place, key-major
+  float* rows = pds + kTile * PS;    // lse [R], then delta [R]
+
   const long bh = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x / 4, j = threadIdx.x % 4;
-  const long q_off = bh * sq * dh, kv_off = bh * skv * dh;
+  const int row0 = blockIdx.x * R, nr = min(R, sq - row0);
+  const long q_off = (bh * sq + row0) * dh, kv_off = bh * skv * dh;
+  const int tid = threadIdx.x, prod = tid / kHalf;
+  const Places<kDh> at(tid);
 
-  float4 qv[kC], dov[kC], acc[kC];
-  float od = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int d = 16 * c + 4 * j;
-    qv[c] = dov[c] = general::zero4();
-    if (row < sq && d < dh) {
-      const long at = q_off + (long)row * dh + d;
-      qv[c] = Elem<T>::ld4(q + at);
-      dov[c] = Elem<T>::ld4(dout + at);
-      od = general::dot4(od, Elem<T>::ld4(out + at), dov[c]);
-    }
-    acc[c] = general::zero4();
-  }
-  float dl = general::quad_sum(od);
-  float row_lse = 0.0f;
-  if (row < sq) {
-    if (dlse != nullptr) dl -= dlse[bh * sq + row];
-    row_lse = lse[bh * sq + row];
-  }
-  const int chunks = dh / 4;
+  stage<T, kDh, R>(qs, q + q_off, nr, dh);
+  stage<T, kDh, R>(dos, dout + q_off, nr, dh);
+  stage<T, kDh, kTile>(ks, k + kv_off, min(kTile, skv), dh);
+  stage<T, kDh, kTile>(vs, v + kv_off, min(kTile, skv), dh);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < skv; k0 += kKeys) {
-    const int nk = min(kKeys, skv - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nk * chunks; i += kThreads) {
-      const int key = i / chunks, d = (i - key * chunks) * 4;
-      const long at = kv_off + (long)(k0 + key) * dh + d;
-      *reinterpret_cast<float4*>(ks + key * kDh + d) = Elem<T>::ld4(k + at);
-      *reinterpret_cast<float4*>(vs + key * kDh + d) = Elem<T>::ld4(v + at);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int key = 0; key < nk; ++key) {
-      float s = 0.0f, dp = 0.0f;
+  // delta = rowsum(out * dout) - dlse: a quad of threads a row, chunks 16 c + 4 j in order
+  for (int row = tid / 4; row < R; row += kThreads / 4) {
+    const int j = tid % 4;
+    float od = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int d = 16 * c + 4 * j;
-        if (d < dh) {
-          s = general::dot4(s, qv[c], *reinterpret_cast<const float4*>(ks + key * kDh + d));
-          dp = general::dot4(dp, dov[c], *reinterpret_cast<const float4*>(vs + key * kDh + d));
-        }
-      }
-      s = general::quad_sum(s);
-      dp = general::quad_sum(dp);
-      const float p = exp2f((s * scale - row_lse) * kLog2e);
-      const float ds = Elem<T>::round(p * (dp - dl) * scale);
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int d = 16 * c + 4 * j;
-        if (d < dh)
-          acc[c] = general::axpy4(acc[c], ds, *reinterpret_cast<const float4*>(ks + key * kDh + d));
-      }
-    }
-  }
-
-  if (row < sq) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
+    for (int c = 0; c < kDh / 16; ++c) {
       const int d = 16 * c + 4 * j;
-      if (d < dh) Elem<T>::st4(dq + q_off + (long)row * dh + d, acc[c]);
+      if (row < nr && d < dh) {
+        const long o = q_off + (long)row * dh + d;
+        od = general::dot4(od, Elem<T>::ld4(out + o), Elem<T>::ld4(dout + o));
+      }
     }
-    if (j == 0) delta[bh * sq + row] = dl;
+    float dl = general::quad_sum(od), row_lse = 0.0f;
+    if (row < nr) {
+      if (dlse != nullptr) dl -= dlse[bh * sq + row0 + row];
+      row_lse = lse[bh * sq + row0 + row];
+      if (j == 0) delta[bh * sq + row0 + row] = dl;
+    }
+    if (j == 0) {
+      rows[row] = row_lse;
+      rows[R + row] = dl;
+    }
+  }
+
+  float acc[8][Sh::kMD] = {};  // this half's keys' share of dQ
+  const int tiles = (skv + kTile - 1) / kTile;
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1, nk = min(kTile, skv - t * kTile);
+    const float* kt = ks + buf * kTile * S;
+    const float* vt = vs + buf * kTile * S;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; the gradients of tile t - 1 are done
+    if (t + 1 < tiles) {
+      const long o = kv_off + (long)(t + 1) * kTile * dh;
+      const int n = min(kTile, skv - (t + 1) * kTile);
+      stage<T, kDh, kTile>(ks + (buf ^ 1) * kTile * S, k + o, n, dh);
+      stage<T, kDh, kTile>(vs + (buf ^ 1) * kTile * S, v + o, n, dh);
+      cp_async_commit();
+    }
+    float s[8][kMJ] = {};  // S (threads 0-127) or dP (128-255)
+    scores<kDh, kMJ, R / 8, kTile / kMJ>(s, (prod ? dos : qs) + at.a * S,
+                                         (prod ? vt : kt) + at.b * S);
+    // p and ds: a lane and its partner (tid +- 128, the same elements) finish half of them
+    // each, rows i < 4 the S lane and rows i >= 4 the dP lane; first each hands the other
+    // what it lacks, into the elements' places in the p/ds tile
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int r = at.a + R / 8 * (prod ? h : h + 4);
+#pragma unroll
+      for (int j = 0; j < kMJ; ++j)
+        pds[(at.b + kTile / kMJ * j) * PS + r] = prod ? s[h][j] : s[h + 4][j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int r = at.a + R / 8 * (prod ? h + 4 : h);
+      const float row_lse = rows[r], dl = rows[R + r];
+#pragma unroll
+      for (int j = 0; j < kMJ; ++j) {
+        const int key = at.b + kTile / kMJ * j;
+        const float mine = prod ? s[h + 4][j] : s[h][j], other = pds[key * PS + r];
+        const float p =
+            key < nk ? ex2(((prod ? other : mine) * scale - row_lse) * kLog2e) : 0.0f;
+        pds[key * PS + r] = Elem<T>::round(p * ((prod ? mine : other) - dl) * scale);
+      }
+    }
+    __syncthreads();
+    const int c0 = prod * (kTile / 2);
+    products<kDh, kTile / 2>(acc, pds + c0 * PS + 8 * at.g, kt + c0 * S + at.dd0);
+  }
+
+  // the second half's sums into the first's, in order, through the free K tiles
+  __syncthreads();
+  float* part = ks;  // [8 kMD][kHalf]
+  if (prod == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int m = 0; m < Sh::kMD; ++m) part[(i * Sh::kMD + m) * kHalf + tid - kHalf] = acc[i][m];
+  }
+  __syncthreads();
+  if (prod == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int m = 0; m < Sh::kMD; ++m) acc[i][m] += part[(i * Sh::kMD + m) * kHalf + tid];
+    store_rows<T, kDh>(dq + q_off, acc, 8 * at.g, at.dd0, nr, dh);
   }
 }
 
 template <typename T, int kDh>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_general_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int sq, int skv, int dh,
                          float scale) {
-  constexpr int kQueries = tile_rows<kDh>();
-  constexpr int kC = kDh / 16;
-  __shared__ __align__(16) float qs[kQueries * kDh];
-  __shared__ __align__(16) float dos[kQueries * kDh];
-  __shared__ float lses[kQueries], deltas[kQueries];
+  using Sh = Shape<kDh>;
+  constexpr int R = Sh::R, S = Sh::S, PS = Sh::PS, kMJ = Sh::kMJ, kStages = Sh::kDkvStages;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                       // [R][S]
+  float* vs = ks + R * S;                 // [R][S]
+  float* qs = vs + R * S;                 // [kStages][kTile][S]
+  float* dos = qs + kStages * kTile * S;  // [kStages][kTile][S]
+  float* ps = dos + kStages * kTile * S;  // [kTile][PS]: p, query-major
+  float* dss = ps + kTile * PS;           // [kTile][PS]: ds, query-major
+  float* lses = dss + kTile * PS;         // [kStages][kTile]
+  float* deltas = lses + kStages * kTile; // [kStages][kTile]
+
   const long bh = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x / 4, j = threadIdx.x % 4;
-  const long q_off = bh * sq * dh, kv_off = bh * skv * dh;
+  const int key0 = blockIdx.x * R, nk = min(R, skv - key0);
+  const long q_off = bh * sq * dh, kv_off = (bh * skv + key0) * dh;
+  const int tid = threadIdx.x, prod = tid / kHalf;
+  const Places<kDh> at(tid);
+  lse += bh * sq;
+  delta += bh * sq;
 
-  float4 kv[kC], vv[kC], dka[kC], dva[kC];
+  // the tile of queries from q0 into stage `buf`
+  auto stage_tile = [&](int q0, int buf) {
+    const int n = min(kTile, sq - q0);
+    stage<T, kDh, kTile>(qs + buf * kTile * S, q + q_off + (long)q0 * dh, n, dh);
+    stage<T, kDh, kTile>(dos + buf * kTile * S, dout + q_off + (long)q0 * dh, n, dh);
+    stage_row(lses + buf * kTile, lse + q0, n, tid);
+    stage_row(deltas + buf * kTile, delta + q0, n, tid - kTile);
+    cp_async_commit();
+  };
+  stage<T, kDh, R>(ks, k + kv_off, nk, dh);
+  stage<T, kDh, R>(vs, v + kv_off, nk, dh);
+  stage_tile(0, 0);
+
+  float acc[8][Sh::kMD] = {};  // dV (threads 0-127) or dK (128-255)
+  const int tiles = (sq + kTile - 1) / kTile;
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = kStages == 2 ? t & 1 : 0, nq = min(kTile, sq - t * kTile);
+    const float* qt = qs + buf * kTile * S;
+    const float* dot = dos + buf * kTile * S;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; the gradients of tile t - 1 are done
+    if (kStages == 2 && t + 1 < tiles) stage_tile((t + 1) * kTile, buf ^ 1);
+    float s[8][kMJ] = {};  // S^T (threads 0-127) or dP^T (128-255)
+    scores<kDh, kMJ, R / 8, kTile / kMJ>(s, (prod ? vs : ks) + at.a * S,
+                                         (prod ? dot : qt) + at.b * S);
+    // p and ds: a lane and its partner (tid +- 128, the same elements) finish half of them
+    // each, rows i < 4 the S lane and rows i >= 4 the dP lane; first each hands the other
+    // what it lacks, the S lane its scores into p's places, the dP lane its dp into ds's
 #pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int d = 16 * c + 4 * j;
-    kv[c] = vv[c] = general::zero4();
-    if (row < skv && d < dh) {
-      kv[c] = Elem<T>::ld4(k + kv_off + (long)row * dh + d);
-      vv[c] = Elem<T>::ld4(v + kv_off + (long)row * dh + d);
+    for (int h = 0; h < 4; ++h) {
+      const int r = at.a + R / 8 * (prod ? h : h + 4);
+#pragma unroll
+      for (int j = 0; j < kMJ; ++j)
+        (prod ? dss : ps)[(at.b + kTile / kMJ * j) * PS + r] = prod ? s[h][j] : s[h + 4][j];
     }
-    dka[c] = dva[c] = general::zero4();
-  }
-  const int chunks = dh / 4;
-
-  for (int q0 = 0; q0 < sq; q0 += kQueries) {
-    const int nq = min(kQueries, sq - q0);
     __syncthreads();
-    for (int i = threadIdx.x; i < nq * chunks; i += kThreads) {
-      const int qi = i / chunks, d = (i - qi * chunks) * 4;
-      const long at = q_off + (long)(q0 + qi) * dh + d;
-      *reinterpret_cast<float4*>(qs + qi * kDh + d) = Elem<T>::ld4(q + at);
-      *reinterpret_cast<float4*>(dos + qi * kDh + d) = Elem<T>::ld4(dout + at);
-    }
-    for (int i = threadIdx.x; i < nq; i += kThreads) {
-      lses[i] = lse[bh * sq + q0 + i];
-      deltas[i] = delta[bh * sq + q0 + i];
+#pragma unroll
+    for (int j = 0; j < kMJ; ++j) {
+      const int qi = at.b + kTile / kMJ * j;
+      const float row_lse = lses[buf * kTile + qi], dl = deltas[buf * kTile + qi];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int o = qi * PS + at.a + R / 8 * (prod ? h + 4 : h);
+        const float mine = prod ? s[h + 4][j] : s[h][j], other = (prod ? ps : dss)[o];
+        const float p =
+            qi < nq ? ex2(((prod ? other : mine) * scale - row_lse) * kLog2e) : 0.0f;
+        ps[o] = p;
+        dss[o] = Elem<T>::round(p * ((prod ? mine : other) - dl) * scale);
+      }
     }
     __syncthreads();
-#pragma unroll 4
-    for (int qi = 0; qi < nq; ++qi) {
-      float s = 0.0f, dp = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int d = 16 * c + 4 * j;
-        if (d < dh) {
-          s = general::dot4(s, kv[c], *reinterpret_cast<const float4*>(qs + qi * kDh + d));
-          dp = general::dot4(dp, vv[c], *reinterpret_cast<const float4*>(dos + qi * kDh + d));
-        }
-      }
-      s = general::quad_sum(s);
-      dp = general::quad_sum(dp);
-      const float p = exp2f((s * scale - lses[qi]) * kLog2e);
-      const float ds = Elem<T>::round(p * (dp - deltas[qi]) * scale);
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int d = 16 * c + 4 * j;
-        if (d < dh) {
-          dva[c] = general::axpy4(dva[c], p, *reinterpret_cast<const float4*>(dos + qi * kDh + d));
-          dka[c] = general::axpy4(dka[c], ds, *reinterpret_cast<const float4*>(qs + qi * kDh + d));
-        }
-      }
+    products<kDh, kTile>(acc, (prod ? dss : ps) + 8 * at.g, (prod ? qt : dot) + at.dd0);
+    if (kStages == 1 && t + 1 < tiles) {
+      __syncthreads();  // the last read of the one stage
+      stage_tile((t + 1) * kTile, 0);
     }
   }
-
-  if (row < skv) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int d = 16 * c + 4 * j;
-      if (d < dh) {
-        Elem<T>::st4(dk + kv_off + (long)row * dh + d, dka[c]);
-        Elem<T>::st4(dv + kv_off + (long)row * dh + d, dva[c]);
-      }
-    }
-  }
+  store_rows<T, kDh>((prod ? dk : dv) + kv_off, acc, 8 * at.g, at.dd0, nk, dh);
 }
 
 bool takes(int bh, int sq, int skv, int dh) {
   return dh >= 8 && dh <= 128 && dh % 8 == 0 && bh >= 1 && bh <= 65535 && sq >= 1 && skv >= 1;
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
-              const void* lse, const void* dlse, void* dq, void* delta, int bh, int sq, int skv,
-              int dh, float scale, cudaStream_t stream) {
-  const dim3 grid((sq + kRows - 1) / kRows, bh);
-#define ORV_DQ(CAP)                                                                            \
-  flash_general_dq_kernel<T, CAP><<<grid, kThreads, 0, stream>>>(                              \
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),            \
-      static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<const float*>(lse), \
-      static_cast<const float*>(dlse), static_cast<T*>(dq), static_cast<float*>(delta), sq,    \
-      skv, dh, scale)
-  if (dh <= 16)
-    ORV_DQ(16);
-  else if (dh <= 32)
-    ORV_DQ(32);
-  else if (dh <= 64)
-    ORV_DQ(64);
-  else
-    ORV_DQ(128);
-#undef ORV_DQ
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int smem, dim3 grid, cudaStream_t stream, Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kDh>
+int launch_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
+              const void* lse, const void* dlse, void* dq, void* delta, int bh, int sq, int skv,
+              int dh, float scale, cudaStream_t stream) {
+  using Sh = Shape<kDh>;
+  return launch(flash_general_dq_kernel<T, kDh>, Sh::kDqFloats * 4,
+                dim3((sq + Sh::R - 1) / Sh::R, bh), stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(out),
+                static_cast<const T*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(dlse), static_cast<T*>(dq), static_cast<float*>(delta),
+                sq, skv, dh, scale);
+}
+
+template <typename T, int kDh>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int bh, int sq, int skv, int dh,
                float scale, cudaStream_t stream) {
-  const dim3 grid((skv + kRows - 1) / kRows, bh);
-#define ORV_DKV(CAP)                                                                           \
-  flash_general_dkv_kernel<T, CAP><<<grid, kThreads, 0, stream>>>(                             \
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),            \
-      static_cast<const T*>(dout), static_cast<const float*>(lse),                             \
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, dh, \
-      scale)
-  if (dh <= 16)
-    ORV_DKV(16);
-  else if (dh <= 32)
-    ORV_DKV(32);
-  else if (dh <= 64)
-    ORV_DKV(64);
-  else
-    ORV_DKV(128);
-#undef ORV_DKV
-  return (int)cudaGetLastError();
+  using Sh = Shape<kDh>;
+  return launch(flash_general_dkv_kernel<T, kDh>, Sh::kDkvFloats * 4,
+                dim3((skv + Sh::R - 1) / Sh::R, bh), stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, dh, scale);
 }
+
+template <typename T, int kDh>
+int instance(int is_dkv, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = is_dkv ? cudaFuncGetAttributes(&a, flash_general_dkv_kernel<T, kDh>)
+                                 : cudaFuncGetAttributes(&a, flash_general_dq_kernel<T, kDh>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (is_dkv ? Shape<kDh>::kDkvFloats : Shape<kDh>::kDqFloats) * 4;
+  return 0;
+}
+
+// the smallest capacity (16, 32, 64, 128) that holds dh
+#define ORV_BY_CAPACITY(FN, T, ...)                     \
+  (dh <= 16   ? FN<T, 16>(__VA_ARGS__)                  \
+   : dh <= 32 ? FN<T, 32>(__VA_ARGS__)                  \
+   : dh <= 64 ? FN<T, 64>(__VA_ARGS__)                  \
+              : FN<T, 128>(__VA_ARGS__))
 
 }  // namespace
 
@@ -262,10 +546,10 @@ extern "C" int orv_flash_attn_general_bwd_dq(const void* q, const void* k, const
                                              void* stream) {
   if (!takes(bh, sq, skv, dh)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_f32 ? launch_dq<float>(q, k, v, out, dout, lse, dlse, dq, delta, bh, sq, skv, dh,
-                                   scale, st)
-                : launch_dq<__nv_bfloat16>(q, k, v, out, dout, lse, dlse, dq, delta, bh, sq, skv,
-                                           dh, scale, st);
+  return is_f32 ? ORV_BY_CAPACITY(launch_dq, float, q, k, v, out, dout, lse, dlse, dq, delta, bh,
+                                  sq, skv, dh, scale, st)
+                : ORV_BY_CAPACITY(launch_dq, __nv_bfloat16, q, k, v, out, dout, lse, dlse, dq,
+                                  delta, bh, sq, skv, dh, scale, st);
 }
 
 // q, dout: [bh, sq, dh]; k, v, dk, dv: [bh, skv, dh], as the dq kernel's;
@@ -278,7 +562,19 @@ extern "C" int orv_flash_attn_general_bwd_dkv(const void* q, const void* k, cons
                                               void* stream) {
   if (!takes(bh, sq, skv, dh)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_f32 ? launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, skv, dh, scale, st)
-                : launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, skv, dh,
-                                            scale, st);
+  return is_f32 ? ORV_BY_CAPACITY(launch_dkv, float, q, k, v, dout, lse, delta, dk, dv, bh, sq,
+                                  skv, dh, scale, st)
+                : ORV_BY_CAPACITY(launch_dkv, __nv_bfloat16, q, k, v, dout, lse, delta, dk, dv,
+                                  bh, sq, skv, dh, scale, st);
+}
+
+// The instance a dq (is_dkv 0) or dk/dv (1) launch at head dim dh takes:
+// out[0] its registers a thread, out[1] its local memory a thread in bytes
+// (spills and stack), out[2] its dynamic shared memory a block in bytes.
+// Returns cudaErrorInvalidValue for a head dim the kernels do not take.
+extern "C" int orv_flash_attn_general_bwd_info(int dh, int is_f32, int is_dkv, void* out) {
+  if (!takes(1, 1, 1, dh)) return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  return is_f32 ? ORV_BY_CAPACITY(instance, float, is_dkv, o)
+                : ORV_BY_CAPACITY(instance, __nv_bfloat16, is_dkv, o);
 }
