@@ -1313,10 +1313,11 @@ GENERAL = (attention.flash_attention_general_kernel, attention.flash_attention_g
 GENERAL_LAUNCHES = [0] * len(GENERAL)  # the kernels line's, summed over every main-path run
 GENERAL_SOURCES = ("flash_attn_general.cu", "flash_attn_general_bwd.cu", "adaln_general.cu",
                    "gated_residual.cu")
-# a general kernel's name, element type and head-dim capacity in its mangled symbol
+# a general kernel's name, element type, head-dim capacity, and the forward's mode and
+# rows a block in its mangled symbol
 GENERAL_NAME = re.compile(r"((?:flash_general_\w+?|mn_general_\w+?|gr_general_\w+?|"
                           r"general_chunk_sums|gated_residual)_kernel)"
-                          r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?)?")
+                          r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?(?:Li(\d+)E)?)?")
 
 
 def as_general(c):
@@ -1338,8 +1339,8 @@ def tally_general(launches) -> None:
 def general_build_report() -> None:
     """The ptxas report of the general kernels (registers, spills, stack
     frame), one line an instance: element type f (f32) or bf16, the
-    attention kernels' head-dim capacity and the forward's mode (online or
-    static max). A spill fails the run in an
+    attention kernels' head-dim capacity, the forward's mode (online or
+    static max) and rows a block. A spill fails the run in an
     instance the main path launches: attention in f32 at capacities 16 and
     64 and in bf16 at 16, the backward's dq and dk/dv also in f32 at 32 and
     128 and in bf16 at 128, every adaLN and gated-residual instance."""
@@ -1355,10 +1356,11 @@ def general_build_report() -> None:
         elif "entry function" in line:
             m = GENERAL_NAME.search(line)
             kernel = (m.group(1), "f" if m.group(2) == "f" else "bf16" if m.group(2) else "",
-                      m.group(3), m.group(4)) if m else ("?", "", None, None)
+                      m.group(3), m.group(4), m.group(5)) if m else ("?", "", None, None, None)
         elif kernel and re.search(r"registers|spill", line):
-            name, t, cap, online = kernel
+            name, t, cap, online, rows = kernel
             mode = {"1": ", online", "0": ", static max"}.get(online, "")
+            mode += f", {rows} rows" if rows else ""
             what = f"{source} {name}<{t}{', ' + cap if cap else ''}{mode}>"
             print(f"ptxas {what}: {line.strip()}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1371,27 +1373,49 @@ def general_build_report() -> None:
     check(not faults, f"a general kernel the main path launches spilled: {faults}")
 
 
-def general_bwd_report(name: str, dtype, dh: int) -> str:
-    """The launched instance of the general backward's dq or dk/dv kernel at
-    head dim dh: registers, local memory and dynamic shared memory from the
-    card (`attention.general_bwd_instance`), and its ptxas line (registers,
-    spills) from this process's build log."""
-    kernel = "flash_general_dkv_kernel" if name.endswith("dkv") else "flash_general_dq_kernel"
-    info = attention.general_bwd_instance(dh, dtype, name.endswith("dkv"))
-    cap = next(c for c in (16, 32, 64, 128) if dh <= c)
-    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
-    source, found, lines = None, False, []
+def instance_report(source: str, kernel: str, mangled: str, what: str, info: dict) -> str:
+    """A launched general instance: registers, local memory and dynamic shared
+    memory from the card (`info`), and its ptxas lines (registers, spills)
+    from this process's build log, found by its `mangled` name in `source`."""
+    found, current, lines = False, None, []
     for line in _build.build_log.splitlines():
         if line.startswith("== "):
-            source = line[3:].strip()
-        elif source == "flash_attn_general_bwd.cu" and "entry function" in line:
-            found = f"{kernel}I{t}Li{cap}E" in line
+            found = False
+            current = line[3:].strip()
+        elif "entry function" in line:
+            found = current == source and mangled in line
         elif found and re.search(r"registers|spill", line):
             lines.append(line.split(":", 1)[-1].strip() if "ptxas" in line else line.strip())
-    return (f"{kernel}<{'f32' if dtype == torch.float32 else 'bf16'}, {cap}>: "
-            f"{info['registers']} registers, {info['local_bytes']} bytes local memory a thread, "
-            f"{info['shared_bytes']} bytes dynamic shared memory a block; ptxas: "
-            + ("; ".join(lines) if lines else "no build log (the library was built before)"))
+    return (f"{kernel}<{what}>: {info['registers']} registers, {info['local_bytes']} bytes local "
+            f"memory a thread, {info['shared_bytes']} bytes dynamic shared memory a block; "
+            "ptxas: " + ("; ".join(lines) if lines else
+                         "no build log (the library was built before)"))
+
+
+def general_bwd_report(name: str, dtype, dh: int) -> str:
+    """The launched instance of the general backward's dq or dk/dv kernel at
+    head dim dh (`attention.general_bwd_instance`, `instance_report`)."""
+    kernel = "flash_general_dkv_kernel" if name.endswith("dkv") else "flash_general_dq_kernel"
+    cap = next(c for c in (16, 32, 64, 128) if dh <= c)
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    return instance_report("flash_attn_general_bwd.cu", kernel, f"{kernel}I{t}Li{cap}E",
+                           f"{'f32' if dtype == torch.float32 else 'bf16'}, {cap}",
+                           attention.general_bwd_instance(dh, dtype, name.endswith("dkv")))
+
+
+def general_fwd_report(dtype, dh: int, online: bool) -> str:
+    """The launched instance of the general forward at head dim dh in the
+    online (or static-max) mode (`attention.general_fwd_instance`,
+    `instance_report`)."""
+    cap = next(c for c in (16, 32, 64, 128) if dh <= c)
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    rows = 256 if cap <= 64 else 128  # where the grid fills the card
+    return instance_report(
+        "flash_attn_general.cu", "flash_general_fwd_kernel",
+        f"flash_general_fwd_kernelI{t}Li{cap}ELb{int(online)}ELi{rows}E",
+        f"{'f32' if dtype == torch.float32 else 'bf16'}, {cap}, "
+        f"{'online' if online else 'static max'}, {rows} rows",
+        attention.general_fwd_instance(dh, dtype, online))
 
 
 def within_range(got, want, rel: float = 1e-4):
@@ -1641,6 +1665,11 @@ def general_kernel_checks(g):
             check_general_attention(g, (2, 3, 130, dh), 77, static_max, f32)
         for dh in (16, 128):
             check_general_attention(g, (2, 3, 130, dh), 77, static_max, bf16)
+        # one past a row block and a 64-key tile: of the few rows (2 heads leave
+        # multiprocessors idle) and of the full 256 (capacity 128: 128) rows
+        check_general_attention(g, (1, 2, 257, 64), 65, static_max, f32)
+        for dh in (64, 128):
+            check_general_attention(g, (2, 90, 257, dh), 65, static_max, f32)
     for sq, skv in ((226, 1950), (1950, 226)):  # the ring's calls
         check_general_attention(g, (1, 30, sq, 64), skv, None, f32)
     fwd = check_general_attention(g, (1, 30, 3226, 64), 3226, 24.0, f32, timed=True)
@@ -1648,7 +1677,10 @@ def general_kernel_checks(g):
                         tuple(torch.randn(1, 30, 3226, 64, device="cuda", generator=g)
                               for _ in range(3)), 10)
     print(f"time flash_attn_general f32 online [1,30,3226,64]: {online_ms:.4f} ms (static max "
-          f"{fwd['ms']:.4f})", flush=True)
+          f"{fwd['ms']:.4f}, bound {fwd['bound_ms']:.4f}, {100 * fwd['bound_ms'] / fwd['ms']:.1f}% "
+          f"of it; SDPA f32 {fwd['library_ms']:.4f}); "
+          + "; ".join(general_fwd_report(f32, 64, online) for online in (False, True)),
+          flush=True)
     for dh, sq, skv in ((16, 77, 130), (32, 130, 77), (128, 300, 300)):
         for with_dlse in (False, True):
             check_general_attention_bwd(g, (1, 2, sq, dh), skv, with_dlse, f32)

@@ -132,9 +132,10 @@ def _check_params(name, x, scale, shift, norm_scale, norm_bias):
 
 
 # the general kernels (csrc/adaln_general.cu, gated_residual.cu's f32
-# instance) take any D % GENERAL_D_MULTIPLE == 0; their sums over S add
-# partials of GENERAL_CHUNK_ROWS rows in chunk order (part of the shape
-# limits: ceil(S / GENERAL_CHUNK_ROWS) and R up to 65535 a launch)
+# instance) take any D % GENERAL_D_MULTIPLE == 0; the gated residual's
+# backward sums over S by partials of GENERAL_CHUNK_ROWS rows in chunk order
+# (part of the shape limits: ceil(S / GENERAL_CHUNK_ROWS) and R up to 65535 a
+# launch)
 GENERAL_D_MULTIPLE = 8
 GENERAL_CHUNK_ROWS = 32
 GENERAL_MAX_GRID = 65535
@@ -439,8 +440,9 @@ GR_BWD_MAX_D = 16384
 
 
 def bwd_plan(R: int, S: int, max_rows: int, resident: int):
-    """The tiling of a backward kernel's launch (csrc/adaln_bwd_sm90.cuh) over
-    R row groups of S rows: (rows a tile, grid, partial slots). max_rows and
+    """The tiling of a backward kernel's launch (csrc/adaln_bwd_sm90.cuh, and
+    the general adaLN backward in csrc/adaln_general.cu) over R row groups of
+    S rows: (rows a tile, grid, partial slots). max_rows and
     resident are the kernel's limits for the width on the device (the widest
     tile its shared memory holds, the blocks that fit at once). A tile is
     `rows` rows of one row group: max_rows, or fewer where whole tiles would
@@ -550,34 +552,37 @@ def modulate_norm_bwd(x, dout, scale, norm_scale, eps: float = 1e-5):
 modulate_norm_bwd.launches = 0
 
 
-_MNB_GENERAL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
+_MNB_GENERAL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
                      + [ctypes.c_void_p])
+_MNB_GENERAL_LIMITS_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def modulate_norm_bwd_general(x, dout, scale, norm_scale, eps: float = 1e-5):
-    """(dx, A, B) of the adaLN backward by the general kernels
-    (csrc/adaln_general.cu) on checked CUDA operands, x f32 or bf16: the row
-    pass, the column sums of GENERAL_CHUNK_ROWS-row chunks and their sum in
-    chunk order, one call (counted once in
-    `modulate_norm_bwd_general.launches`)."""
+    """(dx, A, B) of the adaLN backward by the general kernel
+    (csrc/adaln_general.cu) on checked CUDA operands, x f32 or bf16: one
+    cooperative launch (counted in `modulate_norm_bwd_general.launches`) of
+    the row passes, the sums over S a block and their sum in a fixed order,
+    over `bwd_plan`'s tiles and grid from the kernel's limits on x's card."""
     if x.device.type != "cuda":
-        raise ValueError(f"modulate_norm_bwd_general launches CUDA kernels; x is on "
+        raise ValueError(f"modulate_norm_bwd_general launches a CUDA kernel; x is on "
                          f"{x.device}")
     R, S, D = x.shape
-    n_chunks = -(-S // GENERAL_CHUNK_ROWS)
+    is_f32 = int(x.dtype == torch.float32)
+    rows, grid, n_part = bwd_plan(R, S, *_bwd_limits(
+        f"modulate_norm_bwd_general {x.dtype}", x.device, D,
+        lambda d, out: _build.kernel("orv_modulate_norm_bwd_general_limits",
+                                     _MNB_GENERAL_LIMITS_ARGS)(d, is_f32, out)))
     dx = torch.empty_like(x)
-    stat = torch.empty((R * S, 2), dtype=torch.float32, device=x.device)
-    part = torch.empty((R, n_chunks, 2, D), dtype=torch.float32, device=x.device)
+    part = torch.empty((n_part, 2, D), dtype=torch.float32, device=x.device)
     ab = torch.empty((R, 2, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.kernel("orv_modulate_norm_bwd_general", _MNB_GENERAL_ARGS)(
             x.data_ptr(), dout.data_ptr(), scale.data_ptr(), scale.stride(0),
-            norm_scale.data_ptr(), dx.data_ptr(), stat.data_ptr(), part.data_ptr(),
-            ab.data_ptr(), R, S, D, GENERAL_CHUNK_ROWS, float(eps),
-            int(scale.dtype == torch.bfloat16), int(norm_scale.dtype == torch.bfloat16),
-            int(x.dtype == torch.float32), stream)
+            norm_scale.data_ptr(), dx.data_ptr(), part.data_ptr(), ab.data_ptr(), R, S, D,
+            rows, grid, float(eps), int(scale.dtype == torch.bfloat16),
+            int(norm_scale.dtype == torch.bfloat16), is_f32, stream)
     _build.check(err, "modulate_norm_bwd_general")
     _build.count(modulate_norm_bwd_general)
     return dx, ab[:, 0], ab[:, 1]

@@ -495,19 +495,35 @@ def flash_attention_general_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
 flash_attention_general_bwd_dkv.launches = 0
 
 
-_GENERAL_BWD_INFO_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_GENERAL_INFO_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _instance(query, what: str) -> dict:
+    """A general kernel's launched instance from its C query (`query(out)`
+    fills out): registers and local memory (spills and stack, bytes) a
+    thread, by cudaFuncGetAttributes on the current card, and dynamic shared
+    memory a block (bytes)."""
+    out = torch.zeros(3, dtype=torch.int32)
+    _build.check(query(out.data_ptr()), what)
+    return dict(registers=int(out[0]), local_bytes=int(out[1]), shared_bytes=int(out[2]))
+
+
+def general_fwd_instance(dh: int, dtype: torch.dtype, online: bool) -> dict:
+    """The instance of the general forward (csrc/flash_attn_general.cu) that
+    a launch at head dim dh in dtype takes, in the online (or static-max)
+    mode, where its grid gives every multiprocessor a block (the full rows a
+    block): `_instance`'s registers, local memory and shared memory."""
+    return _instance(lambda out: _build.kernel("orv_flash_attn_general_info", _GENERAL_INFO_ARGS)(
+        dh, int(dtype == torch.float32), int(online), out), "general forward instance")
 
 
 def general_bwd_instance(dh: int, dtype: torch.dtype, dkv: bool) -> dict:
     """The instance of the general backward's dq (or, with dkv, dk/dv)
-    kernel that a launch at head dim dh in dtype takes, on the current
-    card: its registers and local memory (spills and stack, bytes) a
-    thread, by cudaFuncGetAttributes, and its dynamic shared memory a block
-    (bytes)."""
-    out = torch.zeros(3, dtype=torch.int32)
-    _build.check(_build.kernel("orv_flash_attn_general_bwd_info", _GENERAL_BWD_INFO_ARGS)(
-        dh, int(dtype == torch.float32), int(dkv), out.data_ptr()), "general backward instance")
-    return dict(registers=int(out[0]), local_bytes=int(out[1]), shared_bytes=int(out[2]))
+    kernel that a launch at head dim dh in dtype takes: `_instance`'s
+    registers, local memory and shared memory."""
+    return _instance(lambda out: _build.kernel("orv_flash_attn_general_bwd_info",
+                                               _GENERAL_INFO_ARGS)(
+        dh, int(dtype == torch.float32), int(dkv), out), "general backward instance")
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: Optional[float] = None,

@@ -21,12 +21,37 @@
 //                   A[r] = sum_S dout, B[r] = sum_S dout * xhat (f32 [R, 2, D]);
 //   gated residual's backward: dy = T(gate[r] * dout), dgate[r] = sum_S dout * y.
 //
-// Bound on the H100: bytes (a few f32 operations an element). Design, simple
-// first: a warp a row for the row passes (the row read again from L1 for the
-// variance and the output, lanes on consecutive 16-byte chunks); the sums
-// over S in two more launches, a thread a column summing a chunk of rows in
-// order into a partial, then each column's partials added in chunk order: no
-// atomics, the same bits from run to run. Scratch comes from the wrapper.
+// Bound on the H100: bytes (a few f32 operations an element). Design: a warp
+// a row for the row passes (the row read again from L1 for the variance and
+// the output, lanes on consecutive 16-byte chunks). The gated residual's
+// backward sums over S in two more launches, a thread a column summing a
+// chunk of rows in order into a partial, then each column's partials added
+// in chunk order. The adaLN backward is one cooperative launch that reads x
+// and dout once from device memory:
+// - a persistent grid (at most kBwdBlocksPerSm blocks a multiprocessor, all
+//   resident) over tiles of up to kTileRows rows of one row group r, block b
+//   walking tiles [b T / G, (b + 1) T / G) in order (the wrapper's plan,
+//   adaln.py:bwd_plan, sizes tiles and grid from the limits query);
+// - a tile in three passes of the block's threads over the columns, a thread
+//   loading kChunks float4 chunks of each of the tile's rows at once (16
+//   loads in flight; the first pass from device memory, the next two from
+//   L1): (1) each row's sum of x and of g = dout w, (2) of (x - mean)^2 and
+//   of g (x - mean), each summed over the block in a fixed order (warp sums,
+//   then the warps' in order: `block_sums`), (3) dx, and dout and dout xhat
+//   of the tile's rows in order into the thread's columns of the block's
+//   [2, D] sums of the row group. w = ns (1 + scale[r]) and the sums are held
+//   in shared memory (read from and kept in the partial's slot in device
+//   memory where 12 D bytes do not fit);
+// - a block leaving a row group writes its sums as the group's partial in
+//   slot b + r (each group's slots consecutive); after a grid sync the
+//   partials of each group are added in slot order, a float4 column by up to
+//   32 lanes that each add every s-th slot (8 loads in flight) and meet in a
+//   fixed butterfly.
+// No atomics: the same bits from run to run for one card model, shape and
+// grid. Scratch comes from the wrapper.
+
+#include <cooperative_groups.h>
+#include <limits.h>
 
 #include "general.cuh"
 
@@ -35,9 +60,18 @@ namespace {
 using general::Elem;
 using general::ld_param;
 
-constexpr int kWarps = 8;          // rows a block in the row passes
+constexpr int kWarps = 8;          // rows a block in the forward's row pass
 constexpr int kColThreads = 256;   // columns a block in the column passes
 constexpr int kSumThreads = 256;   // outputs a block in the chunk sums
+// the adaLN backward: a block of kBwdThreads over tiles of up to kTileRows
+// rows, a thread loading kChunks float4 chunks of each at once, at most
+// kBwdBlocksPerSm blocks a multiprocessor
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kTileRows = 2;
+constexpr int kChunks = 4;
+constexpr int kBwdBlocksPerSm = 2;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take
 
 template <typename T>
 __device__ __forceinline__ void row_stats(const T* __restrict__ xr, int d, int lane, float eps,
@@ -84,69 +118,245 @@ mn_general_fwd_kernel(const T* __restrict__ x, const void* scale, const void* sh
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-mn_general_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ dout,
-                           const void* scale, long v_stride, const void* ns, T* __restrict__ dx,
-                           float2* __restrict__ stat, long rows, int s, int d, float eps,
-                           int v_bf16, int n_bf16) {
-  const long row = (long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* xr = x + row * d;
-  const T* dr = dout + row * d;
-  const long vrow = (row / s) * v_stride;
-  float mean, inv;
-  row_stats(xr, d, lane, eps, mean, inv);
-  const auto w_at = [&](int c) {
-    return ld_param(ns, c, n_bf16) * (1.0f + ld_param(scale, vrow + c, v_bf16));
-  };
-  float gsum = 0.0f, gxsum = 0.0f;
-  for (int c = 4 * lane; c < d; c += 128) {
-    const float4 xv = Elem<T>::ld4(xr + c), dv = Elem<T>::ld4(dr + c);
-    const float xs[4] = {xv.x, xv.y, xv.z, xv.w}, ds[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float g = ds[e] * w_at(c + e);
-      gsum += g;
-      gxsum = fmaf(g, (xs[e] - mean) * inv, gxsum);
-    }
-  }
-  const float gm = general::warp_sum(gsum) / d, gxm = general::warp_sum(gxsum) / d;
-  for (int c = 4 * lane; c < d; c += 128) {
-    const float4 xv = Elem<T>::ld4(xr + c), dv = Elem<T>::ld4(dr + c);
-    const float xs[4] = {xv.x, xv.y, xv.z, xv.w}, ds[4] = {dv.x, dv.y, dv.z, dv.w};
-    float o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float xh = (xs[e] - mean) * inv;
-      o[e] = inv * ((ds[e] * w_at(c + e) - gm) - xh * gxm);
-    }
-    Elem<T>::st4(dx + row * d + c, make_float4(o[0], o[1], o[2], o[3]));
-  }
-  if (lane == 0) stat[row] = make_float2(mean, inv);
+// The adaLN backward's launch: tiles of `rows` rows of one row group, block b
+// taking tiles [b n_tiles / G, (b + 1) n_tiles / G).
+struct MnBwd {
+  const void* x;
+  const void* dout;
+  const void* scale;
+  long v_stride;
+  const void* ns;
+  void* dx;
+  float* part;  // [G + r - 1, 2, d]: one partial a row-group segment
+  float* ab;    // [r, 2, d]: A, then B
+  int r, s, d, rows, tiles_per_group, n_tiles;
+  float eps;
+  int v_bf16, n_bf16;
+};
+
+// shared memory of a block: two [kBwdWarps][2 kTileRows] slices of the
+// warps' row sums, then, where they fit, the row group's w = ns (1 +
+// scale[r]) and its sums (else read from and kept in device memory)
+__host__ __device__ constexpr int mn_bwd_red_bytes() { return 2 * kBwdWarps * 2 * kTileRows * 4; }
+__host__ __device__ inline bool mn_bwd_held(int d) {
+  return mn_bwd_red_bytes() + 12L * d <= kSmemLimit;
+}
+__host__ __device__ inline int mn_bwd_smem(int d) {
+  return mn_bwd_red_bytes() + (mn_bwd_held(d) ? 12 * d : 0);
 }
 
-// part[r, chunk, 0 | 1, c]: sum of dout and of dout * xhat over the chunk's rows
-template <typename T>
-__global__ void __launch_bounds__(kColThreads)
-mn_general_bwd_cols_kernel(const T* __restrict__ x, const T* __restrict__ dout,
-                           const float2* __restrict__ stat, float* __restrict__ part, int s,
-                           int d, int chunk_rows) {
-  const int c = blockIdx.x * kColThreads + threadIdx.x, chunk = blockIdx.y, r = blockIdx.z;
-  if (c >= d) return;
-  const int s0 = chunk * chunk_rows, s1 = min(s, s0 + chunk_rows);
-  float a = 0.0f, b = 0.0f;
-  for (int i = s0; i < s1; ++i) {
-    const long row = (long)r * s + i;
-    const float2 st = stat[row];
-    const float g = Elem<T>::ld(dout + row * d + c);
-    a += g;
-    b = fmaf(g, (Elem<T>::ld(x + row * d + c) - st.x) * st.y, b);
+// the block that walks tile t
+__device__ __forceinline__ int mn_bwd_block_of(const MnBwd& p, int t) {
+  return (int)(((long)(t + 1) * gridDim.x - 1) / p.n_tiles);
+}
+
+// v[k] summed over the block, the same order in every thread: each warp's
+// sum into red[warp][k], then, past a barrier, the warps' in order
+__device__ __forceinline__ void block_sums(float (&v)[2 * kTileRows], float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < 2 * kTileRows; ++k) v[k] = general::warp_sum(v[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 2 * kTileRows; k += 4)
+      *reinterpret_cast<float4*>(red + warp * 2 * kTileRows + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
   }
-  float* out = part + ((long)r * gridDim.y + chunk) * 2 * d;
-  out[c] = a;
-  out[d + c] = b;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 2 * kTileRows; ++k) v[k] = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kBwdWarps; ++w)
+#pragma unroll
+    for (int k = 0; k < 2 * kTileRows; k += 4) {
+      const float4 r = *reinterpret_cast<const float4*>(red + w * 2 * kTileRows + k);
+      v[k] += r.x;
+      v[k + 1] += r.y;
+      v[k + 2] += r.z;
+      v[k + 3] += r.w;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+mn_general_bwd_kernel(const __grid_constant__ MnBwd p) {
+  extern __shared__ __align__(16) float smem[];
+  float* red = smem;  // [2][kBwdWarps][2 kTileRows], one a reduction of a tile
+  const int d = p.d, d4 = d / 4;
+  const T* __restrict__ x = static_cast<const T*>(p.x);
+  const T* __restrict__ dout = static_cast<const T*>(p.dout);
+  T* __restrict__ dx = static_cast<T*>(p.dx);
+  const bool held = mn_bwd_held(d);
+  float* ws = smem + mn_bwd_red_bytes() / 4;  // [d], held
+  float* acc = ws + d;                        // [2, d]: A, B of the group
+  const int t0 = (int)((long)blockIdx.x * p.n_tiles / gridDim.x);
+  const int t1 = (int)((long)(blockIdx.x + 1) * p.n_tiles / gridDim.x);
+  int group = -1;
+  long vrow = 0;
+  const auto slot = [&](int r) { return p.part + (long)(blockIdx.x + r) * 2 * d; };
+  const auto w4 = [&](int c) {  // w of columns c .. c + 3 of the group
+    if (held) return *reinterpret_cast<const float4*>(ws + c);
+    float w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = ld_param(p.ns, c + e, p.n_bf16) * (1.0f + ld_param(p.scale, vrow + c + e, p.v_bf16));
+    return make_float4(w[0], w[1], w[2], w[3]);
+  };
+  const auto leave = [&]() {  // the sums of `group` into its slot
+    if (!held || group < 0) return;
+    float4* to = reinterpret_cast<float4*>(slot(group));
+    for (int c4 = threadIdx.x; c4 < d4; c4 += kBwdThreads) {
+      to[c4] = reinterpret_cast<const float4*>(acc)[c4];
+      to[d4 + c4] = reinterpret_cast<const float4*>(acc + d)[c4];
+    }
+  };
+  for (int t = t0; t < t1; ++t) {
+    const int r = t / p.tiles_per_group, s0 = (t - r * p.tiles_per_group) * p.rows;
+    const int n = min(p.rows, p.s - s0);
+    if (r != group) {  // a new row group: its w, its sums from 0
+      leave();
+      group = r;
+      vrow = (long)r * p.v_stride;
+      if (!held) acc = slot(group);
+      __syncthreads();  // every thread is done with the last group's w
+      for (int c4 = threadIdx.x; c4 < d4; c4 += kBwdThreads) {
+        if (held) {
+          float w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w[e] = ld_param(p.ns, 4 * c4 + e, p.n_bf16) *
+                   (1.0f + ld_param(p.scale, vrow + 4 * c4 + e, p.v_bf16));
+          reinterpret_cast<float4*>(ws)[c4] = make_float4(w[0], w[1], w[2], w[3]);
+        }
+        reinterpret_cast<float4*>(acc)[c4] = general::zero4();
+        reinterpret_cast<float4*>(acc + d)[c4] = general::zero4();
+      }
+      __syncthreads();  // the group's w, to every thread
+    }
+    const long row0 = (long)r * p.s + s0;
+    // a pass over the tile: f(i, c, x, dout, w) for rows i < n and columns c .. c + 3,
+    // kChunks float4 chunks a thread at once (2 kTileRows kChunks loads in flight)
+    const auto pass = [&](auto&& f) {
+      for (int c0 = threadIdx.x; c0 < d4; c0 += kBwdThreads * kChunks) {
+        float4 xv[kTileRows][kChunks], dv[kTileRows][kChunks];
+#pragma unroll
+        for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kChunks; ++j) {
+            const int c4 = c0 + j * kBwdThreads;
+            if (i < n && c4 < d4) {
+              xv[i][j] = Elem<T>::ld4(x + (row0 + i) * d + 4 * c4);
+              dv[i][j] = Elem<T>::ld4(dout + (row0 + i) * d + 4 * c4);
+            }
+          }
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+          const int c4 = c0 + j * kBwdThreads;
+          if (c4 < d4) f(4 * c4, xv, dv, j, w4(4 * c4));
+        }
+      }
+    };
+    // (1) each row's sum of x and of g = dout w
+    float v[2 * kTileRows] = {};
+    pass([&](int, auto& xv, auto& dv, int j, float4 w) {
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+        if (i < n) {
+          const float4 a = xv[i][j], g = dv[i][j];
+          v[i] += (a.x + a.y) + (a.z + a.w);
+          v[kTileRows + i] += (g.x * w.x + g.y * w.y) + (g.z * w.z + g.w * w.w);
+        }
+    });
+    block_sums(v, red);
+    float mean[kTileRows], gm[kTileRows];
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) {
+      mean[i] = v[i] / d;
+      gm[i] = v[kTileRows + i] / d;
+      v[i] = v[kTileRows + i] = 0.0f;
+    }
+    // (2) each row's sum of (x - mean)^2 and of g (x - mean)
+    pass([&](int, auto& xv, auto& dv, int j, float4 w) {
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+        if (i < n) {
+          const float4 a = xv[i][j], g = dv[i][j];
+          const float e0 = a.x - mean[i], e1 = a.y - mean[i], e2 = a.z - mean[i],
+                      e3 = a.w - mean[i];
+          v[i] = fmaf(e3, e3, fmaf(e2, e2, fmaf(e1, e1, fmaf(e0, e0, v[i]))));
+          v[kTileRows + i] = fmaf(g.w * w.w, e3, fmaf(g.z * w.z, e2, fmaf(g.y * w.y, e1,
+                                  fmaf(g.x * w.x, e0, v[kTileRows + i]))));
+        }
+    });
+    block_sums(v, red + kBwdWarps * 2 * kTileRows);
+    float inv[kTileRows], gxm[kTileRows];
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) {
+      inv[i] = rsqrtf(v[i] / d + p.eps);
+      gxm[i] = inv[i] * v[kTileRows + i] / d;
+    }
+    // (3) dx, and the tile's rows in order into the group's sums
+    pass([&](int c, auto& xv, auto& dv, int j, float4 w) {
+      float4* a4 = reinterpret_cast<float4*>(acc + c);
+      float4* b4 = reinterpret_cast<float4*>(acc + d + c);
+      float sa[4] = {a4->x, a4->y, a4->z, a4->w}, sb[4] = {b4->x, b4->y, b4->z, b4->w};
+      const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+        if (i < n) {
+          const float xs[4] = {xv[i][j].x, xv[i][j].y, xv[i][j].z, xv[i][j].w};
+          const float ds[4] = {dv[i][j].x, dv[i][j].y, dv[i][j].z, dv[i][j].w};
+          float o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float xh = (xs[e] - mean[i]) * inv[i];
+            o[e] = inv[i] * ((ds[e] * wv[e] - gm[i]) - xh * gxm[i]);
+            sa[e] += ds[e];
+            sb[e] = fmaf(ds[e], xh, sb[e]);
+          }
+          Elem<T>::st4(dx + (row0 + i) * d + c, make_float4(o[0], o[1], o[2], o[3]));
+        }
+      *a4 = make_float4(sa[0], sa[1], sa[2], sa[3]);
+      *b4 = make_float4(sb[0], sb[1], sb[2], sb[3]);
+    });
+  }
+  leave();
+  cooperative_groups::this_grid().sync();  // every partial, to the blocks that add them
+
+  // ab[r, k, c] = the slots of group r in order: a float4 unit by s lanes of one warp,
+  // lane j adding slots lo + j, lo + j + s, ... (8 loads in flight), then a butterfly
+  constexpr int kBatch = 8;
+  const long units = (long)p.r * 2 * d4, threads = (long)gridDim.x * kBwdThreads;
+  int s = 1;
+  while (s < 32 && 2 * s * units <= threads) s *= 2;
+  const float4* __restrict__ part = reinterpret_cast<const float4*>(p.part);
+  for (long base = (long)blockIdx.x * kBwdThreads; base < units * s; base += threads) {
+    const long u = (base + threadIdx.x) / s;  // whole warps step together
+    const int j = (int)((base + threadIdx.x) % s);
+    float4 sum = general::zero4();
+    if (u < units) {
+      const int r = (int)(u / (2 * d4)), within = (int)(u - (long)r * 2 * d4);
+      const int lo = mn_bwd_block_of(p, r * p.tiles_per_group) + r;
+      const int hi = mn_bwd_block_of(p, (r + 1) * p.tiles_per_group - 1) + r;
+      for (int k0 = lo + j; k0 <= hi; k0 += kBatch * s) {
+        float4 v[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          if (k0 + q * s <= hi) v[q] = __ldcg(part + (long)(k0 + q * s) * 2 * d4 + within);
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          if (k0 + q * s <= hi)
+            sum = make_float4(sum.x + v[q].x, sum.y + v[q].y, sum.z + v[q].z, sum.w + v[q].w);
+      }
+    }
+    for (int o = s / 2; o > 0; o >>= 1) {
+      sum.x += __shfl_xor_sync(0xffffffffu, sum.x, o);
+      sum.y += __shfl_xor_sync(0xffffffffu, sum.y, o);
+      sum.z += __shfl_xor_sync(0xffffffffu, sum.z, o);
+      sum.w += __shfl_xor_sync(0xffffffffu, sum.w, o);
+    }
+    if (u < units && j == 0) reinterpret_cast<float4*>(p.ab)[u] = sum;
+  }
 }
 
 // dy = T(gate[r] * dout); part[r, chunk, c]: sum of dout * y over the chunk's rows
@@ -183,9 +393,12 @@ general_chunk_sums_kernel(const float* __restrict__ part, float* __restrict__ su
   sums[i] = acc;
 }
 
+bool takes_shape(int r, int s, int d) {
+  return r >= 1 && r <= 65535 && s >= 1 && d >= 8 && d % 8 == 0;
+}
+
 bool takes(int r, int s, int d, int chunk_rows) {
-  return r >= 1 && r <= 65535 && s >= 1 && d >= 8 && d % 8 == 0 && chunk_rows >= 1 &&
-         (s + chunk_rows - 1) / chunk_rows <= 65535;
+  return takes_shape(r, s, d) && chunk_rows >= 1 && (s + chunk_rows - 1) / chunk_rows <= 65535;
 }
 
 dim3 row_grid(long rows) { return dim3((unsigned)((rows + kWarps - 1) / kWarps)); }
@@ -201,24 +414,34 @@ int chunk_sums(const float* part, float* sums, int r, int width, int n_chunks, c
   return (int)cudaGetLastError();
 }
 
+// out[0]: the most rows a tile may have; out[1]: the blocks of the instance
+// for T at width d that the plan may launch at once (all resident, at most
+// kBwdBlocksPerSm a multiprocessor). Also lifts the kernel's shared-memory
+// limit.
 template <typename T>
-int mn_bwd(const void* x, const void* dout, const void* scale, long v_stride, const void* ns,
-           void* dx, void* stat, void* part, void* ab, int r, int s, int d, int chunk_rows,
-           float eps, int v_bf16, int n_bf16, cudaStream_t st) {
-  const long rows = (long)r * s;
-  mn_general_bwd_rows_kernel<T><<<row_grid(rows), kWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dout), scale, v_stride, ns,
-      static_cast<T*>(dx), static_cast<float2*>(stat), rows, s, d, eps, v_bf16, n_bf16);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const dim3 grid = col_grid(r, s, d, chunk_rows);
-  mn_general_bwd_cols_kernel<T><<<grid, kColThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dout), static_cast<const float2*>(stat),
-      static_cast<float*>(part), s, d, chunk_rows);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return chunk_sums(static_cast<const float*>(part), static_cast<float*>(ab), r, 2 * d, grid.y,
-                    st);
+int mn_bwd_limits(int d, int* out) {
+  const auto kernel = mn_general_bwd_kernel<T>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads,
+                                                        mn_bwd_smem(d));
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  out[0] = kTileRows;
+  out[1] = min(per_sm, kBwdBlocksPerSm) * sms;
+  return (int)cudaSuccess;
+}
+
+template <typename T>
+int mn_bwd(MnBwd p, int grid, cudaStream_t st) {
+  void* args[] = {&p};
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(mn_general_bwd_kernel<T>),
+                                          dim3(grid), dim3(kBwdThreads), args, mn_bwd_smem(p.d),
+                                          st);
 }
 
 template <typename T>
@@ -257,21 +480,36 @@ extern "C" int orv_modulate_norm_general(const void* x, const void* scale, const
   return (int)cudaGetLastError();
 }
 
+// limits[0]: the most rows a tile of the adaLN backward may have; limits[1]:
+// the blocks its instance for f32 (is_f32) or bf16 x of width d may launch at
+// once on the current device. d % 8 == 0 (else cudaErrorInvalidValue).
+// Returns the CUDA error.
+extern "C" int orv_modulate_norm_bwd_general_limits(int d, int is_f32, void* limits) {
+  if (!takes_shape(1, 1, d)) return (int)cudaErrorInvalidValue;
+  int* out = static_cast<int*>(limits);
+  return is_f32 ? mn_bwd_limits<float>(d, out) : mn_bwd_limits<__nv_bfloat16>(d, out);
+}
+
 // x, dout, dx: [r, s, d] as modulate_norm's x; scale: [r, d] with row stride
-// v_stride; ns: [d]. Scratch: stat [r * s] float2, part [r, ceil(s /
-// chunk_rows), 2, d] f32. ab: [r, 2, d] f32 out (A, then B). Three launches
-// (rows, column chunks, chunk sums). Returns the first CUDA error.
+// v_stride; ns: [d]. rows and grid: the wrapper's plan from
+// orv_modulate_norm_bwd_general_limits on this device (rows <= limits[0],
+// grid <= limits[1] and at most the r * ceil(s / rows) tiles). Scratch:
+// part [grid + r - 1, 2, d] f32. ab: [r, 2, d] f32 out (A, then B). One
+// cooperative launch. Returns the launch's CUDA error.
 extern "C" int orv_modulate_norm_bwd_general(const void* x, const void* dout, const void* scale,
-                                             long v_stride, const void* ns, void* dx, void* stat,
-                                             void* part, void* ab, int r, int s, int d,
-                                             int chunk_rows, float eps, int v_bf16, int n_bf16,
-                                             int is_f32, void* stream) {
-  if (!takes(r, s, d, chunk_rows)) return (int)cudaErrorInvalidValue;
+                                             long v_stride, const void* ns, void* dx, void* part,
+                                             void* ab, int r, int s, int d, int rows, int grid,
+                                             float eps, int v_bf16, int n_bf16, int is_f32,
+                                             void* stream) {
+  if (!takes_shape(r, s, d) || rows < 1 || rows > kTileRows) return (int)cudaErrorInvalidValue;
+  const int tiles_per_group = (s + rows - 1) / rows;
+  const long n_tiles = (long)r * tiles_per_group;
+  if (grid < 1 || grid > n_tiles || n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  const MnBwd p{x, dout, scale, v_stride, ns, dx, static_cast<float*>(part),
+                static_cast<float*>(ab), r, s, d, rows, tiles_per_group, (int)n_tiles, eps,
+                v_bf16, n_bf16};
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_f32 ? mn_bwd<float>(x, dout, scale, v_stride, ns, dx, stat, part, ab, r, s, d,
-                                chunk_rows, eps, v_bf16, n_bf16, st)
-                : mn_bwd<__nv_bfloat16>(x, dout, scale, v_stride, ns, dx, stat, part, ab, r, s,
-                                        d, chunk_rows, eps, v_bf16, n_bf16, st);
+  return is_f32 ? mn_bwd<float>(p, grid, st) : mn_bwd<__nv_bfloat16>(p, grid, st);
 }
 
 // dout, y, dy: [r, s, d] contiguous, 16-byte aligned, f32 if is_f32 else

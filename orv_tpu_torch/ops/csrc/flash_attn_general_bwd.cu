@@ -73,22 +73,20 @@
 
 namespace {
 
+using general::cp_async4;
+using general::cp_async_commit;
+using general::cp_async_wait_all;
 using general::Elem;
+using general::ex2;
+using general::products;
+using general::scores;
+using general::store_rows;
 
 constexpr int kThreads = 256;
 constexpr int kHalf = kThreads / 2;  // the threads of one product
 constexpr int kTile = 64;            // rows of the other side a tile
 constexpr int kPad = 4;              // floats padding a Q, K, V or dO row
 constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the multiprocessor's exponential unit alone (ex2.approx, 2 ulp, as
-// exp2f's), results below 2^-126 flushed to 0: exp2f spends three more
-// instructions a call on them, 7% of dq's time at the training shape
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The tiling of one capacity: R owned rows, their 8 x kMJ score tile and
 // 8 x kMD gradient tile a lane.
@@ -113,47 +111,10 @@ static_assert(Shape<64>::kDkvFloats * 4 == 209920 && Shape<128>::kDkvFloats * 4 
 static_assert(Shape<64>::kDqFloats * 4 == 175104 && Shape<128>::kDqFloats * 4 == 221696,
               "the header's table");
 
-__device__ __forceinline__ void cp_async16(float* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [0, kN) x dims [0, kDh) of a [rows, dh] array from src into dst (f32,
-// rows of Shape<kDh>::S floats), zeros past its n rows and dh dims: f32 by
-// cp.async (the caller commits), bf16 widened by the threads.
+// rows [0, kN) x dims [0, kDh) of a [rows, dh] array into dst (general::stage)
 template <typename T, int kDh, int kN>
 __device__ __forceinline__ void stage(float* dst, const T* src, int n, int dh) {
-  constexpr int kChunks = kDh / 4, S = Shape<kDh>::S;
-  static_assert(kN * kChunks % kThreads == 0, "whole rounds of the block's threads");
-#pragma unroll
-  for (int round = 0; round < kN * kChunks / kThreads; ++round) {
-    const int i = round * kThreads + threadIdx.x;
-    const int r = i / kChunks, d = (i % kChunks) * 4;
-    const bool ok = r < n && d < dh;
-    const T* from = ok ? src + (long)r * dh + d : src;
-    float* to = dst + r * S + d;
-    if constexpr (sizeof(T) == 4)
-      cp_async16(to, from, ok ? 16 : 0);
-    else
-      *reinterpret_cast<float4*>(to) = ok ? Elem<T>::ld4(from) : general::zero4();
-  }
+  general::stage<T, kDh, kN, Shape<kDh>::S, kThreads>(dst, src, n, dh);
 }
 
 // kTile f32 values (lse or delta of the tile's rows) into dst, zeros past n,
@@ -161,95 +122,6 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int n, int dh) {
 __device__ __forceinline__ void stage_row(float* dst, const float* src, int n, int thread) {
   if (thread >= 0 && thread < kTile)
     cp_async4(dst + thread, thread < n ? src + thread : src, thread < n ? 4 : 0);
-}
-
-// The scores: acc[i][j] += a[kAStep i] . b[kBStep j] (rows of S floats), each
-// summed over the capacity's dims in order of d.
-template <int kDh, int kMJ, int kAStep, int kBStep>
-__device__ __forceinline__ void scores(float (&acc)[8][kMJ], const float* a, const float* b) {
-  constexpr int S = Shape<kDh>::S;
-#pragma unroll 4
-  for (int d = 0; d < kDh; d += 4) {
-    float4 x[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = *reinterpret_cast<const float4*>(a + i * kAStep * S + d);
-#pragma unroll
-    for (int j = 0; j < kMJ; ++j) {  // d, d + 1, d + 2, d + 3 in turn, 8 sums apart
-      const float4 y = *reinterpret_cast<const float4*>(b + j * kBStep * S + d);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].x, y.x, acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].y, y.y, acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].z, y.z, acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i].w, y.w, acc[i][j]);
-    }
-  }
-}
-
-// A lane's kMD dims of a row from p: float4 chunks p[kE 4 c .. kE 4 c + 3]
-// (kMD >= 4), else a float2.
-template <int kMD, int kE>
-__device__ __forceinline__ void load_dims(const float* p, float (&x)[kMD]) {
-  if constexpr (kMD >= 4) {
-#pragma unroll
-    for (int c = 0; c < kMD / 4; ++c) {
-      const float4 y = *reinterpret_cast<const float4*>(p + kE * 4 * c);
-      x[4 * c] = y.x;
-      x[4 * c + 1] = y.y;
-      x[4 * c + 2] = y.z;
-      x[4 * c + 3] = y.w;
-    }
-  } else {
-    const float2 y = *reinterpret_cast<const float2*>(p);
-    x[0] = y.x;
-    x[1] = y.y;
-  }
-}
-
-// The gradients: acc[i][m] += sum over rows c in [0, kN), in order, of
-// a[c PS + i] * b[c S + dim m].
-template <int kDh, int kN>
-__device__ __forceinline__ void products(float (&acc)[8][Shape<kDh>::kMD], const float* a,
-                                         const float* b) {
-  using Sh = Shape<kDh>;
-  constexpr int kMD = Sh::kMD;
-#pragma unroll 4
-  for (int c = 0; c < kN; ++c) {
-    const float4 x0 = *reinterpret_cast<const float4*>(a + c * Sh::PS);
-    const float4 x1 = *reinterpret_cast<const float4*>(a + c * Sh::PS + 4);
-    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-    float y[kMD];
-    load_dims<kMD, Sh::kE>(b + c * Sh::S, y);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int m = 0; m < kMD; ++m) acc[i][m] = fmaf(x[i], y[m], acc[i][m]);
-  }
-}
-
-// A lane's 8 rows x kMD dims of acc into out ([rows, dh], row stride dh):
-// rows g0 + i < n, the dims below dh.
-template <typename T, int kDh>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[8][Shape<kDh>::kMD], int g0,
-                                           int dd0, int n, int dh) {
-  constexpr int kMD = Shape<kDh>::kMD, kE = Shape<kDh>::kE;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (g0 + i >= n) continue;
-    T* row = out + (long)(g0 + i) * dh + dd0;
-    if constexpr (kMD >= 4) {
-#pragma unroll
-      for (int c = 0; c < kMD / 4; ++c)
-        if (dd0 + kE * 4 * c < dh)
-          Elem<T>::st4(row + kE * 4 * c, make_float4(acc[i][4 * c], acc[i][4 * c + 1],
-                                                     acc[i][4 * c + 2], acc[i][4 * c + 3]));
-    } else if (dd0 < dh) {
-      Elem<T>::st(row, acc[i][0]);
-      Elem<T>::st(row + 1, acc[i][1]);
-    }
-  }
 }
 
 // A lane's places in its product's 128 threads: the scores' own rows a + R/8 i
@@ -338,7 +210,7 @@ flash_general_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_commit();
     }
     float s[8][kMJ] = {};  // S (threads 0-127) or dP (128-255)
-    scores<kDh, kMJ, R / 8, kTile / kMJ>(s, (prod ? dos : qs) + at.a * S,
+    scores<kDh, S, kMJ, R / 8, kTile / kMJ>(s, (prod ? dos : qs) + at.a * S,
                                          (prod ? vt : kt) + at.b * S);
     // p and ds: a lane and its partner (tid +- 128, the same elements) finish half of them
     // each, rows i < 4 the S lane and rows i >= 4 the dP lane; first each hands the other
@@ -366,7 +238,8 @@ flash_general_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int c0 = prod * (kTile / 2);
-    products<kDh, kTile / 2>(acc, pds + c0 * PS + 8 * at.g, kt + c0 * S + at.dd0);
+    products<kTile / 2, PS, S, Sh::kMD, Sh::kE>(acc, pds + c0 * PS + 8 * at.g,
+                                                kt + c0 * S + at.dd0);
   }
 
   // the second half's sums into the first's, in order, through the free K tiles
@@ -384,7 +257,7 @@ flash_general_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int m = 0; m < Sh::kMD; ++m) acc[i][m] += part[(i * Sh::kMD + m) * kHalf + tid];
-    store_rows<T, kDh>(dq + q_off, acc, 8 * at.g, at.dd0, nr, dh);
+    store_rows<T, Sh::kMD, Sh::kE>(dq + q_off, acc, 8 * at.g, at.dd0, nr, dh);
   }
 }
 
@@ -438,7 +311,7 @@ flash_general_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // tile t landed; the gradients of tile t - 1 are done
     if (kStages == 2 && t + 1 < tiles) stage_tile((t + 1) * kTile, buf ^ 1);
     float s[8][kMJ] = {};  // S^T (threads 0-127) or dP^T (128-255)
-    scores<kDh, kMJ, R / 8, kTile / kMJ>(s, (prod ? vs : ks) + at.a * S,
+    scores<kDh, S, kMJ, R / 8, kTile / kMJ>(s, (prod ? vs : ks) + at.a * S,
                                          (prod ? dot : qt) + at.b * S);
     // p and ds: a lane and its partner (tid +- 128, the same elements) finish half of them
     // each, rows i < 4 the S lane and rows i >= 4 the dP lane; first each hands the other
@@ -466,13 +339,14 @@ flash_general_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    products<kDh, kTile>(acc, (prod ? dss : ps) + 8 * at.g, (prod ? qt : dot) + at.dd0);
+    products<kTile, PS, S, Sh::kMD, Sh::kE>(acc, (prod ? dss : ps) + 8 * at.g,
+                                            (prod ? qt : dot) + at.dd0);
     if (kStages == 1 && t + 1 < tiles) {
       __syncthreads();  // the last read of the one stage
       stage_tile((t + 1) * kTile, 0);
     }
   }
-  store_rows<T, kDh>((prod ? dk : dv) + kv_off, acc, 8 * at.g, at.dd0, nk, dh);
+  store_rows<T, Sh::kMD, Sh::kE>((prod ? dk : dv) + kv_off, acc, 8 * at.g, at.dd0, nk, dh);
 }
 
 bool takes(int bh, int sq, int skv, int dh) {

@@ -4,11 +4,11 @@ turns on one card, in f32 at the training shape [1,30,3226,64] x 3226.
 
     python3 scripts/time_general_attention_bwd_variants.py [--only NAME ...]
 
-Each variant is the committed source with text substitutions (VARIANTS; a
-substitution that no longer matches the source raises), built with nvcc
-into its own library under orv_tpu_torch/ops/_build/variants/general_bwd/
-(one nvcc each, all started together) and called through its C entry
-points with ctypes. A design variant is held against
+Each variant is the committed source with text substitutions (VARIANTS, in
+the source or in the general.cuh its loops come from; a substitution that
+matches neither raises), built with nvcc into its own library under
+orv_tpu_torch/ops/_build/variants/general_bwd/ (one nvcc each, all started
+together) and called through its C entry points with ctypes. A design variant is held against
 `flash_attention_bwd_plain` (dq, dk and dv within 1e-4 of each range); a cut
 drops a part of the kernel and is timed only, to show that part's share.
 The script prints each variant's ptxas lines at capacity 64 (registers,
@@ -45,11 +45,10 @@ VARIANTS = {
     "exp2f": (False, [("ex2(((prod", "exp2f(((prod")]),  # the library's exponential
     "unroll2": (False, [(_SCORES, _SCORES.replace("unroll 4", "unroll 2")),
                         (_GRADS, _GRADS.replace("unroll 4", "unroll 2"))]),
-    "cut_scores": (True, [("scores<kDh, kMJ, R / 8, kTile / kMJ>(s,",
-                           "if (0) scores<kDh, kMJ, R / 8, kTile / kMJ>(s,")]),
-    "cut_gradients": (True, [("products<kDh, kTile>(acc,", "if (0) products<kDh, kTile>(acc,"),
-                             ("products<kDh, kTile / 2>(acc,",
-                              "if (0) products<kDh, kTile / 2>(acc,")]),
+    "cut_scores": (True, [("scores<kDh, S, kMJ, R / 8, kTile / kMJ>(s,",
+                           "if (0) scores<kDh, S, kMJ, R / 8, kTile / kMJ>(s,")]),
+    "cut_gradients": (True, [("products<kTile, PS,", "if (0) products<kTile, PS,"),
+                             ("products<kTile / 2, PS,", "if (0) products<kTile / 2, PS,")]),
     "cut_exp": (True, [("ex2(((prod ? other : mine) * scale - row_lse) * kLog2e)",
                         "((prod ? other : mine) * scale - row_lse)")]),
 }
@@ -57,17 +56,19 @@ SHAPE, SKV = (1, 30, 3226, 64), 3226
 
 
 def build(name: str, edits) -> subprocess.Popen:
-    """Write the variant's source and start its nvcc."""
+    """Write the variant's source and its copy of general.cuh (whose shared
+    loops an edit may change instead) and start its nvcc."""
     d = BUILD_DIR / "variants" / "general_bwd" / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    src = (CSRC / SOURCE).read_text()
+    texts = {f: (CSRC / f).read_text() for f in (SOURCE, "general.cuh")}
     for old, new in edits:
-        if old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} is not in {SOURCE}")
-        src = src.replace(old, new)
-    (d / SOURCE).write_text(src)
-    shutil.copy(CSRC / "general.cuh", d)
+        where = [f for f, text in texts.items() if old in text]
+        if not where:
+            raise RuntimeError(f"variant {name}: {old!r} is in neither {SOURCE} nor general.cuh")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    for f, text in texts.items():
+        (d / f).write_text(text)
     return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
                              str(d / SOURCE)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

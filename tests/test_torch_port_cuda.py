@@ -709,20 +709,16 @@ _GENERAL_ATTN = [(torch.float32, 8), (torch.float32, 16), (torch.float32, 32),
                  (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 128)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("static_max", [24.0, None])
-@pytest.mark.parametrize("dtype,dh", _GENERAL_ATTN)
-@pytest.mark.parametrize("sq,skv", [(1, 1), (77, 130), (130, 77), (300, 300)])
-def test_cuda_general_flash_forward_matches_plain(cuda, sq, skv, dtype, dh, static_max):
-    """Both modes at every head-dim capacity (16, 32, 64, 128) and between
-    them (8, 40), Sq != Skv and ragged against the 64-row and 64- or 32-key
-    tiles."""
-    g = torch.Generator(device=cuda).manual_seed(sq + 3 * skv + dh)
-    q = (2 * torch.randn(2, 3, sq, dh, device=cuda, generator=g)).to(dtype)
-    k, v = (torch.randn(2, 3, skv, dh, device=cuda, generator=g).to(dtype) for _ in range(2))
+def _check_general_forward(q, k, v, static_max):
+    """One launch of the general forward against its plain version (f32 out
+    within 1e-4 of its range and lse 1e-4; bf16 1e-2 and 1e-3), and the
+    same bits on a second run."""
+    dtype = q.dtype
     before = _attn_counts()
     out, lse = attention.flash_attention(q, k, v, static_max=static_max)
     assert _attn_counts() == (before[0] + 1,) + before[1:]
+    again = attention.flash_attention(q, k, v, static_max=static_max)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     ref, ref_lse = attention.flash_attention_plain(q, k, v, static_max=static_max)
     assert out.dtype == dtype and out.shape == q.shape and lse.shape == q.shape[:3]
     if dtype == torch.float32:
@@ -731,6 +727,45 @@ def test_cuda_general_flash_forward_matches_plain(cuda, sq, skv, dtype, dh, stat
     else:
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=0)
         torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_max", [24.0, None])
+@pytest.mark.parametrize("dtype,dh", _GENERAL_ATTN)
+@pytest.mark.parametrize("sq,skv,H", [(1, 1, 3), (77, 130, 3), (130, 77, 3), (300, 300, 3),
+                                      (257, 65, 3), (65, 257, 3), (257, 65, 90), (65, 257, 90)])
+def test_cuda_general_flash_forward_matches_plain(cuda, sq, skv, H, dtype, dh, static_max):
+    """Both modes at every head-dim capacity (16, 32, 64, 128) and between
+    them (8, 40), Sq != Skv and ragged against the row blocks and 64-key
+    tiles: one past a block and a tile each way. With 2 x 3 heads the grid
+    leaves multiprocessors idle and blocks take the few rows (4096 / Dh, 64
+    at capacity 128); with 2 x 90 every multiprocessor has a block and
+    blocks take the full 256 (128 at capacity 128). There v is a quarter of
+    the other cases', so that the bf16 outputs stay below 2, where one bf16
+    ulp (2^-7) is under the 1e-2 tolerance: of 2 x 90 x 257 x 128 outputs
+    at full scale, one of 2.25 rounded to the neighbouring bf16 value (2^-6
+    away) from the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(sq + 3 * skv + dh + H)
+    q = (2 * torch.randn(2, H, sq, dh, device=cuda, generator=g)).to(dtype)
+    k, v = (torch.randn(2, H, skv, dh, device=cuda, generator=g) for _ in range(2))
+    _check_general_forward(q, k.to(dtype), (v / 4 if H > 3 else v).to(dtype), static_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", _GENERAL_ATTN)
+@pytest.mark.parametrize("skv", [1, 193])
+def test_cuda_general_flash_online_rescales(cuda, skv, dtype, dh):
+    """The online mode where every key tile raises the row max: logits that
+    rise with the key (up to about 8 sqrt(Dh), past any static bound), so
+    that each of 193 keys' four tiles rescales the rows' sums, the last tile
+    one key; and a single key."""
+    g = torch.Generator(device=cuda).manual_seed(7 * skv + dh)
+    u = torch.ones(dh, device=cuda)
+    q = (u + 0.3 * torch.randn(1, 2, 129, dh, device=cuda, generator=g)).to(dtype)
+    rise = 8.0 * torch.arange(skv, device=cuda, dtype=torch.float32)[:, None] / skv * u
+    k = (rise + 0.3 * torch.randn(1, 2, skv, dh, device=cuda, generator=g)).to(dtype)
+    v = torch.randn(1, 2, skv, dh, device=cuda, generator=g).to(dtype)
+    _check_general_forward(q, k, v, None)
 
 
 @pytest.mark.cuda
@@ -810,14 +845,18 @@ def _adaln_counts():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 8), (torch.float32, 32), (torch.float32, 40),
                                      (torch.float32, 1920), (torch.float32, 3072),
-                                     (torch.float32, 4104), (torch.bfloat16, 32),
-                                     (torch.bfloat16, 40), (torch.bfloat16, 4224)])
-@pytest.mark.parametrize("R,S", [(1, 1), (3, 37), (5, 65)])
+                                     (torch.float32, 4104), (torch.float32, 19368),
+                                     (torch.bfloat16, 32), (torch.bfloat16, 40),
+                                     (torch.bfloat16, 4224)])
+@pytest.mark.parametrize("R,S", [(1, 1), (1, 37), (3, 37), (5, 65)])
 def test_cuda_general_adaln_matches_plain(cuda, R, S, dtype, D):
     """The general adaLN forward and backward (f32 at any D % 8, bf16 where
     the Hopper kernels stop), and the gated residual's f32 instance and
     general backward, each one launch against its plain version; S across
-    the 32-row chunks of the sums over S; the backwards twice, bitwise."""
+    the adaLN backward's 2-row tiles and the gated residual's 32-row chunks
+    of the sums over S; at D 19368 the adaLN backward keeps its sums in
+    device memory (12 D bytes no longer fit in shared memory); the
+    backwards twice, bitwise."""
     g = torch.Generator(device=cuda).manual_seed(R * S + D)
     x = (2 * torch.randn(R, S, D, device=cuda, generator=g) + 0.3).to(dtype)
     do, y = (torch.randn(R, S, D, device=cuda, generator=g).to(dtype) for _ in range(2))
