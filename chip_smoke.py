@@ -63,10 +63,14 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
      [2,37,32] and [4,600,3072], the adaLN pair in bf16 at D 32; the forward,
      dq, dk/dv and the four adaLN entry points timed at the training shapes
      beside their plain versions, SDPA on f32 q, k, v (forward) and its
-     memory-efficient backward (dq + dk/dv), addcmul (gated residual) and
-     ATen's LayerNorm backward at the R = 1 form in f32 (adaLN backward);
-     dq's and dk/dv's `time` lines add their bound, SDPA's backward and the
-     launched instance's registers, local and shared memory and ptxas line;
+     memory-efficient backward (dq + dk/dv), addcmul (gated residual),
+     F.layer_norm at the R = 1 form in f32 (adaLN forward: the coefficients
+     folded into one weight and bias outside the timed call) and ATen's
+     LayerNorm backward there (adaLN backward); dq's, dk/dv's, the adaLN
+     forward's and the gated residual's `time` lines add their bound, their
+     yardstick and the launched instance's registers, local and shared
+     memory and ptxas line (the adaLN forward's and the gated residual's
+     also their grid: lanes, chunks a lane, rows a block or a step, blocks);
   3. a tiny ControlDiT, bf16 and W8A8 (quant=True, attn_impl="flash_q8"), and
      a small VAE decode on the card against the same weights on the CPU
      (plain versions, f32); one train step of a tiny recon_action ControlDiT
@@ -1202,6 +1206,55 @@ def mn_bwd_library_ms(g, S, D, eps: float = 1e-5, dtype=torch.bfloat16):
     return lib_ms, ms
 
 
+def layer_norm_fwd(x, w, b):
+    """F.layer_norm over the last dim with weight w and bias b (eps 1e-5)."""
+    return torch.nn.functional.layer_norm(x, (x.shape[-1],), w, b, 1e-5)
+
+
+def mn_fwd_library_ms(g, S, D, dtype=torch.float32):
+    """The adaLN forward's yardstick at its R = 1 form [1, S, D]: with one
+    row group, (y ns + nb) (1 + scale[0]) + shift[0] is F.layer_norm's with
+    weight ns (1 + scale[0]) and bias nb (1 + scale[0]) + shift[0] (in x's
+    dtype), made outside the timed call; folded, they round differently, so
+    it is a yardstick of time, not of bits. Prints its time beside the
+    kernel's on the same x and how far the outputs lie apart; returns
+    (library ms, kernel ms)."""
+    x, _, _, scale, shift, _, ns, nb = general_adaln_inputs(g, 1, S, D, dtype)
+    s1 = 1.0 + scale.float()[0]
+    w, b = (ns * s1).to(dtype), (nb * s1 + shift.float()[0]).to(dtype)
+    lib = layer_norm_fwd(x, w, b)
+    got = adaln.modulate_norm(x, scale, shift, ns, nb)
+    err = rms_errors(got, lib)[1]
+    lib_ms = call_ms("F.layer_norm", layer_norm_fwd, (x, w, b), 50)
+    ms = call_ms("modulate_norm R = 1", adaln.modulate_norm, (x, scale, shift, ns, nb), 50)
+    print(f"library modulate_norm {dtype} [1, {S}, {D}] (R = 1: the coefficients folded into "
+          f"one weight and bias): F.layer_norm {lib_ms:.4f} ms, kernel {ms:.4f} ms; rel RMS of "
+          f"the kernel's output from F.layer_norm's {err:.3g}", flush=True)
+    return lib_ms, ms
+
+
+def general_mn_report(R: int, S: int, D: int, dtype) -> str:
+    """The general adaLN forward's launched instance and grid at [R, S, D]
+    (`adaln.modulate_norm_general_info`, `instance_report`)."""
+    i = adaln.modulate_norm_general_info(R, S, D, dtype)
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    return instance_report(
+        "adaln_general.cu", "mn_general_fwd_kernel",
+        f"mn_general_fwd_kernelI{t}Li{i['lanes']}ELi{i['held']}E",
+        f"{'f32' if dtype == torch.float32 else 'bf16'}, {i['lanes']} lanes a row, {i['held']} "
+        f"chunks a lane; {i['tile_rows']} rows a block, {i['blocks']} blocks", i)
+
+
+def general_gr_report(R: int, S: int, D: int) -> str:
+    """The gated residual's f32 instance and plan at [R, S, D]
+    (`adaln.gated_residual_general_info`, `instance_report`)."""
+    i = adaln.gated_residual_general_info(R, S, D)
+    return instance_report(
+        "gated_residual.cu", "gr_general_fwd_kernel", "gr_general_fwd_kernel",
+        f"f32; {i['rows_a_step']} rows a step, {i['blocks']} blocks of {i['resident']} resident",
+        i)
+
+
 def check_modulate_norm_bwd(g, R, S, D, timed: bool):
     """dx against its RMS (`rms_agree`); the f32 row sums A and B, which
     only the summation order separates: max error <= 1e-3 and RMS error
@@ -1362,6 +1415,8 @@ def general_build_report() -> None:
             mode = {"1": ", online", "0": ", static max"}.get(online, "")
             mode += f", {rows} rows" if rows else ""
             what = f"{source} {name}<{t}{', ' + cap if cap else ''}{mode}>"
+            if name == "mn_general_fwd_kernel":  # <T, lanes a row, chunks a lane>
+                what = f"{source} {name}<{t}, {cap} lanes, {rows} chunks>"
             print(f"ptxas {what}: {line.strip()}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             launched = not name.startswith("flash_general") or (t, cap) in (
@@ -1625,11 +1680,12 @@ def check_general_adaln(g, R, S, D, dtype, timed: bool = False):
         return records
     el, n, rows = x.element_size(), R * S * D, R * D
     lib_ms, r1_ms = mn_bwd_library_ms(g, R * S, D, dtype=dtype)
+    mn_lib_ms, mn_r1_ms = mn_fwd_library_ms(g, R * S, D, dtype=dtype)
     src = "orv_tpu_torch/ops/csrc/"
     for name, fn, args, bts, ops, source, replaces, err, plain, lib in (
             ("modulate_norm_general", adaln.modulate_norm, (x, scale, shift, ns, nb),
              2 * n * el + 2 * rows * el + 2 * D * 4, 10.0 * n, "adaln_general.cu", ":52",
-             errs[0][0], adaln.modulate_norm_plain, None),
+             errs[0][0], adaln.modulate_norm_plain, mn_lib_ms),
             ("modulate_norm_bwd_general", adaln.modulate_norm_bwd, (x, do, scale, ns),
              3 * n * el + rows * el + D * 4 + 2 * rows * 4, 16.0 * n, "adaln_general.cu", ":105",
              errs[1][0], adaln.modulate_norm_bwd_plain, lib_ms),
@@ -1649,7 +1705,19 @@ def check_general_adaln(g, R, S, D, dtype, timed: bool = False):
         if name == "modulate_norm_bwd_general":
             rec["library_note"] = (f"aten native_layer_norm_backward at the R = 1 form "
                                    f"[1,{R * S},{D}] in f32; the kernel there: {r1_ms:.4f} ms")
+        if name == "modulate_norm_general":
+            rec["library_note"] = (f"F.layer_norm at the R = 1 form [1,{R * S},{D}] in f32, the "
+                                   f"coefficients folded outside the timed call; the kernel "
+                                   f"there: {mn_r1_ms:.4f} ms")
         records.append(rec)
+    mn, gr = records[0], records[2]
+    print(f"time modulate_norm_general {dtype} [{R},{S},{D}]: {mn['ms']:.4f} ms, bound "
+          f"{mn['bound_ms']:.4f} ({100 * mn['bound_ms'] / mn['ms']:.1f}% of it), F.layer_norm at "
+          f"the R = 1 form {mn_lib_ms:.4f} (the kernel there {mn_r1_ms:.4f}); "
+          f"{general_mn_report(R, S, D, dtype)}", flush=True)
+    print(f"time gated_residual_general {dtype} [{R},{S},{D}]: {gr['ms']:.4f} ms, bound "
+          f"{gr['bound_ms']:.4f} ({100 * gr['bound_ms'] / gr['ms']:.1f}% of it), addcmul "
+          f"{gr['library_ms']:.4f}; {general_gr_report(R, S, D)}", flush=True)
     return records
 
 

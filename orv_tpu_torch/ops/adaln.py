@@ -210,6 +210,98 @@ def _check_general_modulate(name, x, scale, shift, norm_scale, norm_bias, *other
     _check_params(name, x, scale, shift, norm_scale, norm_bias)
 
 
+# the general adaLN forward (csrc/adaln_general.cu): a block of
+# GENERAL_FWD_WARPS warps takes rows of one row group; a lane holds 16-byte
+# chunks of a row in registers, up to GENERAL_COEF_COLS columns (past them,
+# the widest instance re-reads); the gated residual's f32 instance
+# (csrc/gated_residual.cu) runs blocks of GENERAL_GR_THREADS threads
+GENERAL_FWD_WARPS = 4
+GENERAL_COEF_COLS = 4096
+GENERAL_GR_THREADS = 256
+
+
+def modulate_norm_general_instance(D: int, dtype) -> tuple:
+    """(lanes a row, 16-byte chunks a lane holds in registers) of the general
+    adaLN forward's instance for rows of D elements of dtype (f32 or bf16),
+    as csrc/adaln_general.cu's `mn_fwd_instance` picks it: rows of up to 16
+    chunks (4 f32 or 8 bf16 elements each) take 4, 8 or 16 lanes and one
+    chunk a lane (several rows a warp), wider ones a warp and the fewest
+    chunks a lane, a power of two, that hold them, at most GENERAL_COEF_COLS
+    columns' worth (that instance re-reads the rest)."""
+    e = 4 if dtype == torch.float32 else 8
+    n = D // e
+    lanes = 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
+    held, most = 1, GENERAL_COEF_COLS // (32 * e)
+    while lanes == 32 and held < most and 32 * held < n:
+        held *= 2
+    return lanes, held
+
+
+def modulate_norm_general_plan(R: int, S: int, D: int, dtype) -> dict:
+    """The general adaLN forward's grid at [R, S, D], as csrc/adaln_general.cu
+    launches it: its instance's lanes and held chunks, the rows a block takes
+    (tile_rows: a row a warp, or 32 / lanes), tiles_per_group = ceil(S /
+    tile_rows) and blocks = R tiles_per_group."""
+    lanes, held = modulate_norm_general_instance(D, dtype)
+    tile = GENERAL_FWD_WARPS * 32 // lanes
+    tiles = -(-S // tile)
+    return dict(lanes=lanes, held=held, tile_rows=tile, tiles_per_group=tiles, blocks=R * tiles)
+
+
+def gated_residual_f32_plan(R: int, S: int, D: int, resident: int) -> dict:
+    """The gated residual's f32 launch at [R, S, D] on a card that holds
+    `resident` threads at once, as csrc/gated_residual.cu's `gr_f32_plan`
+    makes it: a thread owns a float4 column chunk of a row group and walks
+    its rows in steps of rows_a_step (m); m * D / 4 threads a group, the
+    fewest rows a thread (ceil(S / m)) that keep R m D / 4 within `resident`
+    (one wave; a row a step where R D / 4 alone fills it). Returns
+    rows_a_step, threads and blocks."""
+    d4 = D // 4
+    if R * d4 >= resident:
+        m = 1
+    else:
+        k = -(-R * S * d4 // resident)
+        m = -(-S // k)
+        while k < S and R * m * d4 > resident:
+            k += 1
+            m = -(-S // k)
+    threads = R * m * d4
+    return dict(rows_a_step=m, threads=threads, blocks=-(-threads // GENERAL_GR_THREADS))
+
+
+_MN_GENERAL_INFO_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_GR_F32_INFO_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _info(query, n: int, what: str) -> list:
+    out = torch.zeros(n, dtype=torch.int32)
+    _build.check(query(out.data_ptr()), what)
+    return [int(v) for v in out]
+
+
+def modulate_norm_general_info(R: int, S: int, D: int, dtype) -> dict:
+    """What a launch of the general adaLN forward at [R, S, D] in dtype takes
+    on the current card (csrc/adaln_general.cu's info entry point): the
+    instance's registers, local memory (spills and stack) a thread and
+    dynamic shared memory a block in bytes, its lanes and held chunks, and
+    the grid's tile_rows and blocks."""
+    got = _info(lambda out: _build.kernel("orv_modulate_norm_general_info", _MN_GENERAL_INFO_ARGS)(
+        R, S, D, int(dtype == torch.float32), out), 7, "modulate_norm_general info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "lanes", "held", "tile_rows",
+                     "blocks"), got))
+
+
+def gated_residual_general_info(R: int, S: int, D: int) -> dict:
+    """What a launch of the gated residual's f32 instance at [R, S, D] takes
+    on the current card (csrc/gated_residual.cu's info entry point): its
+    registers, local memory a thread and shared memory a block in bytes, the
+    blocks the card holds at once, and the plan's rows_a_step and blocks."""
+    got = _info(lambda out: _build.kernel("orv_gated_residual_f32_info", _GR_F32_INFO_ARGS)(
+        R, S, D, out), 6, "gated_residual_general info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "resident", "rows_a_step",
+                     "blocks"), got))
+
+
 _MN_GENERAL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_void_p] * 3
                     + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p])

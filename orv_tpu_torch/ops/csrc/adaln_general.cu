@@ -21,13 +21,32 @@
 //                   A[r] = sum_S dout, B[r] = sum_S dout * xhat (f32 [R, 2, D]);
 //   gated residual's backward: dy = T(gate[r] * dout), dgate[r] = sum_S dout * y.
 //
-// Bound on the H100: bytes (a few f32 operations an element). Design: a warp
-// a row for the row passes (the row read again from L1 for the variance and
-// the output, lanes on consecutive 16-byte chunks). The gated residual's
-// backward sums over S in two more launches, a thread a column summing a
-// chunk of rows in order into a partial, then each column's partials added
-// in chunk order. The adaLN backward is one cooperative launch that reads x
-// and dout once from device memory:
+// Bound on the H100: bytes (a few f32 operations an element). The forward
+// reads each row from device memory once (up to 4096 columns):
+// - a lane holds its 16-byte chunks of the row (4 f32 or 8 bf16, chunk q at
+//   lane q % 32) in registers, one instance a count of chunks a lane (1, 2,
+//   4, ... up to 4096 columns), all the row's loads issued before the first
+//   reduction; mean and variance in two passes over the registers, in the
+//   order of the first design (a lane's chunks in order, then the warp's
+//   butterfly), so that f32 rows give its bits; rows of up to 16 chunks
+//   take 4, 8 or 16 lanes each, several rows a warp (the PAB harness's
+//   D = 32); the widest instance re-reads the chunks past its registers in
+//   each pass;
+// - a block of kFwdWarps warps takes kFwdWarps rows (32 / lanes a warp in
+//   the narrow instances) of one row group: it stages ns, nb, scale[r] and
+//   shift[r] of the group once as f32 in shared memory (f32 and 16-byte
+//   aligned, as an f32 model's are: cp.async copies in flight beside the
+//   rows' loads, holding no registers; else one round trip of coalesced
+//   scalar loads before the rows', the dtype branch outside them), so that
+//   the output pass reads four 16-byte coefficient vectors a chunk and no
+//   parameter by a scalar load. Blocks of 4 warps timed as fast as blocks
+//   of 8, and faster than warps that walk two or more rows of a tile sized
+//   to fill the card in one wave (scripts/time_general_variants.py, PERF.md);
+// - x by streaming loads, out by streaming stores.
+// The gated residual's backward sums over S in two more launches, a thread a
+// column summing a chunk of rows in order into a partial, then each column's
+// partials added in chunk order. The adaLN backward is one cooperative
+// launch that reads x and dout once from device memory:
 // - a persistent grid (at most kBwdBlocksPerSm blocks a multiprocessor, all
 //   resident) over tiles of up to kTileRows rows of one row group r, block b
 //   walking tiles [b T / G, (b + 1) T / G) in order (the wrapper's plan,
@@ -60,7 +79,6 @@ namespace {
 using general::Elem;
 using general::ld_param;
 
-constexpr int kWarps = 8;          // rows a block in the forward's row pass
 constexpr int kColThreads = 256;   // columns a block in the column passes
 constexpr int kSumThreads = 256;   // outputs a block in the chunk sums
 // the adaLN backward: a block of kBwdThreads over tiles of up to kTileRows
@@ -73,49 +91,254 @@ constexpr int kChunks = 4;
 constexpr int kBwdBlocksPerSm = 2;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take
 
+// ---- the adaLN forward ----
+
+// 16 bytes of a row (4 f32 or 8 bf16 elements) as f32 and back, and their
+// sum in a fixed order
 template <typename T>
-__device__ __forceinline__ void row_stats(const T* __restrict__ xr, int d, int lane, float eps,
-                                          float& mean, float& inv) {
-  float sum = 0.0f;
-  for (int c = 4 * lane; c < d; c += 128) {
-    const float4 x = Elem<T>::ld4(xr + c);
-    sum += (x.x + x.y) + (x.z + x.w);
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int kE = 4;
+  static __device__ __forceinline__ void unpack(uint4 r, float (&v)[4]) {
+    v[0] = __uint_as_float(r.x), v[1] = __uint_as_float(r.y), v[2] = __uint_as_float(r.z),
+    v[3] = __uint_as_float(r.w);
   }
-  mean = general::warp_sum(sum) / d;
-  float sq = 0.0f;
-  for (int c = 4 * lane; c < d; c += 128) {
-    const float4 x = Elem<T>::ld4(xr + c);
-    const float a = x.x - mean, b = x.y - mean, e = x.z - mean, f = x.w - mean;
-    sq = fmaf(f, f, fmaf(e, e, fmaf(b, b, fmaf(a, a, sq))));
+  static __device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
   }
-  inv = rsqrtf(general::warp_sum(sq) / d + eps);
+  static __device__ __forceinline__ float sum(const float (&v)[4]) {
+    return (v[0] + v[1]) + (v[2] + v[3]);
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kE = 8;
+  static __device__ __forceinline__ void unpack(uint4 r, float (&v)[8]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ float sum(const float (&v)[8]) {
+    return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+  }
+};
+
+constexpr int kFwdWarps = 4;  // a block: warps over rows of one row group
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kCoefCols = 4096;  // columns whose coefficients a block holds in shared memory
+// chunks of a row a lane holds in registers in the largest instance: 4096 columns
+template <typename T>
+constexpr int kMaxHeld = kCoefCols / (32 * Chunk<T>::kE);
+
+// The forward's launch: block b takes the rows of tile b % tiles_per_group
+// of row group b / tiles_per_group, a tile the rows of one step of the block
+// (kFwdWarps 32 / lanes).
+struct MnFwd {
+  const void* x;
+  const void* scale;
+  const void* shift;
+  long v_stride;
+  const void* ns;
+  const void* nb;
+  void* out;
+  int s, d, tiles_per_group;
+  float eps;
+  int v_bf16, n_bf16;
+  int coef_async;  // the four coefficients f32 and 16-byte aligned: staged by cp.async
+};
+
+// ns, nb, scale[r] and shift[r] of columns [0, dc) as f32 into coef [4][dc]
+// by the block's threads. With p.coef_async, 16-byte cp.async copies that
+// hold no registers (the caller waits for them); else kPer columns of each
+// a thread a round, a round's loads (raw bits; the dtype branch outside
+// them) all issued before any is converted, so that it costs one round trip
+// to memory.
+template <int kPer>
+__device__ __forceinline__ void stage_coef(float* coef, const MnFwd& p, long vrow, int dc) {
+  const void* src[4] = {p.ns, p.nb, p.scale, p.shift};
+  const long off[4] = {0, 0, vrow, vrow};
+  const int bf[4] = {p.n_bf16, p.n_bf16, p.v_bf16, p.v_bf16};
+  if (p.coef_async) {
+    for (int c = 4 * threadIdx.x; c < dc; c += 4 * kFwdThreads)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        general::cp_async16(coef + k * dc + c, static_cast<const float*>(src[k]) + off[k] + c, 16);
+    general::cp_async_commit();
+    return;
+  }
+  for (int c0 = threadIdx.x; c0 < dc; c0 += kFwdThreads * kPer) {
+    uint32_t raw[4][kPer];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (bf[k]) {
+        const uint16_t* a = static_cast<const uint16_t*>(src[k]) + off[k];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int c = c0 + j * kFwdThreads;
+          raw[k][j] = c < dc ? (uint32_t)a[c] << 16 : 0u;
+        }
+      } else {
+        const uint32_t* a = static_cast<const uint32_t*>(src[k]) + off[k];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int c = c0 + j * kFwdThreads;
+          raw[k][j] = c < dc ? a[c] : 0u;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int c = c0 + j * kFwdThreads;
+        if (c < dc) coef[k * dc + c] = __uint_as_float(raw[k][j]);
+      }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-mn_general_fwd_kernel(const T* __restrict__ x, const void* scale, const void* shift,
-                      long v_stride, const void* ns, const void* nb, T* __restrict__ out,
-                      long rows, int s, int d, float eps, int v_bf16, int n_bf16) {
-  const long row = (long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;  // a whole warp
-  const T* xr = x + row * d;
-  const long vrow = (row / s) * v_stride;
-  float mean, inv;
-  row_stats(xr, d, lane, eps, mean, inv);
-  for (int c = 4 * lane; c < d; c += 128) {
-    const float4 xv = Elem<T>::ld4(xr + c);
-    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-    float o[4];
+// the sum over the kLanes lanes of a row (lanes kLanes i .. kLanes i + kLanes - 1)
+template <int kLanes>
+__device__ __forceinline__ float lanes_sum(float v) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float y = (xs[e] - mean) * inv;
-      y = y * ld_param(ns, c + e, n_bf16) + ld_param(nb, c + e, n_bf16);
-      o[e] = y * (1.0f + ld_param(scale, vrow + c + e, v_bf16)) +
-             ld_param(shift, vrow + c + e, v_bf16);
-    }
-    Elem<T>::st4(out + row * d + c, make_float4(o[0], o[1], o[2], o[3]));
+  for (int o = kLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// y of one element: the plain version's order (`* ns + nb`, then `* (1 + scale) + shift`)
+__device__ __forceinline__ float modulated(float x, float mean, float inv, float ns, float nb,
+                                           float scale, float shift) {
+  float y = (x - mean) * inv;
+  y = y * ns + nb;
+  return y * (1.0f + scale) + shift;
+}
+
+// kLanes lanes a row (32 / kLanes rows a warp), a lane holding kHeld 16-byte
+// chunks of its row in registers: chunk q = lane % kLanes + kLanes i
+// (columns kE q .. kE q + kE - 1). The instance with kMaxHeld chunks also
+// takes rows wider than 4096 columns, re-reading the chunks past its
+// registers in each pass (their coefficients from device memory).
+template <typename T, int kLanes, int kHeld>
+__global__ void __launch_bounds__(kFwdThreads, kHeld <= 16 ? 4 : 2)
+mn_general_fwd_kernel(const __grid_constant__ MnFwd p) {
+  using C = Chunk<T>;
+  constexpr int kE = C::kE, kStep = kFwdWarps * 32 / kLanes;
+  constexpr bool kWide = kLanes == 32 && kHeld == kMaxHeld<T>;
+  // columns a thread stages of each coefficient a round through registers:
+  // the widest row's share of the block's threads, at most 8
+  constexpr int kCols = kLanes * kHeld * kE < kCoefCols ? kLanes * kHeld * kE : kCoefCols;
+  constexpr int kShare = (kCols + kFwdThreads - 1) / kFwdThreads;
+  constexpr int kPer = kShare < 8 ? kShare : 8;
+  extern __shared__ __align__(16) float coef[];  // [4][dc]: ns, nb, scale[r], shift[r]
+  const int d = p.d, n = d / kE, dc = min(d, kCoefCols);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, sub = lane % kLanes;
+  const int r = blockIdx.x / p.tiles_per_group;
+  const int s0 = (blockIdx.x - r * p.tiles_per_group) * kStep, s1 = min(p.s, s0 + kStep);
+  const T* __restrict__ x = static_cast<const T*>(p.x) + (long)r * p.s * d;
+  T* __restrict__ out = static_cast<T*>(p.out) + (long)r * p.s * d;
+  const long vrow = (long)r * p.v_stride;
+  const int row = s0 + warp * (32 / kLanes) + lane / kLanes;  // the lane's row
+  const bool live = row < s1;
+  const T* xr = x + (long)row * d;
+
+  // the coefficients' copies and the row's loads in flight at once (the
+  // register route stages first: its registers and the row's never meet)
+  stage_coef<kPer>(coef, p, vrow, dc);
+  uint4 v[kHeld];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int q = sub + kLanes * i;
+    v[i] = live && q < n ? __ldcs(reinterpret_cast<const uint4*>(xr + q * kE))
+                         : make_uint4(0u, 0u, 0u, 0u);
   }
+  if (p.coef_async) general::cp_async_wait_all();
+  // f(q, e) over the lane's chunks past its registers (the wide instance's), read again
+  const auto past = [&](auto&& f) {
+    if (live)
+      for (int q = kWide ? sub + 32 * kHeld : n; q < n; q += 32) {
+        float e[kE];
+        C::unpack(*reinterpret_cast<const uint4*>(xr + q * kE), e);
+        f(q, e);
+      }
+  };
+
+  // mean and inv: two passes over the registers, as _modulated
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i)
+    if (sub + kLanes * i < n) {
+      float e[kE];
+      C::unpack(v[i], e);
+      sum += C::sum(e);
+    }
+  past([&](int, const float(&e)[kE]) { sum += C::sum(e); });
+  const float mean = lanes_sum<kLanes>(sum) / d;
+  float sq = 0.0f;
+  const auto dev = [&](int, const float(&e)[kE]) {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const float a = e[j] - mean;
+      sq = fmaf(a, a, sq);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i)
+    if (sub + kLanes * i < n) {
+      float e[kE];
+      C::unpack(v[i], e);
+      dev(0, e);
+    }
+  past(dev);
+  const float inv = rsqrtf(lanes_sum<kLanes>(sq) / d + p.eps);
+  __syncthreads();  // the staged coefficients, to every thread
+  if (!live) return;
+
+  // the row's output, by streaming stores
+  T* orow = out + (long)row * d;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int q = sub + kLanes * i, c = q * kE;
+    if (q >= n) continue;
+    float e[kE], o[kE];
+    C::unpack(v[i], e);
+#pragma unroll
+    for (int h = 0; h < kE; h += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(coef + c + h);
+      const float4 b = *reinterpret_cast<const float4*>(coef + dc + c + h);
+      const float4 s = *reinterpret_cast<const float4*>(coef + 2 * dc + c + h);
+      const float4 t = *reinterpret_cast<const float4*>(coef + 3 * dc + c + h);
+      o[h] = modulated(e[h], mean, inv, a.x, b.x, s.x, t.x);
+      o[h + 1] = modulated(e[h + 1], mean, inv, a.y, b.y, s.y, t.y);
+      o[h + 2] = modulated(e[h + 2], mean, inv, a.z, b.z, s.z, t.z);
+      o[h + 3] = modulated(e[h + 3], mean, inv, a.w, b.w, s.w, t.w);
+    }
+    __stcs(reinterpret_cast<uint4*>(orow + c), C::pack(o));
+  }
+  past([&](int q, const float(&e)[kE]) {
+    const int c = q * kE;
+    float o[kE];
+#pragma unroll
+    for (int j = 0; j < kE; ++j)
+      o[j] = modulated(e[j], mean, inv, ld_param(p.ns, c + j, p.n_bf16),
+                       ld_param(p.nb, c + j, p.n_bf16), ld_param(p.scale, vrow + c + j, p.v_bf16),
+                       ld_param(p.shift, vrow + c + j, p.v_bf16));
+    __stcs(reinterpret_cast<uint4*>(orow + c), C::pack(o));
+  });
 }
 
 // The adaLN backward's launch: tiles of `rows` rows of one row group, block b
@@ -401,8 +624,6 @@ bool takes(int r, int s, int d, int chunk_rows) {
   return takes_shape(r, s, d) && chunk_rows >= 1 && (s + chunk_rows - 1) / chunk_rows <= 65535;
 }
 
-dim3 row_grid(long rows) { return dim3((unsigned)((rows + kWarps - 1) / kWarps)); }
-
 dim3 col_grid(int r, int s, int d, int chunk_rows) {
   return dim3((d + kColThreads - 1) / kColThreads, (s + chunk_rows - 1) / chunk_rows, r);
 }
@@ -412,6 +633,65 @@ int chunk_sums(const float* part, float* sums, int r, int width, int n_chunks, c
   general_chunk_sums_kernel<<<(unsigned)((n + kSumThreads - 1) / kSumThreads), kSumThreads, 0,
                               st>>>(part, sums, r, width, n_chunks);
   return (int)cudaGetLastError();
+}
+
+// (lanes a row, chunks a lane) of the forward's instance for rows of d
+// elements of T (adaln.py's modulate_norm_general_instance mirrors this):
+// rows of up to 16 chunks take 4, 8 or 16 lanes and one chunk a lane, wider
+// ones a warp and the fewest chunks a lane, a power of two, that hold them
+// (kMaxHeld<T> past 4096 columns)
+template <typename T>
+void mn_fwd_instance(int d, int* lanes, int* held) {
+  const int n = d / Chunk<T>::kE;
+  *lanes = n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
+  *held = 1;
+  while (*lanes == 32 && *held < kMaxHeld<T> && 32 * *held < n) *held *= 2;
+}
+
+// The forward's instance <T, kLanes, kHeld> at p's [r, s, d]: launched on
+// st, or, with info, its attributes and grid into info (registers, local
+// bytes a thread, dynamic shared bytes a block, lanes, held, rows a block,
+// blocks).
+template <typename T, int kLanes, int kHeld>
+int mn_fwd_launch(MnFwd p, int r, cudaStream_t st, int* info) {
+  const auto kernel = mn_general_fwd_kernel<T, kLanes, kHeld>;
+  constexpr int kStep = kFwdWarps * 32 / kLanes;
+  p.tiles_per_group = (p.s + kStep - 1) / kStep;
+  const long blocks = (long)r * p.tiles_per_group;
+  const int smem = 16 * min(p.d, kCoefCols);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (info) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    if (err != cudaSuccess) return (int)err;
+    const int got[7] = {a.numRegs, (int)a.localSizeBytes, smem, kLanes, kHeld, kStep,
+                        (int)blocks};
+    for (int i = 0; i < 7; ++i) info[i] = got[i];
+    return 0;
+  }
+  kernel<<<(unsigned)blocks, kFwdThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int mn_fwd(const MnFwd& p, int r, cudaStream_t st, int* info) {
+  int lanes, held;
+  mn_fwd_instance<T>(p.d, &lanes, &held);
+  if (lanes == 4) return mn_fwd_launch<T, 4, 1>(p, r, st, info);
+  if (lanes == 8) return mn_fwd_launch<T, 8, 1>(p, r, st, info);
+  if (lanes == 16) return mn_fwd_launch<T, 16, 1>(p, r, st, info);
+  switch (held) {
+    case 1: return mn_fwd_launch<T, 32, 1>(p, r, st, info);
+    case 2: return mn_fwd_launch<T, 32, 2>(p, r, st, info);
+    case 4: return mn_fwd_launch<T, 32, 4>(p, r, st, info);
+    case 8: return mn_fwd_launch<T, 32, 8>(p, r, st, info);
+    case 16: return mn_fwd_launch<T, 32, 16>(p, r, st, info);
+    default: return mn_fwd_launch<T, 32, kMaxHeld<T>>(p, r, st, info);
+  }
 }
 
 // out[0]: the most rows a tile may have; out[1]: the blocks of the instance
@@ -460,24 +740,32 @@ int gr_bwd(const void* dout, const void* y, const void* gate, long g_stride, voi
 
 // x, out: [r, s, d] contiguous, 16-byte aligned, f32 if is_f32 else bf16;
 // scale, shift: [r, d] with row stride v_stride (bf16 if v_bf16 else f32);
-// ns, nb: [d] (bf16 if n_bf16 else f32). r, s >= 1, d % 8 == 0 (else
-// cudaErrorInvalidValue). Returns the launch's CUDA error.
+// ns, nb: [d] (bf16 if n_bf16 else f32). 1 <= r <= 65535, s >= 1, d % 8 ==
+// 0 (else cudaErrorInvalidValue). Returns the launch's CUDA error.
 extern "C" int orv_modulate_norm_general(const void* x, const void* scale, const void* shift,
                                          long v_stride, const void* ns, const void* nb, void* out,
                                          int r, int s, int d, float eps, int v_bf16, int n_bf16,
                                          int is_f32, void* stream) {
-  if (!takes(r, s, d, 1)) return (int)cudaErrorInvalidValue;
-  const long rows = (long)r * s;
+  if (!takes_shape(r, s, d)) return (int)cudaErrorInvalidValue;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(shift) |
+                       reinterpret_cast<uintptr_t>(ns) | reinterpret_cast<uintptr_t>(nb);
+  const int coef_async = !v_bf16 && !n_bf16 && v_stride % 4 == 0 && at % 16 == 0;
+  const MnFwd p{x, scale, shift, v_stride, ns, nb, out, s, d, 0, eps, v_bf16, n_bf16, coef_async};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (is_f32)
-    mn_general_fwd_kernel<float><<<row_grid(rows), kWarps * 32, 0, st>>>(
-        static_cast<const float*>(x), scale, shift, v_stride, ns, nb, static_cast<float*>(out),
-        rows, s, d, eps, v_bf16, n_bf16);
-  else
-    mn_general_fwd_kernel<__nv_bfloat16><<<row_grid(rows), kWarps * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), scale, shift, v_stride, ns, nb,
-        static_cast<__nv_bfloat16*>(out), rows, s, d, eps, v_bf16, n_bf16);
-  return (int)cudaGetLastError();
+  return is_f32 ? mn_fwd<float>(p, r, st, nullptr) : mn_fwd<__nv_bfloat16>(p, r, st, nullptr);
+}
+
+// The instance and grid a launch of orv_modulate_norm_general at [r, s, d]
+// (f32 if is_f32 else bf16) takes on the current card, into out[0..6]: its
+// registers a thread, local memory a thread in bytes (spills and stack),
+// dynamic shared memory a block in bytes, lanes a row, 16-byte chunks a
+// lane held in registers, rows a block, blocks launched. Returns the CUDA
+// error (cudaErrorInvalidValue for a shape the kernel does not take).
+extern "C" int orv_modulate_norm_general_info(int r, int s, int d, int is_f32, void* out) {
+  if (!takes_shape(r, s, d)) return (int)cudaErrorInvalidValue;
+  const MnFwd p{nullptr, nullptr, nullptr, 0, nullptr, nullptr, nullptr, s, d, 0, 0.0f, 0, 0, 1};
+  int* info = static_cast<int*>(out);
+  return is_f32 ? mn_fwd<float>(p, r, nullptr, info) : mn_fwd<__nv_bfloat16>(p, r, nullptr, info);
 }
 
 // limits[0]: the most rows a tile of the adaLN backward may have; limits[1]:

@@ -1,8 +1,7 @@
 // Element access and reductions of the general kernels: flash_attn_general.cu,
-// flash_attn_general_bwd.cu, adaln_general.cu and gated_residual.cu's f32
-// instance. Each kernel is a template on its element type T (float or
-// __nv_bfloat16) and computes in f32; Elem<T> converts on the way in and
-// rounds once on the way out. The attention kernels' register tiling (an
+// flash_attn_general_bwd.cu and adaln_general.cu. Each kernel is a template
+// on its element type T (float or __nv_bfloat16) and computes in f32; Elem<T>
+// converts on the way in and rounds once on the way out. The attention kernels' register tiling (an
 // SGEMM's: a lane's 8 x 8 tile of a product, f32 FMAs, each element summed
 // in a fixed order) shares its copies and loops below.
 

@@ -1,10 +1,12 @@
 """Times the general kernels an f32 model spends most in: the attention
 forward (orv_tpu_torch/ops/csrc/flash_attn_general.cu, both softmax modes),
-the attention backward's dq and dk/dv (flash_attn_general_bwd.cu) and the
-adaLN backward (adaln_general.cu), in f32 at the f32 fine-tune's shapes, for
-this checkout and for other checkouts, in turns on one card.
+the attention backward's dq and dk/dv (flash_attn_general_bwd.cu), the adaLN
+backward and forward (adaln_general.cu) and the gated residual's f32
+instance (gated_residual.cu), in f32 at the f32 fine-tune's shapes, for this
+checkout and for other checkouts, in turns on one card.
 
     python3 scripts/time_general_kernels.py [--against NAME=DIR ...] [--rounds 1] [--f32-train N]
+        [--only attention adaln_bwd adaln_fwd]
 
 Each checkout ("change" for this one, NAME for each --against DIR, e.g. a
 parent commit unpacked with `git archive`) runs in a process of its own, its
@@ -31,16 +33,33 @@ from one seed:
   second run, timed beside its bound (bytes at 3.35 TB/s) and ATen's
   LayerNorm backward at the R = 1 form [1,3000,1920] (chip_smoke.py's
   `mn_bwd_library_ms`, which also times the kernel there);
+- the adaLN forward at [5,600,1920] and at the PAB harness's video stream
+  [2,96,32] (rows 32 wide), and the gated residual's f32 instance at
+  [5,600,1920] and at the text stream's [1,226,1920] (its gate a row-strided
+  chunk of [R, 3D], as the modulation linear leaves it): against their
+  plain versions (the forward within 1e-4 of its range, the gated residual
+  bitwise) and bitwise on a second run, timed beside their bounds (bytes at
+  3.35 TB/s) and their yardsticks: addcmul for the gated residual,
+  F.layer_norm at the forward's R = 1 form [1,3000,1920] (chip_smoke.py's
+  `mn_fwd_library_ms`: the coefficients folded into one weight and bias
+  outside the timed call; it also times the kernel there); then the bf16
+  Hopper forward (row 6) at the flagship's [13,600,1920] and F.layer_norm at
+  its R = 1 form [1,7800,1920] in bf16; where the checkout reports them, the
+  launched instances and plans (chip_smoke.py's `general_mn_report`,
+  `general_gr_report`);
 - with --f32-train N, N runs of chip_smoke.py's phase 5b (`f32_train_phase`:
   pipelines/train.py:train with train.mixed_precision=no on the 2B recipe
   at full width, B=1 x 2 micro-steps, phase 5's seeded data), each one's s
   an optimizer step (the tracker's s_per_it summed over its micro-steps).
 Times are chip_smoke.py's `device_ms` (calls in one CUDA graph, inputs
-rotated past the L2). The last lines compare the outputs across every run:
-the backward's bitwise (its inputs and kernels are the same), the forward's
-and the adaLN backward's within 1e-4 of the first run's range (a checkout
-may sum in another order); then each kernel's median per checkout, the
-ratios to this checkout, and the card's name and power limit.
+rotated past the L2). --only runs some of the three groups (attention,
+adaln_bwd, adaln_fwd: the adaLN forward, the gated residual and row 6). The
+last lines compare the outputs across every run: the attention backward's
+and the gated residual's bitwise (their inputs and arithmetic are the
+same), the attention forward's and the adaLN backward's within 1e-4 of the
+first run's range (a checkout may sum in another order), the adaLN
+forward's within 1e-6; then each kernel's median per checkout, the ratios
+to this checkout, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -65,15 +84,22 @@ PEAK_BYTES = 3.35e12  # device memory, bytes/s
 SHAPES = (("training", (1, 30, 3226, 64), 3226, (24.0, None), False),
           ("ring", (1, 30, 226, 64), 1950, (None,), True))
 ADALN_SHAPE = (5, 600, 1920)
+MN_SHAPES = ((5, 600, 1920), (2, 96, 32))  # the adaLN forward, f32
+GR_SHAPES = ((5, 600, 1920), (1, 226, 1920))  # the gated residual, f32
+ROW6_SHAPE = (13, 600, 1920)  # the bf16 Hopper forward at the flagship
+GROUPS = ("attention", "adaln_bwd", "adaln_fwd")
 LAUNCHED = re.compile(r"(flash_general_\w+?_kernel)IfLi64E(?:Lb([01])E)?(?:Li(\d+)E)?|"
-                      r"(mn_general_bwd\w*?_kernel)IfE|(general_chunk_sums_kernel)")
-SOURCES = ("flash_attn_general.cu", "flash_attn_general_bwd.cu", "adaln_general.cu")
+                      r"(mn_general_bwd\w*?_kernel)IfE|(general_chunk_sums_kernel)|"
+                      r"(mn_general_fwd_kernel)IfLi(\d+)ELi(\d+)E|(gr_general_fwd_kernel)")
+SOURCES = ("flash_attn_general.cu", "flash_attn_general_bwd.cu", "adaln_general.cu",
+           "gated_residual.cu")
 
 
 def ptxas_lines(log: str) -> list:
     """The ptxas lines (registers, shared memory, spills) of the f32
-    instances the script launches (attention at capacity 64, the adaLN
-    backward's kernels) in a build log, each after its instance's name."""
+    instances the script may launch (attention at capacity 64, the adaLN
+    backward's kernels, every f32 instance of the adaLN forward, the gated
+    residual's f32 kernel) in a build log, each after its instance's name."""
     out, source, kernel = [], None, None
     for line in log.splitlines():
         if line.startswith("== "):
@@ -83,7 +109,9 @@ def ptxas_lines(log: str) -> list:
             mode = {"0": ", static max", "1": ", online"}.get(m and m.group(2), "")
             mode += f", {m.group(3)} rows" if m and m.group(3) else ""
             kernel = m and (f"{m.group(1)}<f32, 64{mode}>" if m.group(1) else
-                            f"{m.group(4)}<f32>" if m.group(4) else m.group(5))
+                            f"{m.group(4)}<f32>" if m.group(4) else
+                            f"{m.group(6)}<f32, {m.group(7)} lanes, {m.group(8)} chunks>"
+                            if m.group(6) else m.group(5) or m.group(9))
         elif kernel and re.search(r"registers|spill", line):
             out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -122,10 +150,11 @@ def sdpa_backward_ms(cs, q, k, v, do) -> float:
     return ms
 
 
-def time_tree(tree: Path, name: str, work: Path, out_path: Path, f32_train: int) -> None:
-    """One checkout's checks and times (run in a process of its own); its
-    outputs go to `out_path`, the backward's saved inputs to (or, after the
-    first run, from) `work`."""
+def time_tree(tree: Path, name: str, work: Path, out_path: Path, f32_train: int,
+              only: tuple) -> None:
+    """One checkout's checks and times of the groups in `only` (run in a
+    process of its own); its outputs go to `out_path`, the backward's saved
+    inputs to (or, after the first run, from) `work`."""
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -140,11 +169,11 @@ def time_tree(tree: Path, name: str, work: Path, out_path: Path, f32_train: int)
     for line in ptxas_lines(_build.build_log):
         print(f"{name} ptxas {line}", flush=True)
     f32 = torch.float32
-    if hasattr(attention, "general_fwd_instance"):
+    if hasattr(attention, "general_fwd_instance") and "attention" in only:
         for online in (False, True):
             print(f"{name} launched instance: {cs.general_fwd_report(f32, 64, online)}",
                   flush=True)
-    if hasattr(attention, "general_bwd_instance"):
+    if hasattr(attention, "general_bwd_instance") and "attention" in only:
         for kname in ("dq", "dkv"):
             print(f"{name} launched instance: {cs.general_bwd_report(kname, f32, 64)}",
                   flush=True)
@@ -156,7 +185,7 @@ def time_tree(tree: Path, name: str, work: Path, out_path: Path, f32_train: int)
         print(f"{name} time {key}: {ms:.4f} ms of device time a call, bound {bound:.4f} "
               f"({100 * bound / ms:.1f}% of it); {lib_name} {lib:.4f}", flush=True)
 
-    for label, (B, H, sq, dh), skv, modes, with_dlse in SHAPES:
+    for label, (B, H, sq, dh), skv, modes, with_dlse in SHAPES if "attention" in only else ():
         q, do = (torch.randn(B, H, sq, dh, device="cuda", generator=g) for _ in range(2))
         k, v = (torch.randn(B, H, skv, dh, device="cuda", generator=g) for _ in range(2))
         dlse = torch.randn(B, H, sq, device="cuda", generator=g) if with_dlse else None
@@ -214,29 +243,32 @@ def time_tree(tree: Path, name: str, work: Path, out_path: Path, f32_train: int)
         del q, k, v, do, out, lse, got, again, want, delta
         torch.cuda.empty_cache()
 
-    R, S, D = ADALN_SHAPE
-    x, do, _, scale, _, _, ns, _ = cs.general_adaln_inputs(g, R, S, D, f32)
-    got = adaln.modulate_norm_bwd(x, do, scale, ns)
-    again = adaln.modulate_norm_bwd(x, do, scale, ns)
-    want = adaln.modulate_norm_bwd_plain(x, do, scale, ns)
-    errs = {n: cs.within_range(a, b) for n, a, b in zip(("dx", "A", "B"), got, want)}
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    result["ok"] &= same and all(e[2] for e in errs.values())
-    print(f"{name} adaLN backward f32 [{R},{S},{D}]: " + ", ".join(
-        f"{n} max_abs_err {e[0]:.3g} (range {e[1]:.3g}, tol 1e-4 of it)" for n, e in
-        errs.items()) + f"; a second run bitwise equal {same}", flush=True)
-    saved.update({f"adaln_{n}": t.cpu().numpy() for n, t in zip(("dx", "A", "B"), got)})
-    n = R * S * D
-    bound = (3 * n * 4 + R * D * 4 + D * 4 + 2 * R * D * 4) / PEAK_BYTES * 1e3  # as phase 2's
-    aten_ms, r1_ms = cs.mn_bwd_library_ms(g, R * S, D, dtype=f32)
-    ms = cs.call_ms(f"{name} adaLN backward", adaln.modulate_norm_bwd, (x, do, scale, ns), 50)
-    record("adaLN backward", ms, bound, aten_ms,
-           f"ATen's LayerNorm backward at the R = 1 form [1,{R * S},{D}] (the kernel there "
-           f"{r1_ms:.4f})")
-    result["kernels"]["adaLN backward at R = 1"] = dict(ms=r1_ms, bound_ms=bound, lib_ms=aten_ms,
-                                                        lib="ATen")
-    del x, do, scale, ns, got, again, want
-    torch.cuda.empty_cache()
+    if "adaln_bwd" in only:
+        R, S, D = ADALN_SHAPE
+        x, do, _, scale, _, _, ns, _ = cs.general_adaln_inputs(g, R, S, D, f32)
+        got = adaln.modulate_norm_bwd(x, do, scale, ns)
+        again = adaln.modulate_norm_bwd(x, do, scale, ns)
+        want = adaln.modulate_norm_bwd_plain(x, do, scale, ns)
+        errs = {n: cs.within_range(a, b) for n, a, b in zip(("dx", "A", "B"), got, want)}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        result["ok"] &= same and all(e[2] for e in errs.values())
+        print(f"{name} adaLN backward f32 [{R},{S},{D}]: " + ", ".join(
+            f"{n} max_abs_err {e[0]:.3g} (range {e[1]:.3g}, tol 1e-4 of it)" for n, e in
+            errs.items()) + f"; a second run bitwise equal {same}", flush=True)
+        saved.update({f"adaln_{n}": t.cpu().numpy() for n, t in zip(("dx", "A", "B"), got)})
+        n = R * S * D
+        bound = (3 * n * 4 + R * D * 4 + D * 4 + 2 * R * D * 4) / PEAK_BYTES * 1e3  # as phase 2's
+        aten_ms, r1_ms = cs.mn_bwd_library_ms(g, R * S, D, dtype=f32)
+        ms = cs.call_ms(f"{name} adaLN backward", adaln.modulate_norm_bwd, (x, do, scale, ns), 50)
+        record("adaLN backward", ms, bound, aten_ms,
+               f"ATen's LayerNorm backward at the R = 1 form [1,{R * S},{D}] (the kernel there "
+               f"{r1_ms:.4f})")
+        result["kernels"]["adaLN backward at R = 1"] = dict(ms=r1_ms, bound_ms=bound,
+                                                            lib_ms=aten_ms, lib="ATen")
+        del x, do, scale, ns, got, again, want
+        torch.cuda.empty_cache()
+    if "adaln_fwd" in only:
+        adaln_forward_times(name, cs, g, record, result, saved)
     result["f32_train"] = []
     if f32_train:
         root = Path(tempfile.mkdtemp(dir=work, prefix=f"train_{name}_"))
@@ -252,27 +284,98 @@ def time_tree(tree: Path, name: str, work: Path, out_path: Path, f32_train: int)
     print("RESULT " + json.dumps(result), flush=True)
 
 
+def adaln_forward_times(name, cs, g, record, result, saved) -> None:
+    """The adaLN forward (MN_SHAPES) and the gated residual's f32 instance
+    (GR_SHAPES) checked, saved and timed beside their bounds and yardsticks;
+    row 6 and its F.layer_norm at the R = 1 form in bf16 (time_tree's
+    `record`, `result` and `saved`)."""
+    import torch
+
+    from orv_tpu_torch.ops import adaln
+
+    f32 = torch.float32
+    reports = hasattr(adaln, "modulate_norm_general_info")
+    for R, S, D in MN_SHAPES:
+        x, _, _, scale, shift, _, ns, nb = cs.general_adaln_inputs(g, R, S, D, f32)
+        out = adaln.modulate_norm(x, scale, shift, ns, nb)
+        again = adaln.modulate_norm(x, scale, shift, ns, nb)
+        err, span, ok = cs.within_range(out, adaln.modulate_norm_plain(x, scale, shift, ns, nb))
+        same = torch.equal(out, again)
+        result["ok"] &= ok and same
+        print(f"{name} adaLN forward f32 [{R},{S},{D}]: max_abs_err {err:.3g} (range {span:.3g}, "
+              f"tol 1e-4 of it); a second run bitwise equal {same}", flush=True)
+        if reports:
+            print(f"{name} launched instance: {cs.general_mn_report(R, S, D, f32)}", flush=True)
+        saved[f"mn_{R}x{S}x{D}"] = out.cpu().numpy()
+        n = R * S * D
+        bound = (2 * n * 4 + 2 * R * D * 4 + 2 * D * 4) / PEAK_BYTES * 1e3  # as phase 2's
+        ms = cs.call_ms(f"{name} adaLN forward", adaln.modulate_norm, (x, scale, shift, ns, nb),
+                        50)
+        if R * S == 3000:
+            lib_ms, r1_ms = cs.mn_fwd_library_ms(g, R * S, D, dtype=f32)
+            record(f"adaLN forward [{R},{S},{D}]", ms, bound, lib_ms,
+                   f"F.layer_norm at the R = 1 form [1,{R * S},{D}] (the kernel there "
+                   f"{r1_ms:.4f})")
+            result["kernels"]["adaLN forward at R = 1"] = dict(ms=r1_ms, bound_ms=bound,
+                                                               lib_ms=lib_ms, lib="F.layer_norm")
+        else:
+            record(f"adaLN forward [{R},{S},{D}]", ms, bound, float("nan"), "no yardstick")
+    for R, S, D in GR_SHAPES:
+        x, _, y, _, _, gate, _, _ = cs.general_adaln_inputs(g, R, S, D, f32)
+        out = adaln.gated_residual(x, y, gate)
+        again = adaln.gated_residual(x, y, gate)
+        err = cs.max_err(out, adaln.gated_residual_plain(x, y, gate))
+        same = torch.equal(out, again)
+        result["ok"] &= err == 0.0 and same
+        print(f"{name} gated residual f32 [{R},{S},{D}]: max_abs_err {err:.3g} (tol 0); a "
+              f"second run bitwise equal {same}", flush=True)
+        if reports:
+            print(f"{name} launched instance: {cs.general_gr_report(R, S, D)}", flush=True)
+        saved[f"gr_{R}x{S}x{D}"] = out.cpu().numpy()
+        bound = (3 * R * S * D * 4 + R * D * 4) / PEAK_BYTES * 1e3  # as phase 2's
+        ms = cs.call_ms(f"{name} gated residual", adaln.gated_residual, (x, y, gate), 50)
+        record(f"gated residual [{R},{S},{D}]", ms, bound,
+               cs.call_ms("addcmul", cs.addcmul, (x, y, gate), 50), "addcmul")
+    R, S, D = ROW6_SHAPE
+    bf16 = torch.bfloat16
+    x, _, _, scale, shift, _, ns, nb = cs.general_adaln_inputs(g, R, S, D, bf16)
+    ms = cs.call_ms(f"{name} row 6", adaln.modulate_norm, (x, scale, shift, ns, nb), 50)
+    bound = (2 * R * S * D * 2 + 2 * R * D * 2 + 2 * D * 4) / PEAK_BYTES * 1e3
+    lib_ms, r1_ms = cs.mn_fwd_library_ms(g, R * S, D, dtype=bf16)
+    record(f"row 6 bf16 [{R},{S},{D}]", ms, bound, lib_ms,
+           f"F.layer_norm bf16 at the R = 1 form [1,{R * S},{D}] (the kernel there {r1_ms:.4f})")
+    torch.cuda.empty_cache()
+
+
 def compare(outs) -> bool:
-    """The outputs of every run against the first's: the backward's bitwise,
-    the forward's and the adaLN backward's within 1e-4 of the first run's
-    range (lse within 1e-4). Prints one line a kind; returns whether all
-    hold."""
+    """The outputs of every run against the first's: the attention
+    backward's and the gated residual's bitwise, the attention forward's and
+    the adaLN backward's within 1e-4 of the first run's range (lse within
+    1e-4), the adaLN forward's within 1e-6. Prints one line a kind; returns
+    whether all hold."""
     import numpy as np
 
     first = np.load(outs[0][1])
     ok = True
-    for kind, keys in (("the backward (bitwise)", [k for k in first.files if "_bwd_" in k]),
-                       ("the forward (1e-4 of the range; lse 1e-4)",
-                        [k for k in first.files if "_fwd_" in k]),
-                       ("the adaLN backward (1e-4 of the range)",
-                        [k for k in first.files if k.startswith("adaln_")])):
+    for kind, keys, rel in (
+            ("the backward (bitwise)", [k for k in first.files if "_bwd_" in k], 0.0),
+            ("the forward (1e-4 of the range; lse 1e-4)",
+             [k for k in first.files if "_fwd_" in k], 1e-4),
+            ("the adaLN backward (1e-4 of the range)",
+             [k for k in first.files if k.startswith("adaln_")], 1e-4),
+            ("the adaLN forward (1e-6 of the range)",
+             [k for k in first.files if k.startswith("mn_")], 1e-6),
+            ("the gated residual (bitwise)", [k for k in first.files if k.startswith("gr_")],
+             0.0)):
+        if not keys:
+            continue
         worst, holds = {}, []
         for nm, o in outs[1:]:
             b = np.load(o)
             for k in keys:
                 diff = float(np.abs(b[k].astype(np.float64) - first[k]).max())
                 span = float(first[k].max() - first[k].min())
-                tol = 0.0 if "_bwd_" in k else (1e-4 if k.endswith("_lse") else 1e-4 * span)
+                tol = 1e-4 if k.endswith("_lse") else rel * span
                 worst[k] = max(worst.get(k, 0.0), diff / (span or 1.0))
                 holds.append(diff <= tol)
         ok &= all(holds)
@@ -289,13 +392,16 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--f32-train", type=int, default=0, metavar="N",
                     help="runs of phase 5b (the f32 train) a checkout's process")
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=list(GROUPS),
+                    help="the groups of kernels to run (all by default)")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     ap.add_argument("--name", help=argparse.SUPPRESS)
     ap.add_argument("--work", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if opts.tree:
-        time_tree(Path(opts.tree), opts.name, Path(opts.work), Path(opts.out), opts.f32_train)
+        time_tree(Path(opts.tree), opts.name, Path(opts.work), Path(opts.out), opts.f32_train,
+                  tuple(opts.only))
         return 0
     import torch
 
@@ -321,7 +427,7 @@ def main() -> int:
                 outs.append((nm, out))
                 p = subprocess.run([sys.executable, __file__, "--tree", str(trees[nm]), "--name",
                                     nm, "--work", str(work), "--out", str(out), "--f32-train",
-                                    str(opts.f32_train)], env=env,
+                                    str(opts.f32_train), "--only", *opts.only], env=env,
                                    cwd=str(trees[nm]), stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True, timeout=900)
                 for line in p.stdout.splitlines():
@@ -346,7 +452,7 @@ def main() -> int:
                   f", bound {runs[0]['kernels'][k]['bound_ms']:.4f}, {runs[0]['kernels'][k]['lib']}"
                   f" {statistics.median(lib):.4f} ({', '.join(f'{x:.4f}' for x in lib)})",
                   flush=True)
-        for label, *_ in SHAPES:
+        for label, *_ in SHAPES if "attention" in opts.only else ():
             pair = medians[nm, f"dq {label}"] + medians[nm, f"dkv {label}"]
             print(f"median {nm} dq + dk/dv {label}: {pair:.4f} ms", flush=True)
         steps = [x for r in runs for x in r["f32_train"]]

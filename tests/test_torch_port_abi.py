@@ -32,7 +32,8 @@ ENTRY_POINTS = ("orv_flash_attn_static_max", "orv_flash_attn_online", "orv_flash
                 "orv_flash_attn_general_bwd_info", "orv_flash_attn_general_info",
                 "orv_modulate_norm_general", "orv_modulate_norm_bwd_general",
                 "orv_modulate_norm_bwd_general_limits",
-                "orv_gated_residual_f32", "orv_gated_residual_bwd_general")
+                "orv_gated_residual_f32", "orv_gated_residual_bwd_general",
+                "orv_modulate_norm_general_info", "orv_gated_residual_f32_info")
 _DECL = re.compile(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(orv_\w+)\s*\(([^)]*)\)', re.S)
 
 

@@ -843,19 +843,30 @@ def _adaln_counts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 8), (torch.float32, 32), (torch.float32, 40),
-                                     (torch.float32, 1920), (torch.float32, 3072),
-                                     (torch.float32, 4104), (torch.float32, 19368),
-                                     (torch.bfloat16, 32), (torch.bfloat16, 40),
-                                     (torch.bfloat16, 4224)])
-@pytest.mark.parametrize("R,S", [(1, 1), (1, 37), (3, 37), (5, 65)])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 8), (torch.float32, 16), (torch.float32, 24),
+                                     (torch.float32, 32), (torch.float32, 40),
+                                     (torch.float32, 64), (torch.float32, 72),
+                                     (torch.float32, 128), (torch.float32, 136),
+                                     (torch.float32, 256), (torch.float32, 264),
+                                     (torch.float32, 1920), (torch.float32, 2048),
+                                     (torch.float32, 2056), (torch.float32, 3072),
+                                     (torch.float32, 4096), (torch.float32, 4104),
+                                     (torch.float32, 19368), (torch.bfloat16, 32),
+                                     (torch.bfloat16, 40), (torch.bfloat16, 64),
+                                     (torch.bfloat16, 72), (torch.bfloat16, 136),
+                                     (torch.bfloat16, 4104), (torch.bfloat16, 4224)])
+@pytest.mark.parametrize("R,S", [(1, 1), (1, 5), (1, 9), (1, 17), (2, 33), (1, 37), (3, 37),
+                                 (5, 65)])
 def test_cuda_general_adaln_matches_plain(cuda, R, S, dtype, D):
     """The general adaLN forward and backward (f32 at any D % 8, bf16 where
     the Hopper kernels stop), and the gated residual's f32 instance and
-    general backward, each one launch against its plain version; S across
-    the adaLN backward's 2-row tiles and the gated residual's 32-row chunks
-    of the sums over S; at D 19368 the adaLN backward keeps its sums in
-    device memory (12 D bytes no longer fit in shared memory); the
+    general backward, each one launch against its plain version; D on either
+    side of each forward instance's edge (lanes 4 / 8 / 16 / 32, then 1, 2,
+    ... chunks a lane) and past the widest (4096 columns); S one past a
+    block's rows at 32, 16, 8 and 4 lanes a row (5, 9, 17, 33), and
+    across the adaLN backward's 2-row tiles and the gated residual's 32-row
+    chunks of the sums over S; at D 19368 the adaLN backward keeps its sums
+    in device memory (12 D bytes no longer fit in shared memory); the
     backwards twice, bitwise."""
     g = torch.Generator(device=cuda).manual_seed(R * S + D)
     x = (2 * torch.randn(R, S, D, device=cuda, generator=g) + 0.3).to(dtype)
@@ -891,6 +902,81 @@ def test_cuda_general_adaln_matches_plain(cuda, R, S, dtype, D):
         assert torch.equal(again[0], dy) and torch.equal(again[1], dgate)
         assert _adaln_counts()[2:4] == (before[2] + 1, before[3] + 2)
     assert _adaln_counts()[4:] == before[4:]
+
+
+def _general_fwd_inputs(g, R, S, D, dtype, v_dtype=None):
+    """x [R, S, D] in dtype; scale and shift row-strided chunks of [R, 3D]
+    in v_dtype (dtype by default); f32 ns, nb."""
+    x = (2 * torch.randn(R, S, D, device=g.device, generator=g) + 0.3).to(dtype)
+    shift, scale, _ = (0.3 * torch.randn(R, 3 * D, device=g.device, generator=g)).to(
+        v_dtype or dtype).chunk(3, dim=-1)
+    ns = 1 + 0.1 * torch.randn(D, device=g.device, generator=g)
+    nb = 0.1 * torch.randn(D, device=g.device, generator=g)
+    return x, scale, shift, ns, nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 1920), (torch.float32, 32),
+                                     (torch.float32, 4096), (torch.float32, 4104),
+                                     (torch.bfloat16, 128), (torch.bfloat16, 256),
+                                     (torch.bfloat16, 2048), (torch.bfloat16, 2176),
+                                     (torch.bfloat16, 4096), (torch.bfloat16, 4104)])
+@pytest.mark.parametrize("R,S0", [(5, 600), (1, 226), (13, 600), (2, 96)])
+def test_cuda_general_forward_plan_and_runs(cuda, R, S0, dtype, D):
+    """The general adaLN forward called directly (bf16 also at D % 128 == 0,
+    which `modulate_norm` sends to the Hopper kernel): the C side's instance
+    and grid (`modulate_norm_general_info`) are `modulate_norm_general_plan`'s;
+    the instance does not spill; at S0, at one row past a block's rows (a
+    last tile of one row) and at S = 1, the output agrees with the plain
+    version (f32 within 1e-4 of its range, bf16 one rounding) and a second
+    run gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(R * S0 + D)
+    tile = adaln.modulate_norm_general_plan(R, S0, D, dtype)["tile_rows"]
+    for S in (S0, tile * (S0 // tile) + 1, 1):
+        info = adaln.modulate_norm_general_info(R, S, D, dtype)
+        plan = adaln.modulate_norm_general_plan(R, S, D, dtype)
+        assert {k: info[k] for k in ("lanes", "held", "tile_rows", "blocks")} == {
+            k: plan[k] for k in ("lanes", "held", "tile_rows", "blocks")}, (S, info, plan)
+        assert info["local_bytes"] == 0, info
+        x, scale, shift, ns, nb = _general_fwd_inputs(g, R, S, D, dtype)
+        before = adaln.modulate_norm_general.launches
+        out = adaln.modulate_norm_general(x, scale, shift, ns, nb, 1e-5)
+        again = adaln.modulate_norm_general(x, scale, shift, ns, nb, 1e-5)
+        assert adaln.modulate_norm_general.launches == before + 2
+        ref = adaln.modulate_norm_plain(x, scale, shift, ns, nb)
+        assert out.dtype == dtype and torch.equal(out, again), S
+        assert (_within_range(out, ref) if dtype == torch.float32
+                else torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=1e-2)), S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,S,D", [(1, 226, 1920), (2, 226, 1920), (5, 600, 1920),
+                                   (1, 300, 1920), (5, 601, 1920), (3, 37, 40), (1, 1, 8),
+                                   (300, 3, 4096)])
+def test_cuda_general_gated_residual_plan_and_runs(cuda, R, S, D, v_dtype):
+    """The gated residual's f32 instance with a row-strided gate (a chunk of
+    [R, 3D]) in f32 or bf16: the C side's plan (`gated_residual_general_info`)
+    is `gated_residual_f32_plan`'s for the card's resident threads, the
+    kernel does not spill, and its output equals the plain version's bits
+    (the same two roundings), twice. The shapes: the text stream's, the
+    training shape (11 rows a thread: two steps of 4 and a tail of 3), 300
+    rows (2 a thread, a tail alone), S = 1, and R D / 4 past the card's
+    threads (a row a step)."""
+    g = torch.Generator(device=cuda).manual_seed(R * S + D)
+    info = adaln.gated_residual_general_info(R, S, D)
+    plan = adaln.gated_residual_f32_plan(R, S, D, info["resident"] * adaln.GENERAL_GR_THREADS)
+    assert (info["rows_a_step"], info["blocks"]) == (plan["rows_a_step"], plan["blocks"]), (
+        info, plan)
+    assert info["local_bytes"] == 0, info
+    x, y = (torch.randn(R, S, D, device=cuda, generator=g) for _ in range(2))
+    gate = (0.3 * torch.randn(R, 3 * D, device=cuda, generator=g)).to(v_dtype)[:, D:2 * D]
+    before = adaln.gated_residual_general.launches
+    out = adaln.gated_residual(x, y, gate)
+    again = adaln.gated_residual(x, y, gate)
+    assert adaln.gated_residual_general.launches == before + 2
+    torch.testing.assert_close(out, adaln.gated_residual_plain(x, y, gate), atol=0, rtol=0)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
