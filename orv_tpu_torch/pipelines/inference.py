@@ -7,9 +7,9 @@ DemoRobotDataset (folder-per-episode raw frames):
   python -m orv_tpu_torch.pipelines.inference --demo_root data/demo \\
       --transformer_path <diffusers transformer folder> --vae_path <diffusers vae folder>
 
-Without a transformer it runs a tiny random model (smoke mode). Its heads
-are 64 wide, not the JAX smoke model's 16, because the card's attention
-kernels take head dim 64 only; without a VAE, a random full-size VAE.
+Without a transformer it runs the JAX package's tiny random model (smoke
+mode: 4 heads of 16, which the card runs on the general attention kernels);
+without a VAE, a random full-size VAE.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ from orv_tpu_torch.utils.checkpoint import has_pretrained, load_pretrained
 from orv_tpu_torch.utils.device import DeviceLike, resolve_device
 from orv_tpu_torch.utils.logging import CONSOLE
 
-# the smoke mode's random model: the JAX package's, with 64-wide heads
-SMOKE_DIT = DiTConfig(num_attention_heads=2, attention_head_dim=64, num_layers=2,
+# the smoke mode's random model: the JAX package's (orv_tpu/pipelines/inference.py)
+SMOKE_DIT = DiTConfig(num_attention_heads=4, attention_head_dim=16, num_layers=2,
                       in_channels=32, out_channels=16, text_embed_dim=32, time_embed_dim=64,
                       max_text_seq_length=8)
 

@@ -302,10 +302,33 @@ def test_generate_video_matches_jax(setup):
     assert_latents_close(got, np.asarray(want))
 
 
-def test_inference_main_smoke_mode(tmp_path):
+def test_inference_main_smoke_mode(tmp_path, monkeypatch):
     """`main` without checkpoints: the tiny random model over a demo folder,
-    written as mp4 (the random full-size VAE at 32x48)."""
+    written as mp4 (the random full-size VAE at 32x48). The model it builds
+    is JAX's smoke model, field by field: 4 heads of 16 (JAX's `main` is
+    stopped where it builds its model, and its config read there)."""
+    import dataclasses
+
     from PIL import Image
+
+    built = {}
+
+    class Stop(Exception):
+        pass
+
+    def jax_model(cfg, **kw):
+        built["jax"] = cfg
+        raise Stop
+
+    def port_model(cfg, **kw):
+        built.setdefault("port", cfg)
+        return ControlDiT(cfg, **kw)
+
+    monkeypatch.setattr(jinference, "ControlDiT", jax_model)
+    monkeypatch.setattr(tinference, "ControlDiT", port_model)
+    with pytest.raises(Stop):
+        jinference.main(["--demo_root", str(tmp_path / "demo"), "--output_dir",
+                         str(tmp_path / "jax_out")])
 
     rng = np.random.default_rng(21)
     ep = tmp_path / "demo" / "ep0"
@@ -322,6 +345,10 @@ def test_inference_main_smoke_mode(tmp_path):
     frames = tvideo.read_video(out)
     assert frames.shape == (9, 32, 48, 3)
     assert (tmp_path / "out" / "ep0.gif").exists()
+    port = built["port"]
+    assert (port.num_attention_heads, port.attention_head_dim) == (4, 16)
+    assert port is tinference.SMOKE_DIT
+    assert dataclasses.asdict(port) == dataclasses.asdict(built["jax"])
 
 
 def test_refusals(setup, tmp_path):

@@ -363,22 +363,26 @@ def test_train_sp_resumes_every_rank_from_one_checkpoint(train_setup, tmp_path, 
                                                      states[0].model.parameters()))
 
 
-def test_evaluate_sp_matches_jax(serving_setup):
+@pytest.mark.parametrize("quant", [False, True])
+def test_evaluate_sp_matches_jax(serving_setup, quant):
     """`evaluate` with evaluation.mesh.sp=2 on `LocalRing(2)`'s ranks (each
     with its own replay of JAX's draws) against JAX's `evaluate` at the same
     overrides on a 2-device sp mesh: rank 0 writes what JAX writes (the
     latents, the decoded clips and the manifests), to the serving
-    tolerances; every rank returns the clip names."""
+    tolerances (W8A8: the int8 model's ring runs the bf16 attention on both
+    sides, held to the W8A8 serving tolerance); every rank returns the clip
+    names."""
     s = serving_setup
-    jcfg, tcfg = configs(s, COND, "sp", ["evaluation.mode=traj-image-depth-label",
-                                         "evaluation.mesh.sp=2"])
+    extra = ["evaluation.mode=traj-image-depth-label", "evaluation.mesh.sp=2"] + (
+        ["evaluation.quant=true"] if quant else [])
+    jcfg, tcfg = configs(s, COND, f"sp_{quant}", extra)
     jres = jevaluate.evaluate(jcfg, max_batches=1)
     comm = LocalRing(2, timeout=TIMEOUT)
     tres = comm.run(lambda: tevaluate.evaluate(tcfg, max_batches=1, device="cpu",
                                                draws=jax_draws(), comm=comm))
     assert tres[0] == tres[1] == jres
     names = compare_outputs(s, Path(jcfg.evaluation.output_dir),
-                            Path(tcfg.evaluation.output_dir))
+                            Path(tcfg.evaluation.output_dir), *((4e-2, 3e-3) if quant else ()))
     assert sum(n.endswith("_latents.npz") for n in names) == 2
 
 
